@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from `src/repro_torch/kernels/csrc/` (first use
+builds them), then runs, in order, and fails (non-zero exit, no result line)
+as soon as a phase fails:
+
+  1. environment and build: versions, the card's name and power limit, the
+     kernels' build time and what ptxas reports for them;
+  2. each kernel against its plain PyTorch version on the card, bit-exact, at
+     odd shapes (nothing a multiple of a tile);
+  3. a small served round trip through `RetrievalService`: uneven adds, one
+     compaction, CPQ / SPQ / SORT; the kernel path must equal the plain path
+     bit for bit and unperturbed corpus points must retrieve themselves;
+  4. the main path at full width -- the SIFT configuration's shape with the
+     service's defaults: 4.5 M points of 128 dimensions in 16 sealed
+     segments, m = required_m(0.06, 0.06) E2LSH functions into 8192 buckets,
+     searches of 1024 queries for the top 100 by c-PQ -- with the kernels'
+     launch counts read around it and a sample of rows held against a
+     sort-method search through the plain path;
+  5. each kernel's time at the full-width per-segment shape beside the plain
+     version's, one PyTorch library call where one computes the same
+     function, and the least time the card could take (bytes moved over the
+     memory rate, or operations over the ALU rate, whichever is larger).
+
+It needs one CUDA device and no network, and imports neither jax nor the JAX
+package.  The last line of its output is one JSON object
+`{"ok": true, "device": {...}}`; the line before it lists the kernels.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+
+import torch  # noqa: E402
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate, and
+# the float32 rate outside the tensor cores.  The data sheet lists no int32
+# rate; the int32 pipe is no wider than the float32 one, so the float32 figure
+# bounds integer compare/add work from below as well.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_ALU_OPS_PER_S = 67e12
+
+# The SIFT configuration's shape (4.5 M x 128-dim points, 1024 queries per
+# batch, top 100) with the retrieval service's defaults.
+FULL_N = 4_500_000
+FULL_DIM = 128
+FULL_SEGMENTS = 16
+FULL_Q = 1024
+FULL_K = 100
+N_SEARCHES = 4
+SEED = 0
+
+MATCH_SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (70, 100003, 238)]
+HIST_SHAPES = [(1, 5), (8, 300), (70, 100003)]
+HIST_MAX_COUNTS = [3, 64, 238]
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke: FAILED: {what}")
+
+
+def gpu_name_and_power_limit() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed_ms(fn, device: torch.device, reps: int = 1, warmup: int = 0):
+    """(mean milliseconds of one call, last result).  On the card the time is
+    between two CUDA events around `reps` calls, read after a synchronise."""
+    out = None
+    for _ in range(warmup):
+        out = fn()
+    sync(device)
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        stop.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(stop) / reps, out
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: environment and build
+# ---------------------------------------------------------------------------
+
+def phase_environment_and_build() -> None:
+    from repro_torch.kernels import build
+
+    log("== phase 1: environment and build")
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"torch CUDA {torch.version.cuda}")
+    log("card:", gpu_name_and_power_limit())
+    nvcc = build.find_nvcc()
+    version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                             check=True, timeout=60).stdout.strip().splitlines()
+    log("nvcc:", nvcc, "|", version[-2] if len(version) > 1 else version[-1])
+    try:
+        import triton
+        log("triton imports: yes, version", triton.__version__, "(the port does not use it)")
+    except ImportError as e:
+        log("triton imports: no --", e)
+    t0 = time.perf_counter()
+    build.load()
+    log(f"kernel library built and loaded in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc build alone: {build.build_seconds()} s)")
+    for line in build.build_log().splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            log("  ptxas:", line.strip())
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def phase_kernel_parity(device: torch.device) -> dict:
+    """Bit-exact comparison at odd shapes; returns the worst absolute
+    difference seen per kernel (0 when the phase passes)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cpq_hist import cpq_hist_plain
+    from repro_torch.kernels.match_count import match_count_plain
+
+    log("== phase 2: kernels against their plain PyTorch versions")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    worst = {"match_count": 0, "cpq_hist": 0}
+    for q, n, m in MATCH_SHAPES:
+        for dtype in (torch.int32, torch.int16):
+            d = torch.randint(0, 9, (n, m), generator=gen, dtype=dtype).to(device)
+            s = torch.randint(0, 9, (q, m), generator=gen, dtype=dtype).to(device)
+            got = ops.match_count(d, s)
+            want = match_count_plain(d.to(torch.int32), s.to(torch.int32))
+            sync(device)
+            err = max_abs_err(got, want)
+            worst["match_count"] = max(worst["match_count"], err)
+            check(got.shape == (q, n) and got.dtype == torch.int32 and torch.equal(got, want),
+                  f"match_count differs from its plain version at (Q,N,m)=({q},{n},{m}) "
+                  f"{dtype}: max abs err {err}")
+        log(f"  match_count (Q,N,m)=({q},{n},{m}) int32+int16: equal")
+    for (q, n), max_count in zip(HIST_SHAPES, HIST_MAX_COUNTS):
+        # values from -1 (the pad mask's fill) to past max_count: neither may
+        # land in a bin
+        c = torch.randint(-1, max_count + 3, (q, n), generator=gen, dtype=torch.int32).to(device)
+        c[:, ::7] = -1
+        got = ops.cpq_hist(c, max_count)
+        want = cpq_hist_plain(c, max_count)
+        sync(device)
+        err = max_abs_err(got, want)
+        worst["cpq_hist"] = max(worst["cpq_hist"], err)
+        check(got.shape == (q, max_count + 1) and torch.equal(got, want),
+              f"cpq_hist differs from its plain version at (Q,N)=({q},{n}) "
+              f"max_count={max_count}: max abs err {err}")
+        log(f"  cpq_hist (Q,N)=({q},{n}) max_count={max_count} with -1 entries: equal")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: small served round trip, kernel path == plain path
+# ---------------------------------------------------------------------------
+
+def phase_small_service(device: torch.device) -> None:
+    from repro_torch.core import TopKMethod
+    from repro_torch.serve import RetrievalService
+
+    log("== phase 3: small served round trip (kernel path vs plain path)")
+    dim, n_queries, k, max_segments = 32, 64, 10, 16
+    big = [3000, 5000, 2500, 6000, 3500]
+    batches = big + [50] * (max_segments + 1 - len(big))   # one past max_segments
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    emb = torch.randn((sum(batches), dim), generator=gen).to(device)
+    services = {
+        use_kernel: RetrievalService(device=device, seed=SEED, use_kernel=use_kernel,
+                                     max_segments=max_segments)
+        for use_kernel in (True, False)
+    }
+    for svc in services.values():
+        start = 0
+        for rows in batches:
+            svc.add(range(start, start + rows), embeddings=emb[start:start + rows])
+            start += rows
+        stats = svc.index_stats
+        check(stats.compaction_count == 1 and stats.n_segments == max(1, max_segments // 2),
+              f"expected one compaction down to {max_segments // 2} segments, got "
+              f"{stats.compaction_count} compactions, {stats.n_segments} segments")
+        check(stats.n_objects == sum(batches), "corpus size after compaction")
+    pick = torch.linspace(0, sum(batches) - 1, n_queries).to(torch.int64).to(device)
+    queries = emb[pick]
+    for method in (TopKMethod.CPQ, TopKMethod.SPQ, TopKMethod.SORT):
+        res_k, _ = services[True].search(None, k=k, embeddings=queries, method=method)
+        res_p, _ = services[False].search(None, k=k, embeddings=queries, method=method)
+        sync(device)
+        for field in ("ids", "counts", "threshold"):
+            check(torch.equal(getattr(res_k, field), getattr(res_p, field)),
+                  f"{method.value}: kernel path and plain path differ in {field}")
+        top1 = float((res_k.ids[:, 0] == pick.to(torch.int32)).float().mean().item())
+        check(top1 == 1.0, f"{method.value}: top-1 self-retrieval {top1} != 1.0")
+        log(f"  {method.value}: ids/counts/threshold equal on both paths, "
+            f"top-1 self-retrieval {top1:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path at full width
+# ---------------------------------------------------------------------------
+
+def phase_full_width(device: torch.device, n_total: int = FULL_N, dim: int = FULL_DIM,
+                     n_segments: int = FULL_SEGMENTS, n_queries: int = FULL_Q,
+                     k: int = FULL_K, n_searches: int = N_SEARCHES) -> dict:
+    """Drive RetrievalService with its defaults; returns the launch counts of
+    the run, the service and the query batch (for phase 5)."""
+    from repro_torch.core import SegmentedIndex, TopKMethod
+    from repro_torch.kernels import common
+    from repro_torch.serve import RetrievalService
+
+    log("== phase 4: RetrievalService defaults at full width")
+    check(n_total % n_segments == 0 and n_queries % n_segments == 0,
+          "segments must divide the corpus and the query batch")
+    rows = n_total // n_segments
+    per_seg_queries = n_queries // n_segments
+    common.reset_launch_counts()           # the main path starts here
+
+    svc = RetrievalService(device=device, seed=SEED)
+    log(f"  m = required_m({svc.eps}, {svc.delta}) = {svc.m}; n_buckets = {svc.n_buckets}; "
+        f"w = {svc.w}; N = {n_total} in {n_segments} adds of {rows}; d = {dim}; "
+        f"Q = {n_queries}; k = {k}")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    add_seconds, query_rows, expect = [], [], []
+    for s in range(n_segments):
+        emb = torch.randn((rows, dim), generator=gen, device=device)
+        sync(device)
+        t0 = time.perf_counter()
+        svc.add(range(s * rows, (s + 1) * rows), embeddings=emb)
+        sync(device)
+        add_seconds.append(time.perf_counter() - t0)
+        # queries: corpus points of every segment, shifted by 0.01
+        query_rows.append(emb[:per_seg_queries] + 0.01)
+        expect.append(s * rows + torch.arange(per_seg_queries, device=device))
+        del emb
+    queries = torch.cat(query_rows)
+    expect = torch.cat(expect).to(torch.int32)
+    stats = svc.index_stats
+    check(stats.n_segments == n_segments and stats.compaction_count == 0,
+          f"expected {n_segments} sealed segments and no compaction, got "
+          f"{stats.n_segments} / {stats.compaction_count}")
+    log(f"  add: {statistics.median(add_seconds):.4f} s/batch median "
+        f"(first {add_seconds[0]:.4f} s, total {sum(add_seconds):.3f} s); "
+        f"signatures on the device: {stats.bytes_device / 1e9:.3f} GB")
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    search_ms, res = [], None
+    for _ in range(n_searches):
+        ms, (res, sims) = timed_ms(
+            lambda: svc.search(None, k=k, embeddings=queries, method=TopKMethod.CPQ), device)
+        search_ms.append(ms)
+    launches = common.launch_counts()      # the main path ends here
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+    rest = search_ms[1:] or search_ms
+    median_ms = statistics.median(rest)
+    log(f"  search: first {search_ms[0]:.1f} ms, median of the rest {median_ms:.1f} ms "
+        f"({[round(t, 1) for t in search_ms]}); "
+        f"{n_queries / (median_ms / 1e3):.1f} queries/s; "
+        f"peak device memory {peak / 1e9:.3f} GB")
+    log(f"  kernel launches on the main path: {launches}")
+    for name in ("match_count", "cpq_hist"):
+        check(launches.get(name, 0) == n_segments * n_searches,
+              f"{name}: {launches.get(name, 0)} launches, expected "
+              f"{n_segments} per search x {n_searches} searches")
+
+    check(res.ids.shape == (n_queries, k) and res.counts.shape == (n_queries, k)
+          and res.threshold.shape == (n_queries,), "result shapes")
+    check(res.ids.dtype == torch.int32 and res.counts.dtype == torch.int32, "result dtypes")
+    check(bool((res.counts[:, :-1] >= res.counts[:, 1:]).all()), "counts not non-increasing")
+    check(bool(((res.ids >= 0) & (res.ids < n_total)).all()), "ids out of range")
+    check(sims.shape == (n_queries, k) and bool((sims >= 0).all()) and bool((sims <= 1).all()),
+          "similarity estimates outside [0, 1]")
+    top1 = float((res.ids[:, 0] == expect).float().mean().item())
+    log(f"  top-1 self-retrieval: {top1:.4f}")
+    check(top1 >= 0.99, f"top-1 self-retrieval {top1} < 0.99")
+
+    # a sample of rows against a sort-method search through the plain path:
+    # the same sealed segments, viewed by an index that never uses a kernel
+    sample = torch.arange(0, n_queries, max(1, n_queries // 8), device=device)[:8]
+    qsigs = svc._hash(queries)
+    plain = SegmentedIndex(engine=svc._index.engine, max_count=svc.m, use_kernel=False,
+                           segments=svc._index.segments, device=device)
+    before = common.launch_counts()
+    oracle = plain.search(qsigs[sample], k=k, method=TopKMethod.SORT)
+    sync(device)
+    check(common.launch_counts() == before, "the plain path launched a kernel")
+    check(torch.equal(oracle.ids, res.ids[sample]) and torch.equal(oracle.counts, res.counts[sample])
+          and torch.equal(oracle.threshold, res.threshold[sample]),
+          "c-PQ kernel path differs from the sort oracle on the sampled rows")
+    log(f"  rows {sample.tolist()} equal a sort-method search through the plain path")
+    return dict(launches=launches, service=svc, qsigs=qsigs, queries=queries)
+
+
+def search_split(svc, queries: torch.Tensor, k: int, device: torch.device) -> None:
+    """One search taken apart stage by stage (same functions, same order as
+    core/plan.py runs them), each stage timed on its own and summed over the
+    segments."""
+    from repro_torch.core import cpq, merge
+    from repro_torch.core.plan import _mask_pad_counts
+    from repro_torch.kernels import ops
+
+    index = svc._index
+    params_k = [min(k, r) for r in index.segment_rows]
+    cap = max(2 * k, k + 16)
+    split = dict.fromkeys(
+        ["hash", "match kernel", "mask", "histogram kernel", "gate", "compaction",
+         "final order", "merge"], 0.0)
+
+    def stage(name, fn):
+        ms, out = timed_ms(fn, device)
+        split[name] += ms
+        return out
+
+    qsigs = stage("hash", lambda: svc._hash(queries))
+    bufs_i, bufs_c, offset = [], [], 0
+    for seg, kk in zip(index.segments, params_k):
+        counts = stage("match kernel", lambda: ops.match_count(seg.data, qsigs))
+        counts = stage("mask", lambda: _mask_pad_counts(counts, offset, None))
+        hist = stage("histogram kernel", lambda: ops.cpq_hist(counts, index.max_count))
+        thr = stage("gate", lambda: cpq.audit_threshold(hist, kk)[1])
+        cand = stage("compaction", lambda: cpq._compact_candidates(counts, thr, cap))
+        ids, vals = stage("final order", lambda: cpq.topk_from_candidates(*cand, kk))
+        bufs_i.append(torch.where(ids >= 0, ids + offset, -1))
+        bufs_c.append(vals)
+        offset += seg.stats.n_objects
+        del counts, cand
+    stage("merge", lambda: merge.merge_ragged(bufs_i, bufs_c, k))
+    total = sum(split.values())
+    log("  one search, stage by stage (ms, summed over the segments; each stage "
+        "synchronised, so the sum exceeds an unsplit search):")
+    for name, ms in split.items():
+        log(f"    {name:17s} {ms:9.2f}  {100 * ms / total:5.1f}%")
+    log(f"    {'sum':17s} {total:9.2f}")
+
+
+def profile_one_search(svc, queries: torch.Tensor, k: int, device: torch.device) -> None:
+    """One search under torch.profiler: the share of the search's wall time
+    in which the device was busy (kernels on one stream do not overlap, so
+    their times add up), and the kernels that took most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.search(None, k=k, embeddings=queries)
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernel rows only: an operator's row repeats the time of the kernels it launched
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms == 0:
+        log("  profiler: no device time recorded; device busy share not measured")
+        return
+    log(f"  profiler: one search {wall_ms:.1f} ms wall under the profiler, device busy "
+        f"{busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% (idle {100 - 100 * busy_ms / wall_ms:.1f}%); "
+        f"device time by kernel:")
+    for ms, count, key in rows[:10]:
+        log(f"    {ms:9.2f} ms  {100 * ms / busy_ms:5.1f}%  x{count:<4d} {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the kernels' times at the per-segment shape
+# ---------------------------------------------------------------------------
+
+def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
+                       launches: dict, parity_err: dict, device: torch.device) -> list:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cpq_hist import cpq_hist_plain
+    from repro_torch.kernels.match_count import match_count_plain
+
+    n, m = data.shape
+    q = qsigs.shape[0]
+    nbins = max_count + 1
+    log(f"== phase 5: kernel times at the per-segment shape Q={q} N={n} m={m} bins={nbins}")
+
+    ms_match, counts = timed_ms(lambda: ops.match_count(data, qsigs), device, reps=3, warmup=1)
+    plain_match, counts_plain = timed_ms(lambda: match_count_plain(data, qsigs), device,
+                                         reps=1, warmup=1)
+    err_match = max(parity_err["match_count"], max_abs_err(counts, counts_plain))
+    check(torch.equal(counts, counts_plain), "match_count differs at the per-segment shape")
+    del counts_plain
+    match_bytes = (n * m + q * m + q * n) * 4          # inputs read once, output written once
+    match_ops = 2 * q * n * m                          # one compare and one add per pair and column
+    bound_bytes, bound_ops = match_bytes / PEAK_BYTES_PER_S * 1e3, match_ops / PEAK_ALU_OPS_PER_S * 1e3
+
+    ms_hist, hist = timed_ms(lambda: ops.cpq_hist(counts, max_count), device, reps=5, warmup=1)
+    plain_hist, hist_plain = timed_ms(lambda: cpq_hist_plain(counts, max_count), device,
+                                      reps=1, warmup=1)
+    err_hist = max(parity_err["cpq_hist"], max_abs_err(hist, hist_plain))
+    check(torch.equal(hist, hist_plain), "cpq_hist differs at the per-segment shape")
+    check(int(counts.min().item()) >= 0 and int(counts.max().item()) <= max_count,
+          "counts outside [0, max_count]: the bincount yardstick would not compute the same function")
+    row_offset = torch.arange(q, device=device, dtype=torch.int32)[:, None] * nbins
+
+    def library_hist():
+        # the one PyTorch call for the same function: a bincount over
+        # row-offset values (timed here, used nowhere in the port)
+        return torch.bincount((counts + row_offset).reshape(-1), minlength=q * nbins)
+
+    lib_hist, hist_lib = timed_ms(library_hist, device, reps=3, warmup=1)
+    check(torch.equal(hist_lib.reshape(q, nbins).to(torch.int32), hist),
+          "the bincount yardstick disagrees with cpq_hist")
+    hist_bytes = (q * n + q * nbins) * 4
+    hist_ops = q * n                                   # one add per count
+    hb_bytes, hb_ops = hist_bytes / PEAK_BYTES_PER_S * 1e3, hist_ops / PEAK_ALU_OPS_PER_S * 1e3
+
+    kernels = [
+        dict(name="match_count", route="cuda",
+             source="src/repro_torch/kernels/csrc/match_count.cu",
+             replaces="src/repro/kernels/match_count.py:59",
+             launches=launches.get("match_count", 0), max_abs_err=err_match,
+             ms=ms_match, plain_ms=plain_match, bound_ms=max(bound_bytes, bound_ops),
+             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+             library_ms=None),
+        dict(name="cpq_hist", route="cuda",
+             source="src/repro_torch/kernels/csrc/cpq_hist.cu",
+             replaces="src/repro/kernels/cpq_hist.py:51",
+             launches=launches.get("cpq_hist", 0), max_abs_err=err_hist,
+             ms=ms_hist, plain_ms=plain_hist, bound_ms=max(hb_bytes, hb_ops),
+             bound_by="bytes" if hb_bytes >= hb_ops else "operations",
+             library_ms=lib_hist),
+    ]
+    for kern in kernels:
+        log(f"  {kern['name']}: {kern['ms']:.3f} ms; bound {kern['bound_ms']:.3f} ms by "
+            f"{kern['bound_by']} ({100 * kern['bound_ms'] / kern['ms']:.1f}% of it); plain "
+            f"{kern['plain_ms']:.1f} ms; library {kern['library_ms']}")
+    log(f"  match_count: {match_ops / 2 / (ms_match / 1e3) / 1e12:.3f} T compare-adds/s, "
+        f"{match_bytes / (ms_match / 1e3) / 1e9:.1f} GB/s; "
+        f"cpq_hist: {hist_bytes / (ms_hist / 1e3) / 1e9:.1f} GB/s")
+    return kernels
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs one "
+              "CUDA device", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    phase_environment_and_build()
+    parity_err = phase_kernel_parity(device)
+    phase_small_service(device)
+    full = phase_full_width(device)
+    svc = full["service"]
+    search_split(svc, full["queries"], FULL_K, device)
+    profile_one_search(svc, full["queries"], FULL_K, device)
+    kernels = phase_kernel_times(svc._index.segments[0].data, full["qsigs"], svc.m,
+                                 full["launches"], parity_err, device)
+    torch.cuda.synchronize()
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    log(gpu_name_and_power_limit())
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,202 @@
+"""MatchModel registry: one descriptor per match-count engine.
+
+GENIE's central claim is *genericity* -- one inverted-index machinery serving
+many data types and similarity measures (paper section II).  This module makes
+that claim structural: every engine is a single `MatchModel` descriptor
+bundling
+
+  * the reference match function (core/match.py -- the semantics oracle),
+  * the CUDA kernel wrapper (kernels/ops.py -- the hot path on the card),
+  * data and query canonicalisation (so every engine exposes the same
+    ``fn(data, queries) -> counts[Q, N]`` signature),
+  * index statistics and the count-domain bound,
+  * the count-dtype policy (Bitmap-Counter bit-bounding, paper III-C),
+  * the padding fill (a value that can never out-score real rows).
+
+GenieIndex, SegmentedIndex and the planner all resolve engines through
+`get()` -- there is exactly one dispatch point in the system.
+
+Ported so far: the registry and the EQ entry.  The other five engines, the
+PACKED signature formats and the kernel tile knobs of the JAX package's
+descriptor (`repro/core/engines.py`) come with their kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import match as _match
+from repro_torch.core.types import Engine, IndexStats, SignatureLayout
+from repro_torch.device import tensor_from
+
+
+def _as_int32(x: Any, device: torch.device) -> torch.Tensor:
+    """Anything array-like -> contiguous int32 tensor on `device`; a tensor
+    already there is not copied through the host."""
+    return tensor_from(x).to(device=device, dtype=torch.int32).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchModel:
+    """Descriptor for one match-count engine (paper Definition 2.1).
+
+    The canonical match signature is ``fn(data, queries) -> counts [Q, N]``
+    where `queries` is this engine's canonical query form (produced by
+    `prepare_queries`).  Both `reference` and `kernel` use it, so segmented
+    search and serving are engine-agnostic.
+    """
+
+    engine: Engine
+    description: str
+    # raw user data, device -> device-resident index tensor (canonical form)
+    prepare_data: Callable[[Any, torch.device], torch.Tensor]
+    # raw queries, device -> canonical queries on the device
+    prepare_queries: Callable[[Any, torch.device], Any]
+    # plain PyTorch reference semantics (core/match.py), canonical signature
+    reference: Callable[[torch.Tensor, Any], torch.Tensor]
+    # CUDA kernel wrapper (kernels/ops.py), canonical signature; imports the
+    # kernel layer lazily
+    kernel: Callable[[torch.Tensor, Any], torch.Tensor]
+    # index statistics: postings count for this data layout
+    postings_count: Callable[[torch.Tensor], int]
+    # default count-domain bound, or None when the caller must supply one
+    default_max_count: Callable[[torch.Tensor], Optional[int]]
+    # padded-row fill: padded rows must never beat real rows
+    pad_value: Any = -1
+    # seeded conformance data: (np rng, n, q) -> (raw_data, raw_queries,
+    # max_count | None)
+    example: Optional[Callable[[Any, int, int], tuple]] = None
+
+    @property
+    def supports_packed(self) -> bool:
+        return False  # no packed format is ported yet
+
+    def require_layout(self, layout: SignatureLayout | str) -> SignatureLayout:
+        layout = SignatureLayout(layout)
+        if layout is SignatureLayout.PACKED and not self.supports_packed:
+            raise ValueError(
+                f"engine {self.engine.value!r} has no packed signature format; "
+                f"use SignatureLayout.WIDE"
+            )
+        return layout
+
+    def pad_value_for(self, layout: SignatureLayout | str) -> Any:
+        self.require_layout(layout)
+        return self.pad_value
+
+    # -- dispatch -----------------------------------------------------------
+    def match_fn(
+        self,
+        use_kernel: bool,
+        signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
+    ) -> Callable[[torch.Tensor, Any], torch.Tensor]:
+        """The canonical match callable for this engine (kernel or reference)."""
+        self.require_layout(signature_layout)
+        return self.kernel if use_kernel else self.reference
+
+    def prepare_queries_for(
+        self, queries: Any, device: torch.device,
+        signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
+    ) -> Any:
+        """Raw queries -> canonical queries on `device` in the given layout."""
+        self.require_layout(signature_layout)
+        return self.prepare_queries(queries, device)
+
+    def match_counts(self, data: torch.Tensor, queries: Any, use_kernel: bool,
+                     signature_layout: SignatureLayout | str = SignatureLayout.WIDE) -> torch.Tensor:
+        """counts int32 [Q, N]; `queries` may be raw (canonicalised here, onto
+        the data's device) and `data` must already be in `signature_layout`."""
+        return self.match_fn(use_kernel, signature_layout)(
+            data, self.prepare_queries_for(queries, data.device, signature_layout))
+
+    # -- build-time policy --------------------------------------------------
+    def build_stats(self, data: torch.Tensor) -> IndexStats:
+        """Index statistics from the *prepared WIDE* tensor."""
+        wide_bytes = int(data.numel()) * data.element_size()
+        return IndexStats(
+            n_objects=int(data.shape[0]),
+            n_lists=int(data.shape[1]),
+            total_postings=int(self.postings_count(data)),
+            bytes_device=wide_bytes,
+            bytes_signatures_wide=wide_bytes,
+            bytes_signatures_packed=0,
+            extra={"engine": self.engine.value},
+        )
+
+    def resolve_max_count(self, data: torch.Tensor, max_count: Optional[int]) -> int:
+        if max_count is not None:
+            return int(max_count)
+        derived = self.default_max_count(data)
+        if derived is None:
+            raise ValueError(
+                f"engine {self.engine.value!r} has no derivable count bound; "
+                f"pass max_count explicitly"
+            )
+        return int(derived)
+
+    def count_dtype(self, max_count: int) -> torch.dtype:
+        """Bitmap-Counter policy: narrowest lossless count dtype (III-C)."""
+        return _match.as_count_dtype(torch.zeros((), dtype=torch.int32), max_count).dtype
+
+    def as_count_dtype(self, counts: torch.Tensor, max_count: int) -> torch.Tensor:
+        return _match.as_count_dtype(counts, max_count)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: dict[Engine, MatchModel] = {}
+
+
+def register(model: MatchModel) -> MatchModel:
+    """Register (or replace) the descriptor for `model.engine`."""
+    _REGISTRY[model.engine] = model
+    return model
+
+
+def get(engine: Engine | str | MatchModel) -> MatchModel:
+    """Resolve an Engine, its string value, or a MatchModel to a descriptor."""
+    if isinstance(model := engine, MatchModel):
+        return model
+    eng = Engine(engine)
+    try:
+        return _REGISTRY[eng]
+    except KeyError:
+        raise KeyError(
+            f"no MatchModel registered for engine {eng.value!r}; "
+            f"known: {sorted(m.value for m in _REGISTRY)} (the other engines "
+            f"are still to be ported: ROADMAP queue 1 items 3 and 5)"
+        ) from None
+
+
+def available() -> tuple[Engine, ...]:
+    return tuple(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# Built-in engines (paper sections IV-V)
+# ---------------------------------------------------------------------------
+
+def _kernel_eq(data, queries):
+    from repro_torch.kernels import ops as kops
+
+    return kops.match_count(data, queries)
+
+
+register(MatchModel(
+    engine=Engine.EQ,
+    description="signature equality compare over LSH signatures int32 [N, m]",
+    prepare_data=_as_int32,
+    prepare_queries=_as_int32,
+    reference=_match.match_eq,
+    kernel=_kernel_eq,
+    postings_count=lambda a: int(a.shape[0]) * int(a.shape[1]),
+    default_max_count=lambda a: int(a.shape[1]),          # m hash functions
+    pad_value=-1,                                          # never equals a sig
+    example=lambda rng, n, q: (rng.integers(0, 8, (n, 16)).astype(np.int32),
+                               rng.integers(0, 8, (q, 16)).astype(np.int32), None),
+))

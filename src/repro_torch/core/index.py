@@ -1,0 +1,106 @@
+"""GenieIndex: the user-facing GENIE index (paper sections II-III).
+
+Holds device-resident transformed data (LSH signatures so far) and resolves
+*everything* engine-specific -- data preparation, query canonicalisation,
+kernel-vs-reference match dispatch, index statistics, count-domain bounds --
+through the MatchModel registry (core/engines.py).  Searches are thin
+adapters over the unified planner (core/plan.py): `search` builds a
+MONOLITHIC QueryPlan and delegates to the one executor that owns match
+dispatch, pad masking, top-k selection, and merging.
+
+    index = GenieIndex.build(Engine.EQ, sigs)            # any registered engine
+    index = GenieIndex.build_lsh(sigs, max_count=m)      # named alias
+    result = index.search(query_sigs, k=100)             # TopKResult
+
+`device=None` places the index on the card and raises when there is none;
+`device="cpu"` runs the plain PyTorch path.  `search_multiload` (ROADMAP
+queue 1 item 4) and the routing summary (`summary`, queue 1 item 6) are not
+ported yet: `summary` is always None.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.core import engines as _engines
+from repro_torch.core import plan as _plan
+from repro_torch.core.types import (Engine, IndexStats, SignatureLayout,
+                                    TopKMethod, TopKResult)
+from repro_torch.device import DeviceLike, resolve_device, synchronize
+
+
+@dataclasses.dataclass
+class GenieIndex:
+    engine: Engine
+    max_count: int
+    data: torch.Tensor                     # EQ: sigs int32 [N, m]
+    stats: IndexStats = dataclasses.field(default_factory=IndexStats)
+    use_kernel: bool = True
+    signature_layout: SignatureLayout = SignatureLayout.WIDE
+    # routing summary (core/routing.py of the JAX package): not ported yet
+    summary: None = None
+
+    # ------------------------------------------------------------------
+    # Construction
+    # ------------------------------------------------------------------
+    @classmethod
+    def build(cls, engine: Engine | str, data, max_count: int | None = None,
+              use_kernel: bool = True,
+              signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
+              device: DeviceLike = None) -> "GenieIndex":
+        """Any registered engine, one code path.
+
+        `max_count` defaults to the engine's derived count bound (m for EQ).
+        """
+        dev = resolve_device(device)
+        model = _engines.get(engine)
+        layout = model.require_layout(signature_layout)
+        # perf_counter, not time(): a wall-clock (NTP) step must never record
+        # a negative build duration
+        t0 = time.perf_counter()
+        arr = model.prepare_data(data, dev)
+        stats = model.build_stats(arr)
+        max_count = model.resolve_max_count(arr, max_count)
+        # the copy to the device is asynchronous; without this the timer
+        # reports enqueue time, not build time
+        synchronize(dev)
+        stats.build_seconds = time.perf_counter() - t0
+        return cls(engine=model.engine, max_count=max_count,
+                   data=arr, stats=stats, use_kernel=use_kernel,
+                   signature_layout=layout)
+
+    @classmethod
+    def build_lsh(cls, signatures, max_count: int | None = None,
+                  use_kernel: bool = True, device: DeviceLike = None):
+        """EQ engine over LSH signatures int32 [N, m]."""
+        return cls.build(Engine.EQ, signatures, max_count=max_count,
+                         use_kernel=use_kernel, device=device)
+
+    # ------------------------------------------------------------------
+    # Matching + selection
+    # ------------------------------------------------------------------
+    @property
+    def model(self) -> _engines.MatchModel:
+        return _engines.get(self.engine)
+
+    def prepare_queries(self, queries):
+        """Raw queries -> canonical form on this index's device."""
+        return self.model.prepare_queries_for(queries, self.data.device,
+                                              self.signature_layout)
+
+    def match_counts(self, queries) -> torch.Tensor:
+        """counts int32 [Q, N] under this index's engine."""
+        return self.model.match_counts(self.data, queries, self.use_kernel,
+                                       self.signature_layout)
+
+    def search(self, queries, k: int, method: TopKMethod = TopKMethod.CPQ,
+               candidate_cap: int | None = None) -> TopKResult:
+        plan = _plan.plan_search(
+            self.engine, k, self.max_count, layout=_plan.Layout.MONOLITHIC,
+            part_rows=(self.stats.n_objects,), method=method,
+            candidate_cap=candidate_cap, use_kernel=self.use_kernel,
+            signature_layout=self.signature_layout,
+        )
+        return _plan.execute(plan, self.data, self.prepare_queries(queries))

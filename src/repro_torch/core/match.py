@@ -1,0 +1,41 @@
+"""Match-count reference semantics (paper Definition 2.1), dense formulation.
+
+Each function computes counts[q, n] = MC(Q_q, O_n) for a query batch against
+all objects.  These plain PyTorch implementations are the semantics oracles
+for the CUDA kernels in repro_torch.kernels and the path a CPU tensor takes.
+They are not called directly by the index machinery: engine dispatch goes
+through the MatchModel registry (core/engines.py).  Only the EQ engine is
+ported so far.
+
+Memory note: counts are bounded by max_count (m hash functions / #attributes /
+#grams) -- the paper's Bitmap-Counter observation (section III-C) -- so an int8
+output is lossless whenever max_count <= 127; `as_count_dtype` applies it.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def as_count_dtype(counts: torch.Tensor, max_count: int) -> torch.Tensor:
+    """Bitmap-Counter bit-bounding: store counts in the narrowest safe dtype."""
+    if max_count <= 127:
+        return counts.to(torch.int8)
+    if max_count <= 32767:
+        return counts.to(torch.int16)
+    return counts.to(torch.int32)
+
+
+def match_eq(data_sigs: torch.Tensor, query_sigs: torch.Tensor, chunk: int = 8) -> torch.Tensor:
+    """EQ engine: counts[q, n] = sum_i (data_sigs[n, i] == query_sigs[q, i]).
+
+    data_sigs:  int [N, m], query_sigs: int [Q, m] -> int32 [Q, N].
+    A loop over `chunk` columns at a time keeps the live temp at
+    [Q, N, chunk] regardless of m.
+    """
+    q, m = query_sigs.shape
+    n = data_sigs.shape[0]
+    acc = torch.zeros((q, n), dtype=torch.int32, device=data_sigs.device)
+    for s in range(0, m, chunk):
+        hit = query_sigs[:, None, s:s + chunk] == data_sigs[None, :, s:s + chunk]
+        acc += hit.sum(dim=-1, dtype=torch.int32)
+    return acc

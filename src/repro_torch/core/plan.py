@@ -1,0 +1,349 @@
+"""Unified query planning + execution: one plan -> execute pipeline for every
+GENIE search path.
+
+  * `plan_search(...)` is the single entry point that describes a search as a
+    `QueryPlan`: the engine, the part layout, the pad policy, the per-part k
+    clamp, and the merge strategy.
+  * `execute(plan, data, queries)` is the ONLY code in the system that calls
+    match kernels, pad masking, `select_topk`, and the `core/merge` buffers.
+    Every index and serving entry point is a thin adapter that builds a plan
+    and delegates here.
+
+Layouts ported so far, and their merge strategies:
+
+  MONOLITHIC   one device-resident part; selection IS the merge.
+  SEGMENTED    host loop over immutable per-segment parts (heterogeneous
+               rows); per-part buffers of width min(k, rows) merged exactly
+               by `merge_ragged` (parts partition the object set).
+
+MULTILOAD (part streaming), DISTRIBUTED (mesh shards), routed plans, PACKED
+signatures with the fused match->top-k kernels, tile overrides and the
+autotuner are parts of `repro/core/plan.py` that are still to be ported;
+planning one of them raises NotImplementedError naming its ROADMAP item.
+
+PyTorch runs eagerly, so there is no compiled executable to cache: the JAX
+package's `_EXEC_CACHE`, `trace_count`, `plan_cache_size` and
+`clear_plan_cache` have no counterpart in this slice (ROADMAP queue 1 item 7,
+the serving front-end, decides what they count without a tracer).  A
+QueryPlan is still hashable and still the key two requests must share to be
+batched together (`batch_compat_key`).
+
+Invariants owned here: pad-never-in-topk (counts of rows with global id >=
+n_objects are forced to -1 *before* selection), the (count desc, id asc)
+tie-break (stable buffer merges over id-ascending parts), and the ragged
+per-part k clamp.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Callable, Optional, Sequence, Union
+
+import torch
+
+from repro_torch.core import engines as _engines
+from repro_torch.core import merge as _merge
+from repro_torch.core import routing as _routing
+from repro_torch.core.routing import Routing
+from repro_torch.core.select import select_topk
+from repro_torch.core.types import (Engine, SearchParams, SignatureLayout,
+                                    TopKMethod, TopKResult)
+
+MatchLike = Union[Engine, str, "_engines.MatchModel",
+                  Callable[[torch.Tensor, Any], torch.Tensor]]
+
+
+class Layout(str, enum.Enum):
+    """Part layout of a planned search."""
+
+    MONOLITHIC = "monolithic"      # one device-resident data matrix
+    SEGMENTED = "segmented"        # host loop over sealed per-batch segments
+    MULTILOAD = "multiload"        # streamed index parts (not ported yet)
+    DISTRIBUTED = "distributed"    # object shards across devices (not ported yet)
+
+
+_UNPORTED_LAYOUTS = {
+    Layout.MULTILOAD: "ROADMAP queue 1 item 4 (multiple loading)",
+    Layout.DISTRIBUTED: "ROADMAP queue 1 item 9 (distributed layout)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPlan:
+    """A fully-resolved description of one search: who matches, over which
+    parts, how pads are masked, how much each part contributes to the merge.
+
+    Hashable by construction.
+    """
+
+    match: Callable[[torch.Tensor, Any], torch.Tensor]  # canonical match fn
+    params: SearchParams
+    layout: Layout
+    part_rows: tuple[int, ...] = ()    # physical rows per part
+    n_objects: Optional[int] = None    # real corpus rows; None = nothing padded
+    engine: Optional[Engine] = None    # None when `match` is a raw callable
+    pad_value: Any = None              # engine fill for padded rows
+    fused_hist: bool = False           # histogram from the CUDA kernel
+    # signature storage format the match fn expects
+    signature_layout: SignatureLayout = SignatureLayout.WIDE
+    # coarse routing mode; always NONE until the router is ported
+    routing: Routing = Routing.NONE
+
+    # -- derived layout facts ----------------------------------------------
+    @property
+    def n_parts(self) -> int:
+        return len(self.part_rows)
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.part_rows)
+
+    @property
+    def pad_rows(self) -> int:
+        if self.n_objects is None or not self.part_rows:
+            return 0
+        return self.total_rows - self.n_objects
+
+    def part_k(self, rows: int) -> int:
+        """Ragged k clamp: a part smaller than k contributes only
+        min(k, rows) candidates (host-loop layouts)."""
+        return min(self.params.k, rows)
+
+    def merge_strategy(self) -> str:
+        if self.layout == Layout.MONOLITHIC:
+            return "none"
+        return "ragged-buffer"
+
+    def describe(self) -> dict:
+        """Host-side plan summary: the keys of the JAX package's
+        `QueryPlan.describe()` whose machinery is ported."""
+        rows = list(self.part_rows)
+        # both per-part lists truncate identically: a "..." marker past 32
+        # parts, never a silent cut (the lists must stay row-aligned)
+        truncated = len(rows) > 32
+        part_k = [self.part_k(r) for r in rows[:32]]
+        return dict(
+            layout=self.layout.value,
+            engine=self.engine.value if self.engine else "<callable>",
+            k=self.params.k,
+            method=self.params.method.value,
+            use_kernel=self.params.use_kernel,
+            n_parts=self.n_parts,
+            part_rows=rows[:32] + ["..."] if truncated else rows,
+            part_k=part_k + ["..."] if truncated else part_k,
+            n_objects=self.n_objects,
+            pad_rows=self.pad_rows,
+            merge=self.merge_strategy(),
+            fused_hist=self.fused_hist,
+            signature_layout=self.signature_layout.value,
+            routing=self.routing.value,
+        )
+
+
+def plan_search(
+    engine: MatchLike,
+    k: int,
+    max_count: int,
+    *,
+    layout: Layout = Layout.MONOLITHIC,
+    part_rows: Optional[Sequence[int]] = None,
+    n_objects: Optional[int] = None,
+    method: TopKMethod = TopKMethod.CPQ,
+    candidate_cap: Optional[int] = None,
+    use_kernel: bool = True,
+    signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
+    routing: Routing | str = Routing.NONE,
+) -> QueryPlan:
+    """The single planning entry point: resolve the engine, lay out the
+    parts, fix the pad policy and merge strategy, return the QueryPlan.
+
+    `engine` may be an Engine, its string value, a MatchModel, or a raw
+    canonical callable ``fn(data, queries) -> counts``.
+
+    Layout shape: pass `part_rows` (explicit, possibly ragged part sizes).
+    `n_objects` is the count of real rows when the data carries engine-fill
+    pad rows past it; those can then never reach a result.
+    """
+    sig_layout = SignatureLayout(signature_layout)
+    model: Optional[_engines.MatchModel] = None
+    if callable(engine) and not isinstance(engine, (_engines.MatchModel, Engine, str)):
+        # raw callables own the layout contract; the plan just records it
+        match = engine
+    else:
+        model = _engines.get(engine)
+        sig_layout = model.require_layout(sig_layout)
+        match = model.match_fn(use_kernel, sig_layout)
+
+    layout = Layout(layout)
+    if layout in _UNPORTED_LAYOUTS:
+        raise NotImplementedError(
+            f"the {layout.value} layout is not ported yet: {_UNPORTED_LAYOUTS[layout]}"
+        )
+    rows = tuple(int(r) for r in part_rows) if part_rows is not None else ()
+    if layout == Layout.SEGMENTED and not rows:
+        raise ValueError(f"{layout.value} layout requires part_rows")
+    if layout == Layout.MONOLITHIC and len(rows) > 1:
+        raise ValueError(f"monolithic layout got {len(rows)} parts")
+    if any(r < 1 for r in rows):
+        raise ValueError(f"part_rows must be positive, got {rows}")
+
+    routing = _routing.require_none(routing)
+    params = SearchParams(k=k, max_count=max_count, method=method,
+                          candidate_cap=candidate_cap, use_kernel=use_kernel)
+    # The histogram kernel runs on the kernel path of both ported layouts
+    # (the JAX package keeps the plain histogram on its scan / shard_map
+    # layouts, which are not ported yet).
+    fused = use_kernel and layout in (Layout.MONOLITHIC, Layout.SEGMENTED)
+    return QueryPlan(
+        match=match, params=params, layout=layout, part_rows=rows,
+        n_objects=n_objects, engine=model.engine if model else None,
+        pad_value=model.pad_value_for(sig_layout) if model else None,
+        fused_hist=fused, signature_layout=sig_layout, routing=routing,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Batch compatibility (the serving front-end's coalescing key)
+# ---------------------------------------------------------------------------
+
+def k_bucket(k: int) -> int:
+    """Round k up to the next power of two (floor 1).
+
+    A serving front-end coalesces concurrent requests into one device
+    dispatch; bucketing k means requests for k=5 and k=8 share the k=8
+    search.  Truncating a top-8 result to a request's own k is bit-for-bit
+    identical to searching at that k: the (count desc, id asc) order is
+    total, so a top-k result is a prefix of any larger top-k' result."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    return 1 << (int(k) - 1).bit_length()
+
+
+def batch_compat_key(
+    engine: Engine | str,
+    layout: Layout | str,
+    signature_layout: SignatureLayout | str,
+    routing: Routing | str,
+    method: TopKMethod | str,
+    k: int,
+    *,
+    nprobe: Optional[int] = None,
+    candidate_cap: Optional[int] = None,
+) -> tuple:
+    """The coalescing key of one serving request: two requests with equal
+    keys can share a single planned dispatch (stacked queries) and still
+    scatter bit-for-bit per-request results.
+
+    The axes are engine x layout x signature_layout x routing x method x
+    k-bucket, plus the two knobs that change a plan's selection behaviour
+    (nprobe, candidate_cap).  An explicit candidate_cap disables
+    k-bucketing: the effective buffer capacity is max(cap, k), so bucketing k
+    would silently change the cap the caller pinned."""
+    kb = int(k) if candidate_cap is not None else k_bucket(k)
+    return (
+        Engine(engine) if not isinstance(engine, Engine) else engine,
+        Layout(layout),
+        SignatureLayout(signature_layout),
+        Routing(routing),
+        TopKMethod(method),
+        kb,
+        nprobe,
+        candidate_cap,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Pad policy (the only pad masking / pad filling in the system)
+# ---------------------------------------------------------------------------
+
+def _mask_pad_counts(counts: torch.Tensor, offset: int, n_objects: Optional[int]) -> torch.Tensor:
+    """Force pad columns (global id >= n_objects) to count -1 *before*
+    selection, so pad rows can never crowd real candidates out of a candidate
+    buffer.  This makes pad safety structural for every engine: the
+    `pad_value` fill only has to be representable, not score-neutral."""
+    if n_objects is None:
+        return counts
+    gcol = offset + torch.arange(counts.shape[-1], dtype=torch.int32, device=counts.device)
+    return torch.where((gcol < n_objects)[None, :], counts, -1)
+
+
+def _mask_invalid(gids: torch.Tensor, counts: torch.Tensor, n_objects: Optional[int]):
+    """Drop padding rows post-selection: ids at/above the true object count
+    never merge (belt to `_mask_pad_counts`'s braces)."""
+    valid = gids >= 0
+    if n_objects is not None:
+        valid &= gids < n_objects
+    return torch.where(valid, gids, -1), torch.where(valid, counts, -1)
+
+
+def pad_to_multiple(data: torch.Tensor, multiple: int, pad_value) -> tuple[torch.Tensor, int]:
+    """(padded data, true row count): append engine-fill rows up to the next
+    multiple (shard divisibility, even part splits)."""
+    n = int(data.shape[0])
+    pad = (-n) % max(int(multiple), 1)
+    if pad:
+        fill = torch.full((pad,) + tuple(data.shape[1:]), pad_value,
+                          dtype=data.dtype, device=data.device)
+        data = torch.cat([data, fill], dim=0)
+    return data, n
+
+
+# ---------------------------------------------------------------------------
+# Executors: the ONLY callers of match kernels, pad masks, select, and merge
+# ---------------------------------------------------------------------------
+
+def _part_topk(plan: QueryPlan, data: torch.Tensor, queries: Any, offset: int,
+               k: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One part's candidate buffer: match -> pad mask -> select -> globalise.
+
+    The shared core of every layout.  Returns (global ids, counts), both
+    [Q, k], empty slots -1."""
+    params = plan.params if k is None or k == plan.params.k \
+        else dataclasses.replace(plan.params, k=k)
+    # genielint: ignore[executor-sovereignty] -- the port's own executor
+    counts = _mask_pad_counts(plan.match(data, queries), offset, plan.n_objects)
+    # genielint: ignore[executor-sovereignty] -- the port's own executor
+    local = select_topk(counts, params, use_fused_hist=plan.fused_hist)
+    del counts
+    gids = torch.where(local.ids >= 0, local.ids + offset, -1)
+    # genielint: ignore[executor-sovereignty] -- the port's own executor
+    return _mask_invalid(gids, local.counts, plan.n_objects)
+
+
+def _run_monolithic(plan: QueryPlan, data: torch.Tensor, queries: Any) -> TopKResult:
+    # genielint: ignore[executor-sovereignty] -- the port's own executor
+    counts = _mask_pad_counts(plan.match(data, queries), 0, plan.n_objects)
+    # selection is the merge: return select_topk's result (threshold
+    # included) as it stands
+    # genielint: ignore[executor-sovereignty] -- the port's own executor
+    return select_topk(counts, plan.params, use_fused_hist=plan.fused_hist)
+
+
+def _scan_host_parts(plan: QueryPlan, parts, queries) -> TopKResult:
+    """One pass of the host loop over the parts: each part is selected into
+    a buffer of width min(k, rows) with its ids globalised by the running
+    row offset, and the ragged buffers merge exactly."""
+    if len(parts) != plan.n_parts:
+        raise ValueError(f"plan lays out {plan.n_parts} parts, got {len(parts)}")
+    buf_ids, buf_counts = [], []
+    offset = 0
+    for part, rows in zip(parts, plan.part_rows):
+        if int(part.shape[0]) != rows:
+            raise ValueError(f"part has {int(part.shape[0])} rows, plan says {rows}")
+        gids, gcnt = _part_topk(plan, part, queries, offset, k=plan.part_k(rows))
+        buf_ids.append(gids)
+        buf_counts.append(gcnt)
+        offset += rows
+    # genielint: ignore[executor-sovereignty] -- the port's own executor
+    return _merge.merge_ragged(buf_ids, buf_counts, plan.params.k)
+
+
+def execute(plan: QueryPlan, data, queries) -> TopKResult:
+    """Run a planned search.  The only public door to the match/select/merge
+    machinery -- every index/serving entry point delegates here.
+
+    `data` follows the layout: one tensor (MONOLITHIC) or a list of per-part
+    tensors (SEGMENTED)."""
+    if plan.layout == Layout.SEGMENTED:
+        return _scan_host_parts(plan, data, queries)
+    return _run_monolithic(plan, data, queries)

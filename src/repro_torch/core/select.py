@@ -1,0 +1,47 @@
+"""Unified top-k selection: one pipeline for every search path.
+
+`select_topk` dispatches on `SearchParams.method` (c-PQ gate / SPQ bucket
+narrowing / full sort) and optionally consumes the histogram of the CUDA
+kernel (kernels/cpq_hist) so the Gate reconstruction reads the counts matrix
+once, in a kernel, on the kernel path.
+
+Its only caller is the unified executor (core/plan.py) -- every layout
+selects through the same per-part step there, which is what makes the
+selection strategy a *parameter* of a search rather than a property of the
+call site.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import cpq as _cpq
+from repro_torch.core import spq as _spq
+from repro_torch.core.types import SearchParams, TopKMethod, TopKResult
+
+
+def select_topk(
+    counts: torch.Tensor,
+    params: SearchParams,
+    hist: Optional[torch.Tensor] = None,
+    use_fused_hist: bool = False,
+) -> TopKResult:
+    """Exact top-k by match count.  counts: int [Q, N] -> TopKResult [Q, k].
+
+    hist:           precomputed count histogram [Q, max_count + 1] (optional).
+    use_fused_hist: compute the histogram with the CUDA kernel when `hist`
+                    is not supplied (the kernel path; plain-path callers keep
+                    the plain PyTorch histogram).
+    """
+    if params.method == TopKMethod.CPQ:
+        if hist is None and use_fused_hist:
+            from repro_torch.kernels import ops as kops
+
+            hist = kops.cpq_hist(counts, params.max_count)
+        return _cpq.cpq_select(counts, params, hist=hist)
+    if params.method == TopKMethod.SPQ:
+        return _spq.spq_select(counts, params)
+    if params.method == TopKMethod.SORT:
+        return _cpq.sort_select(counts, params)
+    raise ValueError(f"unknown top-k method {params.method}")

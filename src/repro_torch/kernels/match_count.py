@@ -1,0 +1,57 @@
+"""EQ match-count: the CUDA kernel's wrapper and its plain PyTorch version.
+
+    counts[q, n] = sum_i (data_sigs[n, i] == query_sigs[q, i])     int32 [Q, N]
+
+Replaces the TPU kernel `_match_count_kernel` / `match_count_pallas`
+(`src/repro/kernels/match_count.py`); the kernel is `csrc/match_count.cu`,
+whose header says what bounds it on an H100 and what the design does about
+it.  GENIE's inverted-index scan, re-expressed as a dense all-pairs compare:
+instead of walking postings lists with atomic counter updates, a block owns a
+[128, 128] tile of the count matrix and streams the signature axis through
+shared memory.
+
+`match_count` launches the kernel for CUDA tensors and raises when it cannot;
+it takes `match_count_plain` only for tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.match import match_eq
+from repro_torch.kernels import build, common
+
+# The plain PyTorch version of this kernel is `core.match.match_eq` (the
+# engine's reference semantics, chunked so its temp stays [Q, N, chunk]); it
+# is bound here under the kernel's name so the two stand side by side.
+match_count_plain = match_eq
+
+
+def match_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.Tensor:
+    """counts int32 [Q, N] from data int32 [N, m] and queries int32 [Q, m],
+    both contiguous and on one device."""
+    if data_sigs.device.type == "cpu" and query_sigs.device.type == "cpu":
+        return match_count_plain(data_sigs, query_sigs)
+    device = data_sigs.device
+    if device.type != "cuda":
+        raise ValueError(f"match_count: no kernel for device {device}")
+    common.check_operand("match_count data_sigs", data_sigs, 2, device)
+    common.check_operand("match_count query_sigs", query_sigs, 2, device)
+    n, m = data_sigs.shape
+    q = query_sigs.shape[0]
+    if query_sigs.shape[1] != m:
+        raise ValueError(
+            f"match_count: signature widths differ, data {m} vs "
+            f"queries {query_sigs.shape[1]}"
+        )
+    out = torch.empty((q, n), dtype=torch.int32, device=device)
+    if q == 0 or n == 0:
+        return out
+    lib = build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.repro_match_count(
+            data_sigs.data_ptr(), query_sigs.data_ptr(), out.data_ptr(),
+            n, q, m, stream)
+    common.check_status("match_count", status)
+    common.note_launch("match_count")
+    return out

@@ -1,0 +1,272 @@
+"""GENIE retrieval service: the paper's technique as a first-class serving
+feature.
+
+A RetrievalService wraps an embedding function (or takes raw feature vectors),
+an LSH scheme resolved from the scheme registry (core/lsh/__init__.py), and a
+SegmentedIndex; `add`/`search` give tau-ANN retrieval at batch 1024+, the
+paper's throughput regime.
+
+Selecting a scheme by name selects the whole engine stack: each LshScheme
+names the match engine that consumes its signatures (e2lsh -> EQ bucket
+collisions) and the MLE that converts match counts back to similarity
+estimates.
+
+`add` may be called repeatedly: each batch is hashed once and sealed into an
+immutable index *segment* (core/segments.py) -- O(batch) device work per
+call, no rebuild or re-upload of earlier batches.  When the segment count
+exceeds `max_segments` the index compacts adjacent segments down to
+`max_segments // 2`, so steady-state search cost stays flat while adds stay
+cheap.  Search merges per-segment candidate buffers exactly (segments
+partition the object set), so results are identical to a monolithic rebuild.
+
+Device rule: `device=None` means the card, and raises when there is none;
+`device="cpu"` runs the plain PyTorch path.  `add`/`search` accept numpy
+arrays or tensors; a tensor already on the device is not copied through the
+host.  The E2LSH projection is a float32 matrix product: the service turns
+TF32 off for CUDA matmuls when it is built, because a TF32 product would move
+points across bucket boundaries.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP item):
+sharded serving (`mesh=`), PACKED signature storage, routed search
+(`routing=` / `nprobe=`), the autotuner (`autotune=`, `tune()`); and the
+schemes other than e2lsh.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import SegmentedIndex, TopKMethod
+from repro_torch.core import engines as engines_lib
+from repro_torch.core import lsh as lsh_lib
+from repro_torch.core import plan as plan_lib
+from repro_torch.core import routing as routing_lib
+from repro_torch.core.lsh import tau_ann
+from repro_torch.core.types import SignatureLayout
+from repro_torch.device import DeviceLike, resolve_device, tensor_from
+
+
+@dataclasses.dataclass
+class RetrievalService:
+    # raw items -> [n, d] embeddings; may stay None when every call passes
+    # `embeddings=` itself
+    embed_fn: Optional[Callable] = None
+    scheme: str = "e2lsh"                          # any registered LshScheme name
+    eps: float = 0.06
+    delta: float = 0.06
+    n_buckets: int = 8192
+    w: float = 4.0
+    sigma: float = 1.0
+    seed: int = 0
+    m_override: Optional[int] = None
+    max_segments: int = 16                         # compaction trigger for add()
+    mesh: None = None                              # sharded serving: not ported
+    signature_layout: SignatureLayout | str = SignatureLayout.WIDE
+    autotune: None = None                          # measured-knob cache: not ported
+    use_kernel: bool = True                        # CUDA kernels vs plain PyTorch
+    device: DeviceLike = None                      # None = the card
+    # scheme parameters handed over from elsewhere (e.g.
+    # lsh.e2lsh.params_from_numpy) in place of drawing them from `seed`
+    params: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "sharded serving (mesh=) is not ported yet: ROADMAP queue 1 "
+                "item 9 (distributed layout)")
+        if self.autotune is not None and self.autotune is not False:
+            raise NotImplementedError(
+                "autotune= is not ported yet: ROADMAP queue 1 item 8 (autotuner)")
+        # full float32 for the LSH projection (see the module docstring)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.m = self.m_override or tau_ann.required_m(self.eps, self.delta)
+        if self.max_segments < 1:
+            raise ValueError(f"max_segments must be >= 1, got {self.max_segments}")
+        self._scheme = lsh_lib.get_scheme(self.scheme)
+        # fail at construction, not at the first add(): WIDE-only engines
+        # (e2lsh -> EQ) reject PACKED here
+        self.signature_layout = engines_lib.get(
+            self._scheme.engine).require_layout(self.signature_layout)
+        self._params = None
+        self._dim: Optional[int] = None
+        if self.params is not None:
+            self.load_params(self.params)
+        self._index: Optional[SegmentedIndex] = None
+        self._items: list = []
+
+    def load_params(self, params) -> None:
+        """Install scheme parameters made elsewhere in place of drawing them
+        from `seed`, so two services hash with identical functions.  Only
+        before the first add(): the corpus is hashed with one parameter set."""
+        if self._params is not None:
+            raise ValueError(
+                "the LSH parameters are already fixed (by an earlier "
+                "load_params() or the first add()); they are built once per "
+                "service")
+        m, d = (int(s) for s in params.a.shape)
+        if m != self.m:
+            raise ValueError(
+                f"parameters carry {m} hash functions but the service is "
+                f"configured for m={self.m}; pass m_override={m}")
+        self._params = params.to(self.device)
+        self._dim = d
+
+    def _make_params(self, d: int):
+        # drawn on the CPU and moved: one seed, one parameter set, wherever
+        # the service runs
+        gen = torch.Generator(device="cpu").manual_seed(self.seed)
+        return self._scheme.make_params(
+            gen, d=d, m=self.m, device=self.device,
+            w=self.w, sigma=self.sigma, n_buckets=self.n_buckets,
+        )
+
+    def _hash(self, x) -> torch.Tensor:
+        x = tensor_from(x).to(device=self.device, dtype=torch.float32)
+        return self._scheme.hash_points(self._params, x)
+
+    def _embed(self, items, embeddings, expect_rows=None):
+        if embeddings is None:
+            if self.embed_fn is None:
+                raise ValueError(
+                    "no embed_fn was given to the service: pass embeddings=")
+            emb = self.embed_fn(items)
+        else:
+            emb = embeddings
+        if not isinstance(emb, torch.Tensor):
+            emb = np.asarray(emb)
+        if emb.ndim != 2:
+            raise ValueError(f"embeddings must be [n, d], got shape {tuple(emb.shape)}")
+        if expect_rows is not None and emb.shape[0] != expect_rows:
+            raise ValueError(
+                f"embeddings row count {emb.shape[0]} != {expect_rows} "
+                f"items/queries"
+            )
+        if self._dim is not None and emb.shape[-1] != self._dim:
+            raise ValueError(
+                f"embedding dim {emb.shape[-1]} != dim {self._dim} fixed by the "
+                f"first add(); the LSH parameters are built once per service"
+            )
+        return emb
+
+    def add(self, items, embeddings=None) -> None:
+        """Add items to the corpus: hashes the batch once and seals it into a
+        new index segment (O(batch) device work; earlier segments untouched)."""
+        items = list(items)
+        if not items:
+            raise ValueError("cannot add an empty batch of items")
+        emb = self._embed(items, embeddings, expect_rows=len(items))
+        if self._params is None:
+            self._dim = int(emb.shape[-1])
+            self._params = self._make_params(self._dim)
+        if self._index is None:
+            self._index = SegmentedIndex(engine=self._scheme.engine,
+                                         max_count=self.m,
+                                         use_kernel=self.use_kernel,
+                                         signature_layout=self.signature_layout,
+                                         device=self.device)
+        self._index.add(self._hash(emb))
+        self._items.extend(items)
+        if len(self._index.segments) > self.max_segments:
+            self._index.compact(max(1, self.max_segments // 2))
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    @property
+    def index_stats(self):
+        """Aggregate IndexStats with per-segment build/compaction accounting."""
+        if self._index is None:
+            raise ValueError(
+                "RetrievalService index is empty (no items added yet): "
+                "call add() before reading index_stats"
+            )
+        return self._index.stats
+
+    def resolve_queries(self, queries, embeddings=None):
+        """Materialise and embed one query batch, validating it eagerly:
+        iterators are listed before len(), row counts and dims are checked,
+        and an empty batch raises a ValueError naming the contract (the
+        mirror of the empty-`add()` check) instead of failing downstream
+        with a shape error."""
+        if queries is not None:
+            # materialise iterators/generators before len() -- same contract
+            # as add(items); embed_fn receives the list either way
+            queries = list(queries)
+        eshape = None if embeddings is None else tuple(np.shape(embeddings))
+        empty = (len(queries) == 0 if queries is not None
+                 else bool(eshape) and eshape[0] == 0)
+        if empty:
+            # checked before embed_fn/shape validation so the caller sees
+            # the contract, not a downstream shape error
+            raise ValueError(
+                "cannot search an empty batch of queries (the mirror of the "
+                "empty-add() contract): pass at least one query or embedding "
+                "row"
+            )
+        return self._embed(queries, embeddings,
+                           expect_rows=None if queries is None else len(queries))
+
+    def batch_compat_key(self, k: int, method: TopKMethod,
+                         routing: routing_lib.Routing | str, *,
+                         nprobe: Optional[int] = None,
+                         candidate_cap: Optional[int] = None) -> tuple:
+        """The coalescing key of a search against this service (core/plan.py
+        `batch_compat_key`): two submissions with equal keys can stack into
+        one device dispatch."""
+        return plan_lib.batch_compat_key(
+            self._scheme.engine, plan_lib.Layout.SEGMENTED,
+            self.signature_layout, routing,
+            method, k, nprobe=nprobe, candidate_cap=candidate_cap)
+
+    def search(self, queries, k: int = 10, *, embeddings=None,
+               method: TopKMethod = TopKMethod.CPQ,
+               candidate_cap: Optional[int] = None,
+               routing: routing_lib.Routing | str = routing_lib.Routing.NONE,
+               nprobe: Optional[int] = None):
+        """tau-ANN retrieval over the sealed corpus: (TopKResult of tensors
+        on the service's device, similarity estimates as a numpy array)."""
+        if self._index is None:
+            # a real exception, not an assert: asserts vanish under python -O
+            raise ValueError(
+                "RetrievalService index is empty (no items added yet): "
+                "call add() before search()"
+            )
+        routing = routing_lib.require_none(routing)
+        if nprobe is not None:
+            raise NotImplementedError(
+                "nprobe= belongs to routed search, which is not ported yet "
+                "(ROADMAP queue 1 item 6)")
+        emb = self.resolve_queries(queries, embeddings)
+        qsigs = self._hash(emb)
+        res = self._index.search(qsigs, k=k, method=method,
+                                 candidate_cap=candidate_cap, routing=routing)
+        # scheme-paired MLE: c/m for bucketed families (Eqn 7)
+        sims = self._scheme.mle(res.counts.cpu().numpy(), self.m)
+        return res, sims
+
+    def tune(self, *args, **kwargs):
+        raise NotImplementedError(
+            "tune() is not ported yet: ROADMAP queue 1 item 8 (autotuner)")
+
+    def items_for(self, result_ids) -> list:
+        """Resolve result ids to the stored items; -1 (empty top-k slots)
+        resolve to None.  Ids outside [0, len(self)) raise a ValueError
+        naming the offender instead of surfacing an IndexError (or, worse,
+        a silently wrong negatively-indexed item)."""
+        n = len(self._items)
+        if isinstance(result_ids, torch.Tensor):
+            result_ids = result_ids.cpu().numpy()
+        rows = np.asarray(result_ids)
+        bad = rows[(rows >= n) | (rows < -1)]
+        if bad.size:
+            # "0..-1" is not a range: name the empty corpus explicitly
+            valid = f"valid ids are 0..{n - 1}" if n else "no ids are valid"
+            raise ValueError(
+                f"items_for: id {int(bad.flat[0])} is outside the corpus "
+                f"({n} items indexed; {valid}, or -1 for an empty top-k slot)"
+            )
+        return [[self._items[int(i)] if i >= 0 else None for i in row] for row in rows]

@@ -13,3 +13,10 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device and nvcc (a CUDA kernel has no interpret "
+        "mode); skipped where there is none")

@@ -1,0 +1,63 @@
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+These tests need a CUDA device and nvcc (a CUDA kernel has no interpret
+mode); they carry the `gpu` marker and skip where there is no device.  This
+file imports neither jax nor the JAX package, so it runs on a machine that
+holds only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import TopKMethod
+from repro_torch.kernels import common, ops
+from repro_torch.kernels.cpq_hist import cpq_hist_plain
+from repro_torch.kernels.match_count import match_count, match_count_plain
+from repro_torch.serve import RetrievalService
+
+SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (70, 10003, 238)]  # (Q, N, m)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA kernel has no interpret mode")
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_equal_plain_versions_on_the_card():
+    _need_card()
+    gen = torch.Generator().manual_seed(0)
+    common.reset_launch_counts()
+    for q, n, m in SHAPES:
+        d = torch.randint(0, 9, (n, m), generator=gen, dtype=torch.int32).cuda()
+        s = torch.randint(0, 9, (q, m), generator=gen, dtype=torch.int32).cuda()
+        counts = ops.match_count(d, s)
+        assert torch.equal(counts, match_count_plain(d, s))
+        masked = counts.clone()
+        masked[:, ::5] = -1
+        assert torch.equal(ops.cpq_hist(masked, m), cpq_hist_plain(masked, m))
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"match_count": 5, "cpq_hist": 5}
+    with pytest.raises(TypeError):
+        match_count(d.to(torch.int64), s)          # the wrapper raises, no fallback
+
+
+@pytest.mark.gpu
+def test_service_kernel_path_equals_plain_path_on_the_card():
+    _need_card()
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((3000, 16)).astype(np.float32)
+    results = {}
+    for use_kernel in (True, False):
+        svc = RetrievalService(m_override=64, use_kernel=use_kernel, max_segments=4)
+        for lo in range(0, 3000, 500):
+            svc.add(range(lo, lo + 500), embeddings=emb[lo:lo + 500])
+        results[use_kernel] = [svc.search(None, k=10, embeddings=emb[::100], method=m)[0]
+                               for m in TopKMethod]
+    for a, b in zip(results[True], results[False]):
+        assert a.ids.is_cuda
+        assert torch.equal(a.ids, b.ids) and torch.equal(a.counts, b.counts)
+        assert torch.equal(a.threshold, b.threshold)
+        assert a.ids[:, 0].tolist() == list(range(0, 3000, 100))

@@ -1,0 +1,101 @@
+"""The port stands alone: importing every `repro_torch` module (and
+`chip_smoke` as a module, without running it) pulls in neither jax nor the
+JAX package, and nothing runs on the CPU unless the caller asked for it."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import Engine, GenieIndex, SegmentedIndex
+from repro_torch.device import resolve_device
+from repro_torch.serve import RetrievalService
+
+_REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+_SRC = os.path.join(_REPO, "src")
+
+_MODULES = sorted(
+    m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+
+
+def test_module_list_covers_the_slice():
+    for name in ("repro_torch.core.plan", "repro_torch.core.lsh.e2lsh",
+                 "repro_torch.kernels.build", "repro_torch.kernels.match_count",
+                 "repro_torch.kernels.cpq_hist", "repro_torch.serve.retrieval"):
+        assert name in _MODULES
+
+
+def test_imports_pull_in_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {_SRC!r}); sys.path.insert(0, {_REPO!r})\n"
+        f"for name in {_MODULES!r} + ['repro_torch', 'chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    offenders = []
+    roots = [os.path.join(_SRC, "repro_torch"), os.path.join(_REPO, "chip_smoke.py")]
+    files = [roots[1]]
+    for dirpath, _, names in os.walk(roots[0]):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                words = line.split()
+                if words[:1] in (["import"], ["from"]) and len(words) > 1 \
+                        and words[1].split(".")[0] in ("jax", "jaxlib", "repro"):
+                    offenders.append(f"{path}:{i}: {line.strip()}")
+    assert offenders == []
+
+
+def _needs_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device exists here")
+
+
+@pytest.mark.parametrize("build", [
+    lambda: RetrievalService(),
+    lambda: RetrievalService(embed_fn=lambda items: items, device=None),
+    lambda: SegmentedIndex(Engine.EQ),
+    lambda: GenieIndex.build(Engine.EQ, [[1, 2], [3, 4]]),
+    lambda: GenieIndex.build_lsh([[1, 2], [3, 4]]),
+    lambda: resolve_device(None),
+    lambda: resolve_device("cuda"),
+], ids=["service", "service-device-none", "segmented", "index-build",
+        "index-build-lsh", "resolve-none", "resolve-cuda"])
+def test_default_device_raises_without_cuda(build):
+    """No silent run on the CPU: the default device is the card."""
+    _needs_no_cuda()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+
+
+def test_cpu_runs_only_when_asked():
+    assert resolve_device("cpu") == torch.device("cpu")
+    svc = RetrievalService(device="cpu", m_override=8)
+    assert svc.device == torch.device("cpu")
+    idx = GenieIndex.build(Engine.EQ, [[1, 2], [3, 4]], device="cpu")
+    assert idx.data.device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_cuda():
+    """The GPU smoke script exits non-zero and prints no result line where
+    there is no CUDA device."""
+    _needs_no_cuda()
+    out = subprocess.run([sys.executable, os.path.join(_REPO, "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
