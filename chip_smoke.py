@@ -10,20 +10,32 @@ as soon as a phase fails:
   1. environment and build: versions, the card's name and power limit, the
      kernels' build time and what ptxas reports for them;
   2. each kernel against its plain PyTorch version on the card, bit-exact, at
-     odd shapes (nothing a multiple of a tile);
+     odd shapes (nothing a multiple of a tile): match_count, cpq_hist,
+     cosine_count (with zero rows), packed_cosine_count (V from 1 to 513),
+     and packed_cosine_topk (k from 1 to above the tile, N not a multiple of
+     the tile, N < k, all-equal rows, a width whose bins need device
+     scratch), whose buffers reduced by topk_from_candidates must also equal
+     a sort of the counts;
   3. a small served round trip through `RetrievalService`: uneven adds, one
      compaction, CPQ / SPQ / SORT; the kernel path must equal the plain path
      bit for bit and unperturbed corpus points must retrieve themselves;
+     3b. the same with `scheme="simhash"`, WIDE and PACKED (PACKED must equal
+     WIDE), and a MONOLITHIC plan over the padded PACKED corpus
+     (`concat_data`), which runs packed_cosine_count and the pad mask;
   4. the main path at full width -- the SIFT configuration's shape with the
      service's defaults: 4.5 M points of 128 dimensions in 16 sealed
      segments, m = required_m(0.06, 0.06) E2LSH functions into 8192 buckets,
      searches of 1024 queries for the top 100 by c-PQ -- with the kernels'
      launch counts read around it and a sample of rows held against a
      sort-method search through the plain path;
+     4b. the same corpus and queries through `scheme="simhash"` (m = 238 sign
+     bits), once WIDE (cosine_count + cpq_hist) and once PACKED (the fused
+     packed_cosine_topk); PACKED must equal WIDE on every row;
   5. each kernel's time at the full-width per-segment shape beside the plain
      version's, one PyTorch library call where one computes the same
      function, and the least time the card could take (bytes moved over the
-     memory rate, or operations over the ALU rate, whichever is larger).
+     memory rate, or operations over the peak rate for their type, whichever
+     is larger); 5b. the same for the three COSINE kernels.
 
 It needs one CUDA device and no network, and imports neither jax nor the JAX
 package.  The last line of its output is one JSON object
@@ -48,6 +60,8 @@ import torch  # noqa: E402
 # bounds integer compare/add work from below as well.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_ALU_OPS_PER_S = 67e12
+# the int8 tensor-core rate (dense), the peak for an int8 product
+PEAK_INT8_TC_OPS_PER_S = 1979e12
 
 # The SIFT configuration's shape (4.5 M x 128-dim points, 1024 queries per
 # batch, top 100) with the retrieval service's defaults.
@@ -62,6 +76,19 @@ SEED = 0
 MATCH_SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (70, 100003, 238)]
 HIST_SHAPES = [(1, 5), (8, 300), (70, 100003)]
 HIST_MAX_COUNTS = [3, 64, 238]
+# (Q, N, V) for the COSINE kernels; the packed count also runs the extra
+# widths, so that V covers 1, 31, 33, 95, 238 and 513 (W = 1 .. 17)
+COSINE_SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (2, 90, 33),
+                 (4, 300, 256), (1, 40, 513), (70, 100003, 238)]
+PACKED_EXTRA_SHAPES = [(3, 70, 1), (6, 4099, 31), (9, 2500, 95)]
+# (Q, N, V, k) for the fused top-k: k in {1, 3, 10, 100} and one k above the
+# tile, N not a multiple of the tile, N < k (once with k above the tile: the
+# executor fills the missing slots), W = 1, 8, 17 and a width whose
+# histogram bins live in device scratch (W = 170 > 161)
+TOPK_CASES = [(5, 5000, 238, 1), (7, 5000, 238, 3), (33, 9000, 238, 10),
+              (70, 100003, 238, 100), (4, 7000, 238, 2500), (3, 50, 238, 100),
+              (2, 50, 238, 3000), (6, 3000, 1, 10), (9, 4500, 513, 100),
+              (3, 2100, 5440, 10)]
 
 
 def log(*parts) -> None:
@@ -156,6 +183,7 @@ def phase_kernel_parity(device: torch.device) -> dict:
     log("== phase 2: kernels against their plain PyTorch versions")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     worst = {"match_count": 0, "cpq_hist": 0}
+    worst.update(cosine_parity(device, gen))
     for q, n, m in MATCH_SHAPES:
         for dtype in (torch.int32, torch.int16):
             d = torch.randint(0, 9, (n, m), generator=gen, dtype=dtype).to(device)
@@ -183,6 +211,93 @@ def phase_kernel_parity(device: torch.device) -> dict:
               f"cpq_hist differs from its plain version at (Q,N)=({q},{n}) "
               f"max_count={max_count}: max abs err {err}")
         log(f"  cpq_hist (Q,N)=({q},{n}) max_count={max_count} with -1 entries: equal")
+    return worst
+
+
+def _signs(gen: torch.Generator, rows: int, v: int, device: torch.device) -> torch.Tensor:
+    return (torch.randint(0, 2, (rows, v), generator=gen, dtype=torch.int8) * 2 - 1).to(device)
+
+
+def fused_result(ids: torch.Tensor, cnts: torch.Tensor, k: int):
+    """The fused kernel's buffers reduced as the executor reduces them."""
+    from repro_torch.core.plan import _fused_candidates_topk
+
+    return _fused_candidates_topk(lambda d, q, kk: (ids, cnts), None, None, k)
+
+
+def sort_oracle(counts: torch.Tensor, k: int):
+    """(ids, counts) [Q, k] by a stable sort of the full counts, -1 past N."""
+    from repro_torch.core import cpq
+    from repro_torch.core.types import SearchParams
+
+    kk = min(k, counts.shape[1])
+    res = cpq.sort_select(counts, SearchParams(k=kk, max_count=int(counts.max().item())))
+    pad = counts.new_full((counts.shape[0], k - kk), -1)
+    return torch.cat([res.ids, pad], dim=1), torch.cat([res.counts, pad], dim=1)
+
+
+def cosine_parity(device: torch.device, gen: torch.Generator) -> dict:
+    """The three COSINE kernels against their plain versions, bit-exact;
+    returns the worst absolute difference per kernel."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cosine_count import cosine_count_plain
+    from repro_torch.kernels.packed_cosine import (TILE_N, packed_cosine_count_plain,
+                                                   packed_cosine_topk_plain)
+
+    worst = {"cosine_count": 0, "packed_cosine_count": 0, "packed_cosine_topk": 0}
+    for i, (q, n, v) in enumerate(COSINE_SHAPES):
+        d, s = _signs(gen, n, v, device), _signs(gen, q, v, device)
+        if i == 3:
+            d[::4] = 0                     # zero rows: the engine's pad fill, V // 2
+        got = ops.cosine_count(d, s)
+        want = cosine_count_plain(d, s)
+        sync(device)
+        err = max_abs_err(got, want)
+        worst["cosine_count"] = max(worst["cosine_count"], err)
+        check(got.shape == (q, n) and got.dtype == torch.int32 and torch.equal(got, want),
+              f"cosine_count differs from its plain version at (Q,N,V)=({q},{n},{v}): "
+              f"max abs err {err}")
+        log(f"  cosine_count (Q,N,V)=({q},{n},{v}){' with zero rows' if i == 3 else ''}: equal")
+    for q, n, v in COSINE_SHAPES + PACKED_EXTRA_SHAPES:
+        dw = packing.pack_signs_data(_signs(gen, n, v, device))
+        sw = packing.pack_signs_queries(_signs(gen, q, v, device))
+        got = ops.packed_cosine_count(dw, sw)
+        want = packed_cosine_count_plain(dw, sw)
+        sync(device)
+        err = max_abs_err(got, want)
+        worst["packed_cosine_count"] = max(worst["packed_cosine_count"], err)
+        check(got.shape == (q, n) and torch.equal(got, want),
+              f"packed_cosine_count differs from its plain version at (Q,N,V)="
+              f"({q},{n},{v}): max abs err {err}")
+        log(f"  packed_cosine_count (Q,N,V)=({q},{n},{v}) W={dw.shape[1]}: equal")
+    cases = [(q, n, v, k, False) for q, n, v, k in TOPK_CASES] + [(2, 3000, 64, 5, True)]
+    for q, n, v, k, all_equal in cases:
+        if all_equal:                      # identical rows: the lowest ids must come out
+            dw = packing.pack_signs_data(torch.ones((n, v), dtype=torch.int8, device=device))
+            sw = packing.pack_signs_queries(torch.ones((q, v), dtype=torch.int8, device=device))
+        else:
+            dw = packing.pack_signs_data(_signs(gen, n, v, device))
+            sw = packing.pack_signs_queries(_signs(gen, q, v, device))
+        ids, cnts = ops.packed_cosine_topk(dw, sw, k=k)
+        pids, pcnts = packed_cosine_topk_plain(dw, sw, k)
+        sync(device)
+        err = max(max_abs_err(ids, pids), max_abs_err(cnts, pcnts))
+        worst["packed_cosine_topk"] = max(worst["packed_cosine_topk"], err)
+        kc = min(k, TILE_N)
+        check(ids.shape == (q, -(-n // TILE_N) * kc) and torch.equal(ids, pids)
+              and torch.equal(cnts, pcnts),
+              f"packed_cosine_topk buffers differ from the plain version at "
+              f"(Q,N,V,k)=({q},{n},{v},{k}): max abs err {err}")
+        got_ids, got_cnts = fused_result(ids, cnts, k)
+        want_ids, want_cnts = sort_oracle(packed_cosine_count_plain(dw, sw), k)
+        check(torch.equal(got_ids, want_ids) and torch.equal(got_cnts, want_cnts),
+              f"packed_cosine_topk after topk_from_candidates differs from a sort "
+              f"at (Q,N,V,k)=({q},{n},{v},{k})")
+        if all_equal:
+            check(got_ids.tolist() == [list(range(k))] * q, "all-equal rows: not the lowest ids")
+        log(f"  packed_cosine_topk (Q,N,V,k)=({q},{n},{v},{k}) W={dw.shape[1]} tile={TILE_N}"
+            f"{' all-equal rows' if all_equal else ''}: buffers equal, merged == sort")
     return worst
 
 
@@ -230,30 +345,122 @@ def phase_small_service(device: torch.device) -> None:
             f"top-1 self-retrieval {top1:.3f}")
 
 
+def phase_small_simhash(device: torch.device) -> int:
+    """The simhash service, WIDE and PACKED, each on the kernel path and the
+    plain path; then a MONOLITHIC plan over the PACKED corpus padded by
+    `concat_data`, which runs `packed_cosine_count` and the pad mask.  Returns
+    that plan's `packed_cosine_count` launches (the only path that runs the
+    kernel: the service's searches take the fused kernel)."""
+    from repro_torch.core import Engine, TopKMethod, execute, plan_search
+    from repro_torch.kernels import common
+    from repro_torch.serve import RetrievalService
+
+    log("== phase 3b: small simhash round trip, WIDE and PACKED (kernel path vs plain path)")
+    dim, n_queries, k, max_segments = 32, 64, 10, 16
+    big = [3000, 5000, 2500, 6000, 3500]
+    batches = big + [50] * (max_segments + 1 - len(big))   # one past max_segments
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    emb = torch.randn((sum(batches), dim), generator=gen).to(device)
+    services = {
+        (layout, use_kernel): RetrievalService(device=device, seed=SEED, scheme="simhash",
+                                               signature_layout=layout, use_kernel=use_kernel,
+                                               max_segments=max_segments)
+        for layout in ("wide", "packed") for use_kernel in (True, False)
+    }
+    for svc in services.values():
+        start = 0
+        for rows in batches:
+            svc.add(range(start, start + rows), embeddings=emb[start:start + rows])
+            start += rows
+        stats = svc.index_stats
+        check(stats.compaction_count == 1 and stats.n_segments == max(1, max_segments // 2)
+              and stats.n_objects == sum(batches),
+              f"expected one compaction down to {max_segments // 2} segments, got "
+              f"{stats.compaction_count} compactions, {stats.n_segments} segments")
+    pick = torch.linspace(0, sum(batches) - 1, n_queries).to(torch.int64).to(device)
+    queries = emb[pick]
+    wide_res = {}
+    for method in (TopKMethod.CPQ, TopKMethod.SPQ, TopKMethod.SORT):
+        res = {key: svc.search(None, k=k, embeddings=queries, method=method)[0]
+               for key, svc in services.items()}
+        sync(device)
+        for layout in ("wide", "packed"):
+            for field in ("ids", "counts", "threshold"):
+                check(torch.equal(getattr(res[(layout, True)], field),
+                                  getattr(res[(layout, False)], field)),
+                      f"simhash {layout} {method.value}: kernel path and plain path "
+                      f"differ in {field}")
+        check(torch.equal(res[("packed", True)].ids, res[("wide", True)].ids)
+              and torch.equal(res[("packed", True)].counts, res[("wide", True)].counts),
+              f"simhash {method.value}: PACKED differs from WIDE")
+        top1 = float((res[("wide", True)].ids[:, 0] == pick.to(torch.int32)).float().mean().item())
+        check(top1 == 1.0, f"simhash {method.value}: top-1 self-retrieval {top1} != 1.0")
+        wide_res[method] = res[("wide", True)]
+        log(f"  {method.value}: WIDE and PACKED each equal on both paths, PACKED == WIDE, "
+            f"top-1 self-retrieval {top1:.3f}")
+
+    # the PACKED corpus as one padded matrix: the plan has n_objects, so the
+    # fused kernel is off and the packed count kernel + pad mask run instead
+    index = services[("packed", True)]._index
+    data, n = index.concat_data(pad_multiple=4096)
+    q_exec = index.model.prepare_queries_for(services[("packed", True)]._hash(queries),
+                                             device, "packed")
+    launches = 0
+    for method in (TopKMethod.CPQ, TopKMethod.SPQ, TopKMethod.SORT):
+        got = {}
+        for use_kernel in (True, False):
+            plan = plan_search(Engine.COSINE, k, index.max_count, part_rows=(data.shape[0],),
+                               n_objects=n, method=method, use_kernel=use_kernel,
+                               signature_layout="packed")
+            check(plan.fused_match is None, "a padded plan must not take the fused kernel")
+            common.reset_launch_counts()   # the padded-plan path starts here
+            got[use_kernel] = execute(plan, data, q_exec)
+            sync(device)
+            counts = common.launch_counts()
+            if use_kernel and method is TopKMethod.CPQ:
+                launches = counts.get("packed_cosine_count", 0)
+        check(counts == {}, f"the plain path launched a kernel: {counts}")
+        for field in ("ids", "counts", "threshold"):
+            check(torch.equal(getattr(got[True], field), getattr(got[False], field)),
+                  f"padded PACKED plan {method.value}: kernel path and plain path differ "
+                  f"in {field}")
+        check(torch.equal(got[True].ids, wide_res[method].ids)
+              and torch.equal(got[True].counts, wide_res[method].counts),
+              f"padded PACKED plan {method.value}: differs from the segmented service")
+    check(launches == 1, f"packed_cosine_count launched {launches} times in the padded plan")
+    log(f"  MONOLITHIC plan over concat_data(pad_multiple=4096) of the PACKED index "
+        f"({data.shape[0]} rows, {n} real): packed_cosine_count launched {launches}x per "
+        f"search; CPQ/SPQ/SORT equal the plain path and the segmented service")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
-def phase_full_width(device: torch.device, n_total: int = FULL_N, dim: int = FULL_DIM,
+def drive_full_width(device: torch.device, expect_launches: dict, sim_range: tuple,
+                     n_total: int = FULL_N, dim: int = FULL_DIM,
                      n_segments: int = FULL_SEGMENTS, n_queries: int = FULL_Q,
-                     k: int = FULL_K, n_searches: int = N_SEARCHES) -> dict:
-    """Drive RetrievalService with its defaults; returns the launch counts of
-    the run, the service and the query batch (for phase 5)."""
+                     k: int = FULL_K, n_searches: int = N_SEARCHES, **service_kw) -> dict:
+    """Fill a RetrievalService with the SIFT-shaped corpus in `n_segments`
+    adds and search it `n_searches` times; `expect_launches` is each kernel's
+    launches per search on this path (and no other kernel may launch).
+    Returns the launch counts of the run, the service, the query batch, its
+    signatures and the last result."""
     from repro_torch.core import SegmentedIndex, TopKMethod
     from repro_torch.kernels import common
     from repro_torch.serve import RetrievalService
 
-    log("== phase 4: RetrievalService defaults at full width")
     check(n_total % n_segments == 0 and n_queries % n_segments == 0,
           "segments must divide the corpus and the query batch")
     rows = n_total // n_segments
     per_seg_queries = n_queries // n_segments
-    common.reset_launch_counts()           # the main path starts here
+    common.reset_launch_counts()           # the path starts here
 
-    svc = RetrievalService(device=device, seed=SEED)
-    log(f"  m = required_m({svc.eps}, {svc.delta}) = {svc.m}; n_buckets = {svc.n_buckets}; "
-        f"w = {svc.w}; N = {n_total} in {n_segments} adds of {rows}; d = {dim}; "
-        f"Q = {n_queries}; k = {k}")
+    svc = RetrievalService(device=device, seed=SEED, **service_kw)
+    log(f"  scheme {svc.scheme}, {svc.signature_layout.value}: m = required_m({svc.eps}, "
+        f"{svc.delta}) = {svc.m}; n_buckets = {svc.n_buckets}; w = {svc.w}; N = {n_total} "
+        f"in {n_segments} adds of {rows}; d = {dim}; Q = {n_queries}; k = {k}")
     gen = torch.Generator(device=device).manual_seed(SEED)
     add_seconds, query_rows, expect = [], [], []
     for s in range(n_segments):
@@ -275,7 +482,9 @@ def phase_full_width(device: torch.device, n_total: int = FULL_N, dim: int = FUL
           f"{stats.n_segments} / {stats.compaction_count}")
     log(f"  add: {statistics.median(add_seconds):.4f} s/batch median "
         f"(first {add_seconds[0]:.4f} s, total {sum(add_seconds):.3f} s); "
-        f"signatures on the device: {stats.bytes_device / 1e9:.3f} GB")
+        f"signatures on the device: {stats.bytes_device / 1e9:.4f} GB "
+        f"(WIDE {stats.bytes_signatures_wide / 1e9:.4f} GB, PACKED "
+        f"{stats.bytes_signatures_packed / 1e9:.4f} GB)")
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -284,28 +493,28 @@ def phase_full_width(device: torch.device, n_total: int = FULL_N, dim: int = FUL
         ms, (res, sims) = timed_ms(
             lambda: svc.search(None, k=k, embeddings=queries, method=TopKMethod.CPQ), device)
         search_ms.append(ms)
-    launches = common.launch_counts()      # the main path ends here
+    launches = common.launch_counts()      # the path ends here
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
     rest = search_ms[1:] or search_ms
     median_ms = statistics.median(rest)
-    log(f"  search: first {search_ms[0]:.1f} ms, median of the rest {median_ms:.1f} ms "
-        f"({[round(t, 1) for t in search_ms]}); "
+    log(f"  search: first {search_ms[0]:.2f} ms, median of the rest {median_ms:.2f} ms "
+        f"({[round(t, 2) for t in search_ms]}); "
         f"{n_queries / (median_ms / 1e3):.1f} queries/s; "
         f"peak device memory {peak / 1e9:.3f} GB")
-    log(f"  kernel launches on the main path: {launches}")
-    for name in ("match_count", "cpq_hist"):
-        check(launches.get(name, 0) == n_segments * n_searches,
-              f"{name}: {launches.get(name, 0)} launches, expected "
-              f"{n_segments} per search x {n_searches} searches")
+    log(f"  kernel launches on this path: {launches}")
+    want = {name: per * n_searches for name, per in expect_launches.items()}
+    check(launches == want, f"launches {launches}, expected {want} "
+          f"({expect_launches} per search x {n_searches} searches)")
 
     check(res.ids.shape == (n_queries, k) and res.counts.shape == (n_queries, k)
           and res.threshold.shape == (n_queries,), "result shapes")
     check(res.ids.dtype == torch.int32 and res.counts.dtype == torch.int32, "result dtypes")
     check(bool((res.counts[:, :-1] >= res.counts[:, 1:]).all()), "counts not non-increasing")
     check(bool(((res.ids >= 0) & (res.ids < n_total)).all()), "ids out of range")
-    check(sims.shape == (n_queries, k) and bool((sims >= 0).all()) and bool((sims <= 1).all()),
-          "similarity estimates outside [0, 1]")
+    check(sims.shape == (n_queries, k) and bool((sims >= sim_range[0]).all())
+          and bool((sims <= sim_range[1]).all()),
+          f"similarity estimates outside {list(sim_range)}")
     top1 = float((res.ids[:, 0] == expect).float().mean().item())
     log(f"  top-1 self-retrieval: {top1:.4f}")
     check(top1 >= 0.99, f"top-1 self-retrieval {top1} < 0.99")
@@ -315,16 +524,43 @@ def phase_full_width(device: torch.device, n_total: int = FULL_N, dim: int = FUL
     sample = torch.arange(0, n_queries, max(1, n_queries // 8), device=device)[:8]
     qsigs = svc._hash(queries)
     plain = SegmentedIndex(engine=svc._index.engine, max_count=svc.m, use_kernel=False,
-                           segments=svc._index.segments, device=device)
+                           segments=svc._index.segments, device=device,
+                           signature_layout=svc._index.signature_layout)
     before = common.launch_counts()
     oracle = plain.search(qsigs[sample], k=k, method=TopKMethod.SORT)
     sync(device)
     check(common.launch_counts() == before, "the plain path launched a kernel")
     check(torch.equal(oracle.ids, res.ids[sample]) and torch.equal(oracle.counts, res.counts[sample])
           and torch.equal(oracle.threshold, res.threshold[sample]),
-          "c-PQ kernel path differs from the sort oracle on the sampled rows")
+          "the kernel path differs from the sort oracle on the sampled rows")
     log(f"  rows {sample.tolist()} equal a sort-method search through the plain path")
-    return dict(launches=launches, service=svc, qsigs=qsigs, queries=queries)
+    return dict(launches=launches, service=svc, qsigs=qsigs, queries=queries, result=res)
+
+
+def phase_full_width(device: torch.device, **sizes) -> dict:
+    """The default service (E2LSH -> EQ, WIDE) at full width."""
+    log("== phase 4: RetrievalService defaults at full width")
+    return drive_full_width(device, {"match_count": FULL_SEGMENTS, "cpq_hist": FULL_SEGMENTS},
+                            (0.0, 1.0), **sizes)
+
+
+def phase_full_width_simhash(device: torch.device, **sizes) -> dict:
+    """RetrievalService(scheme="simhash") at full width, WIDE then PACKED, on
+    the same corpus; PACKED must equal WIDE on every row."""
+    log("== phase 4b: RetrievalService(scheme='simhash') at full width, WIDE and PACKED")
+    segs = sizes.get("n_segments", FULL_SEGMENTS)
+    out = {}
+    for layout, per_search in (("wide", {"cosine_count": segs, "cpq_hist": segs}),
+                               ("packed", {"packed_cosine_topk": segs})):
+        out[layout] = drive_full_width(device, per_search, (-1.0, 1.0), scheme="simhash",
+                                       signature_layout=layout, **sizes)
+        profile_one_search(out[layout]["service"], out[layout]["queries"],
+                           sizes.get("k", FULL_K), device)
+    wide, packed = out["wide"]["result"], out["packed"]["result"]
+    check(torch.equal(wide.ids, packed.ids) and torch.equal(wide.counts, packed.counts),
+          "simhash PACKED differs from WIDE")
+    log(f"  PACKED ids and counts equal WIDE on all {wide.ids.shape[0]} rows")
+    return out
 
 
 def search_split(svc, queries: torch.Tensor, k: int, device: torch.device) -> None:
@@ -468,6 +704,124 @@ def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
     return kernels
 
 
+def phase_cosine_kernel_times(simhash: dict, launches_count: int, parity_err: dict,
+                              device: torch.device, k: int = FULL_K) -> list:
+    """The three COSINE kernels at the per-segment shape of the simhash path."""
+    from repro_torch.core import cpq, packing
+    from repro_torch.core.types import SearchParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cosine_count import cosine_count_plain
+    from repro_torch.kernels.packed_cosine import (TILE_N, packed_cosine_count_plain,
+                                                   packed_cosine_topk_plain)
+
+    wide, packed = simhash["wide"], simhash["packed"]
+    model = wide["service"]._index.model
+    d_sgn = wide["service"]._index.segments[0].data            # int8 [N, V]
+    q_sgn = model.prepare_queries(wide["qsigs"], device)       # int8 [Q, V]
+    d_words = packed["service"]._index.segments[0].data        # int32 [N, W]
+    q_words = packing.pack_signs_queries(q_sgn)                # int32 [Q, W]
+    n, v = d_sgn.shape
+    q, w = q_sgn.shape[0], d_words.shape[1]
+    log(f"== phase 5b: COSINE kernel times at the per-segment shape Q={q} N={n} V={v} "
+        f"W={w} k={k} (fused tile {TILE_N})")
+
+    # cosine_count
+    ms_cos, counts = timed_ms(lambda: ops.cosine_count(d_sgn, q_sgn), device, reps=3, warmup=1)
+    plain_cos, counts_plain = timed_ms(lambda: cosine_count_plain(d_sgn, q_sgn), device,
+                                       reps=1, warmup=1)
+    err_cos = max(parity_err["cosine_count"], max_abs_err(counts, counts_plain))
+    check(torch.equal(counts, counts_plain), "cosine_count differs at the per-segment shape")
+    del counts_plain
+    # the library yardstick: torch._int_mm on the same +-1 int8 signs, V padded
+    # to 240 and N to a multiple of 8 with zeros (as _int_mm demands); the
+    # (V + dot) >> 1 shift is not in the time
+    v_pad, n_pad = -(-v // 8) * 8, -(-n // 8) * 8
+    a = torch.zeros((q, v_pad), dtype=torch.int8, device=device)
+    a[:, :v] = q_sgn
+    b = torch.zeros((n_pad, v_pad), dtype=torch.int8, device=device)
+    b[:n, :v] = d_sgn
+    try:
+        lib_cos, dot = timed_ms(lambda: torch._int_mm(a, b.T), device, reps=3, warmup=1)
+        check(torch.equal((v + dot[:, :n]) >> 1, counts), "the _int_mm yardstick disagrees")
+        del dot
+    except RuntimeError as e:          # the yardstick only: the port never calls it
+        log(f"  torch._int_mm refused these operands ({e}); library_ms not measured")
+        lib_cos = None
+    del a, b
+    cos_bytes = n * v + q * v + q * n * 4
+    cos_ops = 2 * q * n * v
+    cb_bytes, cb_ops = cos_bytes / PEAK_BYTES_PER_S * 1e3, cos_ops / PEAK_INT8_TC_OPS_PER_S * 1e3
+
+    # packed_cosine_count: the same counts from the packed words
+    ms_pc, counts_p = timed_ms(lambda: ops.packed_cosine_count(d_words, q_words), device,
+                               reps=3, warmup=1)
+    check(torch.equal(counts_p, counts), "packed_cosine_count differs from cosine_count")
+    del counts
+    plain_pc, counts_pp = timed_ms(lambda: packed_cosine_count_plain(d_words, q_words), device,
+                                   reps=1, warmup=1)
+    err_pc = max(parity_err["packed_cosine_count"], max_abs_err(counts_p, counts_pp))
+    check(torch.equal(counts_p, counts_pp), "packed_cosine_count differs from its plain version")
+    del counts_pp
+    pc_bytes = (n * w + q * w) * 4 + q * n * 4
+    pc_ops = 3 * q * n * w                             # xor, popc, add per word pair
+    pb_bytes, pb_ops = pc_bytes / PEAK_BYTES_PER_S * 1e3, pc_ops / PEAK_ALU_OPS_PER_S * 1e3
+
+    # packed_cosine_topk at the service's k
+    ms_tk, (ids, cnts) = timed_ms(lambda: ops.packed_cosine_topk(d_words, q_words, k=k),
+                                  device, reps=5, warmup=1)
+    plain_tk, (pids, pcnts) = timed_ms(lambda: packed_cosine_topk_plain(d_words, q_words, k),
+                                       device, reps=1, warmup=1)
+    err_tk = max(parity_err["packed_cosine_topk"], max_abs_err(ids, pids),
+                 max_abs_err(cnts, pcnts))
+    check(torch.equal(ids, pids) and torch.equal(cnts, pcnts),
+          "packed_cosine_topk differs from its plain version at the per-segment shape")
+    del pids, pcnts
+    oracle = cpq.sort_select(counts_p, SearchParams(k=k, max_count=v))
+    merge_ms, (mids, mcnts) = timed_ms(lambda: fused_result(ids, cnts, k), device,
+                                       reps=3, warmup=1)
+    check(torch.equal(mids, oracle.ids) and torch.equal(mcnts, oracle.counts),
+          "packed_cosine_topk + topk_from_candidates differs from a sort of the counts")
+    del counts_p, oracle
+    slots = ids.shape[1]
+    tk_bytes = (n * w + q * w) * 4 + 2 * q * slots * 4
+    tk_ops = 3 * q * n * w                             # the match; selection not counted
+    tb_bytes, tb_ops = tk_bytes / PEAK_BYTES_PER_S * 1e3, tk_ops / PEAK_ALU_OPS_PER_S * 1e3
+    log(f"  packed_cosine_topk buffers [{q}, {slots}] x2 = {2 * q * slots * 4 / 1e6:.1f} MB; "
+        f"reducing them with topk_from_candidates: {merge_ms:.3f} ms")
+
+    def entry(name, source, replaces, launches, err, ms, plain, bb, bo, lib):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                    bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations",
+                    library_ms=lib)
+
+    kernels = [
+        entry("cosine_count", "src/repro_torch/kernels/csrc/cosine_count.cu",
+              "src/repro/kernels/cosine_count.py:70",
+              wide["launches"].get("cosine_count", 0), err_cos, ms_cos, plain_cos,
+              cb_bytes, cb_ops, lib_cos),
+        entry("packed_cosine_count", "src/repro_torch/kernels/csrc/packed_cosine.cu",
+              "src/repro/kernels/packed_cosine.py:97", launches_count, err_pc, ms_pc,
+              plain_pc, pb_bytes, pb_ops, None),
+        entry("packed_cosine_topk", "src/repro_torch/kernels/csrc/packed_cosine.cu",
+              "src/repro/kernels/packed_cosine.py:151",
+              packed["launches"].get("packed_cosine_topk", 0), err_tk, ms_tk, plain_tk,
+              tb_bytes, tb_ops, None),
+    ]
+    for kern in kernels:
+        log(f"  {kern['name']}: {kern['ms']:.4f} ms; bound {kern['bound_ms']:.4f} ms by "
+            f"{kern['bound_by']} ({100 * kern['bound_ms'] / kern['ms']:.1f}% of it); plain "
+            f"{kern['plain_ms']:.1f} ms; library {kern['library_ms']}")
+    log("  library calls: cosine_count against torch._int_mm (int8 tensor cores); "
+        "packed_cosine_count and packed_cosine_topk have none (PyTorch has no popcount, "
+        "and no one call selects per tile)")
+    log(f"  cosine_count {q * n * v / (ms_cos / 1e3) / 1e12:.3f} T sign-MACs/s; "
+        f"packed_cosine_count {q * n * w / (ms_pc / 1e3) / 1e12:.3f} T word-pairs/s, "
+        f"{pc_bytes / (ms_pc / 1e3) / 1e9:.1f} GB/s; "
+        f"packed_cosine_topk {q * n * w / (ms_tk / 1e3) / 1e12:.3f} T word-pairs/s")
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one "
@@ -478,12 +832,17 @@ def main() -> int:
     phase_environment_and_build()
     parity_err = phase_kernel_parity(device)
     phase_small_service(device)
+    count_launches = phase_small_simhash(device)
     full = phase_full_width(device)
     svc = full["service"]
     search_split(svc, full["queries"], FULL_K, device)
     profile_one_search(svc, full["queries"], FULL_K, device)
     kernels = phase_kernel_times(svc._index.segments[0].data, full["qsigs"], svc.m,
                                  full["launches"], parity_err, device)
+    del full, svc                          # free the EQ corpus before the simhash one
+    torch.cuda.empty_cache()
+    simhash = phase_full_width_simhash(device)
+    kernels += phase_cosine_kernel_times(simhash, count_launches, parity_err, device)
     torch.cuda.synchronize()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power_limit())

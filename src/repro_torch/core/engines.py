@@ -16,9 +16,10 @@ bundling
 GenieIndex, SegmentedIndex and the planner all resolve engines through
 `get()` -- there is exactly one dispatch point in the system.
 
-Ported so far: the registry and the EQ entry.  The other five engines, the
-PACKED signature formats and the kernel tile knobs of the JAX package's
-descriptor (`repro/core/engines.py`) come with their kernels.
+Ported so far: the registry, the EQ entry and the COSINE entry with its
+PACKED format (32 signs per int32 word, core/packing.py).  The other four
+engines and the kernel tile knobs of the JAX package's descriptor
+(`repro/core/engines.py`) come with their kernels.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import match as _match
+from repro_torch.core import packing as _packing
 from repro_torch.core.types import Engine, IndexStats, SignatureLayout
 from repro_torch.device import tensor_from
 
@@ -70,9 +72,29 @@ class MatchModel:
     # max_count | None)
     example: Optional[Callable[[Any, int, int], tuple]] = None
 
+    # -- PACKED signature layout (core/packing.py) --------------------------
+    # All None/unset => the engine is WIDE-only and PACKED plans are rejected.
+    # pack_data / pack_queries transform *prepared* (canonical WIDE) tensors
+    # once at index-seal / query-canonicalisation time; packed_reference and
+    # packed_kernel keep the canonical ``fn(data, queries) -> counts [Q, N]``
+    # signature on the packed tensors, with counts bit-for-bit equal to WIDE.
+    pack_data: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    pack_queries: Optional[Callable[[Any], Any]] = None
+    packed_reference: Optional[Callable[[torch.Tensor, Any], torch.Tensor]] = None
+    packed_kernel: Optional[Callable[[torch.Tensor, Any], torch.Tensor]] = None
+    # fused match -> count -> per-tile local top-k on packed tensors:
+    # fn(data, queries, k) -> (ids, counts) candidate buffers [Q, n_tiles*kc]
+    # in per-tile (count desc, id asc) order, pads id -1 / count -1
+    packed_fused_topk: Optional[Callable[[torch.Tensor, Any, int], tuple]] = None
+    # padded-row fill in the packed domain (same never-out-scores contract
+    # as pad_value; pad rows are id-masked upstream regardless)
+    packed_pad_value: Any = None
+    # packed footprint in bytes, computed from the WIDE prepared tensor
+    packed_bytes: Optional[Callable[[torch.Tensor], int]] = None
+
     @property
     def supports_packed(self) -> bool:
-        return False  # no packed format is ported yet
+        return self.pack_data is not None
 
     def require_layout(self, layout: SignatureLayout | str) -> SignatureLayout:
         layout = SignatureLayout(layout)
@@ -84,7 +106,8 @@ class MatchModel:
         return layout
 
     def pad_value_for(self, layout: SignatureLayout | str) -> Any:
-        self.require_layout(layout)
+        if self.require_layout(layout) is SignatureLayout.PACKED:
+            return self.packed_pad_value
         return self.pad_value
 
     # -- dispatch -----------------------------------------------------------
@@ -93,17 +116,27 @@ class MatchModel:
         use_kernel: bool,
         signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
     ) -> Callable[[torch.Tensor, Any], torch.Tensor]:
-        """The canonical match callable for this engine (kernel or reference)."""
-        self.require_layout(signature_layout)
+        """The canonical match callable for this engine (kernel or reference),
+        operating on tensors in the given signature layout."""
+        if self.require_layout(signature_layout) is SignatureLayout.PACKED:
+            return self.packed_kernel if use_kernel else self.packed_reference
         return self.kernel if use_kernel else self.reference
+
+    def fused_topk_fn(self) -> Optional[Callable[[torch.Tensor, Any, int], tuple]]:
+        """The fused packed match->count->local-top-k callable (None when the
+        engine has none)."""
+        return self.packed_fused_topk
 
     def prepare_queries_for(
         self, queries: Any, device: torch.device,
         signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
     ) -> Any:
-        """Raw queries -> canonical queries on `device` in the given layout."""
-        self.require_layout(signature_layout)
-        return self.prepare_queries(queries, device)
+        """Raw queries -> canonical queries on `device` in the given layout
+        (canonicalise WIDE first, then pack)."""
+        q = self.prepare_queries(queries, device)
+        if self.require_layout(signature_layout) is SignatureLayout.PACKED:
+            q = self.pack_queries(q)
+        return q
 
     def match_counts(self, data: torch.Tensor, queries: Any, use_kernel: bool,
                      signature_layout: SignatureLayout | str = SignatureLayout.WIDE) -> torch.Tensor:
@@ -114,7 +147,9 @@ class MatchModel:
 
     # -- build-time policy --------------------------------------------------
     def build_stats(self, data: torch.Tensor) -> IndexStats:
-        """Index statistics from the *prepared WIDE* tensor."""
+        """Index statistics from the *prepared WIDE* tensor (postings, count
+        bounds and the packed footprint all read the logical layout -- call
+        this before pack_data, never on the packed tensor)."""
         wide_bytes = int(data.numel()) * data.element_size()
         return IndexStats(
             n_objects=int(data.shape[0]),
@@ -122,7 +157,9 @@ class MatchModel:
             total_postings=int(self.postings_count(data)),
             bytes_device=wide_bytes,
             bytes_signatures_wide=wide_bytes,
-            bytes_signatures_packed=0,
+            bytes_signatures_packed=(
+                int(self.packed_bytes(data)) if self.packed_bytes else 0
+            ),
             extra={"engine": self.engine.value},
         )
 
@@ -169,7 +206,7 @@ def get(engine: Engine | str | MatchModel) -> MatchModel:
         raise KeyError(
             f"no MatchModel registered for engine {eng.value!r}; "
             f"known: {sorted(m.value for m in _REGISTRY)} (the other engines "
-            f"are still to be ported: ROADMAP queue 1 items 3 and 5)"
+            f"are still to be ported: ROADMAP queue 1 items 3b and 5)"
         ) from None
 
 
@@ -187,6 +224,31 @@ def _kernel_eq(data, queries):
     return kops.match_count(data, queries)
 
 
+def _kernel_cosine(data, queries):
+    from repro_torch.kernels import ops as kops
+
+    return kops.cosine_count(data, queries)
+
+
+def _kernel_packed_cosine(data, queries):
+    from repro_torch.kernels import ops as kops
+
+    return kops.packed_cosine_count(data, queries)
+
+
+def _kernel_packed_cosine_topk(data, queries, k):
+    from repro_torch.kernels import ops as kops
+
+    return kops.packed_cosine_topk(data, queries, k=k)
+
+
+def _sign_quantize(x: Any, device: torch.device) -> torch.Tensor:
+    """Raw vectors -> {-1, +1} int8 on `device` (floats by sign; {0,1} bits
+    map to -1/+1)."""
+    t = tensor_from(x).to(device)
+    return torch.where(t > 0, 1, -1).to(torch.int8).contiguous()
+
+
 register(MatchModel(
     engine=Engine.EQ,
     description="signature equality compare over LSH signatures int32 [N, m]",
@@ -199,4 +261,27 @@ register(MatchModel(
     pad_value=-1,                                          # never equals a sig
     example=lambda rng, n, q: (rng.integers(0, 8, (n, 16)).astype(np.int32),
                                rng.integers(0, 8, (q, 16)).astype(np.int32), None),
+))
+
+register(MatchModel(
+    engine=Engine.COSINE,
+    description="sign-agreement count of sign-quantized vectors {-1,+1} int8 [N, V]",
+    prepare_data=_sign_quantize,
+    prepare_queries=_sign_quantize,
+    reference=_match.match_cosine,
+    kernel=_kernel_cosine,
+    postings_count=lambda a: int(a.numel()),               # every sign is a posting
+    default_max_count=lambda a: int(a.shape[1]),          # V sign agreements max
+    pad_value=0,                                           # dot-neutral; id-masked
+    example=lambda rng, n, q: (rng.standard_normal((n, 32)).astype(np.float32),
+                               rng.standard_normal((q, 32)).astype(np.float32), None),
+    # PACKED: 32 signs per int32 word, matched by XOR+popcount; query tail
+    # bits 1 vs data tail bits 0 keep counts exact without knowing V
+    pack_data=_packing.pack_signs_data,
+    pack_queries=_packing.pack_signs_queries,
+    packed_reference=_packing.packed_cosine_match,
+    packed_kernel=_kernel_packed_cosine,
+    packed_fused_topk=_kernel_packed_cosine_topk,
+    packed_pad_value=0,                                    # all-zero words; id-masked
+    packed_bytes=_packing.packed_bytes_cosine,
 ))

@@ -1,6 +1,6 @@
 """GenieIndex: the user-facing GENIE index (paper sections II-III).
 
-Holds device-resident transformed data (LSH signatures so far) and resolves
+Holds device-resident transformed data (LSH signatures, sign vectors) and resolves
 *everything* engine-specific -- data preparation, query canonicalisation,
 kernel-vs-reference match dispatch, index statistics, count-domain bounds --
 through the MatchModel registry (core/engines.py).  Searches are thin
@@ -10,6 +10,7 @@ dispatch, pad masking, top-k selection, and merging.
 
     index = GenieIndex.build(Engine.EQ, sigs)            # any registered engine
     index = GenieIndex.build_lsh(sigs, max_count=m)      # named alias
+    index = GenieIndex.build_cosine(vectors, signature_layout="packed")
     result = index.search(query_sigs, k=100)             # TopKResult
 
 `device=None` places the index on the card and raises when there is none;
@@ -35,9 +36,12 @@ from repro_torch.device import DeviceLike, resolve_device, synchronize
 class GenieIndex:
     engine: Engine
     max_count: int
-    data: torch.Tensor                     # EQ: sigs int32 [N, m]
+    data: torch.Tensor                     # EQ: sigs int32 [N, m]; COSINE:
+    #                                        signs int8 [N, V] or words int32 [N, W]
     stats: IndexStats = dataclasses.field(default_factory=IndexStats)
     use_kernel: bool = True
+    # storage format of `data` (core/packing.py); PACKED indexes hold the
+    # packed tensor and dispatch the packed match kernels
     signature_layout: SignatureLayout = SignatureLayout.WIDE
     # routing summary (core/routing.py of the JAX package): not ported yet
     summary: None = None
@@ -52,7 +56,13 @@ class GenieIndex:
               device: DeviceLike = None) -> "GenieIndex":
         """Any registered engine, one code path.
 
-        `max_count` defaults to the engine's derived count bound (m for EQ).
+        `max_count` defaults to the engine's derived count bound (m for EQ,
+        V for COSINE).
+
+        `signature_layout=PACKED` packs the prepared tensor once at seal time
+        (COSINE signs -> int32-word bitfields) for engines with a packed
+        format; counts and top-k results are bit-for-bit identical to WIDE,
+        only the device footprint and the match's memory traffic shrink.
         """
         dev = resolve_device(device)
         model = _engines.get(engine)
@@ -61,8 +71,14 @@ class GenieIndex:
         # a negative build duration
         t0 = time.perf_counter()
         arr = model.prepare_data(data, dev)
+        # stats, postings and the count bound read the *logical* WIDE shape:
+        # resolve them before packing (the packed width is words, not slots)
         stats = model.build_stats(arr)
         max_count = model.resolve_max_count(arr, max_count)
+        if layout is SignatureLayout.PACKED:
+            arr = model.pack_data(arr)
+            stats.signature_layout = layout.value
+            stats.bytes_device = int(arr.numel()) * arr.element_size()
         # the copy to the device is asynchronous; without this the timer
         # reports enqueue time, not build time
         synchronize(dev)
@@ -77,6 +93,16 @@ class GenieIndex:
         """EQ engine over LSH signatures int32 [N, m]."""
         return cls.build(Engine.EQ, signatures, max_count=max_count,
                          use_kernel=use_kernel, device=device)
+
+    @classmethod
+    def build_cosine(cls, vectors, max_count: int | None = None,
+                     use_kernel: bool = True,
+                     signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
+                     device: DeviceLike = None):
+        """COSINE engine over raw vectors [N, V] (sign-quantized at build)."""
+        return cls.build(Engine.COSINE, vectors, max_count=max_count,
+                         use_kernel=use_kernel, signature_layout=signature_layout,
+                         device=device)
 
     # ------------------------------------------------------------------
     # Matching + selection

@@ -10,17 +10,18 @@ name instead of string-keyed if-chains.
     params = scheme.make_params(gen, d=32, m=238, w=4.0, n_buckets=8192)
     sigs = scheme.hash_points(params, x)
 
-`make_params` filters its keyword options to what the scheme accepts, so one
-call site can carry the union of options.  Register a new family with
-`register_scheme`.  Only `e2lsh` is ported so far; rbh, simhash and minhash
-come with their engines (ROADMAP queue 1 item 3).
+`make_params` filters its keyword options to what the scheme accepts (e.g.
+`w` for e2lsh, nothing for simhash), so one call site can carry the union of
+options.  Register a new family with `register_scheme`.  `e2lsh` (-> EQ) and
+`simhash` (-> COSINE) are ported so far; rbh and minhash come with their
+engines (ROADMAP queue 1 item 3b).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.core.lsh import e2lsh, rehash, tau_ann  # noqa: F401
+from repro_torch.core.lsh import e2lsh, rehash, simhash, tau_ann  # noqa: F401
 from repro_torch.core.types import Engine
 
 
@@ -29,9 +30,10 @@ class LshScheme:
     """Descriptor for one LSH family (paper section IV).
 
     `engine` names the MatchModel that consumes this family's signatures
-    (bucketed schemes count collisions with EQ), and `mle` inverts a match
-    count into the similarity the family estimates.  Serving resolves both by
-    scheme name, so selecting a scheme selects the whole engine stack.
+    (bucketed schemes count collisions with EQ, simhash bits count sign
+    agreements with COSINE), and `mle` inverts a match count into the
+    similarity the family estimates.  Serving resolves both by scheme name,
+    so selecting a scheme selects the whole engine stack.
     """
 
     name: str
@@ -78,4 +80,14 @@ register_scheme(LshScheme(
     make=e2lsh.make,
     hash_points=e2lsh.hash_points,
     option_names=("w", "p", "n_buckets"),
+))
+
+register_scheme(LshScheme(
+    name="simhash",
+    description="signed random projection for angular similarity (Charikar)",
+    make=simhash.make,
+    hash_points=simhash.hash_points,
+    option_names=(),
+    engine=Engine.COSINE,                 # bits become +-1 sign agreements
+    mle=simhash.mle_cosine,
 ))

@@ -39,6 +39,12 @@ class E2LSHParams:
     p: int
     n_buckets: int
 
+    @property
+    def dims(self) -> tuple[int, int]:
+        """(m hash functions, d input dimensions)."""
+        m, d = self.a.shape
+        return int(m), int(d)
+
     def to(self, device: DeviceLike) -> "E2LSHParams":
         return dataclasses.replace(self, a=self.a.to(device), b=self.b.to(device),
                                    seeds=self.seeds.to(device))

@@ -4,8 +4,8 @@ Each function computes counts[q, n] = MC(Q_q, O_n) for a query batch against
 all objects.  These plain PyTorch implementations are the semantics oracles
 for the CUDA kernels in repro_torch.kernels and the path a CPU tensor takes.
 They are not called directly by the index machinery: engine dispatch goes
-through the MatchModel registry (core/engines.py).  Only the EQ engine is
-ported so far.
+through the MatchModel registry (core/engines.py).  The EQ and COSINE
+engines are ported so far.
 
 Memory note: counts are bounded by max_count (m hash functions / #attributes /
 #grams) -- the paper's Bitmap-Counter observation (section III-C) -- so an int8
@@ -39,3 +39,25 @@ def match_eq(data_sigs: torch.Tensor, query_sigs: torch.Tensor, chunk: int = 8) 
         hit = query_sigs[:, None, s:s + chunk] == data_sigs[None, :, s:s + chunk]
         acc += hit.sum(dim=-1, dtype=torch.int32)
     return acc
+
+
+def match_cosine(data_sgn: torch.Tensor, query_sgn: torch.Tensor, chunk: int = 8) -> torch.Tensor:
+    """COSINE engine: counts[q, n] = #sign agreements = (V + <s_q, s_n>) // 2.
+
+    data_sgn / query_sgn are sign-quantized vectors in {-1, +1} ([N, V] /
+    [Q, V]) -> int32 [Q, N]; the agreement count of simhash bits equals the
+    shifted +-1 inner product (kernels/cosine_count.py computes it on the
+    card).  V + dot is even for genuine +-1 rows, so the halving is exact;
+    zero pad rows floor to V // 2.  Products of int8 values are taken in
+    int16 (exact for any int8 pair), so the temp stays [Q, N, chunk] int16.
+    """
+    v = int(data_sgn.shape[1])
+    q, n = query_sgn.shape[0], data_sgn.shape[0]
+    d = data_sgn.to(torch.int16)
+    s = query_sgn.to(torch.int16)
+    dot = torch.zeros((q, n), dtype=torch.int32, device=data_sgn.device)
+    for start in range(0, v, chunk):
+        prod = s[:, None, start:start + chunk] * d[None, :, start:start + chunk]
+        dot += prod.sum(dim=-1, dtype=torch.int32)
+        del prod
+    return torch.div(v + dot, 2, rounding_mode="floor")

@@ -16,10 +16,14 @@ Layouts ported so far, and their merge strategies:
                rows); per-part buffers of width min(k, rows) merged exactly
                by `merge_ragged` (parts partition the object set).
 
-MULTILOAD (part streaming), DISTRIBUTED (mesh shards), routed plans, PACKED
-signatures with the fused match->top-k kernels, tile overrides and the
-autotuner are parts of `repro/core/plan.py` that are still to be ported;
-planning one of them raises NotImplementedError naming its ROADMAP item.
+PACKED signatures are planned like WIDE ones; on the kernel path of both
+ported layouts with nothing padded, a PACKED plan carries the engine's fused
+match->count->local-top-k kernel (`fused_match`), which replaces the count
+matrix, the pad mask and `select_topk` (and so ignores `method` and
+`candidate_cap`, as the reference does).  MULTILOAD (part streaming),
+DISTRIBUTED (mesh shards), routed plans, tile overrides and the autotuner
+are parts of `repro/core/plan.py` that are still to be ported; planning one
+of them raises NotImplementedError naming its ROADMAP item.
 
 PyTorch runs eagerly, so there is no compiled executable to cache: the JAX
 package's `_EXEC_CACHE`, `trace_count`, `plan_cache_size` and
@@ -41,6 +45,7 @@ from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.core import cpq as _cpq
 from repro_torch.core import engines as _engines
 from repro_torch.core import merge as _merge
 from repro_torch.core import routing as _routing
@@ -86,6 +91,9 @@ class QueryPlan:
     fused_hist: bool = False           # histogram from the CUDA kernel
     # signature storage format the match fn expects
     signature_layout: SignatureLayout = SignatureLayout.WIDE
+    # fused match->count->local-top-k kernel fn(data, queries, k) ->
+    # (ids, counts) candidate buffers; None => count matrix + select_topk
+    fused_match: Optional[Callable[[torch.Tensor, Any, int], tuple]] = None
     # coarse routing mode; always NONE until the router is ported
     routing: Routing = Routing.NONE
 
@@ -136,6 +144,7 @@ class QueryPlan:
             merge=self.merge_strategy(),
             fused_hist=self.fused_hist,
             signature_layout=self.signature_layout.value,
+            fused_match=self.fused_match is not None,
             routing=self.routing.value,
         )
 
@@ -163,6 +172,15 @@ def plan_search(
     Layout shape: pass `part_rows` (explicit, possibly ragged part sizes).
     `n_objects` is the count of real rows when the data carries engine-fill
     pad rows past it; those can then never reach a result.
+
+    `signature_layout` selects the storage format the data/queries arrive in
+    (core/packing.py): PACKED plans dispatch the packed match fns and -- on
+    the kernel path with nothing padded -- the fused
+    match->count->local-top-k kernel, so the [Q, N] count matrix is never
+    written.  Engines without a packed format reject PACKED here.  The
+    reference also lets a measured autotune entry switch the fusion off;
+    the autotuner is not ported (ROADMAP queue 1 item 8), so that clause of
+    the gating is left out.
     """
     sig_layout = SignatureLayout(signature_layout)
     model: Optional[_engines.MatchModel] = None
@@ -194,11 +212,22 @@ def plan_search(
     # (the JAX package keeps the plain histogram on its scan / shard_map
     # layouts, which are not ported yet).
     fused = use_kernel and layout in (Layout.MONOLITHIC, Layout.SEGMENTED)
+    # The fused match->count->local-top-k kernel replaces the whole
+    # count+select pipeline.  Same gating as fused_hist, plus n_objects None:
+    # the kernel masks rows by *physical* row id, so engine-filled pad rows
+    # must not be present -- padded data keeps the packed count kernel + the
+    # structural _mask_pad_counts instead.
+    fused_topk = None
+    if (model is not None and sig_layout is SignatureLayout.PACKED
+            and use_kernel and n_objects is None
+            and layout in (Layout.MONOLITHIC, Layout.SEGMENTED)):
+        fused_topk = model.fused_topk_fn()
     return QueryPlan(
         match=match, params=params, layout=layout, part_rows=rows,
         n_objects=n_objects, engine=model.engine if model else None,
         pad_value=model.pad_value_for(sig_layout) if model else None,
-        fused_hist=fused, signature_layout=sig_layout, routing=routing,
+        fused_hist=fused, signature_layout=sig_layout,
+        fused_match=fused_topk, routing=routing,
     )
 
 
@@ -292,12 +321,37 @@ def pad_to_multiple(data: torch.Tensor, multiple: int, pad_value) -> tuple[torch
 # Executors: the ONLY callers of match kernels, pad masks, select, and merge
 # ---------------------------------------------------------------------------
 
+def _fused_candidates_topk(fused_match, data: torch.Tensor, queries: Any,
+                           k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run a fused match->count->local-top-k kernel and reduce its per-tile
+    candidate buffers to the final (ids, counts) [Q, k].
+
+    Per-tile buffers arrive in (count desc, id asc) order with tiles in
+    ascending id ranges, so the buffer as a whole is id-ascending within
+    equal counts -- exactly what topk_from_candidates' stable merge needs
+    for the global tie-break."""
+    cids, ccnt = fused_match(data, queries, k)
+    if cids.shape[1] < k:  # tiny corpus: fewer candidate slots than k
+        fill = cids.new_full((cids.shape[0], k - cids.shape[1]), -1)
+        cids = torch.cat([cids, fill], dim=1)
+        ccnt = torch.cat([ccnt, fill], dim=1)
+    # genielint: ignore[executor-sovereignty] -- the port's own executor
+    return _cpq.topk_from_candidates(cids, ccnt, k)
+
+
 def _part_topk(plan: QueryPlan, data: torch.Tensor, queries: Any, offset: int,
                k: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """One part's candidate buffer: match -> pad mask -> select -> globalise.
+    """One part's candidate buffer: match -> pad mask -> select -> globalise
+    (or the fused kernel in place of the first three).
 
     The shared core of every layout.  Returns (global ids, counts), both
     [Q, k], empty slots -1."""
+    if plan.fused_match is not None:
+        # fused plans are never masked (plan_search gates on n_objects None):
+        # the kernel's own physical-row masking is exhaustive
+        ids, cnts = _fused_candidates_topk(plan.fused_match, data, queries,
+                                           plan.params.k if k is None else k)
+        return torch.where(ids >= 0, ids + offset, -1), cnts
     params = plan.params if k is None or k == plan.params.k \
         else dataclasses.replace(plan.params, k=k)
     # genielint: ignore[executor-sovereignty] -- the port's own executor
@@ -311,6 +365,10 @@ def _part_topk(plan: QueryPlan, data: torch.Tensor, queries: Any, offset: int,
 
 
 def _run_monolithic(plan: QueryPlan, data: torch.Tensor, queries: Any) -> TopKResult:
+    if plan.fused_match is not None:
+        ids, counts = _fused_candidates_topk(plan.fused_match, data, queries,
+                                             plan.params.k)
+        return TopKResult(ids=ids, counts=counts, threshold=counts[:, -1])
     # genielint: ignore[executor-sovereignty] -- the port's own executor
     counts = _mask_pad_counts(plan.match(data, queries), 0, plan.n_objects)
     # selection is the merge: return select_topk's result (threshold

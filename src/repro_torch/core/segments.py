@@ -24,9 +24,13 @@ preserves that order, so compaction never remaps an id.
     res = seg.search(queries, k=10)    # == monolithic GenieIndex search
     seg.compact(max_segments=1)        # coalesce; ids unchanged
 
+Segments are sealed in the index's signature layout: PACKED (COSINE) segments
+hold packed words, a compaction concatenates them row-wise (still valid
+packed rows), and `search` packs the queries.
+
 Not ported yet: `search_multiload` (ROADMAP queue 1 item 4), `router()` and
-routed search (queue 1 item 6), PACKED segments (queue 1 item 3) and the
-autotuned layout switch (queue 1 item 8).
+routed search (queue 1 item 6) and the autotuned layout switch (queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -82,6 +86,7 @@ class SegmentedIndex:
     segments: list[GenieIndex] = dataclasses.field(default_factory=list)
     compaction_count: int = 0
     compaction_seconds: float = 0.0
+    # storage format every segment is sealed into (core/packing.py)
     signature_layout: SignatureLayout = SignatureLayout.WIDE
     device: DeviceLike = None
 
@@ -92,12 +97,16 @@ class SegmentedIndex:
     @classmethod
     def from_segments(cls, segment_data: Sequence, engine: Engine | str = Engine.EQ,
                       max_count: Optional[int] = None, use_kernel: bool = True,
-                      device: DeviceLike = None) -> "SegmentedIndex":
-        """Rebuild an index from per-segment prepared arrays (numpy or
+                      device: DeviceLike = None,
+                      signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
+                      ) -> "SegmentedIndex":
+        """Rebuild an index from per-segment prepared WIDE arrays (numpy or
         tensors) in global-id order -- the state another implementation's
-        segments hand over, one array per sealed segment."""
+        segments hand over, one array per sealed segment.  Each is sealed
+        into `signature_layout` here (PACKED: packed on this side)."""
         index = cls(engine=Engine(engine), max_count=max_count,
-                    use_kernel=use_kernel, device=device)
+                    use_kernel=use_kernel, device=device,
+                    signature_layout=signature_layout)
         for data in segment_data:
             index.add(data)
         return index
@@ -208,7 +217,9 @@ class SegmentedIndex:
             synchronize(arr.device)
             t_total += time.perf_counter() - t0
             # aggregate the sources' stats instead of recomputing on `arr`:
-            # every field is additive (or a max).  The merged segment keeps
+            # every field is additive (or a max), and a PACKED `arr` holds
+            # words -- build_stats would misread its width as signature
+            # slots.  The merged segment keeps
             # its sources' *build* time; the concat cost is compaction
             # accounting, not build accounting.
             stats = IndexStats(

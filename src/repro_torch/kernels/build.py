@@ -7,8 +7,9 @@ linked into one shared library with a plain C interface, which `ctypes`
 loads.  The sources include no PyTorch header, so a build takes seconds.
 Nothing is built at import: `load()` builds at first use, from the sources in
 this package and nothing else, into `_build/` beside this file (git-ignored).
-The library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and a finished build is reused.  A failed build raises; no
+The library's name carries a hash of the sources, the headers they include
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt and a
+finished build is reused.  A failed build raises; no
 caller falls back to another path.
 
 Pointers and the stream cross the C boundary as `c_void_p`: without
@@ -39,7 +40,13 @@ _BUILD_SECONDS: Optional[float] = None
 
 
 def sources() -> list[Path]:
+    """The translation units, one compiler process each."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    """The headers the sources include: hashed with them, not compiled."""
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -61,7 +68,7 @@ def find_nvcc() -> str:
 
 def _digest(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in [*srcs, *headers()]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -143,5 +150,20 @@ def load() -> ctypes.CDLL:
         # int repro_cpq_hist(counts, hist, n, n_query, nbins, stream)
         lib.repro_cpq_hist.argtypes = [ptr, ptr, i64, i32, i32, ptr]
         lib.repro_cpq_hist.restype = i32
+        # int repro_cosine_count(data, query, out, n_data, n_query, v, stream)
+        lib.repro_cosine_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_cosine_count.restype = i32
+        # int repro_packed_cosine_count(data, query, out, n_data, n_query, w, stream)
+        lib.repro_packed_cosine_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_packed_cosine_count.restype = i32
+        # int repro_packed_cosine_topk_plan(n_data, n_query, w, *grid, *scratch_ints)
+        lib.repro_packed_cosine_topk_plan.argtypes = [
+            i64, i32, i32, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+        lib.repro_packed_cosine_topk_plan.restype = i32
+        # int repro_packed_cosine_topk(data, query, ids, counts, n_data, n_query,
+        #                              w, kc, grid, scratch, stream)
+        lib.repro_packed_cosine_topk.argtypes = [
+            ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
+        lib.repro_packed_cosine_topk.restype = i32
         _LIB = lib
     return _LIB

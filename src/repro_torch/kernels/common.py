@@ -27,16 +27,16 @@ def reset_launch_counts() -> None:
 
 
 def check_operand(name: str, x: torch.Tensor, ndim: int,
-                  device: torch.device) -> None:
-    """What every kernel takes: a contiguous int32 CUDA tensor of the given
-    rank on `device`.  Raises on anything else -- the kernels read raw
-    pointers."""
+                  device: torch.device, dtype: torch.dtype = torch.int32) -> None:
+    """What every kernel takes: a contiguous CUDA tensor of the given rank
+    and dtype (int32 unless said otherwise) on `device`.  Raises on anything
+    else -- the kernels read raw pointers."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(x).__name__}")
     if x.device != device:
         raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if x.dtype != torch.int32:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected torch.int32")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
     if x.dim() != ndim:
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {ndim} dims")
     if not x.is_contiguous():

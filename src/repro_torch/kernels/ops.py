@@ -1,23 +1,29 @@
 """Public entries of the kernel layer: what the GENIE engines call.
 
-The counterpart of `repro/kernels/ops.py`, with the EQ and c-PQ histogram
-entries only (the other nine kernels are still to be ported).  The TPU
-wrappers pad inputs to tile multiples with sentinels and slice the result
-back; the CUDA kernels mask their ragged edges themselves, so an entry here
-only brings its operands to the form the kernel takes (int32, contiguous --
-the same `astype(int32)` the reference applies) and calls the wrapper.
-`repro_torch.kernels.ref` holds the oracles.
+The counterpart of `repro/kernels/ops.py`, with the EQ, c-PQ histogram and
+COSINE (WIDE and PACKED) entries (the other six kernels are still to be
+ported).  The TPU wrappers pad inputs to tile multiples with sentinels and
+slice the result back; the CUDA kernels mask their ragged edges themselves,
+so an entry here only brings its operands to the form the kernel takes (int32
+or int8 signs, contiguous -- the cast the reference applies) and calls the
+wrapper.  `repro_torch.kernels.ref` holds the oracles.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cosine_count as _cos
 from repro_torch.kernels import cpq_hist as _cpq_hist
 from repro_torch.kernels import match_count as _mc
+from repro_torch.kernels import packed_cosine as _pcos
 
 
 def _int32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
+
+
+def _int8(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int8).contiguous()
 
 
 def match_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.Tensor:
@@ -28,3 +34,23 @@ def match_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.Tens
 def cpq_hist(counts: torch.Tensor, max_count: int) -> torch.Tensor:
     """c-PQ Gate histogram: int32 [Q, max_count + 1]."""
     return _cpq_hist.cpq_hist(_int32(counts), max_count)
+
+
+def cosine_count(data_sgn: torch.Tensor, query_sgn: torch.Tensor) -> torch.Tensor:
+    """COSINE engine kernel: sign-agreement counts int32 [Q, N] from sign
+    vectors in {-1, 0, +1} (zero rows floor to V // 2)."""
+    return _cos.cosine_count(_int8(data_sgn), _int8(query_sgn))
+
+
+def packed_cosine_count(data_words: torch.Tensor, query_words: torch.Tensor) -> torch.Tensor:
+    """Packed COSINE kernel: XOR+popcount agreement counts int32 [Q, N] from
+    the word matrices of core/packing.py (query tail bits 1, data tail 0)."""
+    return _pcos.packed_cosine_count(_int32(data_words), _int32(query_words))
+
+
+def packed_cosine_topk(data_words: torch.Tensor, query_words: torch.Tensor, *,
+                       k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused packed COSINE match->count->local-top-k: (ids, counts) int32
+    [Q, n_tiles * min(k, TILE_N)] candidate buffers in per-tile (count desc,
+    id asc) order; ids are object ids, empty slots are -1 / -1."""
+    return _pcos.packed_cosine_topk(_int32(data_words), _int32(query_words), k)

@@ -1,0 +1,142 @@
+"""Packed COSINE match-count via XOR + popcount: the CUDA kernels' wrappers
+and their plain PyTorch versions.
+
+Signatures arrive bit-packed (core/packing.py): 32 signs per int32 word, data
+tail bits 0 and query tail bits 1, so
+
+    counts[q, n] = 32*W - popcount(q_words[q] XOR d_words[n])
+
+needs no knowledge of V.  Two entry points, both kernels in
+`csrc/packed_cosine.cu` (whose header says what bounds them on an H100 and
+what the design does about it):
+
+  packed_cosine_count  -- counts int32 [Q, N].  Replaces `_count_kernel` /
+      `packed_cosine_count_pallas` (`src/repro/kernels/packed_cosine.py`).
+  packed_cosine_topk   -- the fused match -> count -> per-tile local top-k.
+      Replaces `_topk_kernel` + `local_topk_tile`: each tile of TILE_N data
+      rows contributes its kc = min(k, TILE_N) best candidates by (count desc,
+      id asc), and only the candidate buffers ids / counts int32
+      [Q, ceil(N / TILE_N) * kc] reach device memory -- never the [Q, N]
+      count matrix.  Tiles come in ascending id order, exhausted slots are
+      -1 / -1: the contract `plan._fused_candidates_topk` relies on.
+
+TILE_N is this port's own choice (2048; the TPU kernel takes 256): only the
+result after `topk_from_candidates` has to equal the reference, and wider
+tiles shrink the candidate buffers (113 MB per 281,250-row segment at
+Q = 1024, k = 100, against 900 MB at 256).
+
+Each wrapper launches its kernel for CUDA tensors and raises when it cannot;
+it takes its plain version only for tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.packing import packed_cosine_match
+from repro_torch.kernels import build, common
+
+# data rows per tile of the fused kernel: K_TN in csrc/packed_cosine.cu, which
+# must agree (tests/test_torch_cosine.py reads it from the source)
+TILE_N = 2048
+
+# The plain PyTorch version of the count kernel is the layout's reference
+# semantics, `core.packing.packed_cosine_match`, bound here under the
+# kernel's name so the two stand side by side.
+packed_cosine_count_plain = packed_cosine_match
+
+
+def packed_cosine_topk_plain(data_words: torch.Tensor, query_words: torch.Tensor,
+                             k: int, tile_n: int = TILE_N) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel's candidate buffers computed the plain way: the full
+    count matrix, cut into tiles of `tile_n` ids (the last one filled with
+    count -1), each tile ordered by a stable descending sort of its counts
+    (ids ascending within equal counts) and cut to its first kc = min(k,
+    tile_n) entries; a slot whose count is -1 becomes id -1."""
+    if k < 1:
+        raise ValueError(f"packed_cosine_topk: k must be >= 1, got {k}")
+    counts = packed_cosine_count_plain(data_words, query_words)
+    q, n = counts.shape
+    kc = min(int(k), int(tile_n))
+    n_tiles = -(-n // tile_n)
+    pad = n_tiles * tile_n - n
+    if pad:
+        counts = torch.cat([counts, counts.new_full((q, pad), -1)], dim=1)
+    vals, idx = torch.sort(counts.reshape(q, n_tiles, tile_n), dim=-1,
+                           descending=True, stable=True)
+    del counts
+    vals, idx = vals[..., :kc], idx[..., :kc]
+    first = torch.arange(n_tiles, dtype=torch.int64, device=idx.device)[None, :, None] * tile_n
+    ids = torch.where(vals >= 0, idx + first, -1).to(torch.int32)
+    cnts = torch.where(vals >= 0, vals, -1).to(torch.int32)
+    return ids.reshape(q, n_tiles * kc), cnts.reshape(q, n_tiles * kc)
+
+
+def _operands(name: str, data_words: torch.Tensor, query_words: torch.Tensor):
+    device = data_words.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    common.check_operand(f"{name} data_words", data_words, 2, device)
+    common.check_operand(f"{name} query_words", query_words, 2, device)
+    n, w = data_words.shape
+    if query_words.shape[1] != w:
+        raise ValueError(
+            f"{name}: word widths differ, data {w} vs queries {query_words.shape[1]}")
+    if w == 0:
+        raise ValueError(f"{name}: packed rows hold no words")
+    return device, n, query_words.shape[0], w
+
+
+def packed_cosine_count(data_words: torch.Tensor, query_words: torch.Tensor) -> torch.Tensor:
+    """counts int32 [Q, N] from packed words int32 [N, W] and [Q, W]."""
+    if data_words.device.type == "cpu" and query_words.device.type == "cpu":
+        return packed_cosine_count_plain(data_words, query_words)
+    device, n, q, w = _operands("packed_cosine_count", data_words, query_words)
+    out = torch.empty((q, n), dtype=torch.int32, device=device)
+    if q == 0 or n == 0:
+        return out
+    lib = build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.repro_packed_cosine_count(
+            data_words.data_ptr(), query_words.data_ptr(), out.data_ptr(),
+            n, q, w, stream)
+    common.check_status("packed_cosine_count", status)
+    common.note_launch("packed_cosine_count")
+    return out
+
+
+def packed_cosine_topk(data_words: torch.Tensor, query_words: torch.Tensor,
+                       k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ids, counts) int32 [Q, ceil(N / TILE_N) * min(k, TILE_N)]: per-tile
+    candidates in (count desc, id asc) order, tiles ascending, exhausted
+    slots -1 / -1."""
+    if data_words.device.type == "cpu" and query_words.device.type == "cpu":
+        return packed_cosine_topk_plain(data_words, query_words, k)
+    if k < 1:
+        raise ValueError(f"packed_cosine_topk: k must be >= 1, got {k}")
+    device, n, q, w = _operands("packed_cosine_topk", data_words, query_words)
+    kc = min(int(k), TILE_N)
+    slots = -(-n // TILE_N) * kc
+    ids = torch.empty((q, slots), dtype=torch.int32, device=device)
+    cnts = torch.empty((q, slots), dtype=torch.int32, device=device)
+    if q == 0 or n == 0:
+        return ids, cnts
+    lib = build.load()
+    with torch.cuda.device(device):
+        grid, scratch_ints = ctypes.c_int(), ctypes.c_longlong()
+        status = lib.repro_packed_cosine_topk_plan(
+            n, q, w, ctypes.byref(grid), ctypes.byref(scratch_ints))
+        common.check_status("packed_cosine_topk (plan)", status)
+        # histogram bins that do not fit in shared memory (W > 161)
+        scratch = (torch.empty(scratch_ints.value, dtype=torch.int32, device=device)
+                   if scratch_ints.value else None)
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.repro_packed_cosine_topk(
+            data_words.data_ptr(), query_words.data_ptr(), ids.data_ptr(),
+            cnts.data_ptr(), n, q, w, kc, grid.value,
+            None if scratch is None else scratch.data_ptr(), stream)
+    common.check_status("packed_cosine_topk", status)
+    common.note_launch("packed_cosine_topk")
+    return ids, cnts

@@ -7,7 +7,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.match import match_eq  # noqa: F401
+from repro_torch.core.match import match_cosine, match_eq  # noqa: F401
+from repro_torch.core.packing import packed_cosine_match  # noqa: F401
 
 
 def cpq_hist(counts: torch.Tensor, nbins: int) -> torch.Tensor:

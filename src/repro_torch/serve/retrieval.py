@@ -8,8 +8,16 @@ paper's throughput regime.
 
 Selecting a scheme by name selects the whole engine stack: each LshScheme
 names the match engine that consumes its signatures (e2lsh -> EQ bucket
-collisions) and the MLE that converts match counts back to similarity
-estimates.
+collisions, simhash -> COSINE sign agreements) and the MLE that converts
+match counts back to similarity estimates, so `RetrievalService(
+scheme="simhash")` serves quantized cosine with no other change.
+
+`signature_layout="packed"` seals every segment bit-packed (simhash ->
+COSINE sign words, 32 signs per int32 word; core/packing.py): results are
+identical to WIDE, the signatures take 8x less device memory, and a search
+runs the fused match -> count -> per-tile top-k kernel, which never writes
+the [Q, N] count matrix.  WIDE-only engines (e2lsh -> EQ) reject it at
+construction.
 
 `add` may be called repeatedly: each batch is hashed once and sealed into an
 immutable index *segment* (core/segments.py) -- O(batch) device work per
@@ -22,14 +30,14 @@ partition the object set), so results are identical to a monolithic rebuild.
 Device rule: `device=None` means the card, and raises when there is none;
 `device="cpu"` runs the plain PyTorch path.  `add`/`search` accept numpy
 arrays or tensors; a tensor already on the device is not copied through the
-host.  The E2LSH projection is a float32 matrix product: the service turns
-TF32 off for CUDA matmuls when it is built, because a TF32 product would move
-points across bucket boundaries.
+host.  The E2LSH and simhash projections are float32 matrix products: the
+service turns TF32 off for CUDA matmuls when it is built, because a TF32
+product would move points across bucket boundaries or flip signs near 0.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-sharded serving (`mesh=`), PACKED signature storage, routed search
-(`routing=` / `nprobe=`), the autotuner (`autotune=`, `tune()`); and the
-schemes other than e2lsh.
+sharded serving (`mesh=`), routed search (`routing=` / `nprobe=`), the
+autotuner (`autotune=`, `tune()`); and the schemes minhash and rbh (queue 1
+item 3b; `get_scheme` raises KeyError for them).
 """
 from __future__ import annotations
 
@@ -69,7 +77,8 @@ class RetrievalService:
     use_kernel: bool = True                        # CUDA kernels vs plain PyTorch
     device: DeviceLike = None                      # None = the card
     # scheme parameters handed over from elsewhere (e.g.
-    # lsh.e2lsh.params_from_numpy) in place of drawing them from `seed`
+    # lsh.e2lsh.params_from_numpy, lsh.simhash.params_from_numpy) in place of
+    # drawing them from `seed`
     params: Optional[object] = None
 
     def __post_init__(self):
@@ -107,7 +116,7 @@ class RetrievalService:
                 "the LSH parameters are already fixed (by an earlier "
                 "load_params() or the first add()); they are built once per "
                 "service")
-        m, d = (int(s) for s in params.a.shape)
+        m, d = params.dims          # the scheme's own parameter shape
         if m != self.m:
             raise ValueError(
                 f"parameters carry {m} hash functions but the service is "
@@ -244,7 +253,8 @@ class RetrievalService:
         qsigs = self._hash(emb)
         res = self._index.search(qsigs, k=k, method=method,
                                  candidate_cap=candidate_cap, routing=routing)
-        # scheme-paired MLE: c/m for bucketed families (Eqn 7)
+        # scheme-paired MLE: c/m for bucketed families (Eqn 7), the simhash
+        # angle inversion for COSINE
         sims = self._scheme.mle(res.counts.cpu().numpy(), self.m)
         return res, sims
 

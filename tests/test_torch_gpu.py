@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import TopKMethod
+from repro_torch.core import TopKMethod, packing
 from repro_torch.kernels import common, ops
+from repro_torch.kernels.cosine_count import cosine_count_plain
 from repro_torch.kernels.cpq_hist import cpq_hist_plain
 from repro_torch.kernels.match_count import match_count, match_count_plain
+from repro_torch.kernels.packed_cosine import (packed_cosine_count_plain,
+                                               packed_cosine_topk_plain)
 from repro_torch.serve import RetrievalService
 
 SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (70, 10003, 238)]  # (Q, N, m)
@@ -61,3 +64,44 @@ def test_service_kernel_path_equals_plain_path_on_the_card():
         assert torch.equal(a.ids, b.ids) and torch.equal(a.counts, b.counts)
         assert torch.equal(a.threshold, b.threshold)
         assert a.ids[:, 0].tolist() == list(range(0, 3000, 100))
+
+
+@pytest.mark.gpu
+def test_cosine_kernels_equal_plain_versions_on_the_card():
+    _need_card()
+    gen = torch.Generator().manual_seed(1)
+    common.reset_launch_counts()
+    for q, n, v in SHAPES:
+        d = (torch.randint(0, 2, (n, v), generator=gen, dtype=torch.int8) * 2 - 1).cuda()
+        s = (torch.randint(0, 2, (q, v), generator=gen, dtype=torch.int8) * 2 - 1).cuda()
+        d[::7] = 0                                 # pad rows floor to V // 2
+        assert torch.equal(ops.cosine_count(d, s), cosine_count_plain(d, s))
+        dw, sw = packing.pack_signs_data(d), packing.pack_signs_queries(s)
+        assert torch.equal(ops.packed_cosine_count(dw, sw), packed_cosine_count_plain(dw, sw))
+        for k in (1, 10):
+            got = ops.packed_cosine_topk(dw, sw, k=k)
+            want = packed_cosine_topk_plain(dw, sw, k)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"cosine_count": 5, "packed_cosine_count": 5,
+                                      "packed_cosine_topk": 10}
+
+
+@pytest.mark.gpu
+def test_simhash_service_packed_equals_wide_on_the_card():
+    _need_card()
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((3000, 16)).astype(np.float32)
+    results = {}
+    for layout in ("wide", "packed"):
+        for use_kernel in (True, False):
+            svc = RetrievalService(scheme="simhash", m_override=64, use_kernel=use_kernel,
+                                   max_segments=4, signature_layout=layout)
+            for lo in range(0, 3000, 500):
+                svc.add(range(lo, lo + 500), embeddings=emb[lo:lo + 500])
+            results[(layout, use_kernel)] = svc.search(None, k=10, embeddings=emb[::100])[0]
+    base = results[("wide", False)]
+    for res in results.values():
+        assert res.ids.is_cuda
+        assert torch.equal(res.ids, base.ids) and torch.equal(res.counts, base.counts)
+    assert base.ids[:, 0].tolist() == list(range(0, 3000, 100))

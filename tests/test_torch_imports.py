@@ -24,7 +24,9 @@ _MODULES = sorted(
 def test_module_list_covers_the_slice():
     for name in ("repro_torch.core.plan", "repro_torch.core.lsh.e2lsh",
                  "repro_torch.kernels.build", "repro_torch.kernels.match_count",
-                 "repro_torch.kernels.cpq_hist", "repro_torch.serve.retrieval"):
+                 "repro_torch.kernels.cpq_hist", "repro_torch.serve.retrieval",
+                 "repro_torch.core.lsh.simhash", "repro_torch.core.packing",
+                 "repro_torch.kernels.cosine_count", "repro_torch.kernels.packed_cosine"):
         assert name in _MODULES
 
 
@@ -74,8 +76,11 @@ def _needs_no_cuda():
     lambda: GenieIndex.build_lsh([[1, 2], [3, 4]]),
     lambda: resolve_device(None),
     lambda: resolve_device("cuda"),
+    lambda: RetrievalService(scheme="simhash", signature_layout="packed"),
+    lambda: GenieIndex.build_cosine([[1.0, -2.0], [3.0, 4.0]], signature_layout="packed"),
 ], ids=["service", "service-device-none", "segmented", "index-build",
-        "index-build-lsh", "resolve-none", "resolve-cuda"])
+        "index-build-lsh", "resolve-none", "resolve-cuda", "service-simhash-packed",
+        "index-build-cosine"])
 def test_default_device_raises_without_cuda(build):
     """No silent run on the CPU: the default device is the card."""
     _needs_no_cuda()

@@ -134,7 +134,7 @@ def test_segmented_index_validation(rng):
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         seg.search(_sigs(rng, 2), k=3, routing="routed")
     with pytest.raises(KeyError, match="still to be ported"):
-        SegmentedIndex(Engine.COSINE, device="cpu")
+        SegmentedIndex(Engine.TANIMOTO, device="cpu")
 
 
 def test_concat_data_pads_and_a_padded_plan_masks(rng):
@@ -182,8 +182,8 @@ def test_describe_equals_reference_where_ported(layout, rows, n_objects, use_ker
     assert set(got) <= set(want)
     assert got == {key: want[key] for key in got}
     # what the port leaves out is exactly the unported machinery
-    assert set(want) - set(got) == {"host_loop", "hierarchical", "mesh_axes", "fused_match",
-                                    "nprobe", "tile_overrides"}
+    assert set(want) - set(got) == {"host_loop", "hierarchical", "mesh_axes", "nprobe",
+                                    "tile_overrides"}
 
 
 def test_plan_is_hashable_and_validates():
@@ -247,7 +247,7 @@ def test_segment_helpers_equal_reference():
 
 def test_engine_registry(rng):
     model = engines.get(Engine.EQ)
-    assert engines.available() == (Engine.EQ,) and engines.get(model) is model
+    assert engines.available() == (Engine.EQ, Engine.COSINE) and engines.get(model) is model
     assert model.count_dtype(100) == torch.int8 and model.count_dtype(238) == torch.int16
     assert model.count_dtype(40000) == torch.int32
     assert model.as_count_dtype(torch.tensor([3], dtype=torch.int32), 5).dtype == torch.int8
