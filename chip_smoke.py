@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `src/repro_torch/kernels/csrc/` (first use
-builds them), then runs, in order, and fails (non-zero exit, no result line)
-as soon as a phase fails:
+builds them), then runs these phases -- 1 to 3c in order, then each
+full-width phase followed by its kernels' times (4, 5, 4b, 5b, 4c, 5c, 4c')
+-- and fails (non-zero exit, no result line) as soon as a phase fails:
 
   1. environment and build: versions, the card's name and power limit, the
      kernels' build time and what ptxas reports for them;
@@ -15,13 +16,19 @@ as soon as a phase fails:
      and packed_cosine_topk (k from 1 to above the tile, N not a multiple of
      the tile, N < k, all-equal rows, a width whose bins need device
      scratch), whose buffers reduced by topk_from_candidates must also equal
-     a sort of the counts;
+     a sort of the counts; 2c. the three TANIMOTO kernels the same way:
+     tanimoto_count (m from 1 to 4099), packed_tanimoto_count (bucket ids 0 to
+     253, m from 1 to 4099) and packed_tanimoto_topk (k from 1 to above the
+     tile, m = 1, 238 and 6000, whose bins need device scratch);
   3. a small served round trip through `RetrievalService`: uneven adds, one
      compaction, CPQ / SPQ / SORT; the kernel path must equal the plain path
      bit for bit and unperturbed corpus points must retrieve themselves;
      3b. the same with `scheme="simhash"`, WIDE and PACKED (PACKED must equal
      WIDE), and a MONOLITHIC plan over the padded PACKED corpus
      (`concat_data`), which runs packed_cosine_count and the pad mask;
+     3c. the same with `scheme="minhash"` (m = 96, 128 buckets), WIDE and
+     PACKED, a padded PACKED plan that runs packed_tanimoto_count, and
+     `scheme="rbh"` (-> EQ), kernel path against plain path;
   4. the main path at full width -- the SIFT configuration's shape with the
      service's defaults: 4.5 M points of 128 dimensions in 16 sealed
      segments, m = required_m(0.06, 0.06) E2LSH functions into 8192 buckets,
@@ -31,11 +38,19 @@ as soon as a phase fails:
      4b. the same corpus and queries through `scheme="simhash"` (m = 238 sign
      bits), once WIDE (cosine_count + cpq_hist) and once PACKED (the fused
      packed_cosine_topk); PACKED must equal WIDE on every row;
+     4c. the same corpus and queries through `scheme="minhash"` with 254
+     buckets (the largest domain PACKED admits), WIDE (tanimoto_count +
+     cpq_hist) and PACKED (the fused packed_tanimoto_topk), PACKED equal to
+     WIDE on every row; 4c'. `scheme="rbh"` at the OCR configuration's width
+     (d = 1156, 8192 buckets, sigma by the median heuristic on the corpus),
+     cut to 2 of its 16 adds of 218,750 rows (the RBH hash is a 1156-step
+     plain PyTorch fold per add);
   5. each kernel's time at the full-width per-segment shape beside the plain
      version's, one PyTorch library call where one computes the same
      function, and the least time the card could take (bytes moved over the
      memory rate, or operations over the peak rate for their type, whichever
-     is larger); 5b. the same for the three COSINE kernels.
+     is larger); 5b. the same for the three COSINE kernels; 5c. the same for
+     the three TANIMOTO kernels, and tanimoto_count at m = 4096.
 
 It needs one CUDA device and no network, and imports neither jax nor the JAX
 package.  The last line of its output is one JSON object
@@ -89,6 +104,22 @@ TOPK_CASES = [(5, 5000, 238, 1), (7, 5000, 238, 3), (33, 9000, 238, 10),
               (70, 100003, 238, 100), (4, 7000, 238, 2500), (3, 50, 238, 100),
               (2, 50, 238, 3000), (6, 3000, 1, 10), (9, 4500, 513, 100),
               (3, 2100, 5440, 10)]
+# (Q, N, m) for the TANIMOTO count kernels, nothing a multiple of a tile
+TANIMOTO_SHAPES = [(1, 5, 1), (3, 130, 3), (8, 300, 17), (70, 100003, 238), (5, 2100, 600),
+                   (3, 1500, 4099)]
+PACKED_TANIMOTO_SHAPES = [(3, 70, 1), (2, 90, 5), (5, 257, 17), (4, 300, 40),
+                          (70, 100003, 238), (3, 1500, 4099)]
+# (Q, N, m, k) for the fused TANIMOTO top-k: k in {1, 3, 10, 100} and one k
+# above the tile, N not a multiple of the tile, N < k, m = 1, and a width
+# whose m + 1 bins live in device scratch (m = 6000 > 5211)
+TANIMOTO_TOPK_CASES = [(5, 5000, 238, 1), (7, 5000, 238, 3), (33, 9000, 238, 10),
+                       (70, 100003, 238, 100), (4, 7000, 238, 2500), (3, 50, 238, 100),
+                       (2, 50, 238, 3000), (6, 3000, 1, 10), (3, 2100, 6000, 10)]
+# The OCR configuration's width (src/repro/configs/genie_datasets.py): d = 1156,
+# 16 adds of 218,750 rows, of which phase 4c' runs 2
+OCR_DIM = 1156
+OCR_ROWS = 218_750
+OCR_SEGMENTS = 2
 
 
 def log(*parts) -> None:
@@ -184,6 +215,7 @@ def phase_kernel_parity(device: torch.device) -> dict:
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     worst = {"match_count": 0, "cpq_hist": 0}
     worst.update(cosine_parity(device, gen))
+    worst.update(tanimoto_parity(device))
     for q, n, m in MATCH_SHAPES:
         for dtype in (torch.int32, torch.int16):
             d = torch.randint(0, 9, (n, m), generator=gen, dtype=dtype).to(device)
@@ -306,42 +338,35 @@ def cosine_parity(device: torch.device, gen: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 
 def phase_small_service(device: torch.device) -> None:
+    log("== phase 3: small served round trip (kernel path vs plain path)")
+    small_wide_round_trip(device, "e2lsh", _small_corpus(SEED + 1, device))
+
+
+def small_wide_round_trip(device: torch.device, label: str, corpus: tuple, k: int = 10,
+                          max_segments: int = 16, **service_kw) -> None:
+    """A service (the defaults, or `service_kw`) on the kernel path and the
+    plain path through one compaction: ids, counts and thresholds equal for
+    CPQ / SPQ / SORT, and corpus points retrieve themselves."""
     from repro_torch.core import TopKMethod
     from repro_torch.serve import RetrievalService
 
-    log("== phase 3: small served round trip (kernel path vs plain path)")
-    dim, n_queries, k, max_segments = 32, 64, 10, 16
-    big = [3000, 5000, 2500, 6000, 3500]
-    batches = big + [50] * (max_segments + 1 - len(big))   # one past max_segments
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    emb = torch.randn((sum(batches), dim), generator=gen).to(device)
+    batches, emb, pick, queries = corpus
     services = {
         use_kernel: RetrievalService(device=device, seed=SEED, use_kernel=use_kernel,
-                                     max_segments=max_segments)
+                                     max_segments=max_segments, **service_kw)
         for use_kernel in (True, False)
     }
-    for svc in services.values():
-        start = 0
-        for rows in batches:
-            svc.add(range(start, start + rows), embeddings=emb[start:start + rows])
-            start += rows
-        stats = svc.index_stats
-        check(stats.compaction_count == 1 and stats.n_segments == max(1, max_segments // 2),
-              f"expected one compaction down to {max_segments // 2} segments, got "
-              f"{stats.compaction_count} compactions, {stats.n_segments} segments")
-        check(stats.n_objects == sum(batches), "corpus size after compaction")
-    pick = torch.linspace(0, sum(batches) - 1, n_queries).to(torch.int64).to(device)
-    queries = emb[pick]
+    _fill_small(services, emb, batches, max_segments)
     for method in (TopKMethod.CPQ, TopKMethod.SPQ, TopKMethod.SORT):
         res_k, _ = services[True].search(None, k=k, embeddings=queries, method=method)
         res_p, _ = services[False].search(None, k=k, embeddings=queries, method=method)
         sync(device)
         for field in ("ids", "counts", "threshold"):
             check(torch.equal(getattr(res_k, field), getattr(res_p, field)),
-                  f"{method.value}: kernel path and plain path differ in {field}")
+                  f"{label} {method.value}: kernel path and plain path differ in {field}")
         top1 = float((res_k.ids[:, 0] == pick.to(torch.int32)).float().mean().item())
-        check(top1 == 1.0, f"{method.value}: top-1 self-retrieval {top1} != 1.0")
-        log(f"  {method.value}: ids/counts/threshold equal on both paths, "
+        check(top1 == 1.0, f"{label} {method.value}: top-1 self-retrieval {top1} != 1.0")
+        log(f"  {label} {method.value}: ids/counts/threshold equal on both paths, "
             f"top-1 self-retrieval {top1:.3f}")
 
 
@@ -351,22 +376,23 @@ def phase_small_simhash(device: torch.device) -> int:
     `concat_data`, which runs `packed_cosine_count` and the pad mask.  Returns
     that plan's `packed_cosine_count` launches (the only path that runs the
     kernel: the service's searches take the fused kernel)."""
-    from repro_torch.core import Engine, TopKMethod, execute, plan_search
-    from repro_torch.kernels import common
-    from repro_torch.serve import RetrievalService
-
     log("== phase 3b: small simhash round trip, WIDE and PACKED (kernel path vs plain path)")
-    dim, n_queries, k, max_segments = 32, 64, 10, 16
+    return small_layout_round_trip(device, "simhash", "packed_cosine_count", SEED + 2)[0]
+
+
+def _small_corpus(seed: int, device: torch.device, max_segments: int = 16, dim: int = 32,
+                  n_queries: int = 64):
+    """(batches, corpus, picked ids, queries) of the small round trips: uneven
+    adds, one past max_segments, and corpus points as queries."""
     big = [3000, 5000, 2500, 6000, 3500]
     batches = big + [50] * (max_segments + 1 - len(big))   # one past max_segments
-    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
     emb = torch.randn((sum(batches), dim), generator=gen).to(device)
-    services = {
-        (layout, use_kernel): RetrievalService(device=device, seed=SEED, scheme="simhash",
-                                               signature_layout=layout, use_kernel=use_kernel,
-                                               max_segments=max_segments)
-        for layout in ("wide", "packed") for use_kernel in (True, False)
-    }
+    pick = torch.linspace(0, sum(batches) - 1, n_queries).to(torch.int64).to(device)
+    return batches, emb, pick, emb[pick]
+
+
+def _fill_small(services: dict, emb: torch.Tensor, batches: list, max_segments: int) -> None:
     for svc in services.values():
         start = 0
         for rows in batches:
@@ -377,8 +403,28 @@ def phase_small_simhash(device: torch.device) -> int:
               and stats.n_objects == sum(batches),
               f"expected one compaction down to {max_segments // 2} segments, got "
               f"{stats.compaction_count} compactions, {stats.n_segments} segments")
-    pick = torch.linspace(0, sum(batches) - 1, n_queries).to(torch.int64).to(device)
-    queries = emb[pick]
+
+
+def small_layout_round_trip(device: torch.device, scheme: str, count_kernel: str, seed: int,
+                            k: int = 10, max_segments: int = 16, **service_kw):
+    """A scheme with a PACKED layout served WIDE and PACKED, each on the kernel
+    path and the plain path, through one compaction (kernel path = plain
+    path, PACKED = WIDE, corpus points retrieve themselves); then a MONOLITHIC
+    plan over the PACKED corpus padded by `concat_data`, which runs the packed
+    count kernel `count_kernel` and the pad mask.  Returns that plan's
+    launches of `count_kernel` and the corpus (batches, emb, pick, queries)."""
+    from repro_torch.core import TopKMethod, execute, plan_search
+    from repro_torch.kernels import common
+    from repro_torch.serve import RetrievalService
+
+    batches, emb, pick, queries = _small_corpus(seed, device, max_segments)
+    services = {
+        (layout, use_kernel): RetrievalService(device=device, seed=SEED, scheme=scheme,
+                                               signature_layout=layout, use_kernel=use_kernel,
+                                               max_segments=max_segments, **service_kw)
+        for layout in ("wide", "packed") for use_kernel in (True, False)
+    }
+    _fill_small(services, emb, batches, max_segments)
     wide_res = {}
     for method in (TopKMethod.CPQ, TopKMethod.SPQ, TopKMethod.SORT):
         res = {key: svc.search(None, k=k, embeddings=queries, method=method)[0]
@@ -388,16 +434,16 @@ def phase_small_simhash(device: torch.device) -> int:
             for field in ("ids", "counts", "threshold"):
                 check(torch.equal(getattr(res[(layout, True)], field),
                                   getattr(res[(layout, False)], field)),
-                      f"simhash {layout} {method.value}: kernel path and plain path "
+                      f"{scheme} {layout} {method.value}: kernel path and plain path "
                       f"differ in {field}")
         check(torch.equal(res[("packed", True)].ids, res[("wide", True)].ids)
               and torch.equal(res[("packed", True)].counts, res[("wide", True)].counts),
-              f"simhash {method.value}: PACKED differs from WIDE")
+              f"{scheme} {method.value}: PACKED differs from WIDE")
         top1 = float((res[("wide", True)].ids[:, 0] == pick.to(torch.int32)).float().mean().item())
-        check(top1 == 1.0, f"simhash {method.value}: top-1 self-retrieval {top1} != 1.0")
+        check(top1 == 1.0, f"{scheme} {method.value}: top-1 self-retrieval {top1} != 1.0")
         wide_res[method] = res[("wide", True)]
-        log(f"  {method.value}: WIDE and PACKED each equal on both paths, PACKED == WIDE, "
-            f"top-1 self-retrieval {top1:.3f}")
+        log(f"  {scheme} {method.value}: WIDE and PACKED each equal on both paths, "
+            f"PACKED == WIDE, top-1 self-retrieval {top1:.3f}")
 
     # the PACKED corpus as one padded matrix: the plan has n_objects, so the
     # fused kernel is off and the packed count kernel + pad mask run instead
@@ -409,7 +455,7 @@ def phase_small_simhash(device: torch.device) -> int:
     for method in (TopKMethod.CPQ, TopKMethod.SPQ, TopKMethod.SORT):
         got = {}
         for use_kernel in (True, False):
-            plan = plan_search(Engine.COSINE, k, index.max_count, part_rows=(data.shape[0],),
+            plan = plan_search(index.engine, k, index.max_count, part_rows=(data.shape[0],),
                                n_objects=n, method=method, use_kernel=use_kernel,
                                signature_layout="packed")
             check(plan.fused_match is None, "a padded plan must not take the fused kernel")
@@ -418,20 +464,20 @@ def phase_small_simhash(device: torch.device) -> int:
             sync(device)
             counts = common.launch_counts()
             if use_kernel and method is TopKMethod.CPQ:
-                launches = counts.get("packed_cosine_count", 0)
+                launches = counts.get(count_kernel, 0)
         check(counts == {}, f"the plain path launched a kernel: {counts}")
         for field in ("ids", "counts", "threshold"):
             check(torch.equal(getattr(got[True], field), getattr(got[False], field)),
-                  f"padded PACKED plan {method.value}: kernel path and plain path differ "
-                  f"in {field}")
+                  f"padded PACKED {scheme} plan {method.value}: kernel path and plain path "
+                  f"differ in {field}")
         check(torch.equal(got[True].ids, wide_res[method].ids)
               and torch.equal(got[True].counts, wide_res[method].counts),
-              f"padded PACKED plan {method.value}: differs from the segmented service")
-    check(launches == 1, f"packed_cosine_count launched {launches} times in the padded plan")
+              f"padded PACKED {scheme} plan {method.value}: differs from the segmented service")
+    check(launches == 1, f"{count_kernel} launched {launches} times in the padded plan")
     log(f"  MONOLITHIC plan over concat_data(pad_multiple=4096) of the PACKED index "
-        f"({data.shape[0]} rows, {n} real): packed_cosine_count launched {launches}x per "
+        f"({data.shape[0]} rows, {n} real): {count_kernel} launched {launches}x per "
         f"search; CPQ/SPQ/SORT equal the plain path and the segmented service")
-    return launches
+    return launches, (batches, emb, pick, queries)
 
 
 # ---------------------------------------------------------------------------
@@ -636,6 +682,26 @@ def profile_one_search(svc, queries: torch.Tensor, k: int, device: torch.device)
 # Phase 5: the kernels' times at the per-segment shape
 # ---------------------------------------------------------------------------
 
+def library_eq_count(data: torch.Tensor, query: torch.Tensor, counts: torch.Tensor,
+                     device: torch.device):
+    """library_ms of an equality count [Q, N]: torch.cdist(query, data, p=0)
+    counts the unequal coordinates of every pair, so m minus it is the count
+    (bucket ids and m are far below 2**24, exact in float32).  The operands are
+    cast to float32 beforehand and the subtraction is not timed, as with
+    _int_mm for cosine_count; timed here, used nowhere in the port."""
+    m = data.shape[1]
+    qf, df = query.float(), data.float()
+    try:
+        ms, dist = timed_ms(lambda: torch.cdist(qf, df, p=0), device, reps=1, warmup=1)
+    except RuntimeError as e:          # the yardstick only: the port never calls it
+        log(f"  torch.cdist refused these operands ({e}); library_ms not measured")
+        return None
+    del qf, df
+    check(torch.equal(dist.neg_().add_(m).to(torch.int32), counts),
+          "the cdist yardstick disagrees with the equality count")
+    return ms
+
+
 def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
                        launches: dict, parity_err: dict, device: torch.device) -> list:
     from repro_torch.kernels import ops
@@ -653,6 +719,7 @@ def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
     err_match = max(parity_err["match_count"], max_abs_err(counts, counts_plain))
     check(torch.equal(counts, counts_plain), "match_count differs at the per-segment shape")
     del counts_plain
+    lib_match = library_eq_count(data, qsigs, counts, device)
     match_bytes = (n * m + q * m + q * n) * 4          # inputs read once, output written once
     match_ops = 2 * q * n * m                          # one compare and one add per pair and column
     bound_bytes, bound_ops = match_bytes / PEAK_BYTES_PER_S * 1e3, match_ops / PEAK_ALU_OPS_PER_S * 1e3
@@ -685,7 +752,7 @@ def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
              launches=launches.get("match_count", 0), max_abs_err=err_match,
              ms=ms_match, plain_ms=plain_match, bound_ms=max(bound_bytes, bound_ops),
              bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-             library_ms=None),
+             library_ms=lib_match),
         dict(name="cpq_hist", route="cuda",
              source="src/repro_torch/kernels/csrc/cpq_hist.cu",
              replaces="src/repro/kernels/cpq_hist.py:51",
@@ -698,6 +765,8 @@ def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
         log(f"  {kern['name']}: {kern['ms']:.3f} ms; bound {kern['bound_ms']:.3f} ms by "
             f"{kern['bound_by']} ({100 * kern['bound_ms'] / kern['ms']:.1f}% of it); plain "
             f"{kern['plain_ms']:.1f} ms; library {kern['library_ms']}")
+    log("  library calls: match_count against m - torch.cdist(p=0) on float32 casts; "
+        "cpq_hist against torch.bincount")
     log(f"  match_count: {match_ops / 2 / (ms_match / 1e3) / 1e12:.3f} T compare-adds/s, "
         f"{match_bytes / (ms_match / 1e3) / 1e9:.1f} GB/s; "
         f"cpq_hist: {hist_bytes / (ms_hist / 1e3) / 1e9:.1f} GB/s")
@@ -822,6 +891,265 @@ def phase_cosine_kernel_times(simhash: dict, launches_count: int, parity_err: di
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# The TANIMOTO slice: minhash (WIDE and PACKED) and rbh
+# ---------------------------------------------------------------------------
+
+def _buckets(gen: torch.Generator, rows: int, m: int, device: torch.device,
+             hi: int = 254) -> torch.Tensor:
+    """int32 bucket ids in [0, hi), the domain's ends 0 and hi - 1 included."""
+    b = torch.randint(0, hi, (rows, m), generator=gen, dtype=torch.int32)
+    b.view(-1)[0], b.view(-1)[-1] = 0, hi - 1
+    return b.to(device)
+
+
+def tanimoto_parity(device: torch.device) -> dict:
+    """Phase 2c: the three TANIMOTO kernels against their plain versions,
+    bit-exact; returns the worst absolute difference per kernel."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.packed_tanimoto import (TILE_N, packed_tanimoto_count_plain,
+                                                     packed_tanimoto_topk_plain)
+    from repro_torch.kernels.tanimoto_count import tanimoto_count_plain
+
+    log("== phase 2c: the TANIMOTO kernels against their plain PyTorch versions")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    worst = {"tanimoto_count": 0, "packed_tanimoto_count": 0, "packed_tanimoto_topk": 0}
+    for q, n, m in TANIMOTO_SHAPES:
+        d, s = _buckets(gen, n, m, device, hi=64), _buckets(gen, q, m, device, hi=64)
+        got = ops.tanimoto_count(d, s)
+        want = tanimoto_count_plain(d, s)
+        sync(device)
+        err = max_abs_err(got, want)
+        worst["tanimoto_count"] = max(worst["tanimoto_count"], err)
+        check(got.shape == (q, n) and got.dtype == torch.int32 and torch.equal(got, want),
+              f"tanimoto_count differs from its plain version at (Q,N,m)=({q},{n},{m}): "
+              f"max abs err {err}")
+        log(f"  tanimoto_count (Q,N,m)=({q},{n},{m}): equal")
+    for q, n, m in PACKED_TANIMOTO_SHAPES:
+        d, s = _buckets(gen, n, m, device), _buckets(gen, q, m, device)
+        s[0] = d[min(1, n - 1)]                    # one full collision
+        du, su = packing.pack_buckets(d), packing.pack_buckets(s)
+        got = ops.packed_tanimoto_count(du, su)
+        want = packed_tanimoto_count_plain(du, su)
+        sync(device)
+        err = max_abs_err(got, want)
+        worst["packed_tanimoto_count"] = max(worst["packed_tanimoto_count"], err)
+        check(got.shape == (q, n) and torch.equal(got, want)
+              and torch.equal(got, tanimoto_count_plain(d, s)),
+              f"packed_tanimoto_count differs from its plain version at (Q,N,m)=({q},{n},{m}): "
+              f"max abs err {err}")
+        log(f"  packed_tanimoto_count (Q,N,m)=({q},{n},{m}) ids 0..253: equal")
+    cases = [(q, n, m, k, False) for q, n, m, k in TANIMOTO_TOPK_CASES] + [(2, 3000, 64, 5, True)]
+    for q, n, m, k, all_equal in cases:
+        if all_equal:                      # identical rows: the lowest ids must come out
+            du = torch.full((n, m), 253, dtype=torch.uint8, device=device)
+            su = torch.full((q, m), 253, dtype=torch.uint8, device=device)
+        else:                              # few buckets: many ties at the threshold
+            du = packing.pack_buckets(_buckets(gen, n, m, device, hi=8))
+            su = packing.pack_buckets(_buckets(gen, q, m, device, hi=8))
+        ids, cnts = ops.packed_tanimoto_topk(du, su, k=k)
+        pids, pcnts = packed_tanimoto_topk_plain(du, su, k)
+        sync(device)
+        err = max(max_abs_err(ids, pids), max_abs_err(cnts, pcnts))
+        worst["packed_tanimoto_topk"] = max(worst["packed_tanimoto_topk"], err)
+        kc = min(k, TILE_N)
+        check(ids.shape == (q, -(-n // TILE_N) * kc) and torch.equal(ids, pids)
+              and torch.equal(cnts, pcnts),
+              f"packed_tanimoto_topk buffers differ from the plain version at "
+              f"(Q,N,m,k)=({q},{n},{m},{k}): max abs err {err}")
+        got_ids, got_cnts = fused_result(ids, cnts, k)
+        want_ids, want_cnts = sort_oracle(packed_tanimoto_count_plain(du, su), k)
+        check(torch.equal(got_ids, want_ids) and torch.equal(got_cnts, want_cnts),
+              f"packed_tanimoto_topk after topk_from_candidates differs from a sort "
+              f"at (Q,N,m,k)=({q},{n},{m},{k})")
+        if all_equal:
+            check(got_ids.tolist() == [list(range(k))] * q, "all-equal rows: not the lowest ids")
+        log(f"  packed_tanimoto_topk (Q,N,m,k)=({q},{n},{m},{k}) tile={TILE_N}"
+            f"{' all-equal rows' if all_equal else ''}: buffers equal, merged == sort")
+    return worst
+
+
+def phase_small_minhash(device: torch.device) -> int:
+    """Phase 3c: minhash (m = 96, 128 buckets, the reference's packed serving
+    parity shape) WIDE and PACKED through small_layout_round_trip, whose
+    padded PACKED plan runs packed_tanimoto_count; then rbh -> EQ on both
+    paths.  Returns that plan's packed_tanimoto_count launches."""
+    from repro_torch.core.lsh import rbh
+
+    log("== phase 3c: small minhash round trip, WIDE and PACKED, and rbh "
+        "(kernel path vs plain path)")
+    k, max_segments = 10, 16
+    launches, corpus = small_layout_round_trip(
+        device, "minhash", "packed_tanimoto_count", SEED + 4, k=k, max_segments=max_segments,
+        m_override=96, n_buckets=128)
+    # rbh -> EQ: sigma by the median heuristic on the corpus
+    sigma = rbh.median_heuristic_sigma(corpus[1], torch.Generator(device="cpu").manual_seed(SEED))
+    small_wide_round_trip(device, f"rbh (sigma {sigma:.3f})", corpus, k=k,
+                          max_segments=max_segments, scheme="rbh", m_override=96, sigma=sigma)
+    return launches
+
+
+def phase_full_width_minhash(device: torch.device, **sizes) -> dict:
+    """Phase 4c: RetrievalService(scheme="minhash", n_buckets=254) at full
+    width, WIDE then PACKED, on the corpus of phases 4 and 4b; PACKED must
+    equal WIDE on every row."""
+    log("== phase 4c: RetrievalService(scheme='minhash', n_buckets=254) at full width, "
+        "WIDE and PACKED")
+    segs = sizes.get("n_segments", FULL_SEGMENTS)
+    out = {}
+    for layout, per_search in (("wide", {"tanimoto_count": segs, "cpq_hist": segs}),
+                               ("packed", {"packed_tanimoto_topk": segs})):
+        out[layout] = drive_full_width(device, per_search, (0.0, 1.0), scheme="minhash",
+                                       n_buckets=254, signature_layout=layout, **sizes)
+        profile_one_search(out[layout]["service"], out[layout]["queries"],
+                           sizes.get("k", FULL_K), device)
+    wide, packed = out["wide"]["result"], out["packed"]["result"]
+    check(torch.equal(wide.ids, packed.ids) and torch.equal(wide.counts, packed.counts),
+          "minhash PACKED differs from WIDE")
+    log(f"  PACKED ids and counts equal WIDE on all {wide.ids.shape[0]} rows")
+    return out
+
+
+def phase_full_width_rbh(device: torch.device, n_rows: int = OCR_ROWS,
+                         n_segments: int = OCR_SEGMENTS, dim: int = OCR_DIM, **sizes) -> dict:
+    """Phase 4c': RetrievalService(scheme="rbh") at the OCR configuration's
+    width, 2 of its 16 adds; sigma by the median heuristic on that corpus
+    (drawn as drive_full_width draws it)."""
+    from repro_torch.core.lsh import rbh
+
+    log(f"== phase 4c': RetrievalService(scheme='rbh') at OCR's width, {n_segments} of its "
+        f"16 adds of {n_rows}")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    corpus = torch.cat([torch.randn((n_rows, dim), generator=gen, device=device)
+                        for _ in range(n_segments)])
+    sigma = rbh.median_heuristic_sigma(corpus, torch.Generator(device="cpu").manual_seed(SEED))
+    del corpus
+    log(f"  sigma = median_heuristic_sigma(corpus) = {sigma:.4f}")
+    out = drive_full_width(device, {"match_count": n_segments, "cpq_hist": n_segments},
+                           (0.0, 1.0), n_total=n_rows * n_segments, dim=dim,
+                           n_segments=n_segments, scheme="rbh", sigma=sigma, **sizes)
+    profile_one_search(out["service"], out["queries"], sizes.get("k", FULL_K), device)
+    return out
+
+
+def phase_tanimoto_kernel_times(minhash: dict, launches_count: int, parity_err: dict,
+                                device: torch.device, k: int = FULL_K,
+                                flash_n: int = 16_384, flash_m: int = 4096) -> list:
+    """Phase 5c: the three TANIMOTO kernels at the per-segment shape of the
+    minhash path, and tanimoto_count at a FLASH-scale m on a narrower N."""
+    from repro_torch.core import cpq, packing
+    from repro_torch.core.types import SearchParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.packed_tanimoto import (TILE_N, packed_tanimoto_count_plain,
+                                                     packed_tanimoto_topk_plain)
+    from repro_torch.kernels.tanimoto_count import tanimoto_count_plain
+
+    wide, packed = minhash["wide"], minhash["packed"]
+    d_sig = wide["service"]._index.segments[0].data             # int32 [N, m]
+    q_sig = wide["qsigs"]                                        # int32 [Q, m]
+    d_u8 = packed["service"]._index.segments[0].data            # uint8 [N, m]
+    q_u8 = packing.pack_buckets(q_sig)                           # uint8 [Q, m]
+    n, m = d_sig.shape
+    q = q_sig.shape[0]
+    words = -(-m // 4)
+    log(f"== phase 5c: TANIMOTO kernel times at the per-segment shape Q={q} N={n} m={m} "
+        f"({words} words of 4 lanes) k={k} (fused tile {TILE_N})")
+
+    ms_tc, counts = timed_ms(lambda: ops.tanimoto_count(d_sig, q_sig), device, reps=3, warmup=1)
+    plain_tc, counts_plain = timed_ms(lambda: tanimoto_count_plain(d_sig, q_sig), device,
+                                      reps=1, warmup=1)
+    err_tc = max(parity_err["tanimoto_count"], max_abs_err(counts, counts_plain))
+    check(torch.equal(counts, counts_plain), "tanimoto_count differs at the per-segment shape")
+    del counts_plain
+    lib_tc = library_eq_count(d_sig, q_sig, counts, device)
+    tc_bytes = (n * m + q * m + q * n) * 4
+    tc_ops = 2 * q * n * m                             # one compare and one add per pair and column
+    tcb_bytes, tcb_ops = tc_bytes / PEAK_BYTES_PER_S * 1e3, tc_ops / PEAK_ALU_OPS_PER_S * 1e3
+
+    ms_pc, counts_p = timed_ms(lambda: ops.packed_tanimoto_count(d_u8, q_u8), device,
+                               reps=3, warmup=1)
+    check(torch.equal(counts_p, counts), "packed_tanimoto_count differs from tanimoto_count")
+    del counts
+    plain_pc, counts_pp = timed_ms(lambda: packed_tanimoto_count_plain(d_u8, q_u8), device,
+                                   reps=1, warmup=1)
+    err_pc = max(parity_err["packed_tanimoto_count"], max_abs_err(counts_p, counts_pp))
+    check(torch.equal(counts_p, counts_pp), "packed_tanimoto_count differs from its plain version")
+    del counts_pp
+    lib_pc = library_eq_count(d_u8, q_u8, counts_p, device)
+    pc_bytes = n * m + q * m + q * n * 4
+    pc_ops = 3 * q * n * words                         # xor, lane test, add per word pair
+    pcb_bytes, pcb_ops = pc_bytes / PEAK_BYTES_PER_S * 1e3, pc_ops / PEAK_ALU_OPS_PER_S * 1e3
+
+    ms_tk, (ids, cnts) = timed_ms(lambda: ops.packed_tanimoto_topk(d_u8, q_u8, k=k),
+                                  device, reps=5, warmup=1)
+    plain_tk, (pids, pcnts) = timed_ms(lambda: packed_tanimoto_topk_plain(d_u8, q_u8, k),
+                                       device, reps=1, warmup=1)
+    err_tk = max(parity_err["packed_tanimoto_topk"], max_abs_err(ids, pids),
+                 max_abs_err(cnts, pcnts))
+    check(torch.equal(ids, pids) and torch.equal(cnts, pcnts),
+          "packed_tanimoto_topk differs from its plain version at the per-segment shape")
+    del pids, pcnts
+    oracle = cpq.sort_select(counts_p, SearchParams(k=k, max_count=m))
+    merge_ms, (mids, mcnts) = timed_ms(lambda: fused_result(ids, cnts, k), device,
+                                       reps=3, warmup=1)
+    check(torch.equal(mids, oracle.ids) and torch.equal(mcnts, oracle.counts),
+          "packed_tanimoto_topk + topk_from_candidates differs from a sort of the counts")
+    del counts_p, oracle
+    slots = ids.shape[1]
+    tk_bytes = n * m + q * m + 2 * q * slots * 4
+    tk_ops = 3 * q * n * words                         # the match; selection not counted
+    tkb_bytes, tkb_ops = tk_bytes / PEAK_BYTES_PER_S * 1e3, tk_ops / PEAK_ALU_OPS_PER_S * 1e3
+    log(f"  packed_tanimoto_topk buffers [{q}, {slots}] x2 = {2 * q * slots * 4 / 1e6:.1f} MB; "
+        f"reducing them with topk_from_candidates: {merge_ms:.3f} ms")
+
+    # FLASH-scale sketches: m = 4096 on a narrower N
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    d_f = torch.randint(0, 254, (flash_n, flash_m), generator=gen, device=device, dtype=torch.int32)
+    q_f = torch.randint(0, 254, (q, flash_m), generator=gen, device=device, dtype=torch.int32)
+    ms_f, counts_f = timed_ms(lambda: ops.tanimoto_count(d_f, q_f), device, reps=3, warmup=1)
+    plain_f, counts_fp = timed_ms(lambda: tanimoto_count_plain(d_f, q_f), device, reps=1)
+    check(torch.equal(counts_f, counts_fp), "tanimoto_count differs at m = 4096")
+    f_ops = 2 * q * flash_n * flash_m
+    log(f"  tanimoto_count at Q={q} N={flash_n} m={flash_m}: {ms_f:.3f} ms; bound "
+        f"{f_ops / PEAK_ALU_OPS_PER_S * 1e3:.3f} ms by operations; plain {plain_f:.1f} ms; "
+        f"{f_ops / 2 / (ms_f / 1e3) / 1e12:.3f} T compare-adds/s")
+    del d_f, q_f, counts_f, counts_fp
+
+    def entry(name, source, replaces, launches, err, ms, plain, bb, bo, lib):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                    bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations",
+                    library_ms=lib)
+
+    kernels = [
+        entry("tanimoto_count", "src/repro_torch/kernels/csrc/tanimoto_count.cu",
+              "src/repro/kernels/tanimoto_count.py:64",
+              wide["launches"].get("tanimoto_count", 0), err_tc, ms_tc, plain_tc,
+              tcb_bytes, tcb_ops, lib_tc),
+        entry("packed_tanimoto_count", "src/repro_torch/kernels/csrc/packed_tanimoto.cu",
+              "src/repro/kernels/packed_tanimoto.py:72", launches_count, err_pc, ms_pc,
+              plain_pc, pcb_bytes, pcb_ops, lib_pc),
+        entry("packed_tanimoto_topk", "src/repro_torch/kernels/csrc/packed_tanimoto.cu",
+              "src/repro/kernels/packed_tanimoto.py:120",
+              packed["launches"].get("packed_tanimoto_topk", 0), err_tk, ms_tk, plain_tk,
+              tkb_bytes, tkb_ops, None),
+    ]
+    for kern in kernels:
+        log(f"  {kern['name']}: {kern['ms']:.4f} ms; bound {kern['bound_ms']:.4f} ms by "
+            f"{kern['bound_by']} ({100 * kern['bound_ms'] / kern['ms']:.1f}% of it); plain "
+            f"{kern['plain_ms']:.1f} ms; library {kern['library_ms']}")
+    log("  library calls: tanimoto_count and packed_tanimoto_count against m - "
+        "torch.cdist(p=0) on float32 casts of their operands; none for packed_tanimoto_topk "
+        "(no one call matches and selects per tile); the packed bounds count 3 operations "
+        "(xor, lane test, add) per word pair of 4 lanes")
+    log(f"  tanimoto_count {q * n * m / (ms_tc / 1e3) / 1e12:.3f} T compare-adds/s; "
+        f"packed_tanimoto_count {q * n * words / (ms_pc / 1e3) / 1e12:.3f} T word-pairs/s, "
+        f"{pc_bytes / (ms_pc / 1e3) / 1e9:.1f} GB/s; "
+        f"packed_tanimoto_topk {q * n * words / (ms_tk / 1e3) / 1e12:.3f} T word-pairs/s")
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one "
@@ -833,6 +1161,7 @@ def main() -> int:
     parity_err = phase_kernel_parity(device)
     phase_small_service(device)
     count_launches = phase_small_simhash(device)
+    tanimoto_launches = phase_small_minhash(device)
     full = phase_full_width(device)
     svc = full["service"]
     search_split(svc, full["queries"], FULL_K, device)
@@ -843,6 +1172,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     simhash = phase_full_width_simhash(device)
     kernels += phase_cosine_kernel_times(simhash, count_launches, parity_err, device)
+    del simhash                            # free the simhash corpus before the minhash one
+    torch.cuda.empty_cache()
+    minhash = phase_full_width_minhash(device)
+    kernels += phase_tanimoto_kernel_times(minhash, tanimoto_launches, parity_err, device)
+    del minhash
+    torch.cuda.empty_cache()
+    phase_full_width_rbh(device)
     torch.cuda.synchronize()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power_limit())

@@ -16,10 +16,12 @@ bundling
 GenieIndex, SegmentedIndex and the planner all resolve engines through
 `get()` -- there is exactly one dispatch point in the system.
 
-Ported so far: the registry, the EQ entry and the COSINE entry with its
-PACKED format (32 signs per int32 word, core/packing.py).  The other four
-engines and the kernel tile knobs of the JAX package's descriptor
-(`repro/core/engines.py`) come with their kernels.
+Ported so far: the registry, the EQ entry, the TANIMOTO entry with its
+PACKED format (uint8 bucket ids, core/packing.py) and the COSINE entry with
+its PACKED format (32 signs per int32 word).  RANGE, MINSUM and IP come with
+their kernels (ROADMAP queue 1 item 5); the kernel tile knobs of the JAX
+package's descriptor (`repro/core/engines.py`) come with the autotuner
+(queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -206,7 +208,7 @@ def get(engine: Engine | str | MatchModel) -> MatchModel:
         raise KeyError(
             f"no MatchModel registered for engine {eng.value!r}; "
             f"known: {sorted(m.value for m in _REGISTRY)} (the other engines "
-            f"are still to be ported: ROADMAP queue 1 items 3b and 5)"
+            f"are still to be ported: ROADMAP queue 1 item 5)"
         ) from None
 
 
@@ -222,6 +224,24 @@ def _kernel_eq(data, queries):
     from repro_torch.kernels import ops as kops
 
     return kops.match_count(data, queries)
+
+
+def _kernel_tanimoto(data, queries):
+    from repro_torch.kernels import ops as kops
+
+    return kops.tanimoto_count(data, queries)
+
+
+def _kernel_packed_tanimoto(data, queries):
+    from repro_torch.kernels import ops as kops
+
+    return kops.packed_tanimoto_count(data, queries)
+
+
+def _kernel_packed_tanimoto_topk(data, queries, k):
+    from repro_torch.kernels import ops as kops
+
+    return kops.packed_tanimoto_topk(data, queries, k=k)
 
 
 def _kernel_cosine(data, queries):
@@ -261,6 +281,28 @@ register(MatchModel(
     pad_value=-1,                                          # never equals a sig
     example=lambda rng, n, q: (rng.integers(0, 8, (n, 16)).astype(np.int32),
                                rng.integers(0, 8, (q, 16)).astype(np.int32), None),
+))
+
+register(MatchModel(
+    engine=Engine.TANIMOTO,
+    description="minhash collision count over set sketches int32 [N, m] (Jaccard MLE c/m)",
+    prepare_data=_as_int32,
+    prepare_queries=_as_int32,
+    reference=_match.match_tanimoto,
+    kernel=_kernel_tanimoto,
+    postings_count=lambda a: int(a.shape[0]) * int(a.shape[1]),
+    default_max_count=lambda a: int(a.shape[1]),          # m minhash functions
+    pad_value=-1,                                          # outside bucket range
+    example=lambda rng, n, q: (rng.integers(0, 64, (n, 20)).astype(np.int32),
+                               rng.integers(0, 64, (q, 20)).astype(np.int32), None),
+    # PACKED: uint8 bucket ids (rehash domain <= 253; 254/255 pad sentinels)
+    pack_data=_packing.pack_buckets,
+    pack_queries=_packing.pack_buckets,
+    packed_reference=_packing.packed_tanimoto_match,
+    packed_kernel=_kernel_packed_tanimoto,
+    packed_fused_topk=_kernel_packed_tanimoto_topk,
+    packed_pad_value=_packing.PACKED_BUCKET_PAD_DATA,      # never collides
+    packed_bytes=_packing.packed_bytes_tanimoto,
 ))
 
 register(MatchModel(

@@ -11,6 +11,7 @@ dispatch, pad masking, top-k selection, and merging.
     index = GenieIndex.build(Engine.EQ, sigs)            # any registered engine
     index = GenieIndex.build_lsh(sigs, max_count=m)      # named alias
     index = GenieIndex.build_cosine(vectors, signature_layout="packed")
+    index = GenieIndex.build_tanimoto(minhash_sigs, signature_layout="packed")
     result = index.search(query_sigs, k=100)             # TopKResult
 
 `device=None` places the index on the card and raises when there is none;
@@ -36,8 +37,10 @@ from repro_torch.device import DeviceLike, resolve_device, synchronize
 class GenieIndex:
     engine: Engine
     max_count: int
-    data: torch.Tensor                     # EQ: sigs int32 [N, m]; COSINE:
-    #                                        signs int8 [N, V] or words int32 [N, W]
+    data: torch.Tensor                     # EQ: sigs int32 [N, m]; TANIMOTO:
+    #                                        sketches int32 or uint8 [N, m];
+    #                                        COSINE: signs int8 [N, V] or
+    #                                        words int32 [N, W]
     stats: IndexStats = dataclasses.field(default_factory=IndexStats)
     use_kernel: bool = True
     # storage format of `data` (core/packing.py); PACKED indexes hold the
@@ -60,7 +63,8 @@ class GenieIndex:
         V for COSINE).
 
         `signature_layout=PACKED` packs the prepared tensor once at seal time
-        (COSINE signs -> int32-word bitfields) for engines with a packed
+        (COSINE signs -> int32-word bitfields, TANIMOTO buckets -> uint8) for
+        engines with a packed
         format; counts and top-k results are bit-for-bit identical to WIDE,
         only the device footprint and the match's memory traffic shrink.
         """
@@ -93,6 +97,16 @@ class GenieIndex:
         """EQ engine over LSH signatures int32 [N, m]."""
         return cls.build(Engine.EQ, signatures, max_count=max_count,
                          use_kernel=use_kernel, device=device)
+
+    @classmethod
+    def build_tanimoto(cls, minhash_sigs, max_count: int | None = None,
+                       use_kernel: bool = True,
+                       signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
+                       device: DeviceLike = None):
+        """TANIMOTO engine over minhash sketches int32 [N, m]."""
+        return cls.build(Engine.TANIMOTO, minhash_sigs, max_count=max_count,
+                         use_kernel=use_kernel, signature_layout=signature_layout,
+                         device=device)
 
     @classmethod
     def build_cosine(cls, vectors, max_count: int | None = None,

@@ -11,17 +11,17 @@ name instead of string-keyed if-chains.
     sigs = scheme.hash_points(params, x)
 
 `make_params` filters its keyword options to what the scheme accepts (e.g.
-`w` for e2lsh, nothing for simhash), so one call site can carry the union of
-options.  Register a new family with `register_scheme`.  `e2lsh` (-> EQ) and
-`simhash` (-> COSINE) are ported so far; rbh and minhash come with their
-engines (ROADMAP queue 1 item 3b).
+`w` for e2lsh, `sigma` for rbh, nothing for simhash), so one call site can
+carry the union of options.  Register a new family with `register_scheme`.
+All four families of the reference are served: e2lsh and rbh (-> EQ),
+simhash (-> COSINE) and minhash (-> TANIMOTO).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.core.lsh import e2lsh, rehash, simhash, tau_ann  # noqa: F401
+from repro_torch.core.lsh import e2lsh, minhash, rbh, rehash, simhash, tau_ann  # noqa: F401
 from repro_torch.core.types import Engine
 
 
@@ -30,9 +30,9 @@ class LshScheme:
     """Descriptor for one LSH family (paper section IV).
 
     `engine` names the MatchModel that consumes this family's signatures
-    (bucketed schemes count collisions with EQ, simhash bits count sign
-    agreements with COSINE), and `mle` inverts a match count into the
-    similarity the family estimates.  Serving resolves both by scheme name,
+    (bucketed schemes count collisions with EQ, minhash sketches with
+    TANIMOTO, simhash bits count sign agreements with COSINE), and `mle`
+    inverts a match count into the similarity the family estimates.  Serving resolves both by scheme name,
     so selecting a scheme selects the whole engine stack.
     """
 
@@ -83,6 +83,14 @@ register_scheme(LshScheme(
 ))
 
 register_scheme(LshScheme(
+    name="rbh",
+    description="random binning hashing for the Laplacian kernel (section IV-A3)",
+    make=rbh.make,
+    hash_points=rbh.hash_points,
+    option_names=("sigma", "n_buckets"),
+))
+
+register_scheme(LshScheme(
     name="simhash",
     description="signed random projection for angular similarity (Charikar)",
     make=simhash.make,
@@ -90,4 +98,13 @@ register_scheme(LshScheme(
     option_names=(),
     engine=Engine.COSINE,                 # bits become +-1 sign agreements
     mle=simhash.mle_cosine,
+))
+
+register_scheme(LshScheme(
+    name="minhash",
+    description="minhash over positive-support feature sets for Jaccard (FLASH)",
+    make=minhash.make,
+    hash_points=minhash.hash_points,
+    option_names=("n_buckets",),
+    engine=Engine.TANIMOTO,               # sketch collisions count Jaccard
 ))

@@ -4,8 +4,8 @@ Each function computes counts[q, n] = MC(Q_q, O_n) for a query batch against
 all objects.  These plain PyTorch implementations are the semantics oracles
 for the CUDA kernels in repro_torch.kernels and the path a CPU tensor takes.
 They are not called directly by the index machinery: engine dispatch goes
-through the MatchModel registry (core/engines.py).  The EQ and COSINE
-engines are ported so far.
+through the MatchModel registry (core/engines.py).  The EQ, TANIMOTO and
+COSINE engines are ported so far.
 
 Memory note: counts are bounded by max_count (m hash functions / #attributes /
 #grams) -- the paper's Bitmap-Counter observation (section III-C) -- so an int8
@@ -39,6 +39,43 @@ def match_eq(data_sigs: torch.Tensor, query_sigs: torch.Tensor, chunk: int = 8) 
         hit = query_sigs[:, None, s:s + chunk] == data_sigs[None, :, s:s + chunk]
         acc += hit.sum(dim=-1, dtype=torch.int32)
     return acc
+
+
+def match_tanimoto(data_sigs: torch.Tensor, query_sigs: torch.Tensor, chunk: int = 8) -> torch.Tensor:
+    """TANIMOTO engine: counts[q, n] = sum_i (data_sigs[n, i] == query_sigs[q, i])
+    over *minhash* signatures.
+
+    Pr[h(S) = h(T)] = J(S, T) for minhash (core/lsh/minhash.py), so the
+    collision count c is Binomial(m, J) and J_hat = c/m is the Jaccard MLE --
+    the sketch-collision counting at the heart of FLASH (Wang et al.,
+    1709.01190).  The arithmetic is the EQ compare; the engines differ in data
+    semantics (minhash sketches of sets vs. generic LSH signatures), count
+    interpretation, and kernel (kernels/tanimoto_count.py).
+    """
+    return match_eq(data_sigs, query_sigs, chunk=chunk)
+
+
+def tanimoto_exact(data_cnt: torch.Tensor, query_cnt: torch.Tensor, chunk: int = 8) -> torch.Tensor:
+    """Exact (multiset) Tanimoto  sum_v min / sum_v max  -> float32 [Q, N].
+
+    The validation oracle for the TANIMOTO engine: on multiset count vectors
+    the engine's minhash-collision estimate J_hat = c/m converges to this
+    ratio (binary vectors give exactly set Jaccard).  Not a match-count --
+    GENIE counts stay integral; this is the similarity the counts estimate.
+    """
+    d = data_cnt.to(torch.int32)
+    s = query_cnt.to(torch.int32)
+    q, v = s.shape
+    mins = torch.zeros((q, d.shape[0]), dtype=torch.int32, device=d.device)
+    for start in range(0, v, chunk):
+        low = torch.minimum(s[:, None, start:start + chunk], d[None, :, start:start + chunk])
+        mins += low.sum(dim=-1, dtype=torch.int32)
+        del low
+    # min(a,b) + max(a,b) == a + b, so sum-max follows from row sums -- no
+    # second O(Q*N*V) pass
+    maxs = (d.sum(dim=-1, dtype=torch.int32)[None, :]
+            + s.sum(dim=-1, dtype=torch.int32)[:, None] - mins)
+    return mins.to(torch.float32) / torch.clamp(maxs, min=1).to(torch.float32)
 
 
 def match_cosine(data_sgn: torch.Tensor, query_sgn: torch.Tensor, chunk: int = 8) -> torch.Tensor:

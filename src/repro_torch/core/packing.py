@@ -1,9 +1,10 @@
-"""Bit-packed signature format of the COSINE engine (FLASH's core trick, Wang
-et al. 1709.01190; compact codes as the billion-scale prerequisite, Johnson
-et al. 1702.08734).
+"""Bit/byte-packed signature formats (FLASH's core trick, Wang et al.
+1709.01190; compact codes as the billion-scale prerequisite, Johnson et al.
+1702.08734).
 
-The WIDE COSINE layout stores one +-1 *sign* (1 bit of signal) per int8
-element.  The PACKED layout stores 32 signs per int32 word:
+COSINE / sign vectors -> int32 bitfields.  The WIDE COSINE layout stores one
++-1 *sign* (1 bit of signal) per int8 element.  The PACKED layout stores 32
+signs per int32 word:
 
     word w, bit b of a packed row holds (sign[32*w + b] > 0)
 
@@ -22,16 +23,27 @@ Words are stored as int32, bit-identical to the reference's
 (`repro/core/packing.py`).  PyTorch has no uint32 arithmetic to speak of, so
 every word is assembled and taken apart as the int64 value of its 32 bits
 (masked with 0xFFFFFFFF) and only then mapped into int32; no right shift ever
-acts on a signed int32.  The TANIMOTO half of the reference module
-(`pack_buckets`, `packed_tanimoto_match`, the uint8 pad sentinels) comes with
-the TANIMOTO engine.
+acts on a signed int32.
+
+TANIMOTO / minhash sketches -> uint8 bucket ids.  Bucket ids narrow from 4
+bytes to 1 when the rehash domain fits a byte; the match is the same equality
+compare on byte lanes.  Values 254/255 are the reference's query/data pad
+sentinels (the CUDA kernels stage them past m in shared memory), so packing
+requires bucket ids <= PACKED_BUCKET_MAX.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import match as _match
+
 WORD_BITS = 32
 _MASK32 = 0xFFFFFFFF
+# uint8 sentinels of the packed-TANIMOTO kernels: 255 fills data slots past m,
+# 254 query slots past m (distinct, so pads never collide)
+PACKED_BUCKET_PAD_DATA = 255
+PACKED_BUCKET_PAD_QUERY = 254
+PACKED_BUCKET_MAX = 253
 
 
 def packed_words(v: int) -> int:
@@ -109,6 +121,39 @@ def packed_cosine_match(data_words: torch.Tensor, query_words: torch.Tensor,
     return WORD_BITS * w - disagree
 
 
+def pack_buckets(sigs: torch.Tensor) -> torch.Tensor:
+    """Minhash bucket ids int [N, m] -> uint8 [N, m].
+
+    Raises ValueError when a bucket id falls outside [0, PACKED_BUCKET_MAX]
+    (254/255 are the kernel pad sentinels) -- the PACKED layout applies to
+    byte-sized rehash domains; keep WIDE (or rehash to <= 254 buckets) above
+    that.  Min and max come from one aminmax: one device sync per call.
+    """
+    lo, hi = (int(v) for v in torch.aminmax(sigs))
+    if lo < 0 or hi > PACKED_BUCKET_MAX:
+        raise ValueError(
+            f"PACKED TANIMOTO signatures must lie in [0, {PACKED_BUCKET_MAX}] "
+            f"(254/255 are pad sentinels); got values in [{lo}, {hi}] -- "
+            f"use SignatureLayout.WIDE or rehash to <= {PACKED_BUCKET_MAX + 1} "
+            f"buckets"
+        )
+    return sigs.to(torch.uint8).contiguous()
+
+
+def packed_tanimoto_match(data_u8: torch.Tensor, query_u8: torch.Tensor) -> torch.Tensor:
+    """Byte-lane collision count -> int32 [Q, N]: the plain PyTorch reference
+    of the packed TANIMOTO layout (identical counts to match_tanimoto on the
+    int32 ids; the CUDA kernels in kernels/packed_tanimoto.py are the hot
+    path).  Equal bytes are equal int32 ids, so the compare runs on the bytes
+    as they are stored."""
+    return _match.match_eq(data_u8, query_u8)
+
+
 def packed_bytes_cosine(wide: torch.Tensor) -> int:
     """Packed footprint of a WIDE sign matrix [N, V]: ceil(V/32) words/row."""
     return int(wide.shape[0]) * packed_words(int(wide.shape[1])) * 4
+
+
+def packed_bytes_tanimoto(wide: torch.Tensor) -> int:
+    """Packed footprint of a WIDE sketch matrix [N, m]: one byte per slot."""
+    return int(wide.shape[0]) * int(wide.shape[1])

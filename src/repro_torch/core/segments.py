@@ -24,9 +24,9 @@ preserves that order, so compaction never remaps an id.
     res = seg.search(queries, k=10)    # == monolithic GenieIndex search
     seg.compact(max_segments=1)        # coalesce; ids unchanged
 
-Segments are sealed in the index's signature layout: PACKED (COSINE) segments
-hold packed words, a compaction concatenates them row-wise (still valid
-packed rows), and `search` packs the queries.
+Segments are sealed in the index's signature layout: PACKED segments hold
+packed rows (COSINE words, TANIMOTO uint8 buckets), a compaction concatenates
+them row-wise (still valid packed rows), and `search` packs the queries.
 
 Not ported yet: `search_multiload` (ROADMAP queue 1 item 4), `router()` and
 routed search (queue 1 item 6) and the autotuned layout switch (queue 1

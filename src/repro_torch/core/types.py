@@ -19,9 +19,9 @@ class Engine(str, enum.Enum):
     COSINE   -- sign-agreement count of sign-quantized vectors
                 (simhash-angle cosine, Johnson et al. 1702.08734).
 
-    EQ and COSINE have a registered MatchModel so far (core/engines.py); the
-    names of the others are kept so keys and plans compare equal with the
-    JAX package's.
+    EQ, TANIMOTO and COSINE have a registered MatchModel so far
+    (core/engines.py); the names of the others are kept so keys and plans
+    compare equal with the JAX package's.
     """
 
     EQ = "eq"
@@ -43,10 +43,10 @@ class SignatureLayout(str, enum.Enum):
 
     WIDE    -- one signature slot per array element.
     PACKED  -- bit/byte-packed signatures (COSINE sign words, TANIMOTO uint8
-               buckets).  COSINE is the port's one engine with a packed
-               format so far (32 signs per int32 word, core/packing.py);
-               PACKED plans of the other engines are rejected at build/plan
-               time.
+               buckets).  COSINE (32 signs per int32 word) and TANIMOTO
+               (one byte per bucket id) have a packed format
+               (core/packing.py); PACKED plans of the other engines are
+               rejected at build/plan time.
     """
 
     WIDE = "wide"

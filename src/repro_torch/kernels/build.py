@@ -165,5 +165,20 @@ def load() -> ctypes.CDLL:
         lib.repro_packed_cosine_topk.argtypes = [
             ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
         lib.repro_packed_cosine_topk.restype = i32
+        # int repro_tanimoto_count(data, query, out, n_data, n_query, m, stream)
+        lib.repro_tanimoto_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_tanimoto_count.restype = i32
+        # int repro_packed_tanimoto_count(data, query, out, n_data, n_query, m, stream)
+        lib.repro_packed_tanimoto_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_packed_tanimoto_count.restype = i32
+        # int repro_packed_tanimoto_topk_plan(n_data, n_query, m, *grid, *scratch_ints)
+        lib.repro_packed_tanimoto_topk_plan.argtypes = [
+            i64, i32, i32, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+        lib.repro_packed_tanimoto_topk_plan.restype = i32
+        # int repro_packed_tanimoto_topk(data, query, ids, counts, n_data, n_query,
+        #                                m, kc, grid, scratch, stream)
+        lib.repro_packed_tanimoto_topk.argtypes = [
+            ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
+        lib.repro_packed_tanimoto_topk.restype = i32
         _LIB = lib
     return _LIB

@@ -2,13 +2,25 @@
 
 Ported from `repro/kernels/common.py` only as far as the port uses it: the
 kernels mask their ragged edges themselves, so `pad_to` / `pick_tile` and the
-8/128 TPU alignment floors have no counterpart.  What the wrappers do share
-is the launch count: each wrapper calls `note_launch` where it launches its
-kernel and nowhere else, so a run can show that it went through the kernels.
+8/128 TPU alignment floors have no counterpart.  What the wrappers do share:
+
+  - the launch count: each wrapper calls `note_launch` where it launches its
+    kernel and nowhere else, so a run can show that it went through the
+    kernels;
+  - the launch of the two kernel families that share device code:
+    `launch_eq_count` for the equality counts on the tile of
+    `csrc/eq_tile.cuh` (match_count, tanimoto_count), and
+    `launch_fused_topk` with its plain selection `local_topk_plain` for the
+    fused match -> count -> per-tile top-k kernels on `csrc/local_topk.cuh`
+    (packed_cosine_topk, packed_tanimoto_topk).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from repro_torch.kernels import build
 
 _LAUNCHES: dict[str, int] = {}
 
@@ -49,3 +61,93 @@ def check_status(name: str, status: int) -> None:
     synchronize() would not report it)."""
     if status != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
+
+
+def launch_eq_count(name: str, data_sigs: torch.Tensor,
+                    query_sigs: torch.Tensor) -> torch.Tensor:
+    """Check the operands of an int32 equality-count kernel on the tile of
+    `csrc/eq_tile.cuh` and launch it through its C entry `repro_<name>`.
+    Shared by match_count and tanimoto_count, each its own kernel with its
+    own launch count."""
+    device = data_sigs.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    check_operand(f"{name} data_sigs", data_sigs, 2, device)
+    check_operand(f"{name} query_sigs", query_sigs, 2, device)
+    n, m = data_sigs.shape
+    q = query_sigs.shape[0]
+    if query_sigs.shape[1] != m:
+        raise ValueError(
+            f"{name}: signature widths differ, data {m} vs "
+            f"queries {query_sigs.shape[1]}"
+        )
+    out = torch.empty((q, n), dtype=torch.int32, device=device)
+    if q == 0 or n == 0:
+        return out
+    lib = build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = getattr(lib, f"repro_{name}")(
+            data_sigs.data_ptr(), query_sigs.data_ptr(), out.data_ptr(),
+            n, q, m, stream)
+    check_status(name, status)
+    note_launch(name)
+    return out
+
+
+def launch_fused_topk(name: str, data: torch.Tensor, query: torch.Tensor,
+                      device: torch.device, n: int, q: int, width: int, k: int,
+                      tile_n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the candidate buffers of a fused match -> count -> top-k
+    kernel and launch it through its two C entries, `repro_<name>_plan` (grid
+    and histogram scratch for this width) and `repro_<name>`.  Shared by
+    packed_cosine_topk and packed_tanimoto_topk, which take checked
+    operands; `width` is the row width the kernel reads (words or bytes)."""
+    kc = min(int(k), tile_n)
+    slots = -(-n // tile_n) * kc
+    ids = torch.empty((q, slots), dtype=torch.int32, device=device)
+    cnts = torch.empty((q, slots), dtype=torch.int32, device=device)
+    if q == 0 or n == 0:
+        return ids, cnts
+    lib = build.load()
+    with torch.cuda.device(device):
+        grid, scratch_ints = ctypes.c_int(), ctypes.c_longlong()
+        status = getattr(lib, f"repro_{name}_plan")(
+            n, q, width, ctypes.byref(grid), ctypes.byref(scratch_ints))
+        check_status(f"{name} (plan)", status)
+        # histogram bins that do not fit in shared memory
+        scratch = (torch.empty(scratch_ints.value, dtype=torch.int32, device=device)
+                   if scratch_ints.value else None)
+        stream = torch.cuda.current_stream().cuda_stream
+        status = getattr(lib, f"repro_{name}")(
+            data.data_ptr(), query.data_ptr(), ids.data_ptr(), cnts.data_ptr(),
+            n, q, width, kc, grid.value,
+            None if scratch is None else scratch.data_ptr(), stream)
+    check_status(name, status)
+    note_launch(name)
+    return ids, cnts
+
+
+def local_topk_plain(counts: torch.Tensor, k: int,
+                     tile_n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-tile selection of the fused kernels (`csrc/local_topk.cuh`)
+    done the plain way, on a full count matrix [Q, N]: cut into tiles of
+    `tile_n` ids (the last one filled with count -1), each tile ordered by a
+    stable descending sort of its counts (ids ascending within equal counts)
+    and cut to its first kc = min(k, tile_n) entries; a slot whose count is
+    -1 becomes id -1.  Replaces `local_topk_tile`
+    (`src/repro/kernels/packed_cosine.py`)."""
+    q, n = counts.shape
+    kc = min(int(k), int(tile_n))
+    n_tiles = -(-n // tile_n)
+    pad = n_tiles * tile_n - n
+    if pad:
+        counts = torch.cat([counts, counts.new_full((q, pad), -1)], dim=1)
+    vals, idx = torch.sort(counts.reshape(q, n_tiles, tile_n), dim=-1,
+                           descending=True, stable=True)
+    del counts
+    vals, idx = vals[..., :kc], idx[..., :kc]
+    first = torch.arange(n_tiles, dtype=torch.int64, device=idx.device)[None, :, None] * tile_n
+    ids = torch.where(vals >= 0, idx + first, -1).to(torch.int32)
+    cnts = torch.where(vals >= 0, vals, -1).to(torch.int32)
+    return ids.reshape(q, n_tiles * kc), cnts.reshape(q, n_tiles * kc)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.match import match_eq
-from repro_torch.kernels import build, common
+from repro_torch.kernels import common
 
 # The plain PyTorch version of this kernel is `core.match.match_eq` (the
 # engine's reference semantics, chunked so its temp stays [Q, N, chunk]); it
@@ -31,27 +31,5 @@ def match_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.Tens
     both contiguous and on one device."""
     if data_sigs.device.type == "cpu" and query_sigs.device.type == "cpu":
         return match_count_plain(data_sigs, query_sigs)
-    device = data_sigs.device
-    if device.type != "cuda":
-        raise ValueError(f"match_count: no kernel for device {device}")
-    common.check_operand("match_count data_sigs", data_sigs, 2, device)
-    common.check_operand("match_count query_sigs", query_sigs, 2, device)
-    n, m = data_sigs.shape
-    q = query_sigs.shape[0]
-    if query_sigs.shape[1] != m:
-        raise ValueError(
-            f"match_count: signature widths differ, data {m} vs "
-            f"queries {query_sigs.shape[1]}"
-        )
-    out = torch.empty((q, n), dtype=torch.int32, device=device)
-    if q == 0 or n == 0:
-        return out
-    lib = build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.repro_match_count(
-            data_sigs.data_ptr(), query_sigs.data_ptr(), out.data_ptr(),
-            n, q, m, stream)
-    common.check_status("match_count", status)
-    common.note_launch("match_count")
-    return out
+    return common.launch_eq_count("match_count", data_sigs, query_sigs)
+

@@ -1,12 +1,13 @@
 """Public entries of the kernel layer: what the GENIE engines call.
 
-The counterpart of `repro/kernels/ops.py`, with the EQ, c-PQ histogram and
-COSINE (WIDE and PACKED) entries (the other six kernels are still to be
-ported).  The TPU wrappers pad inputs to tile multiples with sentinels and
-slice the result back; the CUDA kernels mask their ragged edges themselves,
-so an entry here only brings its operands to the form the kernel takes (int32
-or int8 signs, contiguous -- the cast the reference applies) and calls the
-wrapper.  `repro_torch.kernels.ref` holds the oracles.
+The counterpart of `repro/kernels/ops.py`, with the EQ, c-PQ histogram,
+TANIMOTO and COSINE (WIDE and PACKED) entries (RANGE, MINSUM and IP are still
+to be ported).  The TPU wrappers pad inputs to tile multiples with sentinels
+(-1 / -2, and 255 / 254 for uint8 buckets) and slice the result back; the CUDA
+kernels mask their ragged edges themselves, so no sentinel reaches them and an
+entry here only brings its operands to the form the kernel takes (int32, int8
+signs or uint8 buckets, contiguous -- the cast the reference applies) and
+calls the wrapper.  `repro_torch.kernels.ref` holds the oracles.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from repro_torch.kernels import cosine_count as _cos
 from repro_torch.kernels import cpq_hist as _cpq_hist
 from repro_torch.kernels import match_count as _mc
 from repro_torch.kernels import packed_cosine as _pcos
+from repro_torch.kernels import packed_tanimoto as _ptan
+from repro_torch.kernels import tanimoto_count as _tc
 
 
 def _int32(x: torch.Tensor) -> torch.Tensor:
@@ -26,6 +29,10 @@ def _int8(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int8).contiguous()
 
 
+def _uint8(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.uint8).contiguous()
+
+
 def match_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.Tensor:
     """EQ engine kernel: counts int32 [Q, N]."""
     return _mc.match_count(_int32(data_sigs), _int32(query_sigs))
@@ -34,6 +41,11 @@ def match_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.Tens
 def cpq_hist(counts: torch.Tensor, max_count: int) -> torch.Tensor:
     """c-PQ Gate histogram: int32 [Q, max_count + 1]."""
     return _cpq_hist.cpq_hist(_int32(counts), max_count)
+
+
+def tanimoto_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.Tensor:
+    """TANIMOTO engine kernel: minhash collision counts int32 [Q, N]."""
+    return _tc.tanimoto_count(_int32(data_sigs), _int32(query_sigs))
 
 
 def cosine_count(data_sgn: torch.Tensor, query_sgn: torch.Tensor) -> torch.Tensor:
@@ -54,3 +66,15 @@ def packed_cosine_topk(data_words: torch.Tensor, query_words: torch.Tensor, *,
     [Q, n_tiles * min(k, TILE_N)] candidate buffers in per-tile (count desc,
     id asc) order; ids are object ids, empty slots are -1 / -1."""
     return _pcos.packed_cosine_topk(_int32(data_words), _int32(query_words), k)
+
+
+def packed_tanimoto_count(data_u8: torch.Tensor, query_u8: torch.Tensor) -> torch.Tensor:
+    """Packed TANIMOTO kernel: byte-lane collision counts int32 [Q, N]."""
+    return _ptan.packed_tanimoto_count(_uint8(data_u8), _uint8(query_u8))
+
+
+def packed_tanimoto_topk(data_u8: torch.Tensor, query_u8: torch.Tensor, *,
+                         k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused packed TANIMOTO match->count->local-top-k (see
+    packed_cosine_topk for the candidate-buffer contract)."""
+    return _ptan.packed_tanimoto_topk(_uint8(data_u8), _uint8(query_u8), k)

@@ -30,8 +30,6 @@ it takes its plain version only for tensors that lie on the CPU.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core.packing import packed_cosine_match
@@ -50,27 +48,10 @@ packed_cosine_count_plain = packed_cosine_match
 def packed_cosine_topk_plain(data_words: torch.Tensor, query_words: torch.Tensor,
                              k: int, tile_n: int = TILE_N) -> tuple[torch.Tensor, torch.Tensor]:
     """The fused kernel's candidate buffers computed the plain way: the full
-    count matrix, cut into tiles of `tile_n` ids (the last one filled with
-    count -1), each tile ordered by a stable descending sort of its counts
-    (ids ascending within equal counts) and cut to its first kc = min(k,
-    tile_n) entries; a slot whose count is -1 becomes id -1."""
+    count matrix cut into per-tile top-kc lists (`common.local_topk_plain`)."""
     if k < 1:
         raise ValueError(f"packed_cosine_topk: k must be >= 1, got {k}")
-    counts = packed_cosine_count_plain(data_words, query_words)
-    q, n = counts.shape
-    kc = min(int(k), int(tile_n))
-    n_tiles = -(-n // tile_n)
-    pad = n_tiles * tile_n - n
-    if pad:
-        counts = torch.cat([counts, counts.new_full((q, pad), -1)], dim=1)
-    vals, idx = torch.sort(counts.reshape(q, n_tiles, tile_n), dim=-1,
-                           descending=True, stable=True)
-    del counts
-    vals, idx = vals[..., :kc], idx[..., :kc]
-    first = torch.arange(n_tiles, dtype=torch.int64, device=idx.device)[None, :, None] * tile_n
-    ids = torch.where(vals >= 0, idx + first, -1).to(torch.int32)
-    cnts = torch.where(vals >= 0, vals, -1).to(torch.int32)
-    return ids.reshape(q, n_tiles * kc), cnts.reshape(q, n_tiles * kc)
+    return common.local_topk_plain(packed_cosine_count_plain(data_words, query_words), k, tile_n)
 
 
 def _operands(name: str, data_words: torch.Tensor, query_words: torch.Tensor):
@@ -117,26 +98,6 @@ def packed_cosine_topk(data_words: torch.Tensor, query_words: torch.Tensor,
     if k < 1:
         raise ValueError(f"packed_cosine_topk: k must be >= 1, got {k}")
     device, n, q, w = _operands("packed_cosine_topk", data_words, query_words)
-    kc = min(int(k), TILE_N)
-    slots = -(-n // TILE_N) * kc
-    ids = torch.empty((q, slots), dtype=torch.int32, device=device)
-    cnts = torch.empty((q, slots), dtype=torch.int32, device=device)
-    if q == 0 or n == 0:
-        return ids, cnts
-    lib = build.load()
-    with torch.cuda.device(device):
-        grid, scratch_ints = ctypes.c_int(), ctypes.c_longlong()
-        status = lib.repro_packed_cosine_topk_plan(
-            n, q, w, ctypes.byref(grid), ctypes.byref(scratch_ints))
-        common.check_status("packed_cosine_topk (plan)", status)
-        # histogram bins that do not fit in shared memory (W > 161)
-        scratch = (torch.empty(scratch_ints.value, dtype=torch.int32, device=device)
-                   if scratch_ints.value else None)
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.repro_packed_cosine_topk(
-            data_words.data_ptr(), query_words.data_ptr(), ids.data_ptr(),
-            cnts.data_ptr(), n, q, w, kc, grid.value,
-            None if scratch is None else scratch.data_ptr(), stream)
-    common.check_status("packed_cosine_topk", status)
-    common.note_launch("packed_cosine_topk")
-    return ids, cnts
+    return common.launch_fused_topk("packed_cosine_topk", data_words, query_words, device,
+                                    n, q, w, k, TILE_N)
+

@@ -1,0 +1,96 @@
+"""Packed TANIMOTO match-count on uint8 minhash buckets: the CUDA kernels'
+wrappers and their plain PyTorch versions.
+
+Bucket ids arrive one byte each (core/packing.py `pack_buckets`: ids in
+[0, 253]), and the match is the equality compare on byte lanes:
+
+    counts[q, n] = sum_i (data_u8[n, i] == query_u8[q, i])       int32 [Q, N]
+
+bit for bit the counts of the WIDE kernel (kernels/tanimoto_count.py).  Two
+entry points, both kernels in `csrc/packed_tanimoto.cu` (whose header says
+what bounds them on an H100 and what the design does about it):
+
+  packed_tanimoto_count  -- counts int32 [Q, N].  Replaces `_count_kernel` /
+      `packed_tanimoto_count_pallas` (`src/repro/kernels/packed_tanimoto.py`).
+  packed_tanimoto_topk   -- the fused match -> count -> per-tile local top-k.
+      Replaces `_topk_kernel`, which reuses `local_topk_tile` of the packed
+      COSINE kernel; here the selection is `csrc/local_topk.cuh`, shared with
+      `packed_cosine_topk`, and so is the candidate-buffer contract: each
+      tile of TILE_N data rows contributes its kc = min(k, TILE_N) best
+      candidates by (count desc, id asc), ids / counts int32 [Q, ceil(N /
+      TILE_N) * kc], tiles ascending, exhausted slots -1 / -1.
+
+Each wrapper launches its kernel for CUDA tensors and raises when it cannot;
+it takes its plain version only for tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.packing import packed_tanimoto_match
+from repro_torch.kernels import build, common
+
+# data rows per tile of the fused kernel: K_TN in csrc/packed_tanimoto.cu,
+# which must agree (tests/test_torch_tanimoto.py reads it from the source)
+TILE_N = 2048
+
+# The plain PyTorch version of the count kernel is the layout's reference
+# semantics, `core.packing.packed_tanimoto_match`, bound here under the
+# kernel's name so the two stand side by side.
+packed_tanimoto_count_plain = packed_tanimoto_match
+
+
+def packed_tanimoto_topk_plain(data_u8: torch.Tensor, query_u8: torch.Tensor,
+                               k: int, tile_n: int = TILE_N) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel's candidate buffers computed the plain way: the full
+    count matrix cut into per-tile top-kc lists (`common.local_topk_plain`)."""
+    if k < 1:
+        raise ValueError(f"packed_tanimoto_topk: k must be >= 1, got {k}")
+    return common.local_topk_plain(packed_tanimoto_count_plain(data_u8, query_u8), k, tile_n)
+
+
+def _operands(name: str, data_u8: torch.Tensor, query_u8: torch.Tensor):
+    device = data_u8.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    common.check_operand(f"{name} data_u8", data_u8, 2, device, torch.uint8)
+    common.check_operand(f"{name} query_u8", query_u8, 2, device, torch.uint8)
+    n, m = data_u8.shape
+    if query_u8.shape[1] != m:
+        raise ValueError(
+            f"{name}: signature widths differ, data {m} vs queries {query_u8.shape[1]}")
+    if m == 0:
+        raise ValueError(f"{name}: packed rows hold no signature slots")
+    return device, n, query_u8.shape[0], m
+
+
+def packed_tanimoto_count(data_u8: torch.Tensor, query_u8: torch.Tensor) -> torch.Tensor:
+    """counts int32 [Q, N] from uint8 buckets [N, m] and [Q, m]."""
+    if data_u8.device.type == "cpu" and query_u8.device.type == "cpu":
+        return packed_tanimoto_count_plain(data_u8, query_u8)
+    device, n, q, m = _operands("packed_tanimoto_count", data_u8, query_u8)
+    out = torch.empty((q, n), dtype=torch.int32, device=device)
+    if q == 0 or n == 0:
+        return out
+    lib = build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.repro_packed_tanimoto_count(
+            data_u8.data_ptr(), query_u8.data_ptr(), out.data_ptr(), n, q, m, stream)
+    common.check_status("packed_tanimoto_count", status)
+    common.note_launch("packed_tanimoto_count")
+    return out
+
+
+def packed_tanimoto_topk(data_u8: torch.Tensor, query_u8: torch.Tensor,
+                         k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ids, counts) int32 [Q, ceil(N / TILE_N) * min(k, TILE_N)]: per-tile
+    candidates in (count desc, id asc) order, tiles ascending, exhausted
+    slots -1 / -1."""
+    if data_u8.device.type == "cpu" and query_u8.device.type == "cpu":
+        return packed_tanimoto_topk_plain(data_u8, query_u8, k)
+    if k < 1:
+        raise ValueError(f"packed_tanimoto_topk: k must be >= 1, got {k}")
+    device, n, q, m = _operands("packed_tanimoto_topk", data_u8, query_u8)
+    return common.launch_fused_topk("packed_tanimoto_topk", data_u8, query_u8, device,
+                                    n, q, m, k, TILE_N)

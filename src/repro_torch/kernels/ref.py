@@ -7,8 +7,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.match import match_cosine, match_eq  # noqa: F401
-from repro_torch.core.packing import packed_cosine_match  # noqa: F401
+from repro_torch.core.match import (  # noqa: F401
+    match_cosine,
+    match_eq,
+    match_tanimoto,
+    tanimoto_exact,
+)
+from repro_torch.core.packing import packed_cosine_match, packed_tanimoto_match  # noqa: F401
 
 
 def cpq_hist(counts: torch.Tensor, nbins: int) -> torch.Tensor:

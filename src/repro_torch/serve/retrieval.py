@@ -7,17 +7,19 @@ SegmentedIndex; `add`/`search` give tau-ANN retrieval at batch 1024+, the
 paper's throughput regime.
 
 Selecting a scheme by name selects the whole engine stack: each LshScheme
-names the match engine that consumes its signatures (e2lsh -> EQ bucket
-collisions, simhash -> COSINE sign agreements) and the MLE that converts
-match counts back to similarity estimates, so `RetrievalService(
-scheme="simhash")` serves quantized cosine with no other change.
+names the match engine that consumes its signatures (e2lsh/rbh -> EQ bucket
+collisions, minhash -> TANIMOTO sketch collisions, simhash -> COSINE sign
+agreements) and the MLE that converts match counts back to similarity
+estimates, so `RetrievalService(scheme="simhash")` serves quantized cosine
+and `scheme="minhash"` serves Jaccard with no other change.
 
-`signature_layout="packed"` seals every segment bit-packed (simhash ->
-COSINE sign words, 32 signs per int32 word; core/packing.py): results are
-identical to WIDE, the signatures take 8x less device memory, and a search
-runs the fused match -> count -> per-tile top-k kernel, which never writes
-the [Q, N] count matrix.  WIDE-only engines (e2lsh -> EQ) reject it at
-construction.
+`signature_layout="packed"` seals every segment bit/byte-packed (simhash ->
+COSINE sign words, 32 signs per int32 word, 8x less device memory; minhash ->
+TANIMOTO uint8 bucket ids, 4x less, when n_buckets <= 254 -- `pack_buckets`
+refuses larger ids, as in the reference; core/packing.py): results are
+identical to WIDE, and a search runs the fused match -> count -> per-tile
+top-k kernel, which never writes the [Q, N] count matrix.  WIDE-only engines
+(e2lsh/rbh -> EQ) reject it at construction.
 
 `add` may be called repeatedly: each batch is hashed once and sealed into an
 immutable index *segment* (core/segments.py) -- O(batch) device work per
@@ -36,8 +38,7 @@ product would move points across bucket boundaries or flip signs near 0.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 sharded serving (`mesh=`), routed search (`routing=` / `nprobe=`), the
-autotuner (`autotune=`, `tune()`); and the schemes minhash and rbh (queue 1
-item 3b; `get_scheme` raises KeyError for them).
+autotuner (`autotune=`, `tune()`).
 """
 from __future__ import annotations
 
@@ -76,8 +77,8 @@ class RetrievalService:
     autotune: None = None                          # measured-knob cache: not ported
     use_kernel: bool = True                        # CUDA kernels vs plain PyTorch
     device: DeviceLike = None                      # None = the card
-    # scheme parameters handed over from elsewhere (e.g.
-    # lsh.e2lsh.params_from_numpy, lsh.simhash.params_from_numpy) in place of
+    # scheme parameters handed over from elsewhere (each scheme's
+    # params_from_numpy, e.g. lsh.e2lsh.params_from_numpy) in place of
     # drawing them from `seed`
     params: Optional[object] = None
 
@@ -116,7 +117,9 @@ class RetrievalService:
                 "the LSH parameters are already fixed (by an earlier "
                 "load_params() or the first add()); they are built once per "
                 "service")
-        m, d = params.dims          # the scheme's own parameter shape
+        # the scheme's own parameter shape; d is None for a scheme whose
+        # parameters fix no input dimension (minhash): the first add fixes it
+        m, d = params.dims
         if m != self.m:
             raise ValueError(
                 f"parameters carry {m} hash functions but the service is "
@@ -168,8 +171,9 @@ class RetrievalService:
         if not items:
             raise ValueError("cannot add an empty batch of items")
         emb = self._embed(items, embeddings, expect_rows=len(items))
-        if self._params is None:
+        if self._dim is None:
             self._dim = int(emb.shape[-1])
+        if self._params is None:
             self._params = self._make_params(self._dim)
         if self._index is None:
             self._index = SegmentedIndex(engine=self._scheme.engine,

@@ -18,6 +18,9 @@ from repro_torch.kernels.cpq_hist import cpq_hist_plain
 from repro_torch.kernels.match_count import match_count, match_count_plain
 from repro_torch.kernels.packed_cosine import (packed_cosine_count_plain,
                                                packed_cosine_topk_plain)
+from repro_torch.kernels.packed_tanimoto import (packed_tanimoto_count_plain,
+                                                 packed_tanimoto_topk_plain)
+from repro_torch.kernels.tanimoto_count import tanimoto_count_plain
 from repro_torch.serve import RetrievalService
 
 SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (70, 10003, 238)]  # (Q, N, m)
@@ -105,3 +108,45 @@ def test_simhash_service_packed_equals_wide_on_the_card():
         assert res.ids.is_cuda
         assert torch.equal(res.ids, base.ids) and torch.equal(res.counts, base.counts)
     assert base.ids[:, 0].tolist() == list(range(0, 3000, 100))
+
+
+@pytest.mark.gpu
+def test_tanimoto_kernels_equal_plain_versions_on_the_card():
+    _need_card()
+    gen = torch.Generator().manual_seed(2)
+    common.reset_launch_counts()
+    for q, n, m in SHAPES + [(3, 2100, 600)]:
+        d = torch.randint(0, 254, (n, m), generator=gen, dtype=torch.int32).cuda()
+        s = torch.randint(0, 254, (q, m), generator=gen, dtype=torch.int32).cuda()
+        d[0, 0], s[0, -1] = 0, 253                 # the ends of the packed domain
+        assert torch.equal(ops.tanimoto_count(d, s), tanimoto_count_plain(d, s))
+        du, su = packing.pack_buckets(d), packing.pack_buckets(s)
+        assert torch.equal(ops.packed_tanimoto_count(du, su), packed_tanimoto_count_plain(du, su))
+        for k in (1, 10):
+            got = ops.packed_tanimoto_topk(du, su, k=k)
+            want = packed_tanimoto_topk_plain(du, su, k)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"tanimoto_count": 6, "packed_tanimoto_count": 6,
+                                      "packed_tanimoto_topk": 12}
+
+
+@pytest.mark.gpu
+def test_minhash_service_packed_equals_wide_on_the_card():
+    _need_card()
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((3000, 16)).astype(np.float32)
+    results = {}
+    for layout in ("wide", "packed"):
+        for use_kernel in (True, False):
+            svc = RetrievalService(scheme="minhash", m_override=64, n_buckets=254,
+                                   use_kernel=use_kernel, max_segments=4,
+                                   signature_layout=layout)
+            for lo in range(0, 3000, 500):
+                svc.add(range(lo, lo + 500), embeddings=emb[lo:lo + 500])
+            results[(layout, use_kernel)] = svc.search(None, k=10, embeddings=emb[::100])[0]
+    base = results[("wide", False)]
+    for res in results.values():
+        assert res.ids.is_cuda
+        assert torch.equal(res.ids, base.ids) and torch.equal(res.counts, base.counts)
+    assert bool((base.counts[:, 0] == 64).all())   # every query finds itself whole

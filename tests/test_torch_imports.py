@@ -26,7 +26,9 @@ def test_module_list_covers_the_slice():
                  "repro_torch.kernels.build", "repro_torch.kernels.match_count",
                  "repro_torch.kernels.cpq_hist", "repro_torch.serve.retrieval",
                  "repro_torch.core.lsh.simhash", "repro_torch.core.packing",
-                 "repro_torch.kernels.cosine_count", "repro_torch.kernels.packed_cosine"):
+                 "repro_torch.kernels.cosine_count", "repro_torch.kernels.packed_cosine",
+                 "repro_torch.core.lsh.minhash", "repro_torch.core.lsh.rbh",
+                 "repro_torch.kernels.tanimoto_count", "repro_torch.kernels.packed_tanimoto"):
         assert name in _MODULES
 
 
@@ -78,9 +80,13 @@ def _needs_no_cuda():
     lambda: resolve_device("cuda"),
     lambda: RetrievalService(scheme="simhash", signature_layout="packed"),
     lambda: GenieIndex.build_cosine([[1.0, -2.0], [3.0, 4.0]], signature_layout="packed"),
+    lambda: RetrievalService(scheme="minhash", signature_layout="packed"),
+    lambda: RetrievalService(scheme="rbh"),
+    lambda: GenieIndex.build_tanimoto([[1, 2], [3, 4]], signature_layout="packed"),
 ], ids=["service", "service-device-none", "segmented", "index-build",
         "index-build-lsh", "resolve-none", "resolve-cuda", "service-simhash-packed",
-        "index-build-cosine"])
+        "index-build-cosine", "service-minhash-packed", "service-rbh",
+        "index-build-tanimoto"])
 def test_default_device_raises_without_cuda(build):
     """No silent run on the CPU: the default device is the card."""
     _needs_no_cuda()

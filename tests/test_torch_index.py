@@ -134,7 +134,7 @@ def test_segmented_index_validation(rng):
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         seg.search(_sigs(rng, 2), k=3, routing="routed")
     with pytest.raises(KeyError, match="still to be ported"):
-        SegmentedIndex(Engine.TANIMOTO, device="cpu")
+        SegmentedIndex(Engine.RANGE, device="cpu")
 
 
 def test_concat_data_pads_and_a_padded_plan_masks(rng):
@@ -247,7 +247,8 @@ def test_segment_helpers_equal_reference():
 
 def test_engine_registry(rng):
     model = engines.get(Engine.EQ)
-    assert engines.available() == (Engine.EQ, Engine.COSINE) and engines.get(model) is model
+    assert engines.available() == (Engine.EQ, Engine.TANIMOTO, Engine.COSINE)
+    assert engines.get(model) is model
     assert model.count_dtype(100) == torch.int8 and model.count_dtype(238) == torch.int16
     assert model.count_dtype(40000) == torch.int32
     assert model.as_count_dtype(torch.tensor([3], dtype=torch.int32), 5).dtype == torch.int8

@@ -140,14 +140,15 @@ def test_make_draws_from_a_generator():
 
 
 def test_scheme_registry():
-    assert lsh.scheme_names() == ("e2lsh", "simhash")
+    assert lsh.scheme_names() == ("e2lsh", "minhash", "rbh", "simhash")
+    assert lsh.scheme_names() == jlsh.scheme_names()
     scheme = lsh.get_scheme("e2lsh")
     jscheme = jlsh.get_scheme("e2lsh")
     assert scheme.engine is Engine.EQ and scheme.engine.value == jscheme.engine.value
     assert scheme.option_names == jscheme.option_names
     assert lsh.get_scheme(scheme) is scheme
     with pytest.raises(KeyError, match="unknown LSH scheme"):
-        lsh.get_scheme("minhash")                  # not ported yet
+        lsh.get_scheme("no-such-scheme")
     # options a family does not take are dropped, as in the reference
     params = scheme.make_params(torch.Generator().manual_seed(0), d=4, m=6,
                                 w=4.0, sigma=1.0, n_buckets=32)

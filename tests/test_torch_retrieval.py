@@ -165,7 +165,7 @@ def test_constructor_validation():
     with pytest.raises(ValueError, match="no packed signature format"):
         RetrievalService(m_override=8, signature_layout="packed", device="cpu")
     with pytest.raises(KeyError, match="unknown LSH scheme"):
-        RetrievalService(m_override=8, scheme="minhash", device="cpu")
+        RetrievalService(m_override=8, scheme="no-such-scheme", device="cpu")
     with pytest.raises(ValueError, match="no embed_fn"):
         RetrievalService(m_override=8, device="cpu").add(["a"])
 
