@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `src/repro_torch/kernels/csrc/` (first use
-builds them), then runs these phases -- 1 to 3c in order, then each
-full-width phase followed by its kernels' times (4, 5, 4b, 5b, 4c, 5c, 4c')
--- and fails (non-zero exit, no result line) as soon as a phase fails:
+builds them), then runs these phases -- 1 to 3d in order, then each
+full-width phase followed by its kernels' times (4, 5, 4b, 5b, 4c, 5c, 4c',
+4d, 5d, 4e, 5d, 4f, 5d) -- and fails (non-zero exit, no result line) as soon
+as a phase fails:
 
   1. environment and build: versions, the card's name and power limit, the
      kernels' build time and what ptxas reports for them;
@@ -19,7 +20,10 @@ full-width phase followed by its kernels' times (4, 5, 4b, 5b, 4c, 5c, 4c')
      a sort of the counts; 2c. the three TANIMOTO kernels the same way:
      tanimoto_count (m from 1 to 4099), packed_tanimoto_count (bucket ids 0 to
      253, m from 1 to 4099) and packed_tanimoto_topk (k from 1 to above the
-     tile, m = 1, 238 and 6000, whose bins need device scratch);
+     tile, m = 1, 238 and 6000, whose bins need device scratch); 2d.
+     range_count (d = 1 to 37, empty ranges, lo = hi, INT32_MIN / INT32_MAX),
+     minsum_count (V = 1 to 4099, values 0 to 127, -1 pad rows) and ip_count
+     (V = 1 to 8195, int8 {0, 1}, and int32 / float32 through the wrapper);
   3. a small served round trip through `RetrievalService`: uneven adds, one
      compaction, CPQ / SPQ / SORT; the kernel path must equal the plain path
      bit for bit and unperturbed corpus points must retrieve themselves;
@@ -28,7 +32,10 @@ full-width phase followed by its kernels' times (4, 5, 4b, 5b, 4c, 5c, 4c')
      (`concat_data`), which runs packed_cosine_count and the pad mask;
      3c. the same with `scheme="minhash"` (m = 96, 128 buckets), WIDE and
      PACKED, a padded PACKED plan that runs packed_tanimoto_count, and
-     `scheme="rbh"` (-> EQ), kernel path against plain path;
+     `scheme="rbh"` (-> EQ), kernel path against plain path; 3d. RANGE,
+     MINSUM and IP through `SegmentedIndex` at their configurations' widths:
+     17 uneven adds, one compaction, CPQ / SPQ / SORT, kernel path = plain
+     path = a monolithic `GenieIndex.build`;
   4. the main path at full width -- the SIFT configuration's shape with the
      service's defaults: 4.5 M points of 128 dimensions in 16 sealed
      segments, m = required_m(0.06, 0.06) E2LSH functions into 8192 buckets,
@@ -45,12 +52,20 @@ full-width phase followed by its kernels' times (4, 5, 4b, 5b, 4c, 5c, 4c')
      (d = 1156, 8192 buckets, sigma by the median heuristic on the corpus),
      cut to 2 of its 16 adds of 218,750 rows (the RBH hash is a 1156-step
      plain PyTorch fold per add);
+     4d. Adult -> `SegmentedIndex(Engine.RANGE)` at full size (980,000
+     tuples x 14 attributes in 1024 bins, 16 adds, ranges +-50); 4e. DBLP ->
+     MINSUM (3-grams in 4096 buckets, K = 32 candidates verified by edit
+     distance, N cut to 1 M); 4f. Tweets -> IP (8192 buckets, N cut to 1 M):
+     each with its launch counts (16 of its count kernel and 16 of cpq_hist
+     per search), 8 sampled rows against the plain path, search and add
+     times, memory and the device's idle share;
   5. each kernel's time at the full-width per-segment shape beside the plain
      version's, one PyTorch library call where one computes the same
      function, and the least time the card could take (bytes moved over the
      memory rate, or operations over the peak rate for their type, whichever
      is larger); 5b. the same for the three COSINE kernels; 5c. the same for
-     the three TANIMOTO kernels, and tanimoto_count at m = 4096.
+     the three TANIMOTO kernels, and tanimoto_count at m = 4096; 5d. the same
+     for range_count, minsum_count and ip_count.
 
 It needs one CUDA device and no network, and imports neither jax nor the JAX
 package.  The last line of its output is one JSON object
@@ -143,9 +158,13 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def timed_ms(fn, device: torch.device, reps: int = 1, warmup: int = 0):
+def timed_ms(fn, device: torch.device, reps: int = 1, warmup: int = 0, hold: bool = False):
     """(mean milliseconds of one call, last result).  On the card the time is
-    between two CUDA events around `reps` calls, read after a synchronise."""
+    between two CUDA events around `reps` calls, read after a synchronise.
+    `hold`: the stream first sleeps ~50 ms on the card, so that the host has
+    enqueued all `reps` calls before the first event is reached and the time
+    is the device's alone -- for a kernel shorter than its launch on the
+    host, which the events would otherwise measure."""
     out = None
     for _ in range(warmup):
         out = fn()
@@ -153,6 +172,8 @@ def timed_ms(fn, device: torch.device, reps: int = 1, warmup: int = 0):
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(100_000_000)
         start.record()
         for _ in range(reps):
             out = fn()
@@ -216,6 +237,7 @@ def phase_kernel_parity(device: torch.device) -> dict:
     worst = {"match_count": 0, "cpq_hist": 0}
     worst.update(cosine_parity(device, gen))
     worst.update(tanimoto_parity(device))
+    worst.update(sa_parity(device))
     for q, n, m in MATCH_SHAPES:
         for dtype in (torch.int32, torch.int16):
             d = torch.randint(0, 9, (n, m), generator=gen, dtype=dtype).to(device)
@@ -493,7 +515,7 @@ def drive_full_width(device: torch.device, expect_launches: dict, sim_range: tup
     launches per search on this path (and no other kernel may launch).
     Returns the launch counts of the run, the service, the query batch, its
     signatures and the last result."""
-    from repro_torch.core import SegmentedIndex, TopKMethod
+    from repro_torch.core import TopKMethod
     from repro_torch.kernels import common
     from repro_torch.serve import RetrievalService
 
@@ -532,16 +554,73 @@ def drive_full_width(device: torch.device, expect_launches: dict, sim_range: tup
         f"(WIDE {stats.bytes_signatures_wide / 1e9:.4f} GB, PACKED "
         f"{stats.bytes_signatures_packed / 1e9:.4f} GB)")
 
+    res, sims = timed_searches(
+        lambda: svc.search(None, k=k, embeddings=queries, method=TopKMethod.CPQ),
+        n_queries, n_searches, expect_launches, device)
+    launches = common.launch_counts()
+
+    check_result(res, n_queries, k, n_total)
+    check(sims.shape == (n_queries, k) and bool((sims >= sim_range[0]).all())
+          and bool((sims <= sim_range[1]).all()),
+          f"similarity estimates outside {list(sim_range)}")
+    top1 = float((res.ids[:, 0] == expect).float().mean().item())
+    log(f"  top-1 self-retrieval: {top1:.4f}")
+    check(top1 >= 0.99, f"top-1 self-retrieval {top1} < 0.99")
+
+    qsigs = svc._hash(queries)
+    check_sample_on_plain_path(svc._index, qsigs, res, k, device)
+    return dict(launches=launches, service=svc, qsigs=qsigs, queries=queries, result=res)
+
+
+def check_result(res, n_queries: int, k: int, n_total: int) -> None:
+    """A top-k result of full width: shapes, dtypes, order, ids in range."""
+    check(res.ids.shape == (n_queries, k) and res.counts.shape == (n_queries, k)
+          and res.threshold.shape == (n_queries,), "result shapes")
+    check(res.ids.dtype == torch.int32 and res.counts.dtype == torch.int32, "result dtypes")
+    check(bool((res.counts[:, :-1] >= res.counts[:, 1:]).all()), "counts not non-increasing")
+    check(bool(((res.ids >= 0) & (res.ids < n_total)).all()), "ids out of range")
+
+
+def check_sample_on_plain_path(index, queries, res, k: int, device: torch.device) -> None:
+    """8 rows of `res` against a sort-method search through the plain path:
+    the same sealed segments of the SegmentedIndex `index`, viewed by an
+    index that never uses a kernel."""
+    from repro_torch.core import SegmentedIndex, TopKMethod
+    from repro_torch.kernels import common
+
+    n_queries = res.ids.shape[0]
+    sample = torch.arange(0, n_queries, max(1, n_queries // 8), device=device)[:8]
+    plain = SegmentedIndex(engine=index.engine, max_count=index.max_count, use_kernel=False,
+                           segments=index.segments, device=device,
+                           signature_layout=index.signature_layout)
+    before = common.launch_counts()
+    # RANGE queries are an (lo, hi) pair
+    rows = tuple(q[sample] for q in queries) if isinstance(queries, tuple) else queries[sample]
+    oracle = plain.search(rows, k=k, method=TopKMethod.SORT)
+    sync(device)
+    check(common.launch_counts() == before, "the plain path launched a kernel")
+    check(torch.equal(oracle.ids, res.ids[sample]) and torch.equal(oracle.counts, res.counts[sample])
+          and torch.equal(oracle.threshold, res.threshold[sample]),
+          "the kernel path differs from the sort oracle on the sampled rows")
+    log(f"  rows {sample.tolist()} equal a sort-method search through the plain path")
+
+
+def timed_searches(search, n_queries: int, n_searches: int, expect_launches: dict,
+                   device: torch.device):
+    """Run `search()` n_searches times: log the first time and the median of
+    the rest, queries/s and the peak device memory; check that the launch
+    counts since the path's reset are `expect_launches` per search (and that
+    no other kernel launched).  Returns the last result."""
+    from repro_torch.kernels import common
+
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     search_ms, res = [], None
     for _ in range(n_searches):
-        ms, (res, sims) = timed_ms(
-            lambda: svc.search(None, k=k, embeddings=queries, method=TopKMethod.CPQ), device)
+        ms, res = timed_ms(search, device)
         search_ms.append(ms)
     launches = common.launch_counts()      # the path ends here
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-
     rest = search_ms[1:] or search_ms
     median_ms = statistics.median(rest)
     log(f"  search: first {search_ms[0]:.2f} ms, median of the rest {median_ms:.2f} ms "
@@ -552,35 +631,12 @@ def drive_full_width(device: torch.device, expect_launches: dict, sim_range: tup
     want = {name: per * n_searches for name, per in expect_launches.items()}
     check(launches == want, f"launches {launches}, expected {want} "
           f"({expect_launches} per search x {n_searches} searches)")
+    return res
 
-    check(res.ids.shape == (n_queries, k) and res.counts.shape == (n_queries, k)
-          and res.threshold.shape == (n_queries,), "result shapes")
-    check(res.ids.dtype == torch.int32 and res.counts.dtype == torch.int32, "result dtypes")
-    check(bool((res.counts[:, :-1] >= res.counts[:, 1:]).all()), "counts not non-increasing")
-    check(bool(((res.ids >= 0) & (res.ids < n_total)).all()), "ids out of range")
-    check(sims.shape == (n_queries, k) and bool((sims >= sim_range[0]).all())
-          and bool((sims <= sim_range[1]).all()),
-          f"similarity estimates outside {list(sim_range)}")
-    top1 = float((res.ids[:, 0] == expect).float().mean().item())
-    log(f"  top-1 self-retrieval: {top1:.4f}")
-    check(top1 >= 0.99, f"top-1 self-retrieval {top1} < 0.99")
 
-    # a sample of rows against a sort-method search through the plain path:
-    # the same sealed segments, viewed by an index that never uses a kernel
-    sample = torch.arange(0, n_queries, max(1, n_queries // 8), device=device)[:8]
-    qsigs = svc._hash(queries)
-    plain = SegmentedIndex(engine=svc._index.engine, max_count=svc.m, use_kernel=False,
-                           segments=svc._index.segments, device=device,
-                           signature_layout=svc._index.signature_layout)
-    before = common.launch_counts()
-    oracle = plain.search(qsigs[sample], k=k, method=TopKMethod.SORT)
-    sync(device)
-    check(common.launch_counts() == before, "the plain path launched a kernel")
-    check(torch.equal(oracle.ids, res.ids[sample]) and torch.equal(oracle.counts, res.counts[sample])
-          and torch.equal(oracle.threshold, res.threshold[sample]),
-          "the kernel path differs from the sort oracle on the sampled rows")
-    log(f"  rows {sample.tolist()} equal a sort-method search through the plain path")
-    return dict(launches=launches, service=svc, qsigs=qsigs, queries=queries, result=res)
+def service_search(run: dict, k: int):
+    """One search of a full-width service run, as drive_full_width runs it."""
+    return lambda: run["service"].search(None, k=k, embeddings=run["queries"])
 
 
 def phase_full_width(device: torch.device, **sizes) -> dict:
@@ -600,8 +656,7 @@ def phase_full_width_simhash(device: torch.device, **sizes) -> dict:
                                ("packed", {"packed_cosine_topk": segs})):
         out[layout] = drive_full_width(device, per_search, (-1.0, 1.0), scheme="simhash",
                                        signature_layout=layout, **sizes)
-        profile_one_search(out[layout]["service"], out[layout]["queries"],
-                           sizes.get("k", FULL_K), device)
+        profile_one_search(service_search(out[layout], sizes.get("k", FULL_K)), device)
     wide, packed = out["wide"]["result"], out["packed"]["result"]
     check(torch.equal(wide.ids, packed.ids) and torch.equal(wide.counts, packed.counts),
           "simhash PACKED differs from WIDE")
@@ -651,16 +706,17 @@ def search_split(svc, queries: torch.Tensor, k: int, device: torch.device) -> No
     log(f"    {'sum':17s} {total:9.2f}")
 
 
-def profile_one_search(svc, queries: torch.Tensor, k: int, device: torch.device) -> None:
-    """One search under torch.profiler: the share of the search's wall time
-    in which the device was busy (kernels on one stream do not overlap, so
-    their times add up), and the kernels that took most of it."""
+def profile_one_search(search, device: torch.device) -> None:
+    """One search (`search()`) under torch.profiler: the share of the
+    search's wall time in which the device was busy (kernels on one stream do
+    not overlap, so their times add up), and the kernels that took most of
+    it."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.search(None, k=k, embeddings=queries)
+        search()
         sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernel rows only: an operator's row repeats the time of the kernels it launched
@@ -700,6 +756,24 @@ def library_eq_count(data: torch.Tensor, query: torch.Tensor, counts: torch.Tens
     check(torch.equal(dist.neg_().add_(m).to(torch.int32), counts),
           "the cdist yardstick disagrees with the equality count")
     return ms
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int, err: int, ms: float,
+                 plain: float, bound_bytes_ms: float, bound_ops_ms: float, lib) -> dict:
+    """One kernel's entry of the `kernels` line: its bound is the larger of
+    the bytes' and the operations' least times."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+                library_ms=lib)
+
+
+def log_kernels(kernels: list) -> None:
+    for kern in kernels:
+        log(f"  {kern['name']}: {kern['ms']:.4f} ms; bound {kern['bound_ms']:.4f} ms by "
+            f"{kern['bound_by']} ({100 * kern['bound_ms'] / kern['ms']:.1f}% of it); plain "
+            f"{kern['plain_ms']:.1f} ms; library {kern['library_ms']}")
 
 
 def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
@@ -746,25 +820,14 @@ def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
     hb_bytes, hb_ops = hist_bytes / PEAK_BYTES_PER_S * 1e3, hist_ops / PEAK_ALU_OPS_PER_S * 1e3
 
     kernels = [
-        dict(name="match_count", route="cuda",
-             source="src/repro_torch/kernels/csrc/match_count.cu",
-             replaces="src/repro/kernels/match_count.py:59",
-             launches=launches.get("match_count", 0), max_abs_err=err_match,
-             ms=ms_match, plain_ms=plain_match, bound_ms=max(bound_bytes, bound_ops),
-             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-             library_ms=lib_match),
-        dict(name="cpq_hist", route="cuda",
-             source="src/repro_torch/kernels/csrc/cpq_hist.cu",
-             replaces="src/repro/kernels/cpq_hist.py:51",
-             launches=launches.get("cpq_hist", 0), max_abs_err=err_hist,
-             ms=ms_hist, plain_ms=plain_hist, bound_ms=max(hb_bytes, hb_ops),
-             bound_by="bytes" if hb_bytes >= hb_ops else "operations",
-             library_ms=lib_hist),
+        kernel_entry("match_count", "src/repro_torch/kernels/csrc/match_count.cu",
+                     "src/repro/kernels/match_count.py:59", launches.get("match_count", 0),
+                     err_match, ms_match, plain_match, bound_bytes, bound_ops, lib_match),
+        kernel_entry("cpq_hist", "src/repro_torch/kernels/csrc/cpq_hist.cu",
+                     "src/repro/kernels/cpq_hist.py:51", launches.get("cpq_hist", 0),
+                     err_hist, ms_hist, plain_hist, hb_bytes, hb_ops, lib_hist),
     ]
-    for kern in kernels:
-        log(f"  {kern['name']}: {kern['ms']:.3f} ms; bound {kern['bound_ms']:.3f} ms by "
-            f"{kern['bound_by']} ({100 * kern['bound_ms'] / kern['ms']:.1f}% of it); plain "
-            f"{kern['plain_ms']:.1f} ms; library {kern['library_ms']}")
+    log_kernels(kernels)
     log("  library calls: match_count against m - torch.cdist(p=0) on float32 casts; "
         "cpq_hist against torch.bincount")
     log(f"  match_count: {match_ops / 2 / (ms_match / 1e3) / 1e12:.3f} T compare-adds/s, "
@@ -858,29 +921,20 @@ def phase_cosine_kernel_times(simhash: dict, launches_count: int, parity_err: di
     log(f"  packed_cosine_topk buffers [{q}, {slots}] x2 = {2 * q * slots * 4 / 1e6:.1f} MB; "
         f"reducing them with topk_from_candidates: {merge_ms:.3f} ms")
 
-    def entry(name, source, replaces, launches, err, ms, plain, bb, bo, lib):
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations",
-                    library_ms=lib)
-
     kernels = [
-        entry("cosine_count", "src/repro_torch/kernels/csrc/cosine_count.cu",
+        kernel_entry("cosine_count", "src/repro_torch/kernels/csrc/cosine_count.cu",
               "src/repro/kernels/cosine_count.py:70",
               wide["launches"].get("cosine_count", 0), err_cos, ms_cos, plain_cos,
               cb_bytes, cb_ops, lib_cos),
-        entry("packed_cosine_count", "src/repro_torch/kernels/csrc/packed_cosine.cu",
+        kernel_entry("packed_cosine_count", "src/repro_torch/kernels/csrc/packed_cosine.cu",
               "src/repro/kernels/packed_cosine.py:97", launches_count, err_pc, ms_pc,
               plain_pc, pb_bytes, pb_ops, None),
-        entry("packed_cosine_topk", "src/repro_torch/kernels/csrc/packed_cosine.cu",
+        kernel_entry("packed_cosine_topk", "src/repro_torch/kernels/csrc/packed_cosine.cu",
               "src/repro/kernels/packed_cosine.py:151",
               packed["launches"].get("packed_cosine_topk", 0), err_tk, ms_tk, plain_tk,
               tb_bytes, tb_ops, None),
     ]
-    for kern in kernels:
-        log(f"  {kern['name']}: {kern['ms']:.4f} ms; bound {kern['bound_ms']:.4f} ms by "
-            f"{kern['bound_by']} ({100 * kern['bound_ms'] / kern['ms']:.1f}% of it); plain "
-            f"{kern['plain_ms']:.1f} ms; library {kern['library_ms']}")
+    log_kernels(kernels)
     log("  library calls: cosine_count against torch._int_mm (int8 tensor cores); "
         "packed_cosine_count and packed_cosine_topk have none (PyTorch has no popcount, "
         "and no one call selects per tile)")
@@ -1002,8 +1056,7 @@ def phase_full_width_minhash(device: torch.device, **sizes) -> dict:
                                ("packed", {"packed_tanimoto_topk": segs})):
         out[layout] = drive_full_width(device, per_search, (0.0, 1.0), scheme="minhash",
                                        n_buckets=254, signature_layout=layout, **sizes)
-        profile_one_search(out[layout]["service"], out[layout]["queries"],
-                           sizes.get("k", FULL_K), device)
+        profile_one_search(service_search(out[layout], sizes.get("k", FULL_K)), device)
     wide, packed = out["wide"]["result"], out["packed"]["result"]
     check(torch.equal(wide.ids, packed.ids) and torch.equal(wide.counts, packed.counts),
           "minhash PACKED differs from WIDE")
@@ -1029,7 +1082,7 @@ def phase_full_width_rbh(device: torch.device, n_rows: int = OCR_ROWS,
     out = drive_full_width(device, {"match_count": n_segments, "cpq_hist": n_segments},
                            (0.0, 1.0), n_total=n_rows * n_segments, dim=dim,
                            n_segments=n_segments, scheme="rbh", sigma=sigma, **sizes)
-    profile_one_search(out["service"], out["queries"], sizes.get("k", FULL_K), device)
+    profile_one_search(service_search(out, sizes.get("k", FULL_K)), device)
     return out
 
 
@@ -1116,29 +1169,20 @@ def phase_tanimoto_kernel_times(minhash: dict, launches_count: int, parity_err: 
         f"{f_ops / 2 / (ms_f / 1e3) / 1e12:.3f} T compare-adds/s")
     del d_f, q_f, counts_f, counts_fp
 
-    def entry(name, source, replaces, launches, err, ms, plain, bb, bo, lib):
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=max(bb, bo), bound_by="bytes" if bb >= bo else "operations",
-                    library_ms=lib)
-
     kernels = [
-        entry("tanimoto_count", "src/repro_torch/kernels/csrc/tanimoto_count.cu",
+        kernel_entry("tanimoto_count", "src/repro_torch/kernels/csrc/tanimoto_count.cu",
               "src/repro/kernels/tanimoto_count.py:64",
               wide["launches"].get("tanimoto_count", 0), err_tc, ms_tc, plain_tc,
               tcb_bytes, tcb_ops, lib_tc),
-        entry("packed_tanimoto_count", "src/repro_torch/kernels/csrc/packed_tanimoto.cu",
+        kernel_entry("packed_tanimoto_count", "src/repro_torch/kernels/csrc/packed_tanimoto.cu",
               "src/repro/kernels/packed_tanimoto.py:72", launches_count, err_pc, ms_pc,
               plain_pc, pcb_bytes, pcb_ops, lib_pc),
-        entry("packed_tanimoto_topk", "src/repro_torch/kernels/csrc/packed_tanimoto.cu",
+        kernel_entry("packed_tanimoto_topk", "src/repro_torch/kernels/csrc/packed_tanimoto.cu",
               "src/repro/kernels/packed_tanimoto.py:120",
               packed["launches"].get("packed_tanimoto_topk", 0), err_tk, ms_tk, plain_tk,
               tkb_bytes, tkb_ops, None),
     ]
-    for kern in kernels:
-        log(f"  {kern['name']}: {kern['ms']:.4f} ms; bound {kern['bound_ms']:.4f} ms by "
-            f"{kern['bound_by']} ({100 * kern['bound_ms'] / kern['ms']:.1f}% of it); plain "
-            f"{kern['plain_ms']:.1f} ms; library {kern['library_ms']}")
+    log_kernels(kernels)
     log("  library calls: tanimoto_count and packed_tanimoto_count against m - "
         "torch.cdist(p=0) on float32 casts of their operands; none for packed_tanimoto_topk "
         "(no one call matches and selects per tile); the packed bounds count 3 operations "
@@ -1148,6 +1192,469 @@ def phase_tanimoto_kernel_times(minhash: dict, launches_count: int, parity_err: 
         f"{pc_bytes / (ms_pc / 1e3) / 1e9:.1f} GB/s; "
         f"packed_tanimoto_topk {q * n * words / (ms_tk / 1e3) / 1e12:.3f} T word-pairs/s")
     return kernels
+
+# ---------------------------------------------------------------------------
+# The RANGE / MINSUM / IP slice: Adult, DBLP and Tweets
+# ---------------------------------------------------------------------------
+
+# The paper's three non-LSH experiments (src/repro/configs/genie_datasets.py):
+# Adult 0.98 M tuples x 14 attributes in 1024 bins, ranges +-50 (RANGE);
+# DBLP titles of 40 characters, 3-grams in 4096 buckets, K = 32 candidates,
+# then verification (MINSUM); Tweets, 12-word documents as binary vectors of
+# 8192 buckets, count bound 16 (IP).  DBLP and Tweets are cut to 1 M rows
+# (from 5.0 M and 6.8 M); every width is the configuration's.
+SA_SEGMENTS = 16
+ADULT_N, ADULT_D, ADULT_BINS, ADULT_RADIUS = 980_000, 14, 1024, 50
+DBLP_N, DBLP_LEN, DBLP_GRAM, DBLP_V, DBLP_K = 1_000_000, 40, 3, 4096, 32
+DBLP_ALPHABET, DBLP_MUTATION, DBLP_MAX_COUNT, DBLP_VERIFY = "abcdefghij", 0.1, 127, 64
+TWEETS_N, TWEETS_V, TWEETS_WORDS, TWEETS_PER_DOC = 1_000_000, 8192, 5000, 12
+TWEETS_QUERY_WORDS, TWEETS_MAX_COUNT, TWEETS_ZIPF = 6, 16, 1.05
+# (Q, N, width) for the three kernels' parity, nothing a multiple of a tile
+RANGE_SHAPES = [(1, 5, 1), (3, 130, 3), (70, 100003, 14), (5, 257, 37)]
+MINSUM_SHAPES = [(1, 5, 1), (3, 130, 3), (8, 300, 33), (70, 20003, 4096), (5, 2100, 4099)]
+IP_SHAPES = [(1, 5, 1), (3, 130, 3), (8, 300, 17), (70, 20003, 8192), (5, 2100, 8195)]
+
+
+def sa_parity(device: torch.device) -> dict:
+    """Phase 2d: range_count, minsum_count and ip_count against their plain
+    versions, bit-exact; returns the worst absolute difference per kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ip_count import ip_count_plain
+    from repro_torch.kernels.minsum_count import minsum_count_plain
+    from repro_torch.kernels.range_count import range_count_plain
+
+    log("== phase 2d: the RANGE, MINSUM and IP kernels against their plain PyTorch versions")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    worst = {"range_count": 0, "minsum_count": 0, "ip_count": 0}
+    i32 = torch.iinfo(torch.int32)
+
+    def compare(name, got, want, what):
+        sync(device)
+        err = max_abs_err(got, want)
+        worst[name] = max(worst[name], err)
+        check(got.shape == want.shape and got.dtype == torch.int32 and torch.equal(got, want),
+              f"{name} differs from its plain version at {what}: max abs err {err}")
+
+    for q, n, d in RANGE_SHAPES:
+        x = torch.randint(0, ADULT_BINS, (n, d), generator=gen, dtype=torch.int32)
+        x[::5, 0], x[1::5, -1] = i32.min, i32.max           # the ends of int32
+        lo = torch.randint(0, ADULT_BINS, (q, d), generator=gen, dtype=torch.int32)
+        hi = lo + torch.randint(-20, 2 * ADULT_RADIUS, (q, d), generator=gen, dtype=torch.int32)
+        hi[:, ::3] = lo[:, ::3]                               # lo == hi
+        lo[0], hi[0] = i32.min, i32.max                       # everything
+        if q > 1:
+            lo[1], hi[1] = i32.max, i32.min                   # nothing
+        x, lo, hi = x.to(device), lo.to(device), hi.to(device)
+        compare("range_count", ops.range_count(x, lo, hi), range_count_plain(x, lo, hi),
+                f"(Q,N,d)=({q},{n},{d})")
+        log(f"  range_count (Q,N,d)=({q},{n},{d}) empty ranges, lo == hi, INT32_MIN/MAX: equal")
+    for q, n, v in MINSUM_SHAPES:
+        dc = torch.randint(0, DBLP_MAX_COUNT + 1, (n, v), generator=gen, dtype=torch.int32)
+        dc[::9] = -1                                          # the engine's pad rows
+        qc = torch.randint(0, DBLP_MAX_COUNT + 1, (q, v), generator=gen, dtype=torch.int32)
+        dc, qc = dc.to(device), qc.to(device)
+        compare("minsum_count", ops.minsum_count(dc, qc), minsum_count_plain(dc, qc),
+                f"(Q,N,V)=({q},{n},{v})")
+        log(f"  minsum_count (Q,N,V)=({q},{n},{v}) values 0..127 and -1 pad rows: equal")
+    for q, n, v in IP_SHAPES:
+        db = torch.randint(0, 2, (n, v), generator=gen, dtype=torch.int8).to(device)
+        qb = torch.randint(0, 2, (q, v), generator=gen, dtype=torch.int8).to(device)
+        want = ip_count_plain(db, qb)
+        for dtype in (torch.int8, torch.int32, torch.float32):
+            compare("ip_count", ops.ip_count(db.to(dtype), qb.to(dtype)), want,
+                    f"(Q,N,V)=({q},{n},{v}) {dtype}")
+        log(f"  ip_count (Q,N,V)=({q},{n},{v}) int8 {{0,1}}, and int32 / float32 through the "
+            f"wrapper: equal")
+    return worst
+
+
+def gram_table(v: int, device: torch.device) -> torch.Tensor:
+    """bucket[code] of every 3-gram over DBLP_ALPHABET, code = 100 c0 + 10 c1
+    + c2, from the port's ngram.gram_bucket (crc32)."""
+    from repro_torch.core.sa import ngram
+
+    a = DBLP_ALPHABET
+    return torch.tensor([ngram.gram_bucket(a[c // 100] + a[c // 10 % 10] + a[c % 10], v)
+                         for c in range(1000)], dtype=torch.int64, device=device)
+
+
+def title_count_vectors(titles: torch.Tensor, table: torch.Tensor, v: int) -> torch.Tensor:
+    """ngram.count_vectors(titles, 3, v) on the device: titles int8 [rows,
+    L] of letter codes -> int32 [rows, v] 3-gram multiplicities per bucket,
+    clipped at 127 as count_vector clips them."""
+    t = titles.to(torch.int64)
+    codes = t[:, :-2] * 100 + t[:, 1:-1] * 10 + t[:, 2:]
+    out = torch.zeros((t.shape[0], v), dtype=torch.int32, device=t.device)
+    out.scatter_add_(1, table[codes], torch.ones(codes.shape, dtype=torch.int32, device=t.device))
+    return out.clamp_(max=DBLP_MAX_COUNT)
+
+
+def decode_titles(titles: torch.Tensor) -> list:
+    return ["".join(DBLP_ALPHABET[c] for c in row) for row in titles.tolist()]
+
+
+def word_table(v: int, device: torch.device) -> torch.Tensor:
+    """bucket[i] of the word "w{i}" (data/pipeline.synthetic_documents' words)
+    from the port's document.word_bucket (crc32)."""
+    from repro_torch.core.sa import document
+
+    return torch.tensor([document.word_bucket(f"w{i}", v) for i in range(TWEETS_WORDS)],
+                        dtype=torch.int64, device=device)
+
+
+def word_vectors(words: torch.Tensor, table: torch.Tensor, v: int) -> torch.Tensor:
+    """document.binary_vectors of documents given as word ids on the device:
+    int64 [rows, w] -> int8 [rows, v], 1 at every bucket a word falls in."""
+    out = torch.zeros((words.shape[0], v), dtype=torch.int8, device=words.device)
+    return out.scatter_(1, table[words], 1)
+
+
+def spread(n_total: int, n: int, device: torch.device) -> torch.Tensor:
+    """n row ids spread over [0, n_total), one in every segment."""
+    return torch.linspace(0, n_total - 1, n, device=device).to(torch.int64)
+
+
+def small_index_round_trip(device: torch.device, engine, label: str, batches: list,
+                           queries, max_count, k: int = 10, max_segments: int = 8) -> None:
+    """An engine's SegmentedIndex on the kernel path and the plain path:
+    uneven adds, one compaction down to `max_segments`, CPQ / SPQ / SORT; ids,
+    counts and thresholds equal on both paths before and after the
+    compaction, and equal to a monolithic GenieIndex.build."""
+    from repro_torch.core import GenieIndex, SegmentedIndex, TopKMethod
+
+    segs = {uk: SegmentedIndex(engine, max_count=max_count, use_kernel=uk, device=device)
+            for uk in (True, False)}
+    for seg in segs.values():
+        for batch in batches:
+            seg.add(batch)
+    mono = GenieIndex.build(engine, torch.cat(batches), max_count=max_count, device=device)
+    for compacted in (False, True):
+        if compacted:
+            for seg in segs.values():
+                seg.compact(max_segments=max_segments)
+                check(seg.stats.n_segments == max_segments and seg.compaction_count == 1,
+                      f"{label}: expected one compaction down to {max_segments} segments")
+        for method in (TopKMethod.CPQ, TopKMethod.SPQ, TopKMethod.SORT):
+            got = {uk: seg.search(queries, k=k, method=method) for uk, seg in segs.items()}
+            want = mono.search(queries, k=k, method=method)
+            sync(device)
+            for field in ("ids", "counts", "threshold"):
+                check(torch.equal(getattr(got[True], field), getattr(got[False], field)),
+                      f"{label} {method.value}: kernel path and plain path differ in {field}")
+            check(torch.equal(got[True].ids, want.ids) and torch.equal(got[True].counts, want.counts),
+                  f"{label} {method.value}: the segmented search differs from GenieIndex.build")
+    log(f"  {label}: {len(batches)} uneven adds, one compaction to {max_segments}; CPQ/SPQ/SORT "
+        f"equal on both paths and to a monolithic GenieIndex")
+
+
+def phase_small_sa(device: torch.device) -> None:
+    """Phase 3d: RANGE, MINSUM and IP through SegmentedIndex at small sizes."""
+    from repro_torch.core import Engine
+
+    log("== phase 3d: small RANGE, MINSUM and IP round trips through SegmentedIndex "
+        "(kernel path vs plain path)")
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    sizes = [900, 1500, 300, 2000, 700] + [40] * 12          # 17 uneven adds
+    n_total = sum(sizes)
+    picks = spread(n_total, 64, device)
+    x = torch.randint(0, ADULT_BINS, (n_total, ADULT_D), generator=gen, device=device,
+                      dtype=torch.int32)
+    lohi = ((x[picks] - ADULT_RADIUS).clamp(0, ADULT_BINS - 1),
+            (x[picks] + ADULT_RADIUS).clamp(0, ADULT_BINS - 1))
+    titles = torch.randint(0, len(DBLP_ALPHABET), (n_total, DBLP_LEN), generator=gen,
+                           device=device, dtype=torch.int8)
+    counts = title_count_vectors(titles, gram_table(DBLP_V, device), DBLP_V)
+    words = torch.randint(0, 300, (n_total, TWEETS_PER_DOC), generator=gen, device=device)
+    vecs = word_vectors(words, word_table(TWEETS_V, device), TWEETS_V)
+    for engine, label, data, queries, max_count in (
+            (Engine.RANGE, "RANGE d=14", x, lohi, None),
+            (Engine.MINSUM, "MINSUM V=4096", counts, counts[picks], DBLP_MAX_COUNT),
+            (Engine.IP, "IP V=8192", vecs, vecs[picks], TWEETS_MAX_COUNT)):
+        small_index_round_trip(device, engine, label, list(torch.split(data, sizes)), queries,
+                               max_count)
+
+
+def drive_index_full_width(device: torch.device, label: str, engine, batch, n_segments: int,
+                           queries, k: int, max_count, expect_launches: dict,
+                           n_searches: int = N_SEARCHES) -> dict:
+    """Fill a SegmentedIndex of `engine` with `n_segments` adds of `batch(s)`
+    and search it `n_searches` times by c-PQ; `expect_launches` is each
+    kernel's launches per search.  Returns the index, the launch counts and
+    the last result."""
+    from repro_torch.core import SegmentedIndex, TopKMethod
+    from repro_torch.kernels import common
+
+    common.reset_launch_counts()           # the path starts here
+    index = SegmentedIndex(engine, max_count=max_count, device=device)
+    add_seconds = []
+    for s in range(n_segments):
+        raw = batch(s)
+        sync(device)
+        t0 = time.perf_counter()
+        index.add(raw)
+        sync(device)
+        add_seconds.append(time.perf_counter() - t0)
+        del raw
+    stats = index.stats
+    check(stats.n_segments == n_segments, f"expected {n_segments} segments, got {stats.n_segments}")
+    n_queries = (queries[0] if isinstance(queries, tuple) else queries).shape[0]
+    log(f"  {label}: N = {stats.n_objects} in {n_segments} adds of {stats.segment_rows[0]}; "
+        f"row width {stats.n_lists}; Q = {n_queries}; k = {k}; max_count = {index.max_count}")
+    log(f"  add: {statistics.median(add_seconds):.4f} s/batch median "
+        f"(first {add_seconds[0]:.4f} s, total {sum(add_seconds):.3f} s); "
+        f"on the device: {stats.bytes_device / 1e9:.4f} GB")
+    res = timed_searches(lambda: index.search(queries, k=k, method=TopKMethod.CPQ),
+                         n_queries, n_searches, expect_launches, device)
+    launches = common.launch_counts()
+    check_result(res, n_queries, k, stats.n_objects)
+    check_sample_on_plain_path(index, queries, res, k, device)
+    profile_one_search(lambda: index.search(queries, k=k), device)
+    return dict(index=index, launches=launches, result=res, queries=queries)
+
+
+def phase_full_width_adult(device: torch.device, n_total: int = ADULT_N,
+                           n_segments: int = SA_SEGMENTS, n_queries: int = FULL_Q,
+                           k: int = FULL_K) -> dict:
+    """Phase 4d: Adult -> RANGE at full size.  Tuples from a seeded Gaussian,
+    discretised by the port's relational.fit_discretizer; queries are
+    point_range_queries(radius=50) of corpus tuples, whose top-1 count must
+    be 14 and held by the source tuple."""
+    import numpy as np
+
+    from repro_torch.core import Engine
+    from repro_torch.core.sa import relational
+
+    log("== phase 4d: Adult -> SegmentedIndex(Engine.RANGE) at full size")
+    vals = np.random.default_rng(SEED).standard_normal((n_total, ADULT_D))
+    tuples = relational.fit_discretizer(vals, n_bins=ADULT_BINS).transform(vals)
+    del vals
+    picks = spread(n_total, n_queries, torch.device("cpu")).numpy()
+    lo, hi = relational.point_range_queries(tuples[picks], radius=ADULT_RADIUS,
+                                            n_bins=ADULT_BINS)
+    queries = (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device))
+    rows = n_total // n_segments
+    out = drive_index_full_width(
+        device, "Adult", Engine.RANGE,
+        lambda s: torch.from_numpy(tuples[s * rows:(s + 1) * rows]).to(device), n_segments,
+        queries, k, None, {"range_count": n_segments, "cpq_hist": n_segments})
+    res = out["result"]
+    src = torch.from_numpy(picks).to(device=device, dtype=torch.int32)[:, None]
+    full = res.counts == ADULT_D
+    check(bool(full[:, 0].all()), "a range query of a corpus tuple has a top-1 count below d")
+    check(bool(((res.ids == src) & full).any(dim=1).all()),
+          "the source tuple is not among the rows holding count d")
+    log(f"  top-1 count {ADULT_D} on every query; the source tuple among them on every query "
+        f"(rows at count {ADULT_D}: {float(full.sum(dim=1).float().mean()):.2f} per query)")
+    return out
+
+
+def mutate(s: str, rng) -> str:
+    """data/pipeline.mutate_sequence's edit: round(rate * len) distinct
+    positions, each redrawn from the alphabet (one generator for the batch)."""
+    chars = list(s)
+    for i in rng.choice(len(chars), size=int(round(DBLP_MUTATION * len(chars))), replace=False):
+        chars[i] = DBLP_ALPHABET[rng.integers(0, len(DBLP_ALPHABET))]
+    return "".join(chars)
+
+
+def phase_full_width_dblp(device: torch.device, n_total: int = DBLP_N,
+                          n_segments: int = SA_SEGMENTS, n_queries: int = FULL_Q,
+                          k: int = DBLP_K, n_verify: int = DBLP_VERIFY) -> dict:
+    """Phase 4e: DBLP -> MINSUM at V = 4096, 3-grams, K = 32 candidates, then
+    verification by edit distance; N cut to 1 M.  Titles are drawn on the
+    device, their count vectors made there; queries are corpus titles with
+    10 % of their characters redrawn."""
+    import numpy as np
+
+    from repro_torch.core import Engine
+    from repro_torch.core.sa import ngram, verify
+
+    log(f"== phase 4e: DBLP -> SegmentedIndex(Engine.MINSUM), V = {DBLP_V}, N cut to {n_total}")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    titles = torch.randint(0, len(DBLP_ALPHABET), (n_total, DBLP_LEN), generator=gen,
+                           device=device, dtype=torch.int8)
+    table = gram_table(DBLP_V, device)
+    sample = spread(n_total, 256, device)
+    want = ngram.count_vectors(decode_titles(titles[sample]), DBLP_GRAM, DBLP_V)
+    check(torch.equal(title_count_vectors(titles[sample], table, DBLP_V).cpu(),
+                      torch.from_numpy(want)),
+          "the device-built count vectors differ from ngram.count_vectors")
+    log("  256 sampled corpus rows equal ngram.count_vectors of their decoded titles")
+    picks = spread(n_total, n_queries, device)
+    rng = np.random.default_rng(SEED)
+    qstrs = [mutate(t, rng) for t in decode_titles(titles[picks])]
+    queries = torch.from_numpy(ngram.count_vectors(qstrs, DBLP_GRAM, DBLP_V)).to(device)
+    rows = n_total // n_segments
+    out = drive_index_full_width(
+        device, "DBLP", Engine.MINSUM,
+        lambda s: title_count_vectors(titles[s * rows:(s + 1) * rows], table, DBLP_V),
+        n_segments, queries, k, DBLP_MAX_COUNT,
+        {"minsum_count": n_segments, "cpq_hist": n_segments})
+    res = out["result"]
+    found = (res.ids == picks[:, None].to(torch.int32)).any(dim=1)
+    log(f"  source title among the K = {k} candidates: {float(found.float().mean()):.4f}")
+    # verification (Algorithm 2) of a sample: the best candidate by edit
+    # distance must be the source title
+    certified = 0
+    for i in range(0, n_queries, n_queries // n_verify)[:n_verify]:
+        ids = res.ids[i]
+        cands = decode_titles(titles[ids.clamp(min=0).to(torch.int64)])
+        enc, lens = ngram.encode_sequences(
+            [c if int(j) >= 0 else "" for c, j in zip(cands, ids.tolist())], DBLP_LEN + 8)
+        qenc, qlen = ngram.encode_sequences([qstrs[i]], DBLP_LEN + 8)
+        ver = verify.verify_topk(torch.from_numpy(qenc[0]).to(device), int(qlen[0]),
+                                 torch.from_numpy(enc).to(device),
+                                 torch.from_numpy(lens).to(device), res.counts[i], k=1,
+                                 n=DBLP_GRAM)
+        best = int(ids[int(ver["order"][0])])
+        check(best == int(picks[i]), f"query {i}: verification picked {best}, "
+              f"not the source title {int(picks[i])}")
+        certified += bool(ver["certified_exact"])
+    log(f"  verify_topk(k=1) on {n_verify} queries: the best candidate is the source title on "
+        f"all; certified_exact (Theorem 5.2) on {certified} of {n_verify}")
+    del titles
+    return out
+
+
+def phase_full_width_tweets(device: torch.device, n_total: int = TWEETS_N,
+                            n_segments: int = SA_SEGMENTS, n_queries: int = FULL_Q,
+                            k: int = FULL_K) -> dict:
+    """Phase 4f: Tweets -> IP at V = 8192, N cut to 1 M.  Documents of 12
+    Zipf(1.05) words over 5000 drawn on the device, their binary vectors made
+    there; a query is the first 6 words of a corpus document, so its top-1
+    count is its number of distinct buckets."""
+    from repro_torch.core import Engine
+    from repro_torch.core.sa import document
+
+    log(f"== phase 4f: Tweets -> SegmentedIndex(Engine.IP), V = {TWEETS_V}, N cut to {n_total}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    ranks = torch.arange(1, TWEETS_WORDS + 1, dtype=torch.float64, device=device)
+    cdf = torch.cumsum(ranks ** -TWEETS_ZIPF, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand((n_total, TWEETS_PER_DOC), generator=gen, device=device, dtype=torch.float64)
+    words = torch.searchsorted(cdf, u, right=True).clamp_(max=TWEETS_WORDS - 1)
+    del u
+    table = word_table(TWEETS_V, device)
+    sample = spread(n_total, 256, device)
+    docs = [" ".join(f"w{i}" for i in row) for row in words[sample].tolist()]
+    check(torch.equal(word_vectors(words[sample], table, TWEETS_V).cpu(),
+                      torch.from_numpy(document.binary_vectors(docs, TWEETS_V))),
+          "the device-built word vectors differ from document.binary_vectors")
+    log("  256 sampled corpus rows equal document.binary_vectors of their documents")
+    picks = spread(n_total, n_queries, device)
+    queries = word_vectors(words[picks, :TWEETS_QUERY_WORDS], table, TWEETS_V)
+    rows = n_total // n_segments
+    out = drive_index_full_width(
+        device, "Tweets", Engine.IP,
+        lambda s: word_vectors(words[s * rows:(s + 1) * rows], table, TWEETS_V),
+        n_segments, queries, k, TWEETS_MAX_COUNT,
+        {"ip_count": n_segments, "cpq_hist": n_segments})
+    res = out["result"]
+    distinct = queries.sum(dim=1, dtype=torch.int32)
+    check(torch.equal(res.counts[:, 0], distinct),
+          "the top-1 count differs from the query's number of distinct buckets")
+    ties = (res.counts == distinct[:, None]).sum(dim=1).float()
+    log(f"  top-1 count = the query's distinct buckets on every query; rows at that count in "
+        f"the top {k}: mean {float(ties.mean()):.1f}, {int((ties == k).sum())} queries fill it")
+    del words
+    return out
+
+
+def sa_entry(name: str, replaces: str, run: dict, err: int, ms: float, plain: float,
+             n_bytes: int, n_ops: int, peak_ops: float, lib) -> dict:
+    """kernel_entry of a RANGE / MINSUM / IP kernel, logged; its launches are
+    those of its full-width run."""
+    kern = kernel_entry(name, f"src/repro_torch/kernels/csrc/{name}.cu", replaces,
+                        run["launches"].get(name, 0), err, ms, plain,
+                        n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / peak_ops * 1e3, lib)
+    log_kernels([kern])
+    return kern
+
+
+def _kernel_and_plain(name: str, kernel, plain, parity_err: dict, device: torch.device):
+    """(kernel ms, plain ms, kernel result, worst error): the kernel timed on
+    the device alone over 10 calls, its plain version once, bit-equal."""
+    ms, got = timed_ms(kernel, device, reps=10, warmup=1, hold=True)
+    plain_ms, want = timed_ms(plain, device, reps=1, warmup=1)
+    check(torch.equal(got, want), f"{name} differs at the per-segment shape")
+    return ms, plain_ms, got, max(parity_err[name], max_abs_err(got, want))
+
+
+def range_kernel_times(adult: dict, parity_err: dict, device: torch.device) -> dict:
+    """Phase 5d, RANGE: range_count at the per-segment shape of phase 4d (no
+    one PyTorch call counts per-attribute interval hits: no library_ms)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.range_count import range_count_plain
+
+    x = adult["index"].segments[0].data                       # int32 [N, d]
+    lo, hi = adult["index"].model.prepare_queries(adult["queries"], device)
+    n, d = x.shape
+    q = lo.shape[0]
+    log(f"== phase 5d: range_count at the per-segment shape Q={q} N={n} d={d}")
+    ms, plain, _, err = _kernel_and_plain(
+        "range_count", lambda: ops.range_count(x, lo, hi), lambda: range_count_plain(x, lo, hi),
+        parity_err, device)
+    log(f"  range_count {q * n * d / (ms / 1e3) / 1e12:.3f} T interval tests/s, "
+        f"{q * n * 4 / (ms / 1e3) / 1e9:.1f} GB/s of counts written")
+    return sa_entry("range_count", "src/repro/kernels/range_count.py:51", adult, err, ms, plain,
+                     (n * d + 2 * q * d + q * n) * 4, 3 * q * n * d, PEAK_ALU_OPS_PER_S, None)
+
+
+def minsum_kernel_times(dblp: dict, parity_err: dict, device: torch.device) -> dict:
+    """Phase 5d, MINSUM: minsum_count at the per-segment shape of phase 4e;
+    library_ms is (sum q + sum d - torch.cdist(p=1)) / 2, of which only the
+    cdist is timed (timed here, used nowhere in the port)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.minsum_count import minsum_count_plain
+
+    dc, qc = dblp["index"].segments[0].data, dblp["queries"]   # int32 [N, V], [Q, V]
+    n, v = dc.shape
+    q = qc.shape[0]
+    log(f"== phase 5d: minsum_count at the per-segment shape Q={q} N={n} V={v}")
+    ms, plain, counts, err = _kernel_and_plain(
+        "minsum_count", lambda: ops.minsum_count(dc, qc), lambda: minsum_count_plain(dc, qc),
+        parity_err, device)
+    # min(a, b) = (a + b - |a - b|) / 2: exact in float32 for these counts
+    qf, df = qc.float(), dc.float()
+    try:
+        lib, dist = timed_ms(lambda: torch.cdist(qf, df, p=1), device, reps=1, warmup=1)
+        rebuilt = (qf.sum(1)[:, None] + df.sum(1)[None, :] - dist) / 2
+        check(torch.equal(rebuilt.to(torch.int32), counts),
+              "the cdist(p=1) yardstick disagrees with minsum_count")
+    except RuntimeError as e:          # the yardstick only: the port never calls it
+        log(f"  torch.cdist(p=1) refused these operands ({e}); library_ms not measured")
+        lib = None
+    log(f"  minsum_count {q * n * v / (ms / 1e3) / 1e12:.3f} T min-adds/s")
+    return sa_entry("minsum_count", "src/repro/kernels/minsum_count.py:55", dblp, err, ms, plain,
+                     (n * v + q * v + q * n) * 4, 2 * q * n * v, PEAK_ALU_OPS_PER_S, lib)
+
+
+def ip_kernel_times(tweets: dict, parity_err: dict, device: torch.device) -> dict:
+    """Phase 5d, IP: ip_count at the per-segment shape of phase 4f; library_ms
+    is torch._int_mm on the int8 tensor cores, N padded to a multiple of 8
+    with zero rows as _int_mm demands (timed here, used nowhere in the
+    port)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ip_count import ip_count_plain
+
+    db, qb = tweets["index"].segments[0].data, tweets["queries"]   # int8 [N, V], [Q, V]
+    n, v = db.shape
+    q = qb.shape[0]
+    log(f"== phase 5d: ip_count at the per-segment shape Q={q} N={n} V={v}")
+    ms, plain, dots, err = _kernel_and_plain(
+        "ip_count", lambda: ops.ip_count(db, qb), lambda: ip_count_plain(db, qb),
+        parity_err, device)
+    b = torch.zeros((-(-n // 8) * 8, v), dtype=torch.int8, device=device)
+    b[:n] = db
+    try:
+        lib, mm = timed_ms(lambda: torch._int_mm(qb, b.T), device, reps=3, warmup=1)
+        check(torch.equal(mm[:, :n], dots), "the _int_mm yardstick disagrees with ip_count")
+    except RuntimeError as e:          # the yardstick only: the port never calls it
+        log(f"  torch._int_mm refused these operands ({e}); library_ms not measured")
+        lib = None
+    log(f"  ip_count {q * n * v / (ms / 1e3) / 1e12:.3f} T MACs/s")
+    return sa_entry("ip_count", "src/repro/kernels/ip_count.py:52", tweets, err, ms, plain,
+                     n * v + q * v + q * n * 4, 2 * q * n * v, PEAK_INT8_TC_OPS_PER_S, lib)
 
 
 def main() -> int:
@@ -1162,10 +1669,11 @@ def main() -> int:
     phase_small_service(device)
     count_launches = phase_small_simhash(device)
     tanimoto_launches = phase_small_minhash(device)
+    phase_small_sa(device)
     full = phase_full_width(device)
     svc = full["service"]
     search_split(svc, full["queries"], FULL_K, device)
-    profile_one_search(svc, full["queries"], FULL_K, device)
+    profile_one_search(service_search(full, FULL_K), device)
     kernels = phase_kernel_times(svc._index.segments[0].data, full["qsigs"], svc.m,
                                  full["launches"], parity_err, device)
     del full, svc                          # free the EQ corpus before the simhash one
@@ -1179,6 +1687,16 @@ def main() -> int:
     del minhash
     torch.cuda.empty_cache()
     phase_full_width_rbh(device)
+    torch.cuda.empty_cache()
+    for phase, kernel_times in ((phase_full_width_adult, range_kernel_times),
+                                (phase_full_width_dblp, minsum_kernel_times),
+                                (phase_full_width_tweets, ip_kernel_times)):
+        run = phase(device)
+        run["index"].segments[1:] = []     # the kernel times need one segment
+        torch.cuda.empty_cache()
+        kernels.append(kernel_times(run, parity_err, device))
+        del run                            # free the corpus before the next one
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power_limit())

@@ -16,12 +16,11 @@ bundling
 GenieIndex, SegmentedIndex and the planner all resolve engines through
 `get()` -- there is exactly one dispatch point in the system.
 
-Ported so far: the registry, the EQ entry, the TANIMOTO entry with its
-PACKED format (uint8 bucket ids, core/packing.py) and the COSINE entry with
-its PACKED format (32 signs per int32 word).  RANGE, MINSUM and IP come with
-their kernels (ROADMAP queue 1 item 5); the kernel tile knobs of the JAX
-package's descriptor (`repro/core/engines.py`) come with the autotuner
-(queue 1 item 8).
+All six engines of the JAX package's registry are here, in its order: EQ,
+RANGE, MINSUM, IP, TANIMOTO with its PACKED format (uint8 bucket ids,
+core/packing.py) and COSINE with its PACKED format (32 signs per int32
+word).  The kernel tile knobs of the JAX package's descriptor
+(`repro/core/engines.py`) come with the autotuner (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -41,6 +40,20 @@ def _as_int32(x: Any, device: torch.device) -> torch.Tensor:
     """Anything array-like -> contiguous int32 tensor on `device`; a tensor
     already there is not copied through the host."""
     return tensor_from(x).to(device=device, dtype=torch.int32).contiguous()
+
+
+# what jnp.asarray makes of 64-bit inputs with 64-bit types off (the JAX
+# package's default): the caller's dtype is kept, at 32 bits
+_NARROW_64 = {torch.int64: torch.int32, torch.float64: torch.float32,
+              torch.complex128: torch.complex64}
+
+
+def _keep_dtype(x: Any, device: torch.device) -> torch.Tensor:
+    """Anything array-like -> contiguous tensor on `device` in the caller's
+    dtype, 64-bit types narrowed to 32 bits as the reference's `jnp.asarray`
+    narrows them."""
+    t = tensor_from(x)
+    return t.to(device=device, dtype=_NARROW_64.get(t.dtype, t.dtype)).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,8 +220,7 @@ def get(engine: Engine | str | MatchModel) -> MatchModel:
     except KeyError:
         raise KeyError(
             f"no MatchModel registered for engine {eng.value!r}; "
-            f"known: {sorted(m.value for m in _REGISTRY)} (the other engines "
-            f"are still to be ported: ROADMAP queue 1 item 5)"
+            f"known: {sorted(m.value for m in _REGISTRY)}"
         ) from None
 
 
@@ -224,6 +236,25 @@ def _kernel_eq(data, queries):
     from repro_torch.kernels import ops as kops
 
     return kops.match_count(data, queries)
+
+
+def _kernel_range(data, queries):
+    from repro_torch.kernels import ops as kops
+
+    lo, hi = queries
+    return kops.range_count(data, lo, hi)
+
+
+def _kernel_minsum(data, queries):
+    from repro_torch.kernels import ops as kops
+
+    return kops.minsum_count(data, queries)
+
+
+def _kernel_ip(data, queries):
+    from repro_torch.kernels import ops as kops
+
+    return kops.ip_count(data, queries)
 
 
 def _kernel_tanimoto(data, queries):
@@ -262,6 +293,15 @@ def _kernel_packed_cosine_topk(data, queries, k):
     return kops.packed_cosine_topk(data, queries, k=k)
 
 
+def _int_total(a: torch.Tensor) -> int:
+    """Sum of the entries, each truncated to an integer as the reference's
+    int32 cast truncates it, in int64 (the reference sums in int32); integer
+    data is summed as it is, without an int32 copy."""
+    if a.is_floating_point():
+        a = a.to(torch.int32)
+    return int(a.sum(dtype=torch.int64))
+
+
 def _sign_quantize(x: Any, device: torch.device) -> torch.Tensor:
     """Raw vectors -> {-1, +1} int8 on `device` (floats by sign; {0,1} bits
     map to -1/+1)."""
@@ -281,6 +321,51 @@ register(MatchModel(
     pad_value=-1,                                          # never equals a sig
     example=lambda rng, n, q: (rng.integers(0, 8, (n, 16)).astype(np.int32),
                                rng.integers(0, 8, (q, 16)).astype(np.int32), None),
+))
+
+register(MatchModel(
+    engine=Engine.RANGE,
+    description="per-attribute interval predicate over discretized tuples int32 [N, d]",
+    prepare_data=_as_int32,
+    # queries are a (lo, hi) pair of int32 [Q, d]
+    prepare_queries=lambda q, device: (_as_int32(q[0], device), _as_int32(q[1], device)),
+    reference=lambda d, q: _match.match_range(d, q[0], q[1]),
+    kernel=_kernel_range,
+    postings_count=lambda a: int(a.numel()),
+    default_max_count=lambda a: int(a.shape[1]),          # #attributes
+    pad_value=int(np.iinfo(np.int32).min),                # below any query lo
+    example=lambda rng, n, q: (
+        rng.integers(0, 10, (n, 6)).astype(np.int32),
+        (lambda lo: (lo, lo + 3))(rng.integers(0, 6, (q, 6)).astype(np.int32)),
+        None),
+))
+
+register(MatchModel(
+    engine=Engine.MINSUM,
+    description="multiset intersection sum_v min(c_data, c_query) over count vectors [N, V]",
+    prepare_data=_as_int32,
+    prepare_queries=_as_int32,
+    reference=_match.match_minsum,
+    kernel=_kernel_minsum,
+    postings_count=lambda a: _int_total(a),
+    default_max_count=lambda a: None,                     # caller supplies bound
+    pad_value=-1,                                          # min(-1, q) sums < 0
+    example=lambda rng, n, q: (rng.integers(0, 4, (n, 24)).astype(np.int32),
+                               rng.integers(0, 4, (q, 24)).astype(np.int32), 96),
+))
+
+register(MatchModel(
+    engine=Engine.IP,
+    description="binary inner product over word vectors [N, V]",
+    prepare_data=_keep_dtype,                              # keep caller dtype
+    prepare_queries=_keep_dtype,
+    reference=_match.match_ip,
+    kernel=_kernel_ip,                                     # casts to int8 per call
+    postings_count=lambda a: _int_total(a),
+    default_max_count=lambda a: None,                     # caller supplies bound
+    pad_value=0,                                           # zero dot product
+    example=lambda rng, n, q: (rng.integers(0, 2, (n, 32)).astype(np.int32),
+                               rng.integers(0, 2, (q, 32)).astype(np.int32), 32),
 ))
 
 register(MatchModel(

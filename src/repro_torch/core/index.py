@@ -12,7 +12,11 @@ dispatch, pad masking, top-k selection, and merging.
     index = GenieIndex.build_lsh(sigs, max_count=m)      # named alias
     index = GenieIndex.build_cosine(vectors, signature_layout="packed")
     index = GenieIndex.build_tanimoto(minhash_sigs, signature_layout="packed")
+    index = GenieIndex.build_relational(discrete_tuples)   # RANGE
+    index = GenieIndex.build_minsum(count_vectors, max_count=127)
+    index = GenieIndex.build_ip(binary_vectors, max_count=16)
     result = index.search(query_sigs, k=100)             # TopKResult
+    result = index.search((lo, hi), k=100)               # RANGE: intervals
 
 `device=None` places the index on the card and raises when there is none;
 `device="cpu"` runs the plain PyTorch path.  `search_multiload` (ROADMAP
@@ -37,10 +41,13 @@ from repro_torch.device import DeviceLike, resolve_device, synchronize
 class GenieIndex:
     engine: Engine
     max_count: int
-    data: torch.Tensor                     # EQ: sigs int32 [N, m]; TANIMOTO:
-    #                                        sketches int32 or uint8 [N, m];
-    #                                        COSINE: signs int8 [N, V] or
-    #                                        words int32 [N, W]
+    data: torch.Tensor                     # EQ: sigs int32 [N, m]; RANGE:
+    #                                        tuples int32 [N, d]; MINSUM:
+    #                                        counts int32 [N, V]; IP: word
+    #                                        vectors [N, V] (caller's dtype);
+    #                                        TANIMOTO: sketches int32 or
+    #                                        uint8 [N, m]; COSINE: signs int8
+    #                                        [N, V] or words int32 [N, W]
     stats: IndexStats = dataclasses.field(default_factory=IndexStats)
     use_kernel: bool = True
     # storage format of `data` (core/packing.py); PACKED indexes hold the
@@ -60,7 +67,8 @@ class GenieIndex:
         """Any registered engine, one code path.
 
         `max_count` defaults to the engine's derived count bound (m for EQ,
-        V for COSINE).
+        #attributes for RANGE, V for COSINE); engines without a derivable
+        bound (MINSUM, IP) require it explicitly.
 
         `signature_layout=PACKED` packs the prepared tensor once at seal time
         (COSINE signs -> int32-word bitfields, TANIMOTO buckets -> uint8) for
@@ -97,6 +105,27 @@ class GenieIndex:
         """EQ engine over LSH signatures int32 [N, m]."""
         return cls.build(Engine.EQ, signatures, max_count=max_count,
                          use_kernel=use_kernel, device=device)
+
+    @classmethod
+    def build_minsum(cls, count_vectors, max_count: int, use_kernel: bool = True,
+                     device: DeviceLike = None):
+        """MINSUM engine over n-gram count vectors int [N, V]."""
+        return cls.build(Engine.MINSUM, count_vectors, max_count=max_count,
+                         use_kernel=use_kernel, device=device)
+
+    @classmethod
+    def build_ip(cls, binary_vectors, max_count: int, use_kernel: bool = True,
+                 device: DeviceLike = None):
+        """IP engine over binary word vectors [N, V]."""
+        return cls.build(Engine.IP, binary_vectors, max_count=max_count,
+                         use_kernel=use_kernel, device=device)
+
+    @classmethod
+    def build_relational(cls, discrete_tuples, use_kernel: bool = True,
+                         device: DeviceLike = None):
+        """RANGE engine over discretized tuples int32 [N, d]."""
+        return cls.build(Engine.RANGE, discrete_tuples, use_kernel=use_kernel,
+                         device=device)
 
     @classmethod
     def build_tanimoto(cls, minhash_sigs, max_count: int | None = None,

@@ -4,8 +4,8 @@ Each function computes counts[q, n] = MC(Q_q, O_n) for a query batch against
 all objects.  These plain PyTorch implementations are the semantics oracles
 for the CUDA kernels in repro_torch.kernels and the path a CPU tensor takes.
 They are not called directly by the index machinery: engine dispatch goes
-through the MatchModel registry (core/engines.py).  The EQ, TANIMOTO and
-COSINE engines are ported so far.
+through the MatchModel registry (core/engines.py).  Every engine of the JAX
+package's registry has its oracle here.
 
 Memory note: counts are bounded by max_count (m hash functions / #attributes /
 #grams) -- the paper's Bitmap-Counter observation (section III-C) -- so an int8
@@ -41,6 +41,70 @@ def match_eq(data_sigs: torch.Tensor, query_sigs: torch.Tensor, chunk: int = 8) 
     return acc
 
 
+def match_range(data_vals: torch.Tensor, q_lo: torch.Tensor, q_hi: torch.Tensor,
+                chunk: int = 8) -> torch.Tensor:
+    """RANGE engine: counts[q, n] = sum_d (q_lo[q,d] <= data_vals[n,d] <= q_hi[q,d]).
+
+    Implements the relational-table match count (paper Example 2.1 / section
+    V-C) directly on discretized attribute values -- the inverted index over
+    (attribute, value) keywords is semantically this predicate count.
+    data_vals int [N, d], q_lo / q_hi int [Q, d] -> int32 [Q, N]; an empty
+    range (lo > hi) counts nothing.  The loop over `chunk` attributes keeps
+    the live temp at [Q, N, chunk].
+    """
+    x = data_vals.to(torch.int32)
+    lo, hi = q_lo.to(torch.int32), q_hi.to(torch.int32)
+    q, d = lo.shape
+    acc = torch.zeros((q, x.shape[0]), dtype=torch.int32, device=x.device)
+    for s in range(0, d, chunk):
+        xs = x[None, :, s:s + chunk]
+        hit = (xs >= lo[:, None, s:s + chunk]) & (xs <= hi[:, None, s:s + chunk])
+        acc += hit.sum(dim=-1, dtype=torch.int32)
+    return acc
+
+
+def match_minsum(data_cnt: torch.Tensor, query_cnt: torch.Tensor, chunk: int = 8) -> torch.Tensor:
+    """MINSUM engine: counts[q, n] = sum_v min(data_cnt[n,v], query_cnt[q,v]).
+
+    Exactly Lemma 5.1's ordered-n-gram match count when the count vectors are
+    per-gram-type multiplicities (bucketised count vectors give an upper
+    bound; see sa/ngram.py).  data_cnt int [N, V], query_cnt int [Q, V] ->
+    int32 [Q, N]; the temp stays [Q, N, chunk].
+    """
+    d = data_cnt.to(torch.int32)
+    s = query_cnt.to(torch.int32)
+    q, v = s.shape
+    acc = torch.zeros((q, d.shape[0]), dtype=torch.int32, device=d.device)
+    for start in range(0, v, chunk):
+        low = torch.minimum(s[:, None, start:start + chunk], d[None, :, start:start + chunk])
+        acc += low.sum(dim=-1, dtype=torch.int32)
+        del low
+    return acc
+
+
+# columns of V per float64 product in match_ip: the float64 copy of the data
+# stays [N, 1024]
+_IP_CHUNK = 1024
+
+
+def match_ip(data_bin: torch.Tensor, query_bin: torch.Tensor) -> torch.Tensor:
+    """IP engine: counts = query_bin @ data_bin^T (binary word vectors).
+
+    The short-document model of section V-B: MC == inner product of binary
+    word vectors.  [N, V] x [Q, V] -> int32 [Q, N], exact at any V: the
+    products and their sums are taken in float64 (exact to 2**53; PyTorch has
+    no integer matmul on CUDA), _IP_CHUNK columns of V at a time, then rounded
+    as the reference rounds its float32 sum (which is exact only below 2**24).
+    """
+    q64 = query_bin.to(torch.float64)
+    acc = torch.zeros((q64.shape[0], data_bin.shape[0]), dtype=torch.float64,
+                      device=data_bin.device)
+    for start in range(0, q64.shape[1], _IP_CHUNK):
+        cols = slice(start, start + _IP_CHUNK)
+        acc += q64[:, cols] @ data_bin[:, cols].to(torch.float64).T
+    return torch.round(acc).to(torch.int32)
+
+
 def match_tanimoto(data_sigs: torch.Tensor, query_sigs: torch.Tensor, chunk: int = 8) -> torch.Tensor:
     """TANIMOTO engine: counts[q, n] = sum_i (data_sigs[n, i] == query_sigs[q, i])
     over *minhash* signatures.
@@ -65,12 +129,7 @@ def tanimoto_exact(data_cnt: torch.Tensor, query_cnt: torch.Tensor, chunk: int =
     """
     d = data_cnt.to(torch.int32)
     s = query_cnt.to(torch.int32)
-    q, v = s.shape
-    mins = torch.zeros((q, d.shape[0]), dtype=torch.int32, device=d.device)
-    for start in range(0, v, chunk):
-        low = torch.minimum(s[:, None, start:start + chunk], d[None, :, start:start + chunk])
-        mins += low.sum(dim=-1, dtype=torch.int32)
-        del low
+    mins = match_minsum(d, s, chunk=chunk)
     # min(a,b) + max(a,b) == a + b, so sum-max follows from row sums -- no
     # second O(Q*N*V) pass
     maxs = (d.sum(dim=-1, dtype=torch.int32)[None, :]

@@ -180,5 +180,14 @@ def load() -> ctypes.CDLL:
         lib.repro_packed_tanimoto_topk.argtypes = [
             ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
         lib.repro_packed_tanimoto_topk.restype = i32
+        # int repro_range_count(data, lohi, out, n_data, n_query, d, stream)
+        lib.repro_range_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_range_count.restype = i32
+        # int repro_minsum_count(data, query, out, n_data, n_query, v, stream)
+        lib.repro_minsum_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_minsum_count.restype = i32
+        # int repro_ip_count(data, query, out, n_data, n_query, v, stream)
+        lib.repro_ip_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_ip_count.restype = i32
         _LIB = lib
     return _LIB

@@ -7,9 +7,11 @@ kernels mask their ragged edges themselves, so `pad_to` / `pick_tile` and the
   - the launch count: each wrapper calls `note_launch` where it launches its
     kernel and nowhere else, so a run can show that it went through the
     kernels;
-  - the launch of the two kernel families that share device code:
-    `launch_eq_count` for the equality counts on the tile of
-    `csrc/eq_tile.cuh` (match_count, tanimoto_count), and
+  - the launch of a count kernel with the C entry
+    `repro_<name>(data, query, out, n, q, width, stream)`: `check_pair`
+    checks its two operands and `launch_count` launches it (match_count,
+    tanimoto_count, minsum_count, range_count on the tile of
+    `csrc/eq_tile.cuh`; cosine_count, ip_count on `csrc/dp4a_tile.cuh`); and
     `launch_fused_topk` with its plain selection `local_topk_plain` for the
     fused match -> count -> per-tile top-k kernels on `csrc/local_topk.cuh`
     (packed_cosine_topk, packed_tanimoto_topk).
@@ -63,24 +65,29 @@ def check_status(name: str, status: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {status}")
 
 
-def launch_eq_count(name: str, data_sigs: torch.Tensor,
-                    query_sigs: torch.Tensor) -> torch.Tensor:
-    """Check the operands of an int32 equality-count kernel on the tile of
-    `csrc/eq_tile.cuh` and launch it through its C entry `repro_<name>`.
-    Shared by match_count and tanimoto_count, each its own kernel with its
-    own launch count."""
-    device = data_sigs.device
+def check_pair(name: str, data: torch.Tensor, query: torch.Tensor,
+               dtype: torch.dtype = torch.int32) -> tuple[int, int, int]:
+    """Check the data [N, width] and query [Q, width] operands of a count
+    kernel (contiguous CUDA tensors of `dtype` on one device); return
+    (N, Q, width)."""
+    device = data.device
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
-    check_operand(f"{name} data_sigs", data_sigs, 2, device)
-    check_operand(f"{name} query_sigs", query_sigs, 2, device)
-    n, m = data_sigs.shape
-    q = query_sigs.shape[0]
-    if query_sigs.shape[1] != m:
+    check_operand(f"{name} data", data, 2, device, dtype)
+    check_operand(f"{name} query", query, 2, device, dtype)
+    n, width = data.shape
+    if query.shape[1] != width:
         raise ValueError(
-            f"{name}: signature widths differ, data {m} vs "
-            f"queries {query_sigs.shape[1]}"
-        )
+            f"{name}: row widths differ, data {width} vs queries {query.shape[1]}")
+    return n, query.shape[0], width
+
+
+def launch_count(name: str, data: torch.Tensor, query: torch.Tensor,
+                 n: int, q: int, width: int) -> torch.Tensor:
+    """Allocate counts int32 [q, n] and launch the count kernel through its C
+    entry `repro_<name>(data, query, out, n, q, width, stream)` on checked
+    operands; each kernel keeps its own name and launch count."""
+    device = data.device
     out = torch.empty((q, n), dtype=torch.int32, device=device)
     if q == 0 or n == 0:
         return out
@@ -88,8 +95,7 @@ def launch_eq_count(name: str, data_sigs: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         status = getattr(lib, f"repro_{name}")(
-            data_sigs.data_ptr(), query_sigs.data_ptr(), out.data_ptr(),
-            n, q, m, stream)
+            data.data_ptr(), query.data_ptr(), out.data_ptr(), n, q, width, stream)
     check_status(name, status)
     note_launch(name)
     return out

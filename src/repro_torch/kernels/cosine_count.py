@@ -7,7 +7,8 @@ Replaces the TPU kernel `_cosine_kernel` / `cosine_count_pallas`
 whose header says what bounds it on an H100 and what the design does about
 it.  The sign agreement of simhash bits is the shifted +-1 inner product; the
 kernel takes it over the int8 signs as they are stored (four at a time with
-`__dp4a`, exact int32), where the TPU wrapper cast them to bf16 for the MXU.
+`__dp4a`, exact int32, on the int8 dot tile of `csrc/dp4a_tile.cuh` that it
+shares with `ip_count`), where the TPU wrapper cast them to bf16 for the MXU.
 
 `cosine_count` launches the kernel for CUDA tensors and raises when it
 cannot; it takes `cosine_count_plain` only for tensors that lie on the CPU.
@@ -17,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.match import match_cosine
-from repro_torch.kernels import build, common
+from repro_torch.kernels import common
 
 # The plain PyTorch version of this kernel is `core.match.match_cosine` (the
 # engine's reference semantics, chunked so its temp stays [Q, N, chunk]); it
@@ -30,27 +31,5 @@ def cosine_count(data_sgn: torch.Tensor, query_sgn: torch.Tensor) -> torch.Tenso
     both contiguous and on one device."""
     if data_sgn.device.type == "cpu" and query_sgn.device.type == "cpu":
         return cosine_count_plain(data_sgn, query_sgn)
-    device = data_sgn.device
-    if device.type != "cuda":
-        raise ValueError(f"cosine_count: no kernel for device {device}")
-    common.check_operand("cosine_count data_sgn", data_sgn, 2, device, torch.int8)
-    common.check_operand("cosine_count query_sgn", query_sgn, 2, device, torch.int8)
-    n, v = data_sgn.shape
-    q = query_sgn.shape[0]
-    if query_sgn.shape[1] != v:
-        raise ValueError(
-            f"cosine_count: sign widths differ, data {v} vs queries "
-            f"{query_sgn.shape[1]}"
-        )
-    out = torch.empty((q, n), dtype=torch.int32, device=device)
-    if q == 0 or n == 0:
-        return out
-    lib = build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.repro_cosine_count(
-            data_sgn.data_ptr(), query_sgn.data_ptr(), out.data_ptr(),
-            n, q, v, stream)
-    common.check_status("cosine_count", status)
-    common.note_launch("cosine_count")
-    return out
+    n, q, v = common.check_pair("cosine_count", data_sgn, query_sgn, torch.int8)
+    return common.launch_count("cosine_count", data_sgn, query_sgn, n, q, v)

@@ -1,43 +1,52 @@
-// The equality-count tile shared by the EQ and TANIMOTO kernels
-// (match_count.cu, tanimoto_count.cu, packed_tanimoto.cu):
+// The count tile shared by the EQ, TANIMOTO, MINSUM and RANGE kernels
+// (match_count.cu, tanimoto_count.cu, packed_tanimoto.cu, minsum_count.cu,
+// range_count.cu):
 //
-//     counts[q, n] = sum_i (data[n, i] == query[q, i])        int32 [Q, N]
+//     counts[q, n] = sum_i count(query[q, i], data[n, i])       int32 [Q, N]
 //
-// A thread block owns one [TQ, TN] tile of the output, walks the signature
-// axis in chunks of P::KS slots staged through shared memory, and every
-// thread keeps an RQ x RN register micro-tile of int32 accumulators
-// (compare-and-add, no multiply).  Any m streams through the same tile, so
-// the TPU's reason for a separate TANIMOTO kernel -- FLASH-scale m (thousands
-// of minhash functions) does not fit VMEM whole -- does not arise here.
-// Ragged edges are masked (row, column and m bounds), so nothing is padded or
-// copied and the output is exactly [Q, N].
+// where count is the equality of two signature columns (EQ, TANIMOTO), the
+// smaller of two n-gram multiplicities (MINSUM) or the test of an attribute
+// value against an interval (RANGE).
+//
+// A thread block owns one [TQ, TN] tile of the output, walks the row axis in
+// chunks of P::KS slots staged through shared memory, and every thread keeps
+// an RQ x RN register micro-tile of int32 accumulators (count-and-add, no
+// multiply).  Any m streams through the same tile, so the TPU's reason for a
+// separate TANIMOTO kernel -- FLASH-scale m (thousands of minhash functions)
+// does not fit VMEM whole -- and the MINSUM kernel's third grid axis over the
+// vocabulary do not arise here.  Ragged edges are masked (row, column and m
+// bounds), so nothing is padded or copied and the output is exactly [Q, N].
 //
 // The tile is a template on a layout policy P, which says what a shared-memory
 // slot holds and how two slots count:
 //
 //     P::Elem                 element type in device memory
-//     P::Slot                 element type of a staged slot
+//     P::QSlot, P::DSlot      element types of a staged query / data slot
 //     P::KS                   slots staged per step
-//     P::slots(m)             slots per row of m signature columns
+//     P::slots(m)             slots per row of m columns
 //     P::stage(dst, ld, src, row0, n_rows, m, s0, rows, query)
 //                             stage slots [s0, s0 + KS) of rows [row0, row0 +
-//                             rows) at dst[r * ld + s - s0]; slots past
-//                             P::slots(m) are staged but never compared, and
-//                             where a slot holds several columns, those past
-//                             m must never be equal across the two sides
-//     P::count(a, b)          equal signature columns in a query slot and a
-//                             data slot
+//                             rows) at dst[r * ld + s - s0] (dst is a QSlot*
+//                             for the queries, a DSlot* for the data); slots
+//                             past P::slots(m) are staged but never counted,
+//                             and where a slot holds several columns, those
+//                             past m must count nothing across the two sides
+//     P::count(a, b)          what a query slot a and a data slot b add
 //
-// IntColumns below is one int32 column per slot (EQ, TANIMOTO WIDE);
-// packed_tanimoto.cu holds four uint8 byte lanes per slot.
+// IntColumns below is one int32 column per slot counted by equality (EQ,
+// TANIMOTO WIDE); MinColumns the same slots counted by their minimum
+// (MINSUM); RangeColumns an int32 (lo, hi) interval per query slot against an
+// int32 value per data slot (RANGE); packed_tanimoto.cu holds four uint8 byte
+// lanes per slot.
 //
 // What bounds it on an H100: integer ALU throughput, not memory.  Every output
-// element costs m compares and m adds (or a few operations per four lanes);
+// element costs m counts and m adds (or a few operations per four lanes);
 // at Q=1024, N=281250, m=238 that is 1.4e11 integer operations against 1.4 GB
-// of traffic.  Register reuse answers it: each staged slot is compared RQ or
-// RN times, so one shared-memory load feeds 8 compare-adds, and the block
+// of traffic.  Register reuse answers it: each staged slot is counted RQ or
+// RN times, so one shared-memory load feeds 8 count-adds, and the block
 // index runs over the query tiles first so that the blocks in flight share one
-// data tile in L2.  Measured times are in PERF.md.
+// data tile in L2.  RANGE at d = 14 is the exception: 14 slots per element,
+// and the [Q, N] int32 write is its bound.  Measured times are in PERF.md.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,42 +62,92 @@ constexpr int TQ = TY * RQ;       // 128 query rows per block
 constexpr int TN = TX * RN;       // 128 data rows per block
 constexpr int THREADS = TX * TY;
 
-// One int32 signature column per slot.
+// Stage a [rows, KS] window of columns [s0, s0 + KS) of a row-major [n_rows,
+// m] matrix of T: a warp reads consecutive columns of one row.  Rows past
+// n_rows and columns past m are staged as `fill`; their results are never
+// used (the count loop stops at m, the store is masked).
+template <int KS, class T>
+__device__ __forceinline__ void stage_columns(T* __restrict__ dst, int ld,
+                                              const T* __restrict__ src,
+                                              long long row0, long long n_rows,
+                                              int m, int s0, int rows, T fill) {
+  for (int e = threadIdx.x; e < rows * KS; e += THREADS) {
+    const int r = e / KS;
+    const int c = e % KS;
+    const long long row = row0 + r;
+    T v = fill;
+    if (row < n_rows && s0 + c < m) v = src[row * m + s0 + c];
+    dst[r * ld + c] = v;
+  }
+}
+
+// One int32 signature column per slot, counted by equality.
 struct IntColumns {
   using Elem = int;
-  using Slot = int;
-  static constexpr int KS = 32;   // columns staged per step
+  using QSlot = int;
+  using DSlot = int;
+  static constexpr int KS = 32;   // columns staged per step (one 128-byte row segment)
 
   __device__ static int slots(int m) { return m; }
 
-  // A warp reads KS consecutive columns of one row (one 128-byte segment).
-  // Rows past n_rows and columns past m are zero-filled; their results are
-  // never used (the compare loop stops at m, the store is masked).
   __device__ __forceinline__ static void stage(int* __restrict__ dst, int ld,
                                                const int* __restrict__ src,
                                                long long row0, long long n_rows,
                                                int m, int s0, int rows, bool) {
-    for (int e = threadIdx.x; e < rows * KS; e += THREADS) {
-      const int r = e / KS;
-      const int c = e % KS;
-      const long long row = row0 + r;
-      int v = 0;
-      if (row < n_rows && s0 + c < m) v = src[row * m + s0 + c];
-      dst[r * ld + c] = v;
-    }
+    stage_columns<KS>(dst, ld, src, row0, n_rows, m, s0, rows, 0);
   }
 
   __device__ __forceinline__ static int count(int a, int b) { return a == b ? 1 : 0; }
 };
 
+// The same slots counted by their minimum: sum_v min(query[q, v], data[n, v])
+// over n-gram multiplicities (MINSUM).
+struct MinColumns : IntColumns {
+  __device__ __forceinline__ static int count(int a, int b) { return min(a, b); }
+};
+
+// RANGE: a query slot is one attribute's interval (lo, hi), a data slot one
+// attribute value, and a slot pair counts [lo <= x <= hi].  The query operand
+// is int32 [Q, m, 2] with lo and hi interleaved, the data int32 [N, m].
+// KS = 16: a [128, 33] int2 query window and a [128, 33] int window would
+// pass the 48 KB of static shared memory a block may hold.
+struct RangeColumns {
+  using Elem = int;
+  using QSlot = int2;
+  using DSlot = int;
+  static constexpr int KS = 16;   // attributes staged per step (d = 14 in one)
+
+  __device__ static int slots(int m) { return m; }
+
+  // queries: rows past n_rows are staged as the empty interval (1, 0)
+  __device__ __forceinline__ static void stage(int2* __restrict__ dst, int ld,
+                                               const int* __restrict__ src,
+                                               long long row0, long long n_rows,
+                                               int m, int s0, int rows, bool) {
+    stage_columns<KS>(dst, ld, reinterpret_cast<const int2*>(src), row0, n_rows, m,
+                      s0, rows, make_int2(1, 0));
+  }
+
+  __device__ __forceinline__ static void stage(int* __restrict__ dst, int ld,
+                                               const int* __restrict__ src,
+                                               long long row0, long long n_rows,
+                                               int m, int s0, int rows, bool) {
+    stage_columns<KS>(dst, ld, src, row0, n_rows, m, s0, rows, 0);
+  }
+
+  __device__ __forceinline__ static int count(int2 a, int b) {
+    return (a.x <= b && b <= a.y) ? 1 : 0;
+  }
+};
+
 template <class P>
 __device__ __forceinline__ void compare_step(int (&acc)[RQ][RN],
-                                             const typename P::Slot* __restrict__ q_s,
-                                             const typename P::Slot* __restrict__ d_s,
+                                             const typename P::QSlot* __restrict__ q_s,
+                                             const typename P::DSlot* __restrict__ d_s,
                                              int tx, int ty, int kk) {
   constexpr int LD = P::KS + 1;
-  typename P::Slot qv[RQ];
-  typename P::Slot dv[RN];
+  typename P::QSlot qv[RQ];
+  typename P::DSlot dv[RN];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) qv[i] = q_s[(ty + TY * i) * LD + kk];
 #pragma unroll
@@ -109,8 +168,8 @@ __device__ __forceinline__ void count_tile(const typename P::Elem* __restrict__ 
                                            int m, int n_qtiles) {
   constexpr int KS = P::KS;
   constexpr int LD = KS + 1;      // padded row stride: conflict-free columns
-  __shared__ typename P::Slot q_s[TQ * LD];
-  __shared__ typename P::Slot d_s[TN * LD];
+  __shared__ typename P::QSlot q_s[TQ * LD];
+  __shared__ typename P::DSlot d_s[TN * LD];
 
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;

@@ -107,7 +107,8 @@ __device__ __forceinline__ void stage_bytes(unsigned* __restrict__ dst, int ld,
 // The tile of eq_tile.cuh with four byte lanes per staged slot.
 struct ByteLanes {
   using Elem = uint8_t;
-  using Slot = unsigned;
+  using QSlot = unsigned;
+  using DSlot = unsigned;
   static constexpr int KS = 16;   // words (64 columns) staged per step
 
   __device__ static int slots(int m) { return (m + 3) / 4; }

@@ -31,5 +31,6 @@ def match_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.Tens
     both contiguous and on one device."""
     if data_sigs.device.type == "cpu" and query_sigs.device.type == "cpu":
         return match_count_plain(data_sigs, query_sigs)
-    return common.launch_eq_count("match_count", data_sigs, query_sigs)
+    n, q, m = common.check_pair("match_count", data_sigs, query_sigs)
+    return common.launch_count("match_count", data_sigs, query_sigs, n, q, m)
 

@@ -1,13 +1,13 @@
 """Public entries of the kernel layer: what the GENIE engines call.
 
-The counterpart of `repro/kernels/ops.py`, with the EQ, c-PQ histogram,
-TANIMOTO and COSINE (WIDE and PACKED) entries (RANGE, MINSUM and IP are still
-to be ported).  The TPU wrappers pad inputs to tile multiples with sentinels
-(-1 / -2, and 255 / 254 for uint8 buckets) and slice the result back; the CUDA
-kernels mask their ragged edges themselves, so no sentinel reaches them and an
-entry here only brings its operands to the form the kernel takes (int32, int8
-signs or uint8 buckets, contiguous -- the cast the reference applies) and
-calls the wrapper.  `repro_torch.kernels.ref` holds the oracles.
+The counterpart of `repro/kernels/ops.py`, with an entry for every engine's
+kernel and the c-PQ histogram.  The TPU wrappers pad inputs to tile multiples
+with sentinels (-1 / -2, 255 / 254 for uint8 buckets, the empty range lo = 1,
+hi = 0 for RANGE queries) and slice the result back; the CUDA kernels mask
+their ragged edges themselves, so no sentinel reaches them and an entry here
+only brings its operands to the form the kernel takes (int32, int8 signs or
+word vectors, uint8 buckets, contiguous -- the cast the reference applies,
+on every call) and calls the wrapper.  `repro_torch.kernels.ref` holds the oracles.
 """
 from __future__ import annotations
 
@@ -15,9 +15,12 @@ import torch
 
 from repro_torch.kernels import cosine_count as _cos
 from repro_torch.kernels import cpq_hist as _cpq_hist
+from repro_torch.kernels import ip_count as _ip
 from repro_torch.kernels import match_count as _mc
+from repro_torch.kernels import minsum_count as _ms
 from repro_torch.kernels import packed_cosine as _pcos
 from repro_torch.kernels import packed_tanimoto as _ptan
+from repro_torch.kernels import range_count as _rc
 from repro_torch.kernels import tanimoto_count as _tc
 
 
@@ -36,6 +39,24 @@ def _uint8(x: torch.Tensor) -> torch.Tensor:
 def match_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.Tensor:
     """EQ engine kernel: counts int32 [Q, N]."""
     return _mc.match_count(_int32(data_sigs), _int32(query_sigs))
+
+
+def range_count(data_vals: torch.Tensor, q_lo: torch.Tensor,
+                q_hi: torch.Tensor) -> torch.Tensor:
+    """RANGE engine kernel: counts int32 [Q, N]."""
+    return _rc.range_count(_int32(data_vals), _int32(q_lo), _int32(q_hi))
+
+
+def minsum_count(data_cnt: torch.Tensor, query_cnt: torch.Tensor) -> torch.Tensor:
+    """MINSUM engine kernel: counts int32 [Q, N]."""
+    return _ms.minsum_count(_int32(data_cnt), _int32(query_cnt))
+
+
+def ip_count(data_bin: torch.Tensor, query_bin: torch.Tensor) -> torch.Tensor:
+    """IP engine kernel: exact int32 counts [Q, N] from binary word vectors
+    (any dtype; the kernel takes int8, so other dtypes are cast here on every
+    call, as the reference's wrapper casts to bf16)."""
+    return _ip.ip_count(_int8(data_bin), _int8(query_bin))
 
 
 def cpq_hist(counts: torch.Tensor, max_count: int) -> torch.Tensor:

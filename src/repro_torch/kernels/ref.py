@@ -10,6 +10,9 @@ import torch
 from repro_torch.core.match import (  # noqa: F401
     match_cosine,
     match_eq,
+    match_ip,
+    match_minsum,
+    match_range,
     match_tanimoto,
     tanimoto_exact,
 )

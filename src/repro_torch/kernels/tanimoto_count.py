@@ -31,4 +31,5 @@ def tanimoto_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.T
     both contiguous and on one device."""
     if data_sigs.device.type == "cpu" and query_sigs.device.type == "cpu":
         return tanimoto_count_plain(data_sigs, query_sigs)
-    return common.launch_eq_count("tanimoto_count", data_sigs, query_sigs)
+    n, q, m = common.check_pair("tanimoto_count", data_sigs, query_sigs)
+    return common.launch_count("tanimoto_count", data_sigs, query_sigs, n, q, m)

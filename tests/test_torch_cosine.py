@@ -117,7 +117,8 @@ def test_tile_and_header_are_what_the_build_sees(monkeypatch, tmp_path):
     alone changes the library's digest (it is hashed, not compiled)."""
     src = (build.CSRC_DIR / "packed_cosine.cu").read_text()
     assert int(re.search(r"constexpr int K_TN = (\d+);", src).group(1)) == TILE_N
-    assert [p.name for p in build.headers()] == ["eq_tile.cuh", "local_topk.cuh"]
+    assert [p.name for p in build.headers()] == ["dp4a_tile.cuh", "eq_tile.cuh",
+                                                 "local_topk.cuh"]
     assert '#include "local_topk.cuh"' in src
     for p in build.sources() + build.headers():
         (tmp_path / p.name).write_bytes(p.read_bytes())
@@ -127,8 +128,9 @@ def test_tile_and_header_are_what_the_build_sees(monkeypatch, tmp_path):
         (tmp_path / "local_topk.cuh").read_text() + "\n// edited\n")
     assert build._digest(build.sources()) != before
     assert [p.name for p in build.sources()] == [
-        "cosine_count.cu", "cpq_hist.cu", "match_count.cu", "packed_cosine.cu",
-        "packed_tanimoto.cu", "tanimoto_count.cu"]
+        "cosine_count.cu", "cpq_hist.cu", "ip_count.cu", "match_count.cu",
+        "minsum_count.cu", "packed_cosine.cu", "packed_tanimoto.cu", "range_count.cu",
+        "tanimoto_count.cu"]
 
 
 # ---------------------------------------------------------------------------

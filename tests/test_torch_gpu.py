@@ -150,3 +150,37 @@ def test_minhash_service_packed_equals_wide_on_the_card():
         assert res.ids.is_cuda
         assert torch.equal(res.ids, base.ids) and torch.equal(res.counts, base.counts)
     assert bool((base.counts[:, 0] == 64).all())   # every query finds itself whole
+
+
+@pytest.mark.gpu
+def test_range_minsum_ip_kernels_equal_plain_versions_on_the_card():
+    _need_card()
+    from repro_torch.kernels.ip_count import ip_count_plain
+    from repro_torch.kernels.minsum_count import minsum_count_plain
+    from repro_torch.kernels.range_count import range_count_plain
+
+    gen = torch.Generator().manual_seed(3)
+    common.reset_launch_counts()
+    i32 = torch.iinfo(torch.int32)
+    for q, n, d in [(1, 5, 1), (3, 130, 3), (70, 10003, 14), (5, 257, 37)]:
+        x = torch.randint(0, 1024, (n, d), generator=gen, dtype=torch.int32)
+        x[::5, 0] = i32.min                        # the engine's pad fill
+        lo = torch.randint(0, 1024, (q, d), generator=gen, dtype=torch.int32)
+        hi = lo + torch.randint(-20, 100, (q, d), generator=gen, dtype=torch.int32)
+        lo[0], hi[0] = i32.min, i32.max
+        x, lo, hi = x.cuda(), lo.cuda(), hi.cuda()
+        assert torch.equal(ops.range_count(x, lo, hi), range_count_plain(x, lo, hi))
+    for q, n, v in [(1, 5, 1), (3, 130, 3), (8, 300, 33), (70, 3001, 4096), (5, 2100, 4099)]:
+        d = torch.randint(0, 128, (n, v), generator=gen, dtype=torch.int32)
+        d[::7] = -1                                # pad rows: negative counts
+        s = torch.randint(0, 128, (q, v), generator=gen, dtype=torch.int32)
+        d, s = d.cuda(), s.cuda()
+        assert torch.equal(ops.minsum_count(d, s), minsum_count_plain(d, s))
+    for q, n, v in [(1, 5, 1), (3, 130, 3), (8, 300, 17), (70, 3001, 8192), (5, 2100, 8195)]:
+        d = torch.randint(0, 2, (n, v), generator=gen, dtype=torch.int8).cuda()
+        s = torch.randint(0, 2, (q, v), generator=gen, dtype=torch.int8).cuda()
+        want = ip_count_plain(d, s)
+        for dtype in (torch.int8, torch.int32, torch.float32):
+            assert torch.equal(ops.ip_count(d.to(dtype), s.to(dtype)), want)
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"range_count": 4, "minsum_count": 5, "ip_count": 15}

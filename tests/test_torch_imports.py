@@ -28,7 +28,11 @@ def test_module_list_covers_the_slice():
                  "repro_torch.core.lsh.simhash", "repro_torch.core.packing",
                  "repro_torch.kernels.cosine_count", "repro_torch.kernels.packed_cosine",
                  "repro_torch.core.lsh.minhash", "repro_torch.core.lsh.rbh",
-                 "repro_torch.kernels.tanimoto_count", "repro_torch.kernels.packed_tanimoto"):
+                 "repro_torch.kernels.tanimoto_count", "repro_torch.kernels.packed_tanimoto",
+                 "repro_torch.kernels.range_count", "repro_torch.kernels.minsum_count",
+                 "repro_torch.kernels.ip_count", "repro_torch.core.sa",
+                 "repro_torch.core.sa.ngram", "repro_torch.core.sa.document",
+                 "repro_torch.core.sa.relational", "repro_torch.core.sa.verify"):
         assert name in _MODULES
 
 
@@ -83,10 +87,15 @@ def _needs_no_cuda():
     lambda: RetrievalService(scheme="minhash", signature_layout="packed"),
     lambda: RetrievalService(scheme="rbh"),
     lambda: GenieIndex.build_tanimoto([[1, 2], [3, 4]], signature_layout="packed"),
+    lambda: GenieIndex.build_relational([[1, 2], [3, 4]]),
+    lambda: GenieIndex.build_minsum([[1, 2], [3, 4]], max_count=4),
+    lambda: GenieIndex.build_ip([[1, 0], [0, 1]], max_count=2),
+    lambda: SegmentedIndex(Engine.RANGE),
 ], ids=["service", "service-device-none", "segmented", "index-build",
         "index-build-lsh", "resolve-none", "resolve-cuda", "service-simhash-packed",
         "index-build-cosine", "service-minhash-packed", "service-rbh",
-        "index-build-tanimoto"])
+        "index-build-tanimoto", "index-build-relational", "index-build-minsum",
+        "index-build-ip", "segmented-range"])
 def test_default_device_raises_without_cuda(build):
     """No silent run on the CPU: the default device is the card."""
     _needs_no_cuda()

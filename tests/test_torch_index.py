@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from repro.core import GenieIndex as JGenieIndex, SegmentedIndex as JSegmentedIndex
-from repro.core import plan as jplan
+from repro.core import engines as jengines, plan as jplan
 from repro.core.types import Engine as JEngine, TopKMethod as JMethod
 from repro_torch.core import (Engine, GenieIndex, Layout, Routing, SegmentedIndex,
                               TopKMethod, engines, execute, plan_search)
@@ -133,8 +133,14 @@ def test_segmented_index_validation(rng):
         SegmentedIndex(Engine.EQ, signature_layout="packed", device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         seg.search(_sigs(rng, 2), k=3, routing="routed")
-    with pytest.raises(KeyError, match="still to be ported"):
-        SegmentedIndex(Engine.RANGE, device="cpu")
+    # an engine with no derivable count bound: the first add needs max_count,
+    # and says so in the reference's words
+    with pytest.raises(ValueError) as ours:
+        SegmentedIndex(Engine.MINSUM, device="cpu").add(_sigs(rng, 4))
+    with pytest.raises(ValueError) as theirs:
+        JSegmentedIndex(JEngine.MINSUM).add(_sigs(rng, 4))
+    assert str(ours.value) == str(theirs.value) == (
+        "engine 'minsum' has no derivable count bound; pass max_count explicitly")
 
 
 def test_concat_data_pads_and_a_padded_plan_masks(rng):
@@ -247,7 +253,7 @@ def test_segment_helpers_equal_reference():
 
 def test_engine_registry(rng):
     model = engines.get(Engine.EQ)
-    assert engines.available() == (Engine.EQ, Engine.TANIMOTO, Engine.COSINE)
+    assert [e.value for e in engines.available()] == [e.value for e in jengines.available()]
     assert engines.get(model) is model
     assert model.count_dtype(100) == torch.int8 and model.count_dtype(238) == torch.int16
     assert model.count_dtype(40000) == torch.int32

@@ -122,17 +122,20 @@ def test_every_c_entry_is_in_a_source_and_bound():
     """build.load() binds argtypes by name: each name must be an extern "C"
     entry of exactly one source under csrc/."""
     srcs = build.sources()
-    assert [p.name for p in srcs] == ["cosine_count.cu", "cpq_hist.cu", "match_count.cu",
+    assert [p.name for p in srcs] == ["cosine_count.cu", "cpq_hist.cu", "ip_count.cu",
+                                      "match_count.cu", "minsum_count.cu",
                                       "packed_cosine.cu", "packed_tanimoto.cu",
-                                      "tanimoto_count.cu"]
+                                      "range_count.cu", "tanimoto_count.cu"]
     entries = []
     for p in srcs:
         entries += re.findall(r'extern "C" int (\w+)\(', p.read_text())
-    assert sorted(entries) == ["repro_cosine_count", "repro_cpq_hist", "repro_match_count",
+    assert sorted(entries) == ["repro_cosine_count", "repro_cpq_hist", "repro_ip_count",
+                               "repro_match_count", "repro_minsum_count",
                                "repro_packed_cosine_count", "repro_packed_cosine_topk",
                                "repro_packed_cosine_topk_plan",
                                "repro_packed_tanimoto_count", "repro_packed_tanimoto_topk",
-                               "repro_packed_tanimoto_topk_plan", "repro_tanimoto_count"]
+                               "repro_packed_tanimoto_topk_plan", "repro_range_count",
+                               "repro_tanimoto_count"]
     loader = open(build.__file__).read()
     for name in entries:
         assert f"lib.{name}.argtypes" in loader and f"lib.{name}.restype" in loader
