@@ -24,6 +24,10 @@ as a phase fails:
      range_count (d = 1 to 37, empty ranges, lo = hi, INT32_MIN / INT32_MAX),
      minsum_count (V = 1 to 4099, values 0 to 127, -1 pad rows) and ip_count
      (V = 1 to 8195, int8 {0, 1}, and int32 / float32 through the wrapper);
+     2e. cosine_count and ip_count, the int8 tensor-core tile, at V from 1 to
+     8195 across its 32- and 128-byte steps, over the full int8 range, {0, 1}
+     and {-1, 0, +1}, through both of its loaders (TMA; registers, for V not a
+     multiple of 16 and for base pointers that are not 16-byte aligned);
   3. a small served round trip through `RetrievalService`: uneven adds, one
      compaction, CPQ / SPQ / SORT; the kernel path must equal the plain path
      bit for bit and unperturbed corpus points must retrieve themselves;
@@ -65,7 +69,8 @@ as a phase fails:
      memory rate, or operations over the peak rate for their type, whichever
      is larger); 5b. the same for the three COSINE kernels; 5c. the same for
      the three TANIMOTO kernels, and tanimoto_count at m = 4096; 5d. the same
-     for range_count, minsum_count and ip_count.
+     for range_count, minsum_count and ip_count.  5b and 5d log the loader
+     that cosine_count and ip_count take at their per-segment shapes.
 
 It needs one CUDA device and no network, and imports neither jax nor the JAX
 package.  The last line of its output is one JSON object
@@ -238,6 +243,8 @@ def phase_kernel_parity(device: torch.device) -> dict:
     worst.update(cosine_parity(device, gen))
     worst.update(tanimoto_parity(device))
     worst.update(sa_parity(device))
+    for name, err in dot_tile_parity(device).items():
+        worst[name] = max(worst[name], err)
     for q, n, m in MATCH_SHAPES:
         for dtype in (torch.int32, torch.int16):
             d = torch.randint(0, 9, (n, m), generator=gen, dtype=dtype).to(device)
@@ -265,6 +272,73 @@ def phase_kernel_parity(device: torch.device) -> dict:
               f"cpq_hist differs from its plain version at (Q,N)=({q},{n}) "
               f"max_count={max_count}: max abs err {err}")
         log(f"  cpq_hist (Q,N)=({q},{n}) max_count={max_count} with -1 entries: equal")
+    return worst
+
+
+# (Q, N, V, data offset, query offset) for the int8 tensor-core tile of
+# cosine_count and ip_count: V straddles its 32-byte MMA depth and 128-byte
+# stage (1 .. 8195), Q and N are multiples of neither 64 nor 256, two shapes
+# have more tiles than the card has SMs, and an offset of 1 byte makes a
+# contiguous view whose base pointer is not 16-byte aligned.  V a multiple
+# of 16 with aligned pointers takes TMA, everything else the register loader.
+DOT_TILE_CASES = [(3, 70, 1, 0, 0), (5, 130, 31, 0, 0), (67, 301, 32, 0, 0),
+                  (67, 301, 33, 0, 0), (130, 517, 127, 0, 0), (130, 517, 128, 0, 0),
+                  (130, 517, 129, 0, 0), (67, 1001, 238, 0, 0), (67, 1001, 240, 0, 0),
+                  (33, 777, 8195, 0, 0), (129, 2311, 8192, 0, 0), (300, 70001, 238, 0, 0),
+                  (300, 70001, 256, 0, 0), (67, 1001, 240, 1, 0), (67, 1001, 256, 0, 1),
+                  (129, 2311, 8192, 1, 1)]
+# the value sets: the full int8 range, IP's {0, 1}, COSINE's {-1, 0, +1}
+DOT_TILE_VALUES = {"int8 -128..127": (-128, 128), "{0,1}": (0, 2), "{-1,0,1}": (-1, 2)}
+
+
+def _int8_view(gen: torch.Generator, rows: int, v: int, lo: int, hi: int, offset: int,
+               device: torch.device) -> torch.Tensor:
+    """A contiguous int8 [rows, v] on the card whose base pointer lies
+    `offset` bytes past an allocation's (aligned) start."""
+    buf = torch.randint(lo, hi, (rows * v + offset,), generator=gen, dtype=torch.int8)
+    buf[offset] = lo                                  # both ends of the range appear
+    buf[-1] = hi - 1
+    return buf.to(device)[offset:].view(rows, v)
+
+
+def dot_tile_parity(device: torch.device) -> dict:
+    """Phase 2e: cosine_count and ip_count, the two kernels on the int8
+    tensor-core tile, against their plain versions bit-exact over
+    DOT_TILE_CASES x DOT_TILE_VALUES, each call's loader logged and checked
+    against the rule; both loaders must have run for both kernels.  Returns
+    the worst absolute difference per kernel."""
+    from repro_torch.kernels import common, ops
+    from repro_torch.kernels.cosine_count import cosine_count_plain
+    from repro_torch.kernels.ip_count import ip_count_plain
+
+    log("== phase 2e: cosine_count and ip_count (int8 tensor-core tile) against their "
+        "plain versions")
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    worst = {"cosine_count": 0, "ip_count": 0}
+    seen = {name: set() for name in worst}
+    for q, n, v, d_off, q_off in DOT_TILE_CASES:
+        for label, (lo, hi) in DOT_TILE_VALUES.items():
+            d = _int8_view(gen, n, v, lo, hi, d_off, device)
+            s = _int8_view(gen, q, v, lo, hi, q_off, device)
+            want_tma = v % 16 == 0 and d.data_ptr() % 16 == 0 and s.data_ptr() % 16 == 0
+            for name, kernel, plain in (("cosine_count", ops.cosine_count, cosine_count_plain),
+                                        ("ip_count", ops.ip_count, ip_count_plain)):
+                loader = common.dot_tile_loader(name, d, s)
+                check(loader == ("tma" if want_tma else "registers"),
+                      f"{name} took the {loader} loader at V={v}, offsets ({d_off}, {q_off})")
+                seen[name].add(loader)
+                got = kernel(d, s)
+                want = plain(d, s)
+                sync(device)
+                err = max_abs_err(got, want)
+                worst[name] = max(worst[name], err)
+                check(got.shape == (q, n) and got.dtype == torch.int32 and torch.equal(got, want),
+                      f"{name} differs from its plain version at (Q,N,V)=({q},{n},{v}) "
+                      f"{label}, offsets ({d_off}, {q_off}), {loader} loader: max abs err {err}")
+        log(f"  cosine_count, ip_count (Q,N,V)=({q},{n},{v}) offsets ({d_off},{q_off}), "
+            f"{loader} loader, values {', '.join(DOT_TILE_VALUES)}: equal")
+    for name, loaders in seen.items():
+        check(loaders == {"tma", "registers"}, f"{name} ran through {sorted(loaders)} only")
     return worst
 
 
@@ -841,7 +915,7 @@ def phase_cosine_kernel_times(simhash: dict, launches_count: int, parity_err: di
     """The three COSINE kernels at the per-segment shape of the simhash path."""
     from repro_torch.core import cpq, packing
     from repro_torch.core.types import SearchParams
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import common, ops
     from repro_torch.kernels.cosine_count import cosine_count_plain
     from repro_torch.kernels.packed_cosine import (TILE_N, packed_cosine_count_plain,
                                                    packed_cosine_topk_plain)
@@ -858,6 +932,8 @@ def phase_cosine_kernel_times(simhash: dict, launches_count: int, parity_err: di
         f"W={w} k={k} (fused tile {TILE_N})")
 
     # cosine_count
+    log(f"  cosine_count takes the {common.dot_tile_loader('cosine_count', d_sgn, q_sgn)} "
+        f"loader at V={v}")
     ms_cos, counts = timed_ms(lambda: ops.cosine_count(d_sgn, q_sgn), device, reps=3, warmup=1)
     plain_cos, counts_plain = timed_ms(lambda: cosine_count_plain(d_sgn, q_sgn), device,
                                        reps=1, warmup=1)
@@ -1634,13 +1710,14 @@ def ip_kernel_times(tweets: dict, parity_err: dict, device: torch.device) -> dic
     is torch._int_mm on the int8 tensor cores, N padded to a multiple of 8
     with zero rows as _int_mm demands (timed here, used nowhere in the
     port)."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import common, ops
     from repro_torch.kernels.ip_count import ip_count_plain
 
     db, qb = tweets["index"].segments[0].data, tweets["queries"]   # int8 [N, V], [Q, V]
     n, v = db.shape
     q = qb.shape[0]
-    log(f"== phase 5d: ip_count at the per-segment shape Q={q} N={n} V={v}")
+    log(f"== phase 5d: ip_count at the per-segment shape Q={q} N={n} V={v}, "
+        f"{common.dot_tile_loader('ip_count', db, qb)} loader")
     ms, plain, dots, err = _kernel_and_plain(
         "ip_count", lambda: ops.ip_count(db, qb), lambda: ip_count_plain(db, qb),
         parity_err, device)

@@ -153,6 +153,9 @@ def load() -> ctypes.CDLL:
         # int repro_cosine_count(data, query, out, n_data, n_query, v, stream)
         lib.repro_cosine_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_cosine_count.restype = i32
+        # int repro_cosine_count_loader(data, query, v): 1 TMA, 0 registers
+        lib.repro_cosine_count_loader.argtypes = [ptr, ptr, i32]
+        lib.repro_cosine_count_loader.restype = i32
         # int repro_packed_cosine_count(data, query, out, n_data, n_query, w, stream)
         lib.repro_packed_cosine_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_packed_cosine_count.restype = i32
@@ -189,5 +192,8 @@ def load() -> ctypes.CDLL:
         # int repro_ip_count(data, query, out, n_data, n_query, v, stream)
         lib.repro_ip_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_ip_count.restype = i32
+        # int repro_ip_count_loader(data, query, v): 1 TMA, 0 registers
+        lib.repro_ip_count_loader.argtypes = [ptr, ptr, i32]
+        lib.repro_ip_count_loader.restype = i32
         _LIB = lib
     return _LIB

@@ -11,7 +11,8 @@ kernels mask their ragged edges themselves, so `pad_to` / `pick_tile` and the
     `repro_<name>(data, query, out, n, q, width, stream)`: `check_pair`
     checks its two operands and `launch_count` launches it (match_count,
     tanimoto_count, minsum_count, range_count on the tile of
-    `csrc/eq_tile.cuh`; cosine_count, ip_count on `csrc/dp4a_tile.cuh`); and
+    `csrc/eq_tile.cuh`; cosine_count, ip_count on the int8 tensor-core tile
+    of `csrc/s8_mma_tile.cuh`, whose loader `dot_tile_loader` reports); and
     `launch_fused_topk` with its plain selection `local_topk_plain` for the
     fused match -> count -> per-tile top-k kernels on `csrc/local_topk.cuh`
     (packed_cosine_topk, packed_tanimoto_topk).
@@ -99,6 +100,18 @@ def launch_count(name: str, data: torch.Tensor, query: torch.Tensor,
     check_status(name, status)
     note_launch(name)
     return out
+
+
+def dot_tile_loader(name: str, data: torch.Tensor, query: torch.Tensor) -> str:
+    """Which loader of `csrc/s8_mma_tile.cuh` the count kernel `name`
+    (cosine_count or ip_count) takes for these checked operands: "tma" when
+    the row width is a multiple of 16 and both base pointers are 16-byte
+    aligned, else "registers".  The C entry `repro_<name>_loader` answers, by
+    the rule its launch uses."""
+    check_pair(name, data, query, torch.int8)
+    tma = getattr(build.load(), f"repro_{name}_loader")(
+        data.data_ptr(), query.data_ptr(), data.shape[1])
+    return "tma" if tma else "registers"
 
 
 def launch_fused_topk(name: str, data: torch.Tensor, query: torch.Tensor,

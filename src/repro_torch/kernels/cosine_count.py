@@ -6,8 +6,8 @@ Replaces the TPU kernel `_cosine_kernel` / `cosine_count_pallas`
 (`src/repro/kernels/cosine_count.py`); the kernel is `csrc/cosine_count.cu`,
 whose header says what bounds it on an H100 and what the design does about
 it.  The sign agreement of simhash bits is the shifted +-1 inner product; the
-kernel takes it over the int8 signs as they are stored (four at a time with
-`__dp4a`, exact int32, on the int8 dot tile of `csrc/dp4a_tile.cuh` that it
+kernel takes it over the int8 signs as they are stored (on the int8 tensor
+cores, wgmma s8 x s8 -> s32, exact; the tile of `csrc/s8_mma_tile.cuh` that it
 shares with `ip_count`), where the TPU wrapper cast them to bf16 for the MXU.
 
 `cosine_count` launches the kernel for CUDA tensors and raises when it

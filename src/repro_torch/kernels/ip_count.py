@@ -6,8 +6,10 @@ plain PyTorch version.
 Replaces the TPU kernel `_ip_kernel` / `ip_count_pallas`
 (`src/repro/kernels/ip_count.py`), a bf16 MXU product per V tile added into an
 int32 accumulator across a third grid axis.  The kernel is `csrc/ip_count.cu`:
-the int8 dot tile of `csrc/dp4a_tile.cuh`, shared with `cosine_count`, with
-the dot itself as its epilogue; its header says what bounds it on an H100.
+the int8 tensor-core tile of `csrc/s8_mma_tile.cuh` (wgmma s8 x s8 -> s32),
+shared with `cosine_count`, with the dot itself as its epilogue; its header
+says what bounds it on an H100 and which loader (TMA or registers) a row
+width takes (`common.dot_tile_loader`).
 The kernel takes int8 {0, 1} word vectors, as `sa.document.binary_vectors`
 makes them.
 

@@ -117,8 +117,8 @@ def test_tile_and_header_are_what_the_build_sees(monkeypatch, tmp_path):
     alone changes the library's digest (it is hashed, not compiled)."""
     src = (build.CSRC_DIR / "packed_cosine.cu").read_text()
     assert int(re.search(r"constexpr int K_TN = (\d+);", src).group(1)) == TILE_N
-    assert [p.name for p in build.headers()] == ["dp4a_tile.cuh", "eq_tile.cuh",
-                                                 "local_topk.cuh"]
+    assert [p.name for p in build.headers()] == ["eq_tile.cuh", "local_topk.cuh",
+                                                 "s8_mma_tile.cuh"]
     assert '#include "local_topk.cuh"' in src
     for p in build.sources() + build.headers():
         (tmp_path / p.name).write_bytes(p.read_bytes())

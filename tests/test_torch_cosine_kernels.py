@@ -52,6 +52,21 @@ def test_cosine_count_equals_reference_kernel(q, n, v, rng):
     assert torch.equal(cosine_count(_t(db), _t(qb)), cosine_count_plain(_t(db), _t(qb)))
 
 
+@pytest.mark.parametrize("v", [1, 31, 32, 33, 127, 128, 129, 238, 240, 8195])
+def test_cosine_count_across_the_tile_steps_equals_reference_kernel(v, rng):
+    """V across the steps of the int8 tensor-core tile (csrc/s8_mma_tile.cuh):
+    its 32-byte MMA depth and 128-byte stage, 238 (SIFT's m) and past 8192;
+    Q and N multiples of neither 64 nor 256, zero pad rows among the data."""
+    q, n = 67, 301
+    db, qb = _signs(rng, n, v), _signs(rng, q, v)
+    db[::9] = 0                                          # pad rows floor to V // 2
+    got = cosine_count(_t(db), _t(qb))
+    kernel = np.asarray(jops.cosine_count(jnp.asarray(db), jnp.asarray(qb),
+                                          tile_q=8, tile_n=128, tile_v=128))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), kernel)
+    assert int(got[0, 0]) == v // 2
+
+
 @pytest.mark.parametrize("n,q,v", [(7, 3, 33), (130, 5, 64), (64, 4, 513)])
 def test_packed_cosine_count_equals_reference_kernel(n, q, v):
     rng = np.random.default_rng(n * v)

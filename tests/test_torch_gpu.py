@@ -184,3 +184,40 @@ def test_range_minsum_ip_kernels_equal_plain_versions_on_the_card():
             assert torch.equal(ops.ip_count(d.to(dtype), s.to(dtype)), want)
     torch.cuda.synchronize()
     assert common.launch_counts() == {"range_count": 4, "minsum_count": 5, "ip_count": 15}
+
+
+def _int8_on_card(gen, rows, v, lo, hi, offset):
+    """A contiguous int8 [rows, v] on the card whose base pointer lies
+    `offset` bytes past its allocation's aligned start."""
+    buf = torch.randint(lo, hi, (rows * v + offset,), generator=gen, dtype=torch.int8)
+    return buf.cuda()[offset:].view(rows, v)
+
+
+@pytest.mark.gpu
+def test_int8_tensor_core_tile_equals_plain_versions_through_both_loaders():
+    """cosine_count and ip_count share the wgmma tile of s8_mma_tile.cuh: bit-equal
+    to their plain versions through TMA (V a multiple of 16, aligned pointers)
+    and through the register loader (V = 238, 8195, and a base pointer that is
+    not 16-byte aligned), over the full int8 range, {0, 1} and {-1, 0, +1}."""
+    _need_card()
+    from repro_torch.kernels.ip_count import ip_count_plain
+
+    gen = torch.Generator().manual_seed(4)
+    common.reset_launch_counts()
+    seen = set()
+    cases = [(67, 301, 32, 0, 0), (67, 1001, 240, 0, 0), (129, 2311, 8192, 0, 0),
+             (67, 1001, 238, 0, 0), (33, 777, 8195, 0, 0),
+             (67, 1001, 240, 1, 0), (67, 1001, 256, 0, 1)]      # (Q, N, V, offsets)
+    for q, n, v, d_off, q_off in cases:
+        for lo, hi in ((-128, 128), (0, 2), (-1, 2)):
+            d = _int8_on_card(gen, n, v, lo, hi, d_off)
+            s = _int8_on_card(gen, q, v, lo, hi, q_off)
+            loader = common.dot_tile_loader("ip_count", d, s)
+            assert loader == common.dot_tile_loader("cosine_count", d, s)
+            assert loader == ("tma" if v % 16 == 0 and d_off == q_off == 0 else "registers")
+            seen.add(loader)
+            assert torch.equal(ops.cosine_count(d, s), cosine_count_plain(d, s))
+            assert torch.equal(ops.ip_count(d, s), ip_count_plain(d, s))
+    torch.cuda.synchronize()
+    assert seen == {"tma", "registers"}
+    assert common.launch_counts() == {"cosine_count": 21, "ip_count": 21}

@@ -129,7 +129,8 @@ def test_every_c_entry_is_in_a_source_and_bound():
     entries = []
     for p in srcs:
         entries += re.findall(r'extern "C" int (\w+)\(', p.read_text())
-    assert sorted(entries) == ["repro_cosine_count", "repro_cpq_hist", "repro_ip_count",
+    assert sorted(entries) == ["repro_cosine_count", "repro_cosine_count_loader",
+                               "repro_cpq_hist", "repro_ip_count", "repro_ip_count_loader",
                                "repro_match_count", "repro_minsum_count",
                                "repro_packed_cosine_count", "repro_packed_cosine_topk",
                                "repro_packed_cosine_topk_plan",

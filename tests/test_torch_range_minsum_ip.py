@@ -124,6 +124,25 @@ def test_ip_count_equals_reference_kernel(q, n, v, dtype, rng):
     assert torch.equal(ip_count(d8, q8), ip_count_plain(d8, q8))
 
 
+# V across the steps of the int8 tensor-core tile (csrc/s8_mma_tile.cuh): its
+# 32-byte MMA depth and 128-byte stage, COSINE's 238 and a width past 8192;
+# Q and N multiples of neither 64 nor 256
+DOT_TILE_V = [1, 31, 32, 33, 127, 128, 129, 238, 240, 8195]
+
+
+@pytest.mark.parametrize("v", DOT_TILE_V)
+def test_ip_count_across_the_tile_steps_equals_reference_kernel(v, rng):
+    q, n = 67, 301
+    db = (rng.random((n, v)) < 0.5).astype(np.int8)
+    qb = (rng.random((q, v)) < 0.5).astype(np.int8)
+    db[::9] = 0                                          # the engine's pad rows
+    got = ip_count(_t(db), _t(qb))
+    kernel = np.asarray(jops.ip_count(jnp.asarray(db), jnp.asarray(qb),
+                                      tile_q=8, tile_n=128, tile_v=128))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), kernel)
+    assert np.array_equal(got.numpy(), qb.astype(np.int64) @ db.astype(np.int64).T)
+
+
 def test_match_ip_is_exact_past_float32():
     """The plain IP is exact int32 at any V: a dot of 2**24 + 1 ones, where a
     float32 sum (the reference's) would round to 2**24."""
@@ -150,16 +169,25 @@ def test_wrappers_refuse_what_no_kernel_takes():
 
 def test_kernel_sources_share_the_tiles():
     """MINSUM and RANGE run on the count tile of eq_tile.cuh through their own
-    policies, IP and COSINE on the int8 dot tile of dp4a_tile.cuh through
-    their own epilogues: no tile body is copied."""
+    policies, IP and COSINE on the int8 tensor-core tile of s8_mma_tile.cuh
+    through their own epilogues: no tile body is copied.  That tile issues
+    wgmma s8 x s8 -> s32 and no __dp4a."""
     for name, header, body in (("minsum_count.cu", "eq_tile.cuh", "count_tile<repro::eq_tile::MinColumns>"),
                                ("range_count.cu", "eq_tile.cuh", "count_tile<repro::eq_tile::RangeColumns>"),
-                               ("ip_count.cu", "dp4a_tile.cuh", "dot_tile<Dot>"),
-                               ("cosine_count.cu", "dp4a_tile.cuh", "dot_tile<Agreements>")):
+                               ("ip_count.cu", "s8_mma_tile.cuh", "dot_tile<Dot, kTma>"),
+                               ("cosine_count.cu", "s8_mma_tile.cuh", "dot_tile<Agreements, kTma>")):
         text = (build.CSRC_DIR / name).read_text()
         assert f'#include "{header}"' in text and body in text
         code = re.sub(r"//.*", "", text)
-        assert "__shared__" not in code and "__dp4a(" not in code
+        assert "__shared__" not in code and "__dp4a(" not in code and "wgmma" not in code
+    for name, epilogue in (("ip_count.cu", "Dot"), ("cosine_count.cu", "Agreements")):
+        text = (build.CSRC_DIR / name).read_text()
+        assert f"launch<{epilogue}>" in text         # both loaders' instantiations launched
+    mma = re.sub(r"//.*", "", (build.CSRC_DIR / "s8_mma_tile.cuh").read_text())
+    assert re.search(r"wgmma\.mma_async\.sync\.aligned\.m64n\d+k32\.s32\.s8\.s8", mma)
+    assert "__dp4a(" not in mma
+    assert "cp.async.bulk.tensor" in mma and "fence.proxy.async" in mma   # the two loaders
+    assert not (build.CSRC_DIR / "dp4a_tile.cuh").exists()
     tile = (build.CSRC_DIR / "eq_tile.cuh").read_text()
     assert re.search(r"struct MinColumns : IntColumns", tile)
     assert "make_int2(1, 0)" in tile                     # rows past Q: the empty range

@@ -134,8 +134,8 @@ def test_tile_headers_and_sources_are_what_the_build_sees():
         text = (build.CSRC_DIR / name).read_text()
         assert '#include "eq_tile.cuh"' in text
         assert f"count_tile<{policy}>" in text or f"count_tile<repro::eq_tile::{policy}>" in text
-    assert [p.name for p in build.headers()] == ["dp4a_tile.cuh", "eq_tile.cuh",
-                                                 "local_topk.cuh"]
+    assert [p.name for p in build.headers()] == ["eq_tile.cuh", "local_topk.cuh",
+                                                 "s8_mma_tile.cuh"]
     # the byte-lane compare: the data and query pads are the reference's sentinels
     assert f"PAD_DATA = {packing.PACKED_BUCKET_PAD_DATA};" in src
     assert f"PAD_QUERY = {packing.PACKED_BUCKET_PAD_QUERY};" in src
