@@ -20,10 +20,16 @@ as a phase fails:
      a sort of the counts; 2c. the three TANIMOTO kernels the same way:
      tanimoto_count (m from 1 to 4099), packed_tanimoto_count (bucket ids 0 to
      253, m from 1 to 4099) and packed_tanimoto_topk (k from 1 to above the
-     tile, m = 1, 238 and 6000, whose bins need device scratch); 2d.
-     range_count (d = 1 to 37, empty ranges, lo = hi, INT32_MIN / INT32_MAX),
-     minsum_count (V = 1 to 4099, values 0 to 127, -1 pad rows) and ip_count
-     (V = 1 to 8195, int8 {0, 1}, and int32 / float32 through the wrapper);
+     tile; m = 1, 37, 238, 254 and 255 on either side of its one-byte count
+     tile, 503 and 504 on either side of its bins' move to device scratch,
+     and 6000); 2d. range_count (d = 1 to 37, empty ranges, lo = hi,
+     INT32_MIN / INT32_MAX), minsum_count (V = 1 to 9000, across its
+     4096-column window; dense rows of values 0 to 127, sparse rows of at most
+     38 non-zeros and all-zero rows, values near INT32_MAX whose sums wrap,
+     -1 pad rows; the wrapper's pick, the sparse kernel and the dense tile
+     each, and the conversion's lists against their plain versions) and
+     ip_count (V = 1 to 8195, int8 {0, 1}, and int32 / float32 through the
+     wrapper);
      2e. cosine_count and ip_count, the int8 tensor-core tile, at V from 1 to
      8195 across its 32- and 128-byte steps, over the full int8 range, {0, 1}
      and {-1, 0, +1}, through both of its loaders (TMA; registers, for V not a
@@ -61,16 +67,22 @@ as a phase fails:
      MINSUM (3-grams in 4096 buckets, K = 32 candidates verified by edit
      distance, N cut to 1 M); 4f. Tweets -> IP (8192 buckets, N cut to 1 M):
      each with its launch counts (16 of its count kernel and 16 of cpq_hist
-     per search), 8 sampled rows against the plain path, search and add
-     times, memory and the device's idle share;
+     per search; MINSUM also 16 of each of its two conversion kernels), 8
+     sampled rows against the plain path, search and add times, memory and
+     the device's idle share;
   5. each kernel's time at the full-width per-segment shape beside the plain
      version's, one PyTorch library call where one computes the same
      function, and the least time the card could take (bytes moved over the
      memory rate, or operations over the peak rate for their type, whichever
      is larger); 5b. the same for the three COSINE kernels; 5c. the same for
-     the three TANIMOTO kernels, and tanimoto_count at m = 4096; 5d. the same
-     for range_count, minsum_count and ip_count.  5b and 5d log the loader
-     that cosine_count and ip_count take at their per-segment shapes.
+     the three TANIMOTO kernels (with the word-pair rates), and tanimoto_count
+     at m = 4096; 5d. the same for range_count, minsum_count and ip_count:
+     minsum_count as the whole call against the bytes the function must
+     move, its conversion kernels (minsum_nnz, minsum_csr) and its count
+     kernel timed alone, a dense segment of DBLP's shape through the sparse
+     kernel and the dense tile, and the share of non-zero entries where the
+     wrapper switches between them.  5b and 5d log the loader that
+     cosine_count and ip_count take at their per-segment shapes.
 
 It needs one CUDA device and no network, and imports neither jax nor the JAX
 package.  The last line of its output is one JSON object
@@ -84,6 +96,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
@@ -129,12 +142,17 @@ TANIMOTO_SHAPES = [(1, 5, 1), (3, 130, 3), (8, 300, 17), (70, 100003, 238), (5, 
                    (3, 1500, 4099)]
 PACKED_TANIMOTO_SHAPES = [(3, 70, 1), (2, 90, 5), (5, 257, 17), (4, 300, 40),
                           (70, 100003, 238), (3, 1500, 4099)]
-# (Q, N, m, k) for the fused TANIMOTO top-k: k in {1, 3, 10, 100} and one k
-# above the tile, N not a multiple of the tile, N < k, m = 1, and a width
-# whose m + 1 bins live in device scratch (m = 6000 > 5211)
+# (Q, N, m, k) for the fused TANIMOTO top-k: k in {1, 3, 10, 100} and k
+# above the tile, N not a multiple of the tile, N < k, Q past one and two
+# 64-row items; m = 1, 238, 254 (the last with one-byte counts), 255 (the
+# first with two-byte counts), 503 / 504 (the last with the bins in shared
+# memory, the first with them in device scratch) and 6000
 TANIMOTO_TOPK_CASES = [(5, 5000, 238, 1), (7, 5000, 238, 3), (33, 9000, 238, 10),
                        (70, 100003, 238, 100), (4, 7000, 238, 2500), (3, 50, 238, 100),
-                       (2, 50, 238, 3000), (6, 3000, 1, 10), (3, 2100, 6000, 10)]
+                       (2, 50, 238, 3000), (6, 3000, 1, 10), (130, 4500, 37, 7),
+                       (65, 5000, 254, 1), (65, 5000, 254, 2100), (33, 5000, 255, 100),
+                       (33, 2100, 255, 3000), (3, 2100, 503, 10), (3, 2100, 504, 10),
+                       (2, 4200, 504, 2048), (3, 2100, 6000, 10), (2, 2100, 6000, 2500)]
 # The OCR configuration's width (src/repro/configs/genie_datasets.py): d = 1156,
 # 16 adds of 218,750 rows, of which phase 4c' runs 2
 OCR_DIM = 1156
@@ -1287,8 +1305,33 @@ TWEETS_N, TWEETS_V, TWEETS_WORDS, TWEETS_PER_DOC = 1_000_000, 8192, 5000, 12
 TWEETS_QUERY_WORDS, TWEETS_MAX_COUNT, TWEETS_ZIPF = 6, 16, 1.05
 # (Q, N, width) for the three kernels' parity, nothing a multiple of a tile
 RANGE_SHAPES = [(1, 5, 1), (3, 130, 3), (70, 100003, 14), (5, 257, 37)]
-MINSUM_SHAPES = [(1, 5, 1), (3, 130, 3), (8, 300, 33), (70, 20003, 4096), (5, 2100, 4099)]
+# MINSUM: V = 1 to DBLP's 4096 and past the count kernel's 4096-column
+# shared-memory window (4097 and 9000, three windows), each shape with dense
+# rows (values 0..127), sparse rows (at most 38 non-zero buckets, all-zero
+# rows) and values near INT32_MAX whose sums wrap; -1 pad rows in each
+MINSUM_SHAPES = [(1, 5, 1), (3, 130, 3), (8, 300, 33), (70, 20003, 4096), (5, 2100, 4095),
+                 (5, 2100, 4097), (5, 2100, 4099), (3, 1500, 9000)]
+MINSUM_KINDS = ("dense", "sparse", "wrap")
 IP_SHAPES = [(1, 5, 1), (3, 130, 3), (8, 300, 17), (70, 20003, 8192), (5, 2100, 8195)]
+
+
+def minsum_rows(gen: torch.Generator, rows: int, v: int, kind: str) -> torch.Tensor:
+    """int32 [rows, v] MINSUM operands on the CPU: "dense" counts 0..127;
+    "sparse" at most 38 non-zero counts 1..127 a row (a DBLP title's 3-grams)
+    and every 7th row all zero; "wrap" the sparse pattern with values within 8
+    of INT32_MAX, INT32_MIN in every 5th column, so that sums wrap."""
+    i32 = torch.iinfo(torch.int32)
+    if kind == "dense":
+        return torch.randint(0, DBLP_MAX_COUNT + 1, (rows, v), generator=gen, dtype=torch.int32)
+    x = torch.zeros((rows, v), dtype=torch.int32)
+    nz = min(DBLP_LEN - DBLP_GRAM + 1, v)
+    cols = torch.randint(0, v, (rows, nz), generator=gen)
+    lo, hi = (1, DBLP_MAX_COUNT + 1) if kind == "sparse" else (i32.max - 8, i32.max)
+    x.scatter_(1, cols, torch.randint(lo, hi, (rows, nz), generator=gen, dtype=torch.int32))
+    x[::7] = 0
+    if kind == "wrap":
+        x[:, ::5] = i32.min
+    return x
 
 
 def sa_parity(device: torch.device) -> dict:
@@ -1296,7 +1339,9 @@ def sa_parity(device: torch.device) -> dict:
     versions, bit-exact; returns the worst absolute difference per kernel."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ip_count import ip_count_plain
-    from repro_torch.kernels.minsum_count import minsum_count_plain
+    from repro_torch.kernels.minsum_count import (minsum_count_dense, minsum_count_plain,
+                                                  minsum_count_sparse, minsum_csr_plain,
+                                                  minsum_lists, minsum_nnz_plain)
     from repro_torch.kernels.range_count import range_count_plain
 
     log("== phase 2d: the RANGE, MINSUM and IP kernels against their plain PyTorch versions")
@@ -1325,13 +1370,23 @@ def sa_parity(device: torch.device) -> dict:
                 f"(Q,N,d)=({q},{n},{d})")
         log(f"  range_count (Q,N,d)=({q},{n},{d}) empty ranges, lo == hi, INT32_MIN/MAX: equal")
     for q, n, v in MINSUM_SHAPES:
-        dc = torch.randint(0, DBLP_MAX_COUNT + 1, (n, v), generator=gen, dtype=torch.int32)
-        dc[::9] = -1                                          # the engine's pad rows
-        qc = torch.randint(0, DBLP_MAX_COUNT + 1, (q, v), generator=gen, dtype=torch.int32)
-        dc, qc = dc.to(device), qc.to(device)
-        compare("minsum_count", ops.minsum_count(dc, qc), minsum_count_plain(dc, qc),
-                f"(Q,N,V)=({q},{n},{v})")
-        log(f"  minsum_count (Q,N,V)=({q},{n},{v}) values 0..127 and -1 pad rows: equal")
+        for kind in MINSUM_KINDS:
+            dc, qc = minsum_rows(gen, n, v, kind), minsum_rows(gen, q, v, kind)
+            dc[::9] = -1                                      # the engine's pad rows
+            dc, qc = dc.to(device), qc.to(device)
+            want = minsum_count_plain(dc, qc)
+            # the wrapper's pick, then both count kernels whatever the density
+            for how, fn in (("wrapper", ops.minsum_count), ("sparse", minsum_count_sparse),
+                            ("dense tile", minsum_count_dense)):
+                compare("minsum_count", fn(dc, qc), want, f"(Q,N,V)=({q},{n},{v}) {kind} {how}")
+            offsets, entries = minsum_lists(dc)
+            sync(device)
+            check(torch.equal(entries, minsum_csr_plain(dc)) and
+                  torch.equal(offsets[1:].diff(prepend=offsets[:1]).to(torch.int32),
+                              minsum_nnz_plain(dc)),
+                  f"minsum lists differ from their plain versions at (Q,N,V)=({q},{n},{v}) {kind}")
+            log(f"  minsum_count (Q,N,V)=({q},{n},{v}) {kind} rows, -1 pad rows: the wrapper, "
+                f"the sparse kernel and the dense tile equal; lists equal")
     for q, n, v in IP_SHAPES:
         db = torch.randint(0, 2, (n, v), generator=gen, dtype=torch.int8).to(device)
         qb = torch.randint(0, 2, (q, v), generator=gen, dtype=torch.int8).to(device)
@@ -1565,7 +1620,8 @@ def phase_full_width_dblp(device: torch.device, n_total: int = DBLP_N,
         device, "DBLP", Engine.MINSUM,
         lambda s: title_count_vectors(titles[s * rows:(s + 1) * rows], table, DBLP_V),
         n_segments, queries, k, DBLP_MAX_COUNT,
-        {"minsum_count": n_segments, "cpq_hist": n_segments})
+        {"minsum_nnz": n_segments, "minsum_csr": n_segments, "minsum_count": n_segments,
+         "cpq_hist": n_segments})
     res = out["result"]
     found = (res.ids == picks[:, None].to(torch.int32)).any(dim=1)
     log(f"  source title among the K = {k} candidates: {float(found.float().mean()):.4f}")
@@ -1676,19 +1732,26 @@ def range_kernel_times(adult: dict, parity_err: dict, device: torch.device) -> d
                      (n * d + 2 * q * d + q * n) * 4, 3 * q * n * d, PEAK_ALU_OPS_PER_S, None)
 
 
-def minsum_kernel_times(dblp: dict, parity_err: dict, device: torch.device) -> dict:
-    """Phase 5d, MINSUM: minsum_count at the per-segment shape of phase 4e;
-    library_ms is (sum q + sum d - torch.cdist(p=1)) / 2, of which only the
-    cdist is timed (timed here, used nowhere in the port)."""
+def minsum_kernel_times(dblp: dict, parity_err: dict, device: torch.device) -> list:
+    """Phase 5d, MINSUM: minsum_count at the per-segment shape of phase 4e --
+    the whole call (conversion + count) against the bytes the function must
+    move, and the conversion kernels minsum_nnz and minsum_csr and the count
+    kernel alone; then a dense segment of the same shape through the sparse
+    kernel and the dense tile, and the densities around the wrapper's
+    crossover (minsum_count.DENSE_ABOVE).  library_ms: for minsum_count
+    (sum q + sum d - torch.cdist(p=1)) / 2, of which only the cdist is timed;
+    for minsum_nnz torch.count_nonzero; for minsum_csr Tensor.to_sparse_csr
+    (timed here, used nowhere in the port)."""
+    from repro_torch.kernels import minsum_count as ms
     from repro_torch.kernels import ops
-    from repro_torch.kernels.minsum_count import minsum_count_plain
 
     dc, qc = dblp["index"].segments[0].data, dblp["queries"]   # int32 [N, V], [Q, V]
     n, v = dc.shape
     q = qc.shape[0]
+    launches = dblp["launches"]
     log(f"== phase 5d: minsum_count at the per-segment shape Q={q} N={n} V={v}")
-    ms, plain, counts, err = _kernel_and_plain(
-        "minsum_count", lambda: ops.minsum_count(dc, qc), lambda: minsum_count_plain(dc, qc),
+    ms_fn, plain, counts, err = _kernel_and_plain(
+        "minsum_count", lambda: ops.minsum_count(dc, qc), lambda: ms.minsum_count_plain(dc, qc),
         parity_err, device)
     # min(a, b) = (a + b - |a - b|) / 2: exact in float32 for these counts
     qf, df = qc.float(), dc.float()
@@ -1697,12 +1760,85 @@ def minsum_kernel_times(dblp: dict, parity_err: dict, device: torch.device) -> d
         rebuilt = (qf.sum(1)[:, None] + df.sum(1)[None, :] - dist) / 2
         check(torch.equal(rebuilt.to(torch.int32), counts),
               "the cdist(p=1) yardstick disagrees with minsum_count")
+        del dist, rebuilt
     except RuntimeError as e:          # the yardstick only: the port never calls it
         log(f"  torch.cdist(p=1) refused these operands ({e}); library_ms not measured")
         lib = None
-    log(f"  minsum_count {q * n * v / (ms / 1e3) / 1e12:.3f} T min-adds/s")
-    return sa_entry("minsum_count", "src/repro/kernels/minsum_count.py:55", dblp, err, ms, plain,
-                     (n * v + q * v + q * n) * 4, 2 * q * n * v, PEAK_ALU_OPS_PER_S, lib)
+    del qf, df
+
+    # the parts: each kernel alone, on the device alone (10 calls behind a hold)
+    ms_nnz, nnz = timed_ms(lambda: ms.minsum_nnz(dc), device, reps=10, warmup=1, hold=True)
+    plain_nnz, want_nnz = timed_ms(lambda: ms.minsum_nnz_plain(dc), device, reps=1, warmup=1)
+    lib_nnz, _ = timed_ms(lambda: torch.count_nonzero(dc, dim=1), device, reps=10, warmup=1,
+                          hold=True)
+    err_nnz = max_abs_err(nnz, want_nnz)
+    check(torch.equal(nnz, want_nnz), "minsum_nnz differs at the per-segment shape")
+    offsets, total = ms.row_offsets(nnz)
+    ms_csr, entries = timed_ms(lambda: ms.minsum_csr(dc, offsets, total), device, reps=10,
+                               warmup=1, hold=True)
+    plain_csr, want_entries = timed_ms(lambda: ms.minsum_csr_plain(dc), device, reps=1, warmup=1)
+    with warnings.catch_warnings():    # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        lib_csr, csr = timed_ms(lambda: dc.to_sparse_csr(), device, reps=3, warmup=1)
+    err_csr = max_abs_err(entries, want_entries) if entries.shape == want_entries.shape else -1
+    check(torch.equal(entries, want_entries)
+          and torch.equal(entries[:, 0], csr.col_indices().to(torch.int32))
+          and torch.equal(entries[:, 1], csr.values()),
+          "minsum_csr differs from its plain version or from to_sparse_csr")
+    del want_entries, csr
+    ms_count, got = timed_ms(lambda: ms.minsum_count_sparse(dc, qc, (offsets, entries)), device,
+                             reps=10, warmup=1, hold=True)
+    check(torch.equal(got, counts), "the sparse count kernel differs at the per-segment shape")
+    del got
+    per_row = total / n
+    log(f"  lists: {total} non-zero entries ({per_row:.2f} a row, {100 * total / (n * v):.3f} % "
+        f"of the segment), {(total * 8 + (n + 1) * 8) / 1e6:.1f} MB of entries and offsets")
+    log(f"  minsum_count (the call): {ms_fn:.4f} ms = conversion (minsum_nnz {ms_nnz:.4f} ms, "
+        f"cumsum and read-back, minsum_csr {ms_csr:.4f} ms) + count kernel {ms_count:.4f} ms")
+    log(f"  count kernel {q * total / (ms_count / 1e3) / 1e12:.3f} T (entry, query) pairs/s; "
+        f"conversion {2 * n * v * 4 / ((ms_nnz + ms_csr) / 1e3) / 1e12:.3f} TB/s of the segment "
+        f"read twice")
+    del nnz, want_nnz, offsets, entries, counts
+
+    # a dense segment of the same shape: every column non-zero
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    dd = torch.randint(1, DBLP_MAX_COUNT + 1, (n, v), generator=gen, device=device,
+                       dtype=torch.int32)
+    dense_sparse, a = timed_ms(lambda: ms.minsum_count_sparse(dd, qc), device, reps=2, warmup=1)
+    dense_tile, b = timed_ms(lambda: ms.minsum_count_dense(dd, qc), device, reps=2, warmup=1)
+    dense_call, c = timed_ms(lambda: ops.minsum_count(dd, qc), device, reps=2, warmup=1)
+    check(torch.equal(a, b) and torch.equal(b, c), "the two count kernels differ on a dense segment")
+    log(f"  dense segment (values 1..127, every column non-zero): sparse kernel with its "
+        f"conversion {dense_sparse:.3f} ms, dense tile {dense_tile:.3f} ms "
+        f"({dense_sparse / dense_tile:.2f}x), the wrapper (dense tile) {dense_call:.3f} ms")
+    for share in (0.05, 0.1, 0.2, 0.3):
+        x = dd * (torch.rand((n, v), generator=gen, device=device) < share)
+        t_sparse, a = timed_ms(lambda: ms.minsum_count_sparse(x, qc), device, reps=2, warmup=1)
+        t_tile, b = timed_ms(lambda: ms.minsum_count_dense(x, qc), device, reps=1, warmup=1)
+        check(torch.equal(a, b), f"the two count kernels differ at {share:.2f} non-zero")
+        log(f"  {share:.2f} of the entries non-zero: sparse {t_sparse:.3f} ms, dense tile "
+            f"{t_tile:.3f} ms -> {'sparse' if share <= ms.DENSE_ABOVE else 'dense tile'} "
+            f"(DENSE_ABOVE = {ms.DENSE_ABOVE})")
+        del x, a, b
+    del dd
+
+    src = "src/repro_torch/kernels/csrc/minsum_count.cu"
+    replaces = "src/repro/kernels/minsum_count.py:55"
+    kernels = [
+        kernel_entry("minsum_count", src, replaces, launches.get("minsum_count", 0), err,
+                     ms_fn, plain, (n * v + q * v + q * n) * 4 / PEAK_BYTES_PER_S * 1e3, 0.0,
+                     lib),
+        kernel_entry("minsum_nnz", src, replaces, launches.get("minsum_nnz", 0), err_nnz, ms_nnz,
+                     plain_nnz, (n * v + n) * 4 / PEAK_BYTES_PER_S * 1e3, 0.0, lib_nnz),
+        kernel_entry("minsum_csr", src, replaces, launches.get("minsum_csr", 0), err_csr, ms_csr,
+                     plain_csr, (n * v * 4 + (n + 1) * 8 + total * 8) / PEAK_BYTES_PER_S * 1e3,
+                     0.0, lib_csr),
+    ]
+    log_kernels(kernels)
+    log("  bounds: minsum_count the bytes the function must move, (N*V + Q*V + Q*N) * 4 "
+        "(a sparse kernel does far fewer than the 2*Q*N*V minimum-adds of the dense form, "
+        "so they bound nothing); the conversion kernels their own bytes")
+    return kernels
 
 
 def ip_kernel_times(tweets: dict, parity_err: dict, device: torch.device) -> dict:
@@ -1771,7 +1907,8 @@ def main() -> int:
         run = phase(device)
         run["index"].segments[1:] = []     # the kernel times need one segment
         torch.cuda.empty_cache()
-        kernels.append(kernel_times(run, parity_err, device))
+        timed = kernel_times(run, parity_err, device)
+        kernels += timed if isinstance(timed, list) else [timed]
         del run                            # free the corpus before the next one
         torch.cuda.empty_cache()
     torch.cuda.synchronize()

@@ -186,9 +186,18 @@ def load() -> ctypes.CDLL:
         # int repro_range_count(data, lohi, out, n_data, n_query, d, stream)
         lib.repro_range_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_range_count.restype = i32
-        # int repro_minsum_count(data, query, out, n_data, n_query, v, stream)
-        lib.repro_minsum_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        # int repro_minsum_nnz(data, nnz, n_data, v, stream)
+        lib.repro_minsum_nnz.argtypes = [ptr, ptr, i64, i32, ptr]
+        lib.repro_minsum_nnz.restype = i32
+        # int repro_minsum_csr(data, offsets, entries, n_data, v, stream)
+        lib.repro_minsum_csr.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
+        lib.repro_minsum_csr.restype = i32
+        # int repro_minsum_count(entries, offsets, query, out, n_data, n_query, v, stream)
+        lib.repro_minsum_count.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_minsum_count.restype = i32
+        # int repro_minsum_count_dense(data, query, out, n_data, n_query, v, stream)
+        lib.repro_minsum_count_dense.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_minsum_count_dense.restype = i32
         # int repro_ip_count(data, query, out, n_data, n_query, v, stream)
         lib.repro_ip_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_ip_count.restype = i32

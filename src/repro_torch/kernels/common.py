@@ -84,10 +84,11 @@ def check_pair(name: str, data: torch.Tensor, query: torch.Tensor,
 
 
 def launch_count(name: str, data: torch.Tensor, query: torch.Tensor,
-                 n: int, q: int, width: int) -> torch.Tensor:
+                 n: int, q: int, width: int, entry: str | None = None) -> torch.Tensor:
     """Allocate counts int32 [q, n] and launch the count kernel through its C
-    entry `repro_<name>(data, query, out, n, q, width, stream)` on checked
-    operands; each kernel keeps its own name and launch count."""
+    entry `repro_<entry>(data, query, out, n, q, width, stream)` (entry =
+    name unless given) on checked operands; each kernel keeps its own name
+    and launch count."""
     device = data.device
     out = torch.empty((q, n), dtype=torch.int32, device=device)
     if q == 0 or n == 0:
@@ -95,7 +96,7 @@ def launch_count(name: str, data: torch.Tensor, query: torch.Tensor,
     lib = build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(lib, f"repro_{name}")(
+        status = getattr(lib, f"repro_{entry or name}")(
             data.data_ptr(), query.data_ptr(), out.data_ptr(), n, q, width, stream)
     check_status(name, status)
     note_launch(name)

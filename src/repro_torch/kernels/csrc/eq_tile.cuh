@@ -1,6 +1,6 @@
-// The count tile shared by the EQ, TANIMOTO, MINSUM and RANGE kernels
-// (match_count.cu, tanimoto_count.cu, packed_tanimoto.cu, minsum_count.cu,
-// range_count.cu):
+// The count tile shared by the EQ, TANIMOTO and RANGE kernels and MINSUM's
+// dense tile (match_count.cu, tanimoto_count.cu, packed_tanimoto.cu's count
+// kernel, range_count.cu, minsum_count.cu's repro_minsum_count_dense):
 //
 //     counts[q, n] = sum_i count(query[q, i], data[n, i])       int32 [Q, N]
 //
@@ -35,7 +35,8 @@
 //
 // IntColumns below is one int32 column per slot counted by equality (EQ,
 // TANIMOTO WIDE); MinColumns the same slots counted by their minimum
-// (MINSUM); RangeColumns an int32 (lo, hi) interval per query slot against an
+// (MINSUM on dense data: sparse n-gram data goes to minsum_count.cu's own
+// kernel over lists of its non-zero entries); RangeColumns an int32 (lo, hi) interval per query slot against an
 // int32 value per data slot (RANGE); packed_tanimoto.cu holds four uint8 byte
 // lanes per slot.
 //

@@ -1,5 +1,7 @@
 // Per-tile local top-k by counting, for one row of a count tile held in shared
-// memory: the selection step of the fused match -> count -> top-k kernels.
+// memory: the selection step of the fused match -> count -> top-k kernels
+// (packed_cosine.cu over an int32 tile, packed_tanimoto.cu over a uint8 or
+// uint16 tile).
 //
 // Replaces `local_topk_tile` (src/repro/kernels/packed_cosine.py), which the
 // TPU kernels run as kc rounds of "max, then the smallest id at the max, then
@@ -23,11 +25,21 @@
 // entries are -1 / -1.  The result is exact and the same on every run: nothing
 // depends on the order in which lanes or warps run.
 //
-// The caller hands in the row (counts; a negative count marks an entry that
-// must not enter, e.g. a data row past the end of the corpus), the global id
-// of its first entry, and `hist`: nbins ints of scratch that are zero on entry
-// and are left zero on return (shared memory, or device memory where the bins
-// do not fit).  Only the calling warp may touch `hist` meanwhile.
+// What bounds it on an H100: latency, not throughput.  A row of TN = 2048
+// entries is two passes of 64 warp steps (a shared-memory read and a
+// __match_any_sync each) plus two scans of nbins / 32 bins; a warp has no
+// other work meanwhile, so the caller gives every warp several rows and keeps
+// the count tile narrow (one byte a count where the counts allow) so that
+// more query rows share one staged data tile.
+//
+// The row is a template on the count type T (int, uint16_t, uint8_t): an entry
+// whose count, read as an int, is not in [0, nbins) must not enter (-1 in an
+// int tile, the type's largest value in a narrow one, whose nbins is below
+// it -- e.g. a data row past the end of the corpus).  The caller hands in the
+// row, the global id of its first entry, and `hist`: nbins ints of scratch
+// that are zero on entry and are left zero on return (shared memory, or device
+// memory where the bins do not fit).  Only the calling warp may touch `hist`
+// meanwhile.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,25 +59,34 @@ __device__ __forceinline__ int warp_inclusive_scan(int x) {
   return x;
 }
 
-// Whole warp, converged.  row: tn counts (shared memory); ids of the row's
-// entries are gid0 + i.  Writes kc slots to out_ids / out_cnt.
-__device__ inline void warp_local_topk(const int* __restrict__ row, int tn,
-                                       long long gid0, int* hist, int nbins,
-                                       int kc, int* __restrict__ out_ids,
-                                       int* __restrict__ out_cnt) {
+// Pass 1 -- whole warp, converged: add the row's valid counts (tn entries,
+// shared memory) to `hist`.
+template <typename T>
+__device__ inline void warp_histogram(const T* __restrict__ row, int tn, int* hist,
+                                      int nbins) {
   const int lane = threadIdx.x & 31;
-  const unsigned lower = (1u << lane) - 1u;
-
-  // 1. histogram
   for (int base = 0; base < tn; base += 32) {
     const int i = base + lane;
-    const int c = i < tn ? row[i] : -1;
+    const int c = i < tn ? (int)row[i] : -1;
     const bool valid = (unsigned)c < (unsigned)nbins;
     const unsigned peers = __match_any_sync(kFullMask, valid ? c : -1);
     // one leader per distinct count: plain adds do not collide
     if (valid && lane == __ffs(peers) - 1) hist[c] += __popc(peers);
     __syncwarp();
   }
+}
+
+// Passes 2 to 4 -- whole warp, converged: `hist` holds the histogram of the
+// row's valid counts (from warp_histogram, or built by the caller); ids of the
+// row's entries are gid0 + i.  Writes kc slots to out_ids / out_cnt and leaves
+// `hist` zero.
+template <typename T>
+__device__ inline void warp_topk_from_histogram(const T* __restrict__ row, int tn,
+                                                long long gid0, int* hist, int nbins,
+                                                int kc, int* __restrict__ out_ids,
+                                                int* __restrict__ out_cnt) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
 
   // 2. threshold: bins are scanned from the top in chunks of 32 (lane 0 holds
   // the chunk's highest bin); `above` counts the entries above the chunk
@@ -109,8 +130,9 @@ __device__ inline void warp_local_topk(const int* __restrict__ row, int tn,
   // 4. ordered pass in id order
   for (int base = 0; base < tn; base += 32) {
     const int i = base + lane;
-    const int c = i < tn ? row[i] : -1;
+    const int c = i < tn ? (int)row[i] : -1;
     const bool take = c >= t && c < nbins;
+    if (!__ballot_sync(kFullMask, take)) continue;       // nothing at or above t here
     const unsigned peers = __match_any_sync(kFullMask, take ? c : -1);
     int slot = 0;
     if (take) slot = hist[c] + __popc(peers & lower);
@@ -133,6 +155,17 @@ __device__ inline void warp_local_topk(const int* __restrict__ row, int tn,
   }
   for (int b = lane; b < nbins; b += 32) hist[b] = 0;
   __syncwarp();
+}
+
+// The four passes: the per-tile top-kc of one row, `hist` zero on entry and
+// on return.
+template <typename T>
+__device__ inline void warp_local_topk(const T* __restrict__ row, int tn,
+                                       long long gid0, int* hist, int nbins,
+                                       int kc, int* __restrict__ out_ids,
+                                       int* __restrict__ out_cnt) {
+  warp_histogram(row, tn, hist, nbins);
+  warp_topk_from_histogram(row, tn, gid0, hist, nbins, kc, out_ids, out_cnt);
 }
 
 }  // namespace repro

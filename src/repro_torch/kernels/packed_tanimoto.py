@@ -18,7 +18,12 @@ what bounds them on an H100 and what the design does about it):
       `packed_cosine_topk`, and so is the candidate-buffer contract: each
       tile of TILE_N data rows contributes its kc = min(k, TILE_N) best
       candidates by (count desc, id asc), ids / counts int32 [Q, ceil(N /
-      TILE_N) * kc], tiles ascending, exhausted slots -1 / -1.
+      TILE_N) * kc], tiles ascending, exhausted slots -1 / -1.  The kernel
+      counts 64 query rows at a time against a tile (32 above m = 254) into
+      a one-byte (two-byte) count tile in shared memory, so the signature
+      width it takes is at most TOPK_MAX_M.  Its bound is the word-pair
+      work: 1.7e10 byte-lane compares of four at Q = 1024, N = 281,250, m =
+      238, at the popcount rate of an H100.
 
 Each wrapper launches its kernel for CUDA tensors and raises when it cannot;
 it takes its plain version only for tensors that lie on the CPU.
@@ -33,6 +38,9 @@ from repro_torch.kernels import build, common
 # data rows per tile of the fused kernel: K_TN in csrc/packed_tanimoto.cu,
 # which must agree (tests/test_torch_tanimoto.py reads it from the source)
 TILE_N = 2048
+# the widest rows the fused kernel takes: its counts are at most two bytes
+# (CountU16::MAX_M in csrc/packed_tanimoto.cu)
+TOPK_MAX_M = 65534
 
 # The plain PyTorch version of the count kernel is the layout's reference
 # semantics, `core.packing.packed_tanimoto_match`, bound here under the
@@ -92,5 +100,7 @@ def packed_tanimoto_topk(data_u8: torch.Tensor, query_u8: torch.Tensor,
     if k < 1:
         raise ValueError(f"packed_tanimoto_topk: k must be >= 1, got {k}")
     device, n, q, m = _operands("packed_tanimoto_topk", data_u8, query_u8)
+    if m > TOPK_MAX_M:
+        raise ValueError(f"packed_tanimoto_topk: m = {m} exceeds the kernel's {TOPK_MAX_M}")
     return common.launch_fused_topk("packed_tanimoto_topk", data_u8, query_u8, device,
                                     n, q, m, k, TILE_N)

@@ -183,7 +183,9 @@ def test_range_minsum_ip_kernels_equal_plain_versions_on_the_card():
         for dtype in (torch.int8, torch.int32, torch.float32):
             assert torch.equal(ops.ip_count(d.to(dtype), s.to(dtype)), want)
     torch.cuda.synchronize()
-    assert common.launch_counts() == {"range_count": 4, "minsum_count": 5, "ip_count": 15}
+    # dense MINSUM data: each call counts its non-zeros, then runs the dense tile
+    assert common.launch_counts() == {"range_count": 4, "minsum_nnz": 5, "minsum_count": 5,
+                                      "ip_count": 15}
 
 
 def _int8_on_card(gen, rows, v, lo, hi, offset):
@@ -221,3 +223,89 @@ def test_int8_tensor_core_tile_equals_plain_versions_through_both_loaders():
     torch.cuda.synchronize()
     assert seen == {"tma", "registers"}
     assert common.launch_counts() == {"cosine_count": 21, "ip_count": 21}
+
+
+def _minsum_rows(gen, rows, v, kind):
+    """MINSUM operands: "dense" counts 0..127; "sparse" at most 38 non-zero
+    counts a row and every 7th row all zero; "wrap" the sparse pattern near
+    INT32_MAX with INT32_MIN in every 5th column, so that sums wrap."""
+    i32 = torch.iinfo(torch.int32)
+    if kind == "dense":
+        return torch.randint(0, 128, (rows, v), generator=gen, dtype=torch.int32)
+    x = torch.zeros((rows, v), dtype=torch.int32)
+    nz = min(38, v)
+    lo, hi = (1, 128) if kind == "sparse" else (i32.max - 8, i32.max)
+    x.scatter_(1, torch.randint(0, v, (rows, nz), generator=gen),
+               torch.randint(lo, hi, (rows, nz), generator=gen, dtype=torch.int32))
+    x[::7] = 0
+    if kind == "wrap":
+        x[:, ::5] = i32.min
+    return x
+
+
+@pytest.mark.gpu
+def test_minsum_sparse_kernel_and_dense_tile_equal_plain_version_on_the_card():
+    """The sparse MINSUM kernel (with its conversion to lists) and the dense
+    tile, each called directly and through the wrapper's pick, bit-equal to
+    the plain version: sparse rows, all-zero rows, -1 pad rows, sums that
+    wrap, dense rows; V = 1, 4095, 4096, 4097 and 9000 (past the count
+    kernel's 4096-column window)."""
+    _need_card()
+    from repro_torch.kernels import minsum_count as ms
+
+    gen = torch.Generator().manual_seed(5)
+    common.reset_launch_counts()
+    want_launches = {"minsum_nnz": 0, "minsum_csr": 0, "minsum_count": 0}
+    for q, n, v in [(1, 5, 1), (67, 3001, 4095), (67, 3001, 4096), (33, 2100, 4097),
+                    (9, 1500, 9000)]:
+        for kind in ("sparse", "dense", "wrap"):
+            d, s = _minsum_rows(gen, n, v, kind), _minsum_rows(gen, q, v, kind)
+            d[::9] = -1                                # the engine's pad rows
+            d, s = d.cuda(), s.cuda()
+            want = ms.minsum_count_plain(d, s)
+            assert torch.equal(ops.minsum_count(d, s), want)
+            assert torch.equal(ms.minsum_count_sparse(d, s), want)
+            assert torch.equal(ms.minsum_count_dense(d, s), want)
+            offsets, entries = ms.minsum_lists(d)
+            assert torch.equal(entries, ms.minsum_csr_plain(d))
+            assert torch.equal(offsets.diff().to(torch.int32), ms.minsum_nnz_plain(d))
+            picks_lists = int((d != 0).sum()) <= ms.DENSE_ABOVE * n * v
+            want_launches["minsum_nnz"] += 3           # the wrapper, the sparse call, the lists
+            want_launches["minsum_csr"] += 2 + picks_lists
+            want_launches["minsum_count"] += 3
+    torch.cuda.synchronize()
+    assert common.launch_counts() == want_launches
+    # the wrapper took the lists on some calls and the dense tile on others
+    assert 30 < want_launches["minsum_csr"] < 45
+
+
+@pytest.mark.gpu
+def test_packed_tanimoto_topk_across_count_widths_on_the_card():
+    """The fused packed TANIMOTO kernel on either side of its one-byte count
+    tile (m = 254 / 255) and of its bins' move to device scratch (m = 503 /
+    504), and at m = 1, 238 and 6000, k from 1 to above the tile; both packed
+    kernels on rows that are not word-aligned."""
+    _need_card()
+    gen = torch.Generator().manual_seed(6)
+    common.reset_launch_counts()
+    cases = [(5, 3000, 1, 1), (70, 10003, 238, 100), (65, 5000, 254, 2100),
+             (33, 5000, 255, 10), (3, 2100, 503, 10), (3, 2100, 504, 2500),
+             (2, 2100, 6000, 100)]                     # (Q, N, m, k)
+    for q, n, m, k in cases:
+        d = torch.randint(0, 8, (n, m), generator=gen, dtype=torch.int32).cuda()
+        s = torch.randint(0, 8, (q, m), generator=gen, dtype=torch.int32).cuda()
+        du, su = packing.pack_buckets(d), packing.pack_buckets(s)
+        got = ops.packed_tanimoto_topk(du, su, k=k)
+        want = packed_tanimoto_topk_plain(du, su, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # rows whose base lies 1 to 3 bytes past a word boundary: both kernels
+    # stage words by funnel shifts from aligned loads
+    for off in (1, 2, 3):
+        buf = torch.randint(0, 8, (4000 * 238 + off,), generator=gen, dtype=torch.uint8).cuda()
+        du, su = buf[off:].view(4000, 238), buf[:238 * 9].view(9, 238)
+        assert torch.equal(ops.packed_tanimoto_count(du, su), packed_tanimoto_count_plain(du, su))
+        got, want = ops.packed_tanimoto_topk(du, su, k=10), packed_tanimoto_topk_plain(du, su, 10)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"packed_tanimoto_topk": len(cases) + 3,
+                                      "packed_tanimoto_count": 3}

@@ -132,6 +132,8 @@ def test_every_c_entry_is_in_a_source_and_bound():
     assert sorted(entries) == ["repro_cosine_count", "repro_cosine_count_loader",
                                "repro_cpq_hist", "repro_ip_count", "repro_ip_count_loader",
                                "repro_match_count", "repro_minsum_count",
+                               "repro_minsum_count_dense", "repro_minsum_csr",
+                               "repro_minsum_nnz",
                                "repro_packed_cosine_count", "repro_packed_cosine_topk",
                                "repro_packed_cosine_topk_plan",
                                "repro_packed_tanimoto_count", "repro_packed_tanimoto_topk",

@@ -108,6 +108,75 @@ def test_minsum_count_equals_reference_kernel(q, n, v, dtype, rng):
     assert torch.equal(minsum_count(d32, q32), minsum_count_plain(d32, q32))
 
 
+def _sparse_counts(rng, rows, v, kind):
+    """MINSUM operands in the sparse regime: at most 38 non-zero buckets a
+    row (a 40-letter title's 3-grams) and every 7th row all zero; "wrap" puts
+    values within 8 of INT32_MAX on them and INT32_MIN in every 5th column, so
+    that the sums wrap."""
+    x = np.zeros((rows, v), dtype=np.int32)
+    nz = min(38, v)
+    lo, hi = (1, 128) if kind == "sparse" else (I32.max - 8, I32.max)
+    for r in range(rows):
+        x[r, rng.choice(v, size=nz, replace=False)] = rng.integers(lo, hi, size=nz)
+    x[::7] = 0
+    if kind == "wrap":
+        x[:, ::5] = I32.min
+    return x
+
+
+@pytest.mark.parametrize("kind,q,n,v", [("sparse", 3, 130, 4096), ("sparse", 2, 60, 4097),
+                                        ("wrap", 2, 60, 4096), ("wrap", 3, 40, 300)])
+def test_minsum_count_sparse_regime_equals_reference_kernel(kind, q, n, v, rng):
+    """The sparse regime the CUDA kernel is built for, against the interpret-
+    mode Pallas kernel: <= 38 non-zeros a row of 4096, all-zero rows, -1 pad
+    rows, and values near INT32_MAX whose sums wrap."""
+    dc, qc = _sparse_counts(rng, n, v, kind), _sparse_counts(rng, q, v, kind)
+    dc[1::9] = -1                                                   # the engine's pad rows
+    got = ops.minsum_count(_t(dc), _t(qc))
+    kernel = np.asarray(jops.minsum_count(jnp.asarray(dc), jnp.asarray(qc),
+                                          tile_q=8, tile_n=128, tile_v=512))
+    oracle = np.asarray(jmatch.match_minsum(jnp.asarray(dc), jnp.asarray(qc)))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), kernel)
+    assert np.array_equal(kernel, oracle)
+    if kind == "sparse":
+        assert (dc == 0).all(axis=1).any()                           # all-zero rows
+
+
+@pytest.mark.parametrize("kind", ["sparse", "wrap", "dense"])
+def test_sparse_minsum_identity_equals_reference(kind, rng):
+    """The identity the sparse kernel sums (csrc/minsum_count.cu), done in
+    uint32 over the plain conversion's lists, equals the reference bit for
+    bit, wraparound included:
+    sum_v min(d, q) = sum_v min(0, q) + sum_{d != 0} [min(d, q) - min(0, q)]."""
+    from repro_torch.kernels.minsum_count import (minsum_csr_plain, minsum_nnz_plain,
+                                                  minsum_nnz, minsum_csr)
+    q, n, v = 3, 50, 700
+    if kind == "dense":
+        dc = rng.integers(-3, 128, size=(n, v)).astype(np.int32)
+        qc = rng.integers(-3, 128, size=(q, v)).astype(np.int32)
+    else:
+        dc, qc = _sparse_counts(rng, n, v, kind), _sparse_counts(rng, q, v, kind)
+    dc[::9] = -1
+    d = _t(dc)
+    entries, nnz = minsum_csr_plain(d), minsum_nnz_plain(d)
+    assert torch.equal(minsum_nnz(d), nnz) and torch.equal(minsum_csr(d, None, 0), entries)
+    assert int(nnz.sum()) == entries.shape[0] == int((dc != 0).sum())
+    mask = 0xFFFFFFFF
+    q64 = qc.astype(np.int64)
+    base = np.minimum(0, q64).sum(axis=1) & mask                     # [Q]
+    got = np.zeros((q, n), dtype=np.int64)
+    at = 0
+    for r, cnt in enumerate(nnz.tolist()):
+        cols = entries[at:at + cnt, 0].numpy()
+        vals = entries[at:at + cnt, 1].numpy().astype(np.int64)
+        assert (np.diff(cols) > 0).all()                              # columns ascending
+        qv = q64[:, cols]
+        got[:, r] = (base + (np.minimum(vals[None, :], qv) - np.minimum(0, qv)).sum(axis=1)) & mask
+        at += cnt
+    want = np.asarray(jmatch.match_minsum(jnp.asarray(dc), jnp.asarray(qc)))
+    assert np.array_equal(got.astype(np.uint32).view(np.int32), want)
+
+
 @pytest.mark.parametrize("q,n,v", [(1, 5, 1), (2, 90, 17), (4, 300, 256), (3, 70, 519)])
 @pytest.mark.parametrize("dtype", [np.int8, np.int32, np.float32])
 def test_ip_count_equals_reference_kernel(q, n, v, dtype, rng):
@@ -168,18 +237,29 @@ def test_wrappers_refuse_what_no_kernel_takes():
 
 
 def test_kernel_sources_share_the_tiles():
-    """MINSUM and RANGE run on the count tile of eq_tile.cuh through their own
-    policies, IP and COSINE on the int8 tensor-core tile of s8_mma_tile.cuh
-    through their own epilogues: no tile body is copied.  That tile issues
-    wgmma s8 x s8 -> s32 and no __dp4a."""
-    for name, header, body in (("minsum_count.cu", "eq_tile.cuh", "count_tile<repro::eq_tile::MinColumns>"),
-                               ("range_count.cu", "eq_tile.cuh", "count_tile<repro::eq_tile::RangeColumns>"),
+    """RANGE runs on the count tile of eq_tile.cuh through its own policy, IP
+    and COSINE on the int8 tensor-core tile of s8_mma_tile.cuh through their
+    own epilogues: no tile body is copied.  That tile issues wgmma s8 x s8 ->
+    s32 and no __dp4a.  MINSUM has kernels of its own: the conversion to
+    lists (minsum_nnz, minsum_csr: warp ballots) and the sparse count over
+    the lists, which stages its queries in dynamic shared memory; its dense
+    tile is eq_tile.cuh's through MinColumns."""
+    for name, header, body in (("range_count.cu", "eq_tile.cuh", "count_tile<repro::eq_tile::RangeColumns>"),
                                ("ip_count.cu", "s8_mma_tile.cuh", "dot_tile<Dot, kTma>"),
                                ("cosine_count.cu", "s8_mma_tile.cuh", "dot_tile<Agreements, kTma>")):
         text = (build.CSRC_DIR / name).read_text()
         assert f'#include "{header}"' in text and body in text
         code = re.sub(r"//.*", "", text)
         assert "__shared__" not in code and "__dp4a(" not in code and "wgmma" not in code
+    minsum = (build.CSRC_DIR / "minsum_count.cu").read_text()
+    code = re.sub(r"//.*", "", minsum)
+    assert '#include "eq_tile.cuh"' in minsum
+    assert "count_tile<repro::eq_tile::MinColumns>" in code      # the dense tile
+    for kernel in ("minsum_nnz_kernel", "minsum_csr_kernel", "minsum_count_kernel",
+                   "minsum_count_dense_kernel"):
+        assert re.search(kernel + r"<<<", code) or kernel + "," in code   # each launched
+    assert "__ballot_sync" in code and "extern __shared__ int4" in code
+    assert "__dp4a(" not in code and "wgmma" not in code and "atomic" not in code
     for name, epilogue in (("ip_count.cu", "Dot"), ("cosine_count.cu", "Agreements")):
         text = (build.CSRC_DIR / name).read_text()
         assert f"launch<{epilogue}>" in text         # both loaders' instantiations launched

@@ -141,6 +141,33 @@ def test_tile_headers_and_sources_are_what_the_build_sees():
     assert f"PAD_QUERY = {packing.PACKED_BUCKET_PAD_QUERY};" in src
 
 
+def test_fused_kernel_shapes_and_bins_threshold_are_what_the_source_says():
+    """The fused kernel's two shapes (one-byte counts for 64 query rows up to
+    m = 254, two-byte counts for 32 above, 128 KB either way), the widest m
+    the wrapper admits, and the m up to which the rows' bins fit beside the
+    tile and the staged words (503, as the plan's note says)."""
+    from repro_torch.kernels.packed_tanimoto import TOPK_MAX_M
+
+    src = (build.CSRC_DIR / "packed_tanimoto.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (K_\w+|MAX_SMEM) = (\d+);", src)}
+    shapes = dict(re.findall(r"using (CountU\d+) = Fused<(uint\d+_t, \d+, \d+)>;", src))
+    assert shapes == {"CountU8": "uint8_t, 64, 16", "CountU16": "uint16_t, 32, 16"}
+    assert TOPK_MAX_M == 2 ** 16 - 2
+    threads, rq, rn, tn = const["K_THREADS"], const["K_RQ"], const["K_RN"], const["K_TN"]
+
+    def fixed(count_bytes, tq, kw):
+        sn = threads // (tq // rq) * rn
+        return tq * tn * count_bytes + (sn * (kw + 1) + tq * kw) * 4
+
+    def last_m_in_shared(count_bytes, tq, kw):
+        return (const["MAX_SMEM"] - fixed(count_bytes, tq, kw)) // (tq * 4) - 1
+
+    assert 64 * tn == 32 * tn * 2 == 128 * 1024                      # 128 KB tiles
+    assert last_m_in_shared(1, 64, 16) >= 254                        # always shared
+    assert last_m_in_shared(2, 32, 16) == 503
+    assert "m > 503" in src and "m <= 503" in src
+
+
 def test_zero_byte_lane_count_is_exact():
     """The kernels count equal byte lanes as the zero bytes of q ^ d by the
     carry-free test; checked here in numpy on every byte value and on words
