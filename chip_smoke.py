@@ -12,13 +12,19 @@ as a phase fails:
   1. environment and build: versions, the card's name and power limit, the
      kernels' build time and what ptxas reports for them;
   2. each kernel against its plain PyTorch version on the card, bit-exact, at
-     odd shapes (nothing a multiple of a tile): match_count, cpq_hist,
+     odd shapes (nothing a multiple of a tile): match_count (also with ids of
+     three classes -- in [0, 31744), the float16 path of its equality tile;
+     the same with one general-path id in some chunks; full-range int32 --
+     at m odd and m = 4095 to 8193 around the tile's 4096-column flush, and
+     ids 0..31743 against themselves, m = 1 and 2, which must count m times
+     the identity), cpq_hist,
      cosine_count (with zero rows), packed_cosine_count (V from 1 to 513),
      and packed_cosine_topk (k from 1 to above the tile, N not a multiple of
      the tile, N < k, all-equal rows, a width whose bins need device
      scratch), whose buffers reduced by topk_from_candidates must also equal
      a sort of the counts; 2c. the three TANIMOTO kernels the same way:
-     tanimoto_count (m from 1 to 4099), packed_tanimoto_count (bucket ids 0 to
+     tanimoto_count (m from 1 to 8193, the same value classes and identity
+     check as match_count), packed_tanimoto_count (bucket ids 0 to
      253, m from 1 to 4099) and packed_tanimoto_topk (k from 1 to above the
      tile; m = 1, 37, 238, 254 and 255 on either side of its one-byte count
      tile, 503 and 504 on either side of its bins' move to device scratch,
@@ -74,9 +80,13 @@ as a phase fails:
      version's, one PyTorch library call where one computes the same
      function, and the least time the card could take (bytes moved over the
      memory rate, or operations over the peak rate for their type, whichever
-     is larger); 5b. the same for the three COSINE kernels; 5c. the same for
-     the three TANIMOTO kernels (with the word-pair rates), and tanimoto_count
-     at m = 4096; 5d. the same for range_count, minsum_count and ip_count:
+     is larger); for match_count also its SASS (instructions per compared
+     pair, by opcode and pipe, on each path of the equality tile), the SM
+     clock while it runs, the pairs per SM-clock and the issue floor, and its
+     time on full-range int32 ids (the general path); 5b. the same for the
+     three COSINE kernels; 5c. the same for the three TANIMOTO kernels (with
+     the word-pair rates, and tanimoto_count's SASS and clock as for
+     match_count), and tanimoto_count at m = 4096; 5d. the same for range_count, minsum_count and ip_count:
      minsum_count as the whole call against the bytes the function must
      move, its conversion kernels (minsum_nnz, minsum_csr) and its count
      kernel timed alone, a dense segment of DBLP's shape through the sparse
@@ -90,8 +100,10 @@ package.  The last line of its output is one JSON object
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -153,6 +165,22 @@ TANIMOTO_TOPK_CASES = [(5, 5000, 238, 1), (7, 5000, 238, 3), (33, 9000, 238, 10)
                        (65, 5000, 254, 1), (65, 5000, 254, 2100), (33, 5000, 255, 100),
                        (33, 2100, 255, 3000), (3, 2100, 503, 10), (3, 2100, 504, 10),
                        (2, 4200, 504, 2048), (3, 2100, 6000, 10), (2, 2100, 6000, 2500)]
+# The equality tile of match_count and tanimoto_count (count_eq_tile in
+# csrc/eq_tile.cuh) compares a 32-column chunk as float16 lanes when every id
+# staged for it lies in [0, 31744), and as int32 on its general path when
+# any does not.  Its parity runs every shape with three value classes
+# (eq_ids), and these extra shapes: m odd, and m on either side of the
+# 4096 columns after which the float16 lanes are added into int32.
+EQ_EXTRA_SHAPES = [(7, 129, 1), (5, 133, 2), (9, 1001, 63), (3, 301, 4095), (5, 257, 4096),
+                   (2, 130, 4097), (3, 131, 8193)]
+EQ_KINDS = ("lanes", "mixed", "int32")
+LANE_END = 0x7C00
+# ids at the float16 path's borders: 0, the subnormals' last and the normals'
+# first (1023, 1024), float16's last exact integer and the next (2048, 2049),
+# the range's last ids (31742, 31743)
+LANE_POOL = [0, 1, 1023, 1024, 2048, 2049, 8191, 31742, 31743]
+# ids that send their chunk to the general path
+GENERAL_POOL = [-2**31, -2**31 + 1, -1, 31744, 31745, 65535, 65536, 2**31 - 1]
 # The OCR configuration's width (src/repro/configs/genie_datasets.py): d = 1156,
 # 16 adds of 218,750 rows, of which phase 4c' runs 2
 OCR_DIM = 1156
@@ -215,6 +243,72 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+def eq_ids(gen: torch.Generator, rows: int, m: int, kind: str) -> torch.Tensor:
+    """int32 [rows, m] ids on the CPU, from a pool of 16 so that equal ids
+    are common: "lanes" ids in [0, 31744) with the border ids of LANE_POOL;
+    "mixed" the same with one id of GENERAL_POOL in one row of every third
+    32-column chunk from the second on (the same column and value in every
+    call), so that one call counts fast and general chunks; "int32" ids from
+    the whole int32 range, its ends included."""
+    if kind == "int32":
+        extra = torch.randint(-2**31, 2**31 - 1, (8,), generator=gen).tolist()
+        pool = torch.tensor(GENERAL_POOL + extra, dtype=torch.int64)
+    else:
+        extra = torch.randint(0, LANE_END, (16 - len(LANE_POOL),), generator=gen).tolist()
+        pool = torch.tensor(LANE_POOL + extra, dtype=torch.int64)
+    ids = pool[torch.randint(0, len(pool), (rows, m), generator=gen)].to(torch.int32)
+    if kind == "mixed":
+        for chunk in range(1, -(-m // 32), 3):
+            col = 32 * chunk + chunk % min(32, m - 32 * chunk)
+            row = int(torch.randint(0, rows, (1,), generator=gen))
+            ids[row, col] = GENERAL_POOL[chunk % len(GENERAL_POOL)]
+    return ids
+
+
+def eq_parity(name: str, kernel, plain, shapes, device: torch.device,
+              gen: torch.Generator) -> int:
+    """The equality kernel `name` against its plain version at every shape
+    and value class of eq_ids, bit-exact; returns the worst error."""
+    worst = 0
+    for q, n, m in shapes:
+        for kind in EQ_KINDS:
+            d, s = eq_ids(gen, n, m, kind).to(device), eq_ids(gen, q, m, kind).to(device)
+            s[0] = d[min(1, n - 1)]                # one row equal in every column
+            got = kernel(d, s)
+            want = plain(d, s)
+            sync(device)
+            err = max_abs_err(got, want)
+            worst = max(worst, err)
+            check(got.shape == (q, n) and got.dtype == torch.int32 and torch.equal(got, want),
+                  f"{name} differs from its plain version at (Q,N,m)=({q},{n},{m}) {kind} ids: "
+                  f"max abs err {err}")
+        log(f"  {name} (Q,N,m)=({q},{n},{m}) ids {'/'.join(EQ_KINDS)}: equal")
+    return worst
+
+
+def eq_identity(name: str, kernel, device: torch.device) -> int:
+    """The float16 path's premise on the card: ids 0..31743 as data and as
+    queries, m = 1 (row i = [i]) and m = 2 (row i = [i, 31743 - i]), must
+    count m on the diagonal and 0 elsewhere -- no two of the 31,744 bit
+    patterns compare equal as float16 (subnormals kept) and each equals
+    itself.  Returns the worst difference from m times the identity."""
+    ids = torch.arange(LANE_END, dtype=torch.int32, device=device)
+    worst = 0
+    for m, rows in ((1, ids[:, None]), (2, torch.stack([ids, LANE_END - 1 - ids], 1))):
+        rows = rows.contiguous()
+        got = kernel(rows, rows)
+        diag = got.diagonal()
+        off = got.sum(dtype=torch.int64) - diag.sum(dtype=torch.int64)
+        err = max(int((diag - m).abs().max().item()), int(off.item()),
+                  -int(got.min().item()))
+        worst = max(worst, err)
+        check(err == 0, f"{name}: ids 0..{LANE_END - 1} against themselves (m={m}) are not "
+                        f"{m} x the identity: worst difference {err}")
+        del got, diag
+    log(f"  {name}: ids 0..{LANE_END - 1} against themselves, m = 1 and 2: m x the identity")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: environment and build
 # ---------------------------------------------------------------------------
@@ -263,6 +357,10 @@ def phase_kernel_parity(device: torch.device) -> dict:
     worst.update(sa_parity(device))
     for name, err in dot_tile_parity(device).items():
         worst[name] = max(worst[name], err)
+    worst["match_count"] = max(
+        eq_parity("match_count", ops.match_count, match_count_plain,
+                  MATCH_SHAPES + EQ_EXTRA_SHAPES, device, gen),
+        eq_identity("match_count", ops.match_count, device))
     for q, n, m in MATCH_SHAPES:
         for dtype in (torch.int32, torch.int16):
             d = torch.randint(0, 9, (n, m), generator=gen, dtype=dtype).to(device)
@@ -830,6 +928,122 @@ def profile_one_search(search, device: torch.device) -> None:
 # Phase 5: the kernels' times at the per-segment shape
 # ---------------------------------------------------------------------------
 
+# The pipe each SASS opcode of the count bodies issues to on sm_90: 32-bit
+# integer add, compare, select and logic on the 64-lane integer pipe ("int");
+# float16x2 compare, add and FMA on the float16 pipe ("fp16x2"), where an
+# HSET2 takes two issue slots and an HADD2 / HFMA2 one (measured on an H100:
+# 62 against 112 thread-instructions per SM-clock, tools/fp16_pipe_rates.py);
+# float32 ("fp32"); IMAD on the FMA pipe ("imad"); shared-memory loads and
+# stores through the MIO queue ("mio").  An SM issues 128 thread-instructions
+# a clock (4 schedulers x 32 threads).
+SASS_PIPES = {"ISETP": "int", "IADD3": "int", "SEL": "int", "LOP3": "int", "IMNMX": "int",
+              "SHF": "int", "LEA": "int", "PLOP3": "int", "VIADD": "int", "HSET2": "fp16x2",
+              "HADD2": "fp16x2", "HFMA2": "fp16x2", "FADD": "fp32", "FFMA": "fp32",
+              "FSEL": "fp32", "IMAD": "imad", "LDS": "mio", "STS": "mio"}
+SLOTS_PER_SM_CLOCK = 128
+INT_LANES_PER_SM = 64
+SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_count_bodies(sass: dict, kernel: str) -> list:
+    """The count bodies of `kernel` in the library's SASS (build.sass()): the
+    basic blocks (straight-line runs of instructions) that compare at least 256
+    (query, data, column) pairs -- 2 pairs an HSET2, 1 an ISETP -- largest
+    first.  Each with its path (float16 lanes / int32 compare into float16
+    lanes / int32), pairs, instructions per pair in all, by opcode and by
+    pipe, and the pairs per SM-clock that the issue rate, the float16 pipe
+    and the int pipe allow."""
+    # mangled (length-prefixed) or demangled: not packed_tanimoto_count_kernel
+    # for tanimoto_count_kernel
+    name = next(n for n in sass
+                if f"{len(kernel)}{kernel}" in n or re.search(rf"(?<!\w){kernel}\(", n))
+    # a block ends at a branch and starts at a label or at any branch's
+    # target address (cuobjdump prints addresses, nvdisasm labels)
+    lines = sass[name].splitlines()
+    targets = {int(t, 16) for line in lines if " BRA " in line
+               for t in re.findall(r"0x([0-9a-f]+)", line.split(";")[0])}
+    blocks, current = [], []
+    for line in lines:
+        hit = SASS_INSTRUCTION.search(line)
+        if re.match(r"\s*\.L_x_\d+:", line) or (hit and int(hit.group(1), 16) in targets):
+            blocks.append(current)
+            current = []
+        if hit:
+            current.append(hit.group(2).split(".")[0])
+            if current[-1] in ("BRA", "EXIT", "BAR"):
+                blocks.append(current)
+                current = []
+    blocks.append(current)
+    bodies = []
+    for ops in map(collections.Counter, blocks):
+        pairs = 2 * ops["HSET2"] + ops["ISETP"]
+        if pairs < 256:
+            continue
+        pipes = collections.Counter()
+        for op, c in ops.items():
+            pipes[SASS_PIPES.get(op, "other")] += c
+        total = sum(ops.values())
+        bodies.append(dict(
+            path=("float16 lanes" if ops["HSET2"] else
+                  "int32 compare, float16 lanes" if ops["HADD2"] else "int32"),
+            pairs=pairs, per_pair=round(total / pairs, 4),
+            by_opcode={op: round(c / pairs, 4) for op, c in ops.most_common()},
+            by_pipe={p: round(c / pairs, 4) for p, c in pipes.most_common()},
+            issue_pairs_per_sm_clock=round(SLOTS_PER_SM_CLOCK * pairs / total, 2),
+            fp16_pipe_pairs_per_sm_clock=round(
+                SLOTS_PER_SM_CLOCK * pairs / (2 * ops["HSET2"] + ops["HADD2"] + ops["HFMA2"]), 2)
+            if pipes["fp16x2"] else None,
+            int_pipe_pairs_per_sm_clock=(round(INT_LANES_PER_SM * pairs / pipes["int"], 2)
+                                         if pipes["int"] else None)))
+    return sorted(bodies, key=lambda b: -b["pairs"])
+
+
+def log_sass_bodies(kernel: str, bodies: list) -> None:
+    for b in bodies:
+        log(f"  SASS {kernel} [{b['path']}]: {b['pairs']} pairs in the body, {b['per_pair']} "
+            f"instructions a pair; by pipe {b['by_pipe']}; by opcode {b['by_opcode']}; "
+            f"allows {b['issue_pairs_per_sm_clock']} pairs/SM-clock by issue, "
+            f"{b['fp16_pipe_pairs_per_sm_clock']} by the float16 pipe (an HSET2 two slots), "
+            f"{b['int_pipe_pairs_per_sm_clock']} by the int pipe")
+
+
+def sm_clock_mhz(fn, ms_each: float, device: torch.device, seconds: float = 3.0):
+    """The median SM clock (MHz, `nvidia-smi --query-gpu=clocks.sm`) while
+    `fn` runs back to back on the card for about `seconds`; None when no
+    sample was taken while the card was still busy."""
+    reps = max(2, int(seconds * 1e3 / max(ms_each, 1e-3)))
+    for _ in range(reps):
+        fn()
+    done = torch.cuda.Event()
+    done.record()
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                             "-lms", "100"], stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+    samples = []
+    try:
+        for line in proc.stdout:
+            if done.query():
+                break
+            if line.strip().isdigit():
+                samples.append(float(line))
+            if len(samples) >= 8:
+                break
+        busy = not done.query()
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=30)
+    sync(device)
+    return statistics.median(samples) if samples and busy else None
+
+
+def pairs_per_sm_clock(pairs: float, ms: float, clock_mhz) -> float | None:
+    """Compared (query, data, column) pairs per SM per clock at `clock_mhz`."""
+    if not clock_mhz:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return pairs / (ms * 1e-3) / sms / (clock_mhz * 1e6)
+
+
 def library_eq_count(data: torch.Tensor, query: torch.Tensor, counts: torch.Tensor,
                      device: torch.device):
     """library_ms of an equality count [Q, N]: torch.cdist(query, data, p=0)
@@ -848,6 +1062,51 @@ def library_eq_count(data: torch.Tensor, query: torch.Tensor, counts: torch.Tens
     check(torch.equal(dist.neg_().add_(m).to(torch.int32), counts),
           "the cdist yardstick disagrees with the equality count")
     return ms
+
+
+def eq_tile_trace(name: str, fn, ms: float, pairs: int, device: torch.device) -> None:
+    """Phase 5 / 5c: the SASS of the equality kernel `name` (instructions per
+    compared pair, by opcode and pipe, for each path), the SM clock while it
+    runs at this shape, the pairs per SM per clock that `ms` makes, and the
+    issue floor (pairs / 128 per SM-clock at that clock) beside the bound."""
+    from repro_torch.kernels import build
+
+    bodies = sass_count_bodies(build.sass(), f"{name}_kernel")
+    log_sass_bodies(f"{name}_kernel", bodies)
+    clock = sm_clock_mhz(fn, ms, device)
+    rate = pairs_per_sm_clock(pairs, ms, clock)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = pairs / (SLOTS_PER_SM_CLOCK * sms * clock * 1e6) * 1e3 if clock else None
+    trace = dict(kernel=name, ms=ms, pairs=pairs, sm_clock_mhz=clock, pairs_per_sm_clock=rate,
+                 issue_floor_ms=floor, bodies=bodies)
+    log(f"  {name}: {ms:.4f} ms for {pairs:.4g} pairs; SM clock {clock} MHz while it runs; "
+        f"{rate} pairs per SM-clock; issue floor {floor} ms (pairs / {SLOTS_PER_SM_CLOCK} "
+        f"per SM-clock on {sms} SMs)")
+    log("  eq_tile trace: " + json.dumps(trace))
+
+
+def eq_general_path(shape: tuple, q: int, device: torch.device) -> None:
+    """Phase 5: match_count on full-range int32 ids at the per-segment shape
+    -- every chunk takes the general path of the equality tile -- against
+    its plain version, with half the queries copies of data rows so that
+    counts of m occur; its SASS is traced by eq_tile_trace."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.match_count import match_count_plain
+
+    n, m = shape
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    d = torch.randint(-2**31, 2**31 - 1, (n, m), generator=gen, device=device, dtype=torch.int32)
+    s = torch.randint(-2**31, 2**31 - 1, (q, m), generator=gen, device=device, dtype=torch.int32)
+    s[::2] = d[torch.arange(0, q, 2, device=device) * 997 % n]
+    ms, got = timed_ms(lambda: ops.match_count(d, s), device, reps=3, warmup=1)
+    want = match_count_plain(d, s)
+    check(torch.equal(got, want), "match_count differs on full-range int32 ids at the "
+                                  "per-segment shape")
+    del want
+    clock = sm_clock_mhz(lambda: ops.match_count(d, s), ms, device)
+    log(f"  match_count on full-range int32 ids (general path) Q={q} N={n} m={m}: {ms:.4f} ms, "
+        f"equal to its plain version; SM clock {clock} MHz; "
+        f"{pairs_per_sm_clock(q * n * m, ms, clock)} pairs per SM-clock")
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: int, ms: float,
@@ -886,6 +1145,9 @@ def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
     check(torch.equal(counts, counts_plain), "match_count differs at the per-segment shape")
     del counts_plain
     lib_match = library_eq_count(data, qsigs, counts, device)
+    eq_tile_trace("match_count", lambda: ops.match_count(data, qsigs), ms_match, q * n * m,
+                  device)
+    eq_general_path(data.shape, q, device)
     match_bytes = (n * m + q * m + q * n) * 4          # inputs read once, output written once
     match_ops = 2 * q * n * m                          # one compare and one add per pair and column
     bound_bytes, bound_ops = match_bytes / PEAK_BYTES_PER_S * 1e3, match_ops / PEAK_ALU_OPS_PER_S * 1e3
@@ -1074,6 +1336,11 @@ def tanimoto_parity(device: torch.device) -> dict:
               f"tanimoto_count differs from its plain version at (Q,N,m)=({q},{n},{m}): "
               f"max abs err {err}")
         log(f"  tanimoto_count (Q,N,m)=({q},{n},{m}): equal")
+    worst["tanimoto_count"] = max(
+        worst["tanimoto_count"],
+        eq_parity("tanimoto_count", ops.tanimoto_count, tanimoto_count_plain,
+                  TANIMOTO_SHAPES + EQ_EXTRA_SHAPES, device, gen),
+        eq_identity("tanimoto_count", ops.tanimoto_count, device))
     for q, n, m in PACKED_TANIMOTO_SHAPES:
         d, s = _buckets(gen, n, m, device), _buckets(gen, q, m, device)
         s[0] = d[min(1, n - 1)]                    # one full collision
@@ -1210,6 +1477,8 @@ def phase_tanimoto_kernel_times(minhash: dict, launches_count: int, parity_err: 
     check(torch.equal(counts, counts_plain), "tanimoto_count differs at the per-segment shape")
     del counts_plain
     lib_tc = library_eq_count(d_sig, q_sig, counts, device)
+    eq_tile_trace("tanimoto_count", lambda: ops.tanimoto_count(d_sig, q_sig), ms_tc, q * n * m,
+                  device)
     tc_bytes = (n * m + q * m + q * n) * 4
     tc_ops = 2 * q * n * m                             # one compare and one add per pair and column
     tcb_bytes, tcb_ops = tc_bytes / PEAK_BYTES_PER_S * 1e3, tc_ops / PEAK_ALU_OPS_PER_S * 1e3
@@ -1258,6 +1527,9 @@ def phase_tanimoto_kernel_times(minhash: dict, launches_count: int, parity_err: 
     plain_f, counts_fp = timed_ms(lambda: tanimoto_count_plain(d_f, q_f), device, reps=1)
     check(torch.equal(counts_f, counts_fp), "tanimoto_count differs at m = 4096")
     f_ops = 2 * q * flash_n * flash_m
+    clock_f = sm_clock_mhz(lambda: ops.tanimoto_count(d_f, q_f), ms_f, device)
+    log(f"  tanimoto_count at m={flash_m}: SM clock {clock_f} MHz; "
+        f"{pairs_per_sm_clock(q * flash_n * flash_m, ms_f, clock_f)} pairs per SM-clock")
     log(f"  tanimoto_count at Q={q} N={flash_n} m={flash_m}: {ms_f:.3f} ms; bound "
         f"{f_ops / PEAK_ALU_OPS_PER_S * 1e3:.3f} ms by operations; plain {plain_f:.1f} ms; "
         f"{f_ops / 2 / (ms_f / 1e3) / 1e12:.3f} T compare-adds/s")

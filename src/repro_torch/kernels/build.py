@@ -138,6 +138,20 @@ def build_log() -> str:
     return log.read_text(encoding="utf-8") if log.exists() else ""
 
 
+def sass(lib_path: Optional[Path] = None) -> dict[str, str]:
+    """The SASS of every kernel in the library (`cuobjdump -sass`, from the
+    toolkit that holds nvcc), by mangled function name; `lib_path` defaults
+    to this source state's build."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib_path or build())],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    out: dict[str, str] = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        out[name.strip()] = body
+    return out
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built first if need be."""
     global _LIB

@@ -1,24 +1,44 @@
-// The count tile shared by the EQ, TANIMOTO and RANGE kernels and MINSUM's
-// dense tile (match_count.cu, tanimoto_count.cu, packed_tanimoto.cu's count
-// kernel, range_count.cu, minsum_count.cu's repro_minsum_count_dense):
+// The count tiles shared by the EQ, TANIMOTO, RANGE and MINSUM kernels
+// (match_count.cu, tanimoto_count.cu, range_count.cu, packed_tanimoto.cu's
+// count kernel, minsum_count.cu's repro_minsum_count_dense):
 //
 //     counts[q, n] = sum_i count(query[q, i], data[n, i])       int32 [Q, N]
 //
-// where count is the equality of two signature columns (EQ, TANIMOTO), the
-// smaller of two n-gram multiplicities (MINSUM) or the test of an attribute
-// value against an interval (RANGE).
+// A thread block owns one [128, 128] tile of the output, walks the row axis in
+// chunks staged through shared memory, and every thread keeps a register
+// micro-tile of accumulators.  Any m streams through the same tile, so the
+// TPU's reason for a separate TANIMOTO kernel -- FLASH-scale m does not fit
+// VMEM whole -- and the MINSUM kernel's third grid axis do not arise here.
+// Ragged edges are masked, so nothing is padded or copied and the output is
+// exactly [Q, N].  Two tiles share that frame.
 //
-// A thread block owns one [TQ, TN] tile of the output, walks the row axis in
-// chunks of P::KS slots staged through shared memory, and every thread keeps
-// an RQ x RN register micro-tile of int32 accumulators (count-and-add, no
-// multiply).  Any m streams through the same tile, so the TPU's reason for a
-// separate TANIMOTO kernel -- FLASH-scale m (thousands of minhash functions)
-// does not fit VMEM whole -- and the MINSUM kernel's third grid axis over the
-// vocabulary do not arise here.  Ragged edges are masked (row, column and m
-// bounds), so nothing is padded or copied and the output is exactly [Q, N].
+// count_eq_tile (namespace eq) -- equality of int32 ids, for EQ and TANIMOTO
+// WIDE.  Every id the LSH schemes hand these kernels is a bucket id in
+// [0, n_buckets), 8192 by default.  The int16 bit patterns [0, 0x7C00) are
+// 31,744 distinct finite float16 values (zero, the subnormals, the normals up
+// to 65504), and 0 is the only zero among them, so within that range two ids
+// are equal exactly when their float16 patterns compare equal.  Each chunk of
+// 32 columns is tested while it is staged (both operands, made uniform across
+// the block by __syncthreads_and) and takes one of two paths:
+//   - fast (every staged id in [0, 0x7C00)): two neighbouring columns packed
+//     into one 32-bit word of float16 lanes, 8-byte shared loads, and per word
+//     pair one HSET2.EQ (1.0 or 0.0 per lane) and one HADD2 or HFMA2 into
+//     __half2 accumulators; no integer instruction.  Columns past m are quiet
+//     NaNs on both sides, which equal nothing.
+//   - general (any other id in the chunk: negative, >= 31,744, the ends of
+//     int32): one int32 column per slot, one ISETP and an add of 1.0 into the
+//     lane of the column's parity, in the same accumulators; exact for every
+//     int32.  ptxas turns the predicated add into an HADD2 and a predicated
+//     move, so this path costs about 3.4 instructions a pair.
+// float16 holds every integer up to 2048 and not 2049, and a lane counts at
+// most half the columns it has seen, so the lanes are added into int32 every
+// 4096 columns (into the output tile, which each thread owns element by
+// element) and once at the end.  Nothing is read back to the host and no
+// second launch picks a path.  512 threads a block, an 8 x 4 micro-tile, at
+// most 64 registers so that two blocks share an SM.
 //
-// The tile is a template on a layout policy P, which says what a shared-memory
-// slot holds and how two slots count:
+// count_tile<P> -- a template on a layout policy P, which says what a
+// shared-memory slot holds and how two slots count:
 //
 //     P::Elem                 element type in device memory
 //     P::QSlot, P::DSlot      element types of a staged query / data slot
@@ -33,21 +53,25 @@
 //                             past m must count nothing across the two sides
 //     P::count(a, b)          what a query slot a and a data slot b add
 //
-// IntColumns below is one int32 column per slot counted by equality (EQ,
-// TANIMOTO WIDE); MinColumns the same slots counted by their minimum
+// MinColumns below is one int32 column per slot counted by the minimum
 // (MINSUM on dense data: sparse n-gram data goes to minsum_count.cu's own
-// kernel over lists of its non-zero entries); RangeColumns an int32 (lo, hi) interval per query slot against an
-// int32 value per data slot (RANGE); packed_tanimoto.cu holds four uint8 byte
-// lanes per slot.
+// kernel over lists of its non-zero entries); RangeColumns an int32 (lo, hi)
+// interval per query slot against an int32 value per data slot (RANGE);
+// packed_tanimoto.cu holds four uint8 byte lanes per slot.  256 threads, an
+// 8 x 8 micro-tile of int32 accumulators, one to three integer instructions
+// per count.
 //
-// What bounds it on an H100: integer ALU throughput, not memory.  Every output
-// element costs m counts and m adds (or a few operations per four lanes);
-// at Q=1024, N=281250, m=238 that is 1.4e11 integer operations against 1.4 GB
-// of traffic.  Register reuse answers it: each staged slot is counted RQ or
-// RN times, so one shared-memory load feeds 8 count-adds, and the block
-// index runs over the query tiles first so that the blocks in flight share one
-// data tile in L2.  RANGE at d = 14 is the exception: 14 slots per element,
-// and the [Q, N] int32 write is its bound.  Measured times are in PERF.md.
+// What bounds them on an H100: the instruction pipes, not memory.  The
+// equality count at Q=1024, N=281250, m=238 is 6.85e10 pairs against 0.6 GB
+// of traffic.  An SM issues 128 thread-instructions a clock but has 64 INT32
+// lanes, so three integer instructions a pair allow ~21 pairs per SM-clock
+// (the int32 tile this one replaced ran at 19).  On the fast path the float16
+// pipe binds: an HSET2 issues at half the rate of an HADD2 (62 against 112
+// thread-instructions per SM-clock, tools/fp16_pipe_rates.py), so a word pair
+// takes three issue slots of that pipe and the tile can reach ~86 pairs per
+// SM-clock; it runs at ~60, the rest going to staging and the [Q, N] write.
+// RANGE at d = 14 is the exception: its [Q, N] int32 write is its bound.
+// Measured times and SASS counts are in PERF.md.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -82,8 +106,10 @@ __device__ __forceinline__ void stage_columns(T* __restrict__ dst, int ld,
   }
 }
 
-// One int32 signature column per slot, counted by equality.
-struct IntColumns {
+// One int32 column per slot, counted by the minimum of the two slots:
+// sum_v min(query[q, v], data[n, v]) over n-gram multiplicities (MINSUM on
+// dense data).
+struct MinColumns {
   using Elem = int;
   using QSlot = int;
   using DSlot = int;
@@ -98,12 +124,6 @@ struct IntColumns {
     stage_columns<KS>(dst, ld, src, row0, n_rows, m, s0, rows, 0);
   }
 
-  __device__ __forceinline__ static int count(int a, int b) { return a == b ? 1 : 0; }
-};
-
-// The same slots counted by their minimum: sum_v min(query[q, v], data[n, v])
-// over n-gram multiplicities (MINSUM).
-struct MinColumns : IntColumns {
   __device__ __forceinline__ static int count(int a, int b) { return min(a, b); }
 };
 
@@ -211,25 +231,265 @@ __device__ __forceinline__ void count_tile(const typename P::Elem* __restrict__ 
   }
 }
 
-// Launch `kernel` (a __global__ wrapper of count_tile<P>) over the tile grid
-// on `stream`; does not synchronise.  Returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue when the tile grid does not fit one grid
-// dimension.
+// ---- count_eq_tile: the equality tile ------------------------------------
+namespace eq {
+
+constexpr int TX = 32;                       // threads along N
+constexpr int TY = 16;                       // threads along Q
+constexpr int RQ = 8;                        // query rows per thread
+constexpr int RN = 4;                        // data rows per thread
+constexpr int TQ = TY * RQ;                  // query rows per block
+constexpr int TN = TX * RN;                  // data rows per block
+constexpr int THREADS = TX * TY;
+constexpr int KS = 32;                       // columns staged per step
+constexpr int KW = KS / 2;                   // words of two float16 lanes per step
+constexpr int LDI = KS + 1;                  // int32 rows (general path): conflict-free columns
+constexpr int LDW = KW + 2;                  // lane rows (fast path): conflict-free LDS.64
+constexpr int FLUSH_CHUNKS = 4096 / KS;      // a lane counts at most 2048 between flushes
+constexpr unsigned LANE_END = 0x7C00u;       // ids below it are distinct finite float16s
+constexpr int PAD = 0x7E00;                  // a quiet float16 NaN: equals nothing
+constexpr unsigned ONE_LO = 0x00003C00u;     // 1.0 in the lane of an even column
+constexpr unsigned ONE_HI = 0x3C000000u;     // 1.0 in the lane of an odd column
+static_assert(TQ * KW % THREADS == 0 && TN * KW % THREADS == 0,
+              "the staging loop covers the chunk");
+static_assert(KW % 2 == 0 && LDW % 2 == 0, "8-byte shared loads stay aligned");
+
+// two float16 lanes: 1.0 where they compare equal, else 0.0 (HSET2.BF.EQ)
+__device__ __forceinline__ unsigned heq2(unsigned a, unsigned b) {
+  unsigned r;
+  asm("set.eq.f16x2.f16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ unsigned hadd2(unsigned a, unsigned b) {
+  unsigned r;
+  asm("add.rn.f16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// acc += one where a == b: one ISETP, one HADD2
+__device__ __forceinline__ void add_if_equal(unsigned& acc, int a, int b, unsigned one) {
+  asm("{\n\t.reg .pred p;\n\tsetp.eq.s32 p, %1, %2;\n\t@p add.rn.f16x2 %0, %0, %3;\n\t}"
+      : "+r"(acc)
+      : "r"(a), "r"(b), "r"(one));
+}
+
+// the two lanes' counts (each at most 2048, exact) as one int32
+__device__ __forceinline__ int lane_sum(unsigned acc) {
+  float lo, hi;
+  asm("{\n\t.reg .f16 l, h;\n\tmov.b32 {l, h}, %2;\n\tcvt.f32.f16 %0, l;\n\t"
+      "cvt.f32.f16 %1, h;\n\t}"
+      : "=f"(lo), "=f"(hi)
+      : "r"(acc));
+  return __float2int_rz(lo + hi);
+}
+
+// This thread's column pairs of chunk [s0, s0 + KS) of rows [row0, row0 +
+// ROWS): pair p is row threadIdx.x / KW + p * (THREADS / KW), columns s0 +
+// 2 w and s0 + 2 w + 1 with w = threadIdx.x % KW, so a warp reads two rows'
+// 128-byte segments.  Columns past m and rows past n_rows read as PAD.
+template <int ROWS>
+struct Pairs {
+  static constexpr int P = ROWS * KW / THREADS;
+  int lo[P], hi[P];
+
+  // load; returns whether every id read lies in [0, LANE_END).  `pairs`:
+  // m is even and src 8-byte aligned, so a column pair is one 8-byte load.
+  __device__ __forceinline__ bool load(const int* __restrict__ src, long long row0,
+                                       long long n_rows, int m, int s0, bool pairs) {
+    const int c = s0 + 2 * (threadIdx.x % KW);
+    bool in_range = true;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const long long row = row0 + threadIdx.x / KW + p * (THREADS / KW);
+      lo[p] = PAD;
+      hi[p] = PAD;
+      if (row < n_rows && c < m) {
+        const int* r = src + row * m + c;
+        if (pairs) {
+          const int2 v = *reinterpret_cast<const int2*>(r);
+          lo[p] = v.x;
+          hi[p] = v.y;
+        } else {
+          lo[p] = r[0];
+          if (c + 1 < m) hi[p] = r[1];
+        }
+        in_range &= (unsigned)lo[p] < LANE_END;
+        in_range &= (unsigned)hi[p] < LANE_END || c + 1 >= m;
+      }
+    }
+    return in_range;
+  }
+
+  // store as words of two float16 lanes (fast path) or as int32 columns
+  __device__ __forceinline__ void store(unsigned* __restrict__ dst, bool lanes) const {
+    const int w = threadIdx.x % KW;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int r = threadIdx.x / KW + p * (THREADS / KW);
+      if (lanes) {
+        dst[r * LDW + w] = (unsigned)lo[p] | ((unsigned)hi[p] << 16);
+      } else {
+        dst[r * LDI + 2 * w] = (unsigned)lo[p];
+        dst[r * LDI + 2 * w + 1] = (unsigned)hi[p];
+      }
+    }
+  }
+};
+
+// Fast path: words 2 g and 2 g + 1 of every row (4 columns), one 8-byte
+// shared load per query row and per data row.
+__device__ __forceinline__ void lanes_step(unsigned (&acc)[RQ][RN],
+                                           const unsigned* __restrict__ q_s,
+                                           const unsigned* __restrict__ d_s,
+                                           int tx, int ty, int g) {
+  uint2 dv[RN];
+#pragma unroll
+  for (int j = 0; j < RN; ++j)
+    dv[j] = *reinterpret_cast<const uint2*>(d_s + (tx + TX * j) * LDW + 2 * g);
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const uint2 qv = *reinterpret_cast<const uint2*>(q_s + (ty + TY * i) * LDW + 2 * g);
+#pragma unroll
+    for (int j = 0; j < RN; ++j)
+      acc[i][j] = hadd2(hadd2(acc[i][j], heq2(qv.x, dv[j].x)), heq2(qv.y, dv[j].y));
+  }
+}
+
+// General path: int32 column kk of every row, into the lane of its parity.
+__device__ __forceinline__ void ints_step(unsigned (&acc)[RQ][RN],
+                                          const unsigned* __restrict__ q_s,
+                                          const unsigned* __restrict__ d_s,
+                                          int tx, int ty, int kk) {
+  const unsigned one = (kk & 1) ? ONE_HI : ONE_LO;
+  int qv[RQ], dv[RN];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) qv[i] = (int)q_s[(ty + TY * i) * LDI + kk];
+#pragma unroll
+  for (int j = 0; j < RN; ++j) dv[j] = (int)d_s[(tx + TX * j) * LDI + kk];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) add_if_equal(acc[i][j], qv[i], dv[j], one);
+}
+
+// Add the lanes into the thread's output elements (written on the first
+// flush, added to after) and clear them.
+__device__ __forceinline__ void flush(unsigned (&acc)[RQ][RN], int* __restrict__ out,
+                                      long long n_data, int n_query, int q0, long long n0,
+                                      int tx, int ty, bool add) {
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int q = q0 + ty + TY * i;
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const long long n = n0 + tx + TX * j;
+      if (q < n_query && n < n_data) {
+        int* o = out + (long long)q * n_data + n;
+        *o = (add ? *o : 0) + lane_sum(acc[i][j]);
+      }
+      acc[i][j] = 0u;
+    }
+  }
+}
+
+// The body of the EQ / TANIMOTO WIDE kernels, launched with THREADS
+// threads per block and one block per (query tile, data tile), query tiles
+// fastest (launch_eq).
+__device__ __forceinline__ void count_eq_tile(const int* __restrict__ data,
+                                              const int* __restrict__ query,
+                                              int* __restrict__ out, long long n_data,
+                                              int n_query, int m, int n_qtiles) {
+  __shared__ __align__(16) unsigned q_s[TQ * LDI];
+  __shared__ __align__(16) unsigned d_s[TN * LDI];
+
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+  const int q0 = (int)(blockIdx.x % n_qtiles) * TQ;
+  const long long n0 = (long long)(blockIdx.x / n_qtiles) * TN;
+
+  unsigned acc[RQ][RN];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0u;
+
+  const bool q_pairs = m % 2 == 0 && reinterpret_cast<size_t>(query) % 8 == 0;
+  const bool d_pairs = m % 2 == 0 && reinterpret_cast<size_t>(data) % 8 == 0;
+  bool flushed = false;
+  int chunk = 0;
+  for (int s0 = 0; s0 < m; s0 += KS) {
+    const int ks = min(KS, m - s0);
+    Pairs<TQ> qp;
+    Pairs<TN> dp;
+    const bool q_in = qp.load(query, q0, n_query, m, s0, q_pairs);
+    const bool d_in = dp.load(data, n0, n_data, m, s0, d_pairs);
+    // also the barrier after the previous chunk's reads of q_s / d_s
+    const bool lanes = __syncthreads_and(q_in && d_in);
+    qp.store(q_s, lanes);
+    dp.store(d_s, lanes);
+    __syncthreads();
+    if (lanes) {
+      if (ks == KS) {
+#pragma unroll
+        for (int g = 0; g < KW / 2; ++g) lanes_step(acc, q_s, d_s, tx, ty, g);
+      } else {
+        for (int g = 0; g < (ks + 3) / 4; ++g) lanes_step(acc, q_s, d_s, tx, ty, g);
+      }
+    } else {
+      if (ks == KS) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) ints_step(acc, q_s, d_s, tx, ty, kk);
+      } else {
+        for (int kk = 0; kk < ks; ++kk) ints_step(acc, q_s, d_s, tx, ty, kk);
+      }
+    }
+    if (++chunk == FLUSH_CHUNKS && s0 + KS < m) {
+      flush(acc, out, n_data, n_query, q0, n0, tx, ty, flushed);
+      flushed = true;
+      chunk = 0;
+    }
+  }
+  flush(acc, out, n_data, n_query, q0, n0, tx, ty, flushed);
+}
+
+}  // namespace eq
+
+using eq::count_eq_tile;
+
+// Launch `kernel` over a grid of [tq, tn] output tiles, query tiles fastest,
+// with `threads` threads a block, on `stream`; does not synchronise.  Returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue when the tile
+// grid does not fit one grid dimension.
+template <class E>
+inline int launch_tiles(void (*kernel)(const E*, const E*, int*, long long, int, int, int),
+                        int tq, int tn, int threads, const void* data, const void* query,
+                        void* out, long long n_data, int n_query, int m, void* stream) {
+  if (n_data <= 0 || n_query <= 0 || m < 0) return (int)cudaErrorInvalidValue;
+  const long long n_qtiles = (n_query + tq - 1) / tq;
+  const long long n_ntiles = (n_data + tn - 1) / tn;
+  const long long blocks = n_qtiles * n_ntiles;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const E*)data, (const E*)query, (int*)out, n_data, n_query, m, (int)n_qtiles);
+  return (int)cudaGetLastError();
+}
+
+// Launch a __global__ wrapper of count_tile<P> over its tile grid.
 template <class P>
 inline int launch(void (*kernel)(const typename P::Elem*, const typename P::Elem*,
                                  int*, long long, int, int, int),
                   const void* data, const void* query, void* out,
                   long long n_data, int n_query, int m, void* stream) {
-  if (n_data <= 0 || n_query <= 0 || m < 0) return (int)cudaErrorInvalidValue;
-  const long long n_qtiles = (n_query + TQ - 1) / TQ;
-  const long long n_ntiles = (n_data + TN - 1) / TN;
-  const long long blocks = n_qtiles * n_ntiles;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  using E = typename P::Elem;
-  kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const E*)data, (const E*)query, (int*)out, n_data, n_query, m,
-      (int)n_qtiles);
-  return (int)cudaGetLastError();
+  return launch_tiles(kernel, TQ, TN, THREADS, data, query, out, n_data, n_query, m, stream);
+}
+
+// Launch a __global__ wrapper of count_eq_tile over its tile grid.
+inline int launch_eq(void (*kernel)(const int*, const int*, int*, long long, int, int, int),
+                     const void* data, const void* query, void* out, long long n_data,
+                     int n_query, int m, void* stream) {
+  return launch_tiles(kernel, eq::TQ, eq::TN, eq::THREADS, data, query, out, n_data, n_query,
+                      m, stream);
 }
 
 }  // namespace eq_tile

@@ -6,29 +6,34 @@
 // (src/repro/kernels/match_count.py).  That kernel holds a [128, m] query
 // block and a [256, m] data block in VMEM and folds m eight columns at a time
 // on the vector unit; its wrapper pads Q and N up to the tile with -2 / -1
-// sentinels.  Here the tile of eq_tile.cuh does the work: a thread block owns
-// one [128, 128] tile of the output, walks m in chunks staged through shared
-// memory, and every thread keeps an 8 x 8 register micro-tile of int32
-// accumulators.  Ragged edges are masked in the kernel, so nothing is padded
-// or copied and the output is exactly [Q, N].
+// sentinels.  Here the equality tile of eq_tile.cuh (count_eq_tile) does the
+// work: a block of 512 threads owns one [128, 128] tile of the output and
+// walks m in chunks of 32 columns staged through shared memory.  Ragged edges
+// are masked in the kernel, so nothing is padded or copied and the output is
+// exactly [Q, N].
 //
-// What bounds it on an H100: integer ALU throughput, not memory (eq_tile.cuh
-// counts it).  Measured on an H100 (700 W) at Q=1024, N=281250, m=238:
-// 4.8e12 compare-accumulates a second while moving 100 GB/s, 3 % of the
-// memory rate -- so it is the integer instruction rate that binds, as
-// expected.  Times are in PERF.md.
+// What bounds it on an H100: the instruction pipes (eq_tile.cuh counts them).
+// A compare-and-add on int32 takes three instructions of the 64-lane integer
+// pipe, ~21 pairs per SM-clock at best.  A chunk whose ids all lie in
+// [0, 31744) -- every bucket id the LSH schemes produce, 8192 buckets by
+// default -- is compared as float16 lanes instead: two columns per HSET2 and
+// one HADD2, exact because those bit patterns are distinct finite float16
+// values, ~86 pairs per SM-clock at best.  Any other chunk takes the general
+// path in the same kernel (one ISETP, an HADD2 and a predicated move per
+// pair), exact for every int32.  Times and SASS counts are in PERF.md.
 #include <cuda_runtime.h>
 
 #include "eq_tile.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(repro::eq_tile::THREADS)
+// two blocks per SM (at most 64 registers a thread): one block stages its
+// chunk while the other counts
+__global__ void __launch_bounds__(repro::eq_tile::eq::THREADS, 2)
 match_count_kernel(const int* __restrict__ data, const int* __restrict__ query,
                    int* __restrict__ out, long long n_data, int n_query, int m,
                    int n_qtiles) {
-  repro::eq_tile::count_tile<repro::eq_tile::IntColumns>(data, query, out, n_data,
-                                                         n_query, m, n_qtiles);
+  repro::eq_tile::count_eq_tile(data, query, out, n_data, n_query, m, n_qtiles);
 }
 
 }  // namespace
@@ -40,6 +45,6 @@ match_count_kernel(const int* __restrict__ data, const int* __restrict__ query,
 extern "C" int repro_match_count(const void* data, const void* query, void* out,
                                  long long n_data, int n_query, int m,
                                  void* stream) {
-  return repro::eq_tile::launch<repro::eq_tile::IntColumns>(
-      match_count_kernel, data, query, out, n_data, n_query, m, stream);
+  return repro::eq_tile::launch_eq(match_count_kernel, data, query, out, n_data, n_query, m,
+                                stream);
 }

@@ -7,25 +7,28 @@
 // kernel only because FLASH-scale sketches (thousands of minhash functions)
 // do not fit VMEM: it makes m a third, accumulating grid axis with 512-column
 // slabs, and its wrapper pads Q, N and m with -2 / -1 sentinels.  On Hopper
-// the EQ tile (eq_tile.cuh) already streams m through shared memory 32
-// columns at a time, so the same tile serves any m; this file gives it its own
-// kernel name, so that a profile and the launch counts tell the two engines
-// apart.  Edges are masked in the kernel: no sentinel reaches it.
+// the equality tile of eq_tile.cuh (count_eq_tile) already streams m through
+// shared memory 32 columns at a time, so the same tile serves any m; this
+// file gives it its own kernel name, so that a profile and the launch counts
+// tell the two engines apart.  Edges are masked in the kernel: no sentinel
+// reaches it.
 //
-// What bounds it on an H100: integer ALU throughput (m compares and m adds per
-// output element, eq_tile.cuh), exactly as for the EQ kernel.
+// What bounds it on an H100: the float16 pipe, exactly as for the EQ kernel.
+// Minhash bucket ids lie in [0, n_buckets), far below 31744, so every chunk
+// takes the float16 path (one HSET2 and one HADD2 per two columns); the lanes
+// are added into int32 every 4096 columns, so FLASH-scale m stays exact.  Ids
+// outside [0, 31744) take the general path of the same kernel (eq_tile.cuh).
 #include <cuda_runtime.h>
 
 #include "eq_tile.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(repro::eq_tile::THREADS)
+__global__ void __launch_bounds__(repro::eq_tile::eq::THREADS, 2)
 tanimoto_count_kernel(const int* __restrict__ data,
                       const int* __restrict__ query, int* __restrict__ out,
                       long long n_data, int n_query, int m, int n_qtiles) {
-  repro::eq_tile::count_tile<repro::eq_tile::IntColumns>(data, query, out, n_data,
-                                                         n_query, m, n_qtiles);
+  repro::eq_tile::count_eq_tile(data, query, out, n_data, n_query, m, n_qtiles);
 }
 
 }  // namespace
@@ -37,6 +40,6 @@ tanimoto_count_kernel(const int* __restrict__ data,
 extern "C" int repro_tanimoto_count(const void* data, const void* query,
                                     void* out, long long n_data, int n_query,
                                     int m, void* stream) {
-  return repro::eq_tile::launch<repro::eq_tile::IntColumns>(
-      tanimoto_count_kernel, data, query, out, n_data, n_query, m, stream);
+  return repro::eq_tile::launch_eq(tanimoto_count_kernel, data, query, out, n_data, n_query,
+                                m, stream);
 }

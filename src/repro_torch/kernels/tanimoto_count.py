@@ -6,9 +6,13 @@ and its plain PyTorch version.
 Replaces the TPU kernel `_tanimoto_kernel` / `tanimoto_count_pallas`
 (`src/repro/kernels/tanimoto_count.py`), which streams the signature axis m
 through a third grid axis because FLASH-scale sketches do not fit VMEM.  The
-kernel is `csrc/tanimoto_count.cu`: the EQ kernel's tile (`csrc/eq_tile.cuh`)
-already streams m through shared memory, so it serves any m; the header says
-what bounds it on an H100.
+kernel is `csrc/tanimoto_count.cu`: the equality tile of `csrc/eq_tile.cuh`
+(the EQ kernel's) already streams m through shared memory, so it serves any
+m.  Minhash bucket ids lie in [0, n_buckets), below 31744, so every chunk is
+compared as float16 lanes, two columns per HSET2, exact because those int16
+bit patterns are distinct finite float16 values; the lanes are added into
+int32 every 4096 columns, so FLASH-scale m stays exact.  Ids outside that
+range take the tile's general int32 path in the same launch.
 
 `tanimoto_count` launches the kernel for CUDA tensors and raises when it
 cannot; it takes `tanimoto_count_plain` only for tensors that lie on the CPU.

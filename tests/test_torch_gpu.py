@@ -309,3 +309,58 @@ def test_packed_tanimoto_topk_across_count_widths_on_the_card():
     torch.cuda.synchronize()
     assert common.launch_counts() == {"packed_tanimoto_topk": len(cases) + 3,
                                       "packed_tanimoto_count": 3}
+
+
+# The equality tile of match_count and tanimoto_count: ids in [0, 31744) take
+# its float16 path, a 32-column chunk holding any other id its general path.
+LANE_END = 0x7C00
+LANE_POOL = [0, 1, 1023, 1024, 2048, 2049, 8191, 31742, 31743]
+GENERAL_POOL = [-2**31, -2**31 + 1, -1, 31744, 31745, 65535, 65536, 2**31 - 1]
+
+
+def _eq_ids(rng, rows, m, kind):
+    """int32 ids from a pool of 16: 'lanes' in [0, 31744), 'mixed' the same
+    with one general-path id in one row of every third chunk from the second
+    on, 'int32' from the whole int32 range."""
+    if kind == "int32":
+        pool = GENERAL_POOL + rng.integers(-2**31, 2**31 - 1, size=8).tolist()
+    else:
+        pool = LANE_POOL + rng.integers(0, LANE_END, size=16 - len(LANE_POOL)).tolist()
+    ids = np.asarray(pool, dtype=np.int64)[rng.integers(0, len(pool), size=(rows, m))]
+    if kind == "mixed":
+        for chunk in range(1, -(-m // 32), 3):
+            col = 32 * chunk + chunk % min(32, m - 32 * chunk)
+            ids[rng.integers(0, rows), col] = GENERAL_POOL[chunk % len(GENERAL_POOL)]
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+@pytest.mark.gpu
+def test_equality_tile_both_paths_and_their_borders_on_the_card():
+    _need_card()
+    rng = np.random.default_rng(7)
+    kernels = ((ops.match_count, match_count_plain), (ops.tanimoto_count, tanimoto_count_plain))
+    common.reset_launch_counts()
+    shapes = [(1, 5, 3), (7, 129, 1), (5, 133, 2), (9, 1001, 63), (70, 10003, 238),
+              (3, 301, 4095), (5, 257, 4096), (2, 130, 4097), (3, 131, 8193)]
+    for q, n, m in shapes:
+        for kind in ("lanes", "mixed", "int32"):
+            d, s = _eq_ids(rng, n, m, kind).cuda(), _eq_ids(rng, q, m, kind).cuda()
+            s[0] = d[min(1, n - 1)]
+            for kernel, plain in kernels:
+                assert torch.equal(kernel(d, s), plain(d, s)), (q, n, m, kind)
+    # the premise of the float16 path: ids 0..31743 against themselves count
+    # m on the diagonal and 0 elsewhere, subnormals included
+    ids = torch.arange(LANE_END, dtype=torch.int32, device="cuda")
+    for m, rows in ((1, ids[:, None]), (2, torch.stack([ids, LANE_END - 1 - ids], 1))):
+        rows = rows.contiguous()
+        for kernel, _ in kernels:
+            got = kernel(rows, rows)
+            assert bool((got.diagonal() == m).all())
+            assert int(got.sum(dtype=torch.int64)) == m * LANE_END and int(got.min()) == 0
+            del got
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"match_count": 27 + 2, "tanimoto_count": 27 + 2}
+    with pytest.raises(ValueError):
+        ops.match_count(d, s[:, :-1])              # row widths differ
+    with pytest.raises(ValueError):
+        match_count(d[:, ::2], s[:, ::2])          # not contiguous: the wrapper raises

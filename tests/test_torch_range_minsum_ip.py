@@ -269,7 +269,8 @@ def test_kernel_sources_share_the_tiles():
     assert "cp.async.bulk.tensor" in mma and "fence.proxy.async" in mma   # the two loaders
     assert not (build.CSRC_DIR / "dp4a_tile.cuh").exists()
     tile = (build.CSRC_DIR / "eq_tile.cuh").read_text()
-    assert re.search(r"struct MinColumns : IntColumns", tile)
+    min_columns = re.search(r"struct MinColumns \{(.*?)\n\};", tile, re.S).group(1)
+    assert "stage_columns<KS>" in min_columns and "return min(a, b);" in min_columns
     assert "make_int2(1, 0)" in tile                     # rows past Q: the empty range
 
 

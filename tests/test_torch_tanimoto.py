@@ -124,16 +124,18 @@ def test_wrappers_refuse_what_no_kernel_takes(rng):
 
 def test_tile_headers_and_sources_are_what_the_build_sees():
     """The wrapper's TILE_N is the fused kernel's K_TN; the three equality
-    count kernels share one tile header, each through its own layout policy;
+    count kernels share one tile header: EQ and TANIMOTO WIDE its equality
+    tile, packed TANIMOTO its templated tile through the byte-lane policy;
     both fused kernels include the selection header."""
     src = (build.CSRC_DIR / "packed_tanimoto.cu").read_text()
     assert int(re.search(r"constexpr int K_TN = (\d+);", src).group(1)) == TILE_N
     assert '#include "local_topk.cuh"' in src
-    for name, policy in (("match_count.cu", "IntColumns"), ("tanimoto_count.cu", "IntColumns"),
-                         ("packed_tanimoto.cu", "ByteLanes")):
+    for name, body in (("match_count.cu", "eq_tile::count_eq_tile("),
+                       ("tanimoto_count.cu", "eq_tile::count_eq_tile("),
+                       ("packed_tanimoto.cu", "count_tile<ByteLanes>")):
         text = (build.CSRC_DIR / name).read_text()
         assert '#include "eq_tile.cuh"' in text
-        assert f"count_tile<{policy}>" in text or f"count_tile<repro::eq_tile::{policy}>" in text
+        assert body in text
     assert [p.name for p in build.headers()] == ["eq_tile.cuh", "local_topk.cuh",
                                                  "s8_mma_tile.cuh"]
     # the byte-lane compare: the data and query pads are the reference's sentinels
