@@ -17,12 +17,18 @@ as a phase fails:
      the same with one general-path id in some chunks; full-range int32 --
      at m odd and m = 4095 to 8193 around the tile's 4096-column flush, and
      ids 0..31743 against themselves, m = 1 and 2, which must count m times
-     the identity), cpq_hist,
-     cosine_count (with zero rows), packed_cosine_count (V from 1 to 513),
-     and packed_cosine_topk (k from 1 to above the tile, N not a multiple of
-     the tile, N < k, all-equal rows, a width whose bins need device
-     scratch), whose buffers reduced by topk_from_candidates must also equal
-     a sort of the counts; 2c. the three TANIMOTO kernels the same way:
+     the identity), cpq_hist (1 to 58,112 bins -- 453 / 454 on either side
+     of its per-thread counters --, whole rows and chunked rows, Q = 1 with
+     N = 1,000,003, odd N, a row of 16.8 M counts past one flush of its
+     16-bit counters, skewed counts with -1 and past-max_count entries, every
+     entry in one bin), cosine_count (with zero rows), packed_cosine_count
+     (V from 1 to 513), and packed_cosine_topk (k from 1 to above the tile, N
+     not a multiple of the tile, N < k, all-equal rows; W = 1, 7, 8, 9 on its
+     one-byte count tile, 10, 15, 16, 17, 170 on its two-byte one, bins in
+     device scratch from 16; rows near the complement of a query, so that
+     fewer than kc rows of a tile count above the one-byte tile's collapsed
+     end and the kernel recounts), whose buffers reduced by
+     topk_from_candidates must also equal a sort of the counts; 2c. the three TANIMOTO kernels the same way:
      tanimoto_count (m from 1 to 8193, the same value classes and identity
      check as match_count), packed_tanimoto_count (bucket ids 0 to
      253, m from 1 to 4099) and packed_tanimoto_topk (k from 1 to above the
@@ -84,14 +90,16 @@ as a phase fails:
      pair, by opcode and pipe, on each path of the equality tile), the SM
      clock while it runs, the pairs per SM-clock and the issue floor, and its
      time on full-range int32 ids (the general path); 5b. the same for the
-     three COSINE kernels; 5c. the same for the three TANIMOTO kernels (with
+     three COSINE kernels, with packed_cosine_topk's popcount floor at the
+     SM clock read while it runs; 5c. the same for the three TANIMOTO kernels (with
      the word-pair rates, and tanimoto_count's SASS and clock as for
      match_count), and tanimoto_count at m = 4096; 5d. the same for range_count, minsum_count and ip_count:
      minsum_count as the whole call against the bytes the function must
      move, its conversion kernels (minsum_nnz, minsum_csr) and its count
      kernel timed alone, a dense segment of DBLP's shape through the sparse
      kernel and the dense tile, and the share of non-zero entries where the
-     wrapper switches between them.  5b and 5d log the loader that
+     wrapper switches between them; and cpq_hist on the real counts of the
+     Adult, DBLP and Tweets segments.  5b and 5d log the loader that
      cosine_count and ip_count take at their per-segment shapes.
 
 It needs one CUDA device and no network, and imports neither jax nor the JAX
@@ -134,8 +142,6 @@ N_SEARCHES = 4
 SEED = 0
 
 MATCH_SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (70, 100003, 238)]
-HIST_SHAPES = [(1, 5), (8, 300), (70, 100003)]
-HIST_MAX_COUNTS = [3, 64, 238]
 # (Q, N, V) for the COSINE kernels; the packed count also runs the extra
 # widths, so that V covers 1, 31, 33, 95, 238 and 513 (W = 1 .. 17)
 COSINE_SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (2, 90, 33),
@@ -143,12 +149,30 @@ COSINE_SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (2, 90, 33
 PACKED_EXTRA_SHAPES = [(3, 70, 1), (6, 4099, 31), (9, 2500, 95)]
 # (Q, N, V, k) for the fused top-k: k in {1, 3, 10, 100} and one k above the
 # tile, N not a multiple of the tile, N < k (once with k above the tile: the
-# executor fills the missing slots), W = 1, 8, 17 and a width whose
-# histogram bins live in device scratch (W = 170 > 161)
+# executor fills the missing slots), Q past one and two 64-row items; W = 1,
+# 7 (the widest one-byte tile that keeps every count), 8 and 9 (one-byte
+# tiles whose counts <= 32W - 254 are stored as 0), 10 (the first two-byte
+# tile), 15 / 16 (the last with its bins in shared memory, the first with
+# them in device scratch), 17 and 170
 TOPK_CASES = [(5, 5000, 238, 1), (7, 5000, 238, 3), (33, 9000, 238, 10),
               (70, 100003, 238, 100), (4, 7000, 238, 2500), (3, 50, 238, 100),
-              (2, 50, 238, 3000), (6, 3000, 1, 10), (9, 4500, 513, 100),
-              (3, 2100, 5440, 10)]
+              (2, 50, 238, 3000), (6, 3000, 1, 10), (130, 4500, 224, 100),
+              (65, 4500, 288, 7), (3, 2100, 289, 100), (5, 2100, 480, 10),
+              (5, 2100, 481, 10), (9, 4500, 513, 100), (3, 2100, 5440, 10)]
+# (Q, N, V, k) run on rows near the complement of the queries (near_complement:
+# counts at and just below the one-byte tile's collapsed end 32W - 254), so
+# that fewer than kc rows of a tile clear it and the kernel recounts
+# collapsed entries; W = 8 and 9 on the one-byte tile, 10 on the two-byte one
+COMPLEMENT_CASES = [(3, 5000, 238, 1), (3, 5000, 238, 100), (3, 5000, 238, 2500),
+                    (2, 4500, 288, 100), (2, 4500, 289, 100)]
+# (Q, N, max_count) for cpq_hist: 1 bin, 4, 65, Adult's 15, 239 (e2lsh / minhash at
+# m = 238), 255, 453 / 454 on either side of the per-thread counters' limit,
+# and MAX_BINS; odd N (rows that start off a 16-byte boundary); whole rows a
+# block where Q fills the card, chunks of a row otherwise (Q = 1, N =
+# 1,000,003); a row of 16.8 M counts (past one flush of the 16-bit counters)
+HIST_CASES = [(1, 5, 0), (1, 5, 3), (8, 300, 64), (70, 100003, 238), (600, 20001, 14),
+              (1, 1_000_003, 14), (1, 1_000_003, 238), (3, 257, 254), (5, 30001, 452),
+              (5, 30001, 453), (2, 10007, 58111), (70, 16_800_001, 238)]
 # (Q, N, m) for the TANIMOTO count kernels, nothing a multiple of a tile
 TANIMOTO_SHAPES = [(1, 5, 1), (3, 130, 3), (8, 300, 17), (70, 100003, 238), (5, 2100, 600),
                    (3, 1500, 4099)]
@@ -346,7 +370,6 @@ def phase_kernel_parity(device: torch.device) -> dict:
     """Bit-exact comparison at odd shapes; returns the worst absolute
     difference seen per kernel (0 when the phase passes)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.cpq_hist import cpq_hist_plain
     from repro_torch.kernels.match_count import match_count_plain
 
     log("== phase 2: kernels against their plain PyTorch versions")
@@ -374,20 +397,40 @@ def phase_kernel_parity(device: torch.device) -> dict:
                   f"match_count differs from its plain version at (Q,N,m)=({q},{n},{m}) "
                   f"{dtype}: max abs err {err}")
         log(f"  match_count (Q,N,m)=({q},{n},{m}) int32+int16: equal")
-    for (q, n), max_count in zip(HIST_SHAPES, HIST_MAX_COUNTS):
-        # values from -1 (the pad mask's fill) to past max_count: neither may
-        # land in a bin
-        c = torch.randint(-1, max_count + 3, (q, n), generator=gen, dtype=torch.int32).to(device)
+    worst["cpq_hist"] = hist_parity(device)
+    return worst
+
+
+def hist_parity(device: torch.device) -> int:
+    """cpq_hist against its plain version at HIST_CASES, bit-exact: counts
+    from -1 (the pad mask's fill) to past max_count, neither of which may land
+    in a bin, skewed so that a third of a row falls in one bin; then every
+    entry in one bin, the last and the first.  Returns the worst error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cpq_hist import cpq_hist_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    worst = 0
+    for q, n, max_count in HIST_CASES:
+        c = torch.randint(-1, max_count + 3, (q, n), generator=gen, device=device,
+                          dtype=torch.int32)
+        c[:, ::3] = max_count // 2
         c[:, ::7] = -1
-        got = ops.cpq_hist(c, max_count)
-        want = cpq_hist_plain(c, max_count)
-        sync(device)
-        err = max_abs_err(got, want)
-        worst["cpq_hist"] = max(worst["cpq_hist"], err)
-        check(got.shape == (q, max_count + 1) and torch.equal(got, want),
-              f"cpq_hist differs from its plain version at (Q,N)=({q},{n}) "
-              f"max_count={max_count}: max abs err {err}")
-        log(f"  cpq_hist (Q,N)=({q},{n}) max_count={max_count} with -1 entries: equal")
+        fills = [("skewed, with -1 and past-max_count entries", c)]
+        if n < 1_000_000:
+            fills += [(f"every entry {v}", torch.full_like(c, v)) for v in {0, max_count}]
+        for what, counts in fills:
+            got = ops.cpq_hist(counts, max_count)
+            want = cpq_hist_plain(counts, max_count)
+            sync(device)
+            err = max_abs_err(got, want)
+            worst = max(worst, err)
+            check(got.shape == (q, max_count + 1) and torch.equal(got, want),
+                  f"cpq_hist differs from its plain version at (Q,N)=({q},{n}) "
+                  f"max_count={max_count}, {what}: max abs err {err}")
+        log(f"  cpq_hist (Q,N)=({q},{n}) bins={max_count + 1}: equal "
+            f"({'; '.join(what for what, _ in fills)})")
+        del c, fills
     return worst
 
 
@@ -515,11 +558,16 @@ def cosine_parity(device: torch.device, gen: torch.Generator) -> dict:
               f"packed_cosine_count differs from its plain version at (Q,N,V)="
               f"({q},{n},{v}): max abs err {err}")
         log(f"  packed_cosine_count (Q,N,V)=({q},{n},{v}) W={dw.shape[1]}: equal")
-    cases = [(q, n, v, k, False) for q, n, v, k in TOPK_CASES] + [(2, 3000, 64, 5, True)]
-    for q, n, v, k, all_equal in cases:
+    cases = ([(q, n, v, k, "random") for q, n, v, k in TOPK_CASES] + [(2, 3000, 64, 5, "equal")]
+             + [(q, n, v, k, "complement") for q, n, v, k in COMPLEMENT_CASES])
+    for q, n, v, k, kind in cases:
+        all_equal = kind == "equal"
         if all_equal:                      # identical rows: the lowest ids must come out
             dw = packing.pack_signs_data(torch.ones((n, v), dtype=torch.int8, device=device))
             sw = packing.pack_signs_queries(torch.ones((q, v), dtype=torch.int8, device=device))
+        elif kind == "complement":
+            d, s = near_complement(gen, q, n, v, device)
+            dw, sw = packing.pack_signs_data(d), packing.pack_signs_queries(s)
         else:
             dw = packing.pack_signs_data(_signs(gen, n, v, device))
             sw = packing.pack_signs_queries(_signs(gen, q, v, device))
@@ -541,8 +589,30 @@ def cosine_parity(device: torch.device, gen: torch.Generator) -> dict:
         if all_equal:
             check(got_ids.tolist() == [list(range(k))] * q, "all-equal rows: not the lowest ids")
         log(f"  packed_cosine_topk (Q,N,V,k)=({q},{n},{v},{k}) W={dw.shape[1]} tile={TILE_N}"
-            f"{' all-equal rows' if all_equal else ''}: buffers equal, merged == sort")
+            f" {kind} rows: buffers equal, merged == sort")
     return worst
+
+
+def near_complement(gen: torch.Generator, q: int, n: int, v: int, device: torch.device):
+    """(data [n, v], queries [q, v]) signs for COMPLEMENT_CASES: data row r is
+    the complement of query 0 with L - 4 + r % 5 signs flipped back, where L
+    = max(0, 32W - 254) is the one-byte tile's collapsed end (so its count
+    with query 0 is L - 4 .. L), L + 1 of them in every 97th row; every 37th
+    row is random, so fewer than 100 rows of a tile count above L; query 1
+    is the complement of data row 3, any further query random."""
+    w = -(-v // 32)
+    low = max(0, 32 * w - 254)
+    s = _signs(gen, q, v, torch.device("cpu"))
+    d = (-s[0]).repeat(n, 1)
+    rows = torch.arange(n)
+    flips = torch.where(rows % 97 == 1, low + 1, low - 4 + rows % 5)
+    cols = torch.argsort(torch.rand((n, v), generator=gen), dim=1)
+    flip = torch.arange(v)[None, :] < flips.clamp(min=0)[:, None]
+    d.scatter_(1, cols, torch.where(flip, -d.gather(1, cols), d.gather(1, cols)))
+    d[::37] = _signs(gen, len(range(0, n, 37)), v, torch.device("cpu"))
+    if q > 1:
+        s[1] = -d[3]
+    return d.to(device), s.to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -941,6 +1011,7 @@ SASS_PIPES = {"ISETP": "int", "IADD3": "int", "SEL": "int", "LOP3": "int", "IMNM
               "HADD2": "fp16x2", "HFMA2": "fp16x2", "FADD": "fp32", "FFMA": "fp32",
               "FSEL": "fp32", "IMAD": "imad", "LDS": "mio", "STS": "mio"}
 SLOTS_PER_SM_CLOCK = 128
+POPC_PER_SM_CLOCK = 16
 INT_LANES_PER_SM = 64
 SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -1007,33 +1078,45 @@ def log_sass_bodies(kernel: str, bodies: list) -> None:
             f"{b['int_pipe_pairs_per_sm_clock']} by the int pipe")
 
 
-def sm_clock_mhz(fn, ms_each: float, device: torch.device, seconds: float = 3.0):
-    """The median SM clock (MHz, `nvidia-smi --query-gpu=clocks.sm`) while
-    `fn` runs back to back on the card for about `seconds`; None when no
-    sample was taken while the card was still busy."""
-    reps = max(2, int(seconds * 1e3 / max(ms_each, 1e-3)))
-    for _ in range(reps):
-        fn()
-    done = torch.cuda.Event()
-    done.record()
+def sm_clock_mhz(fn, device: torch.device, seconds: float = 3.0):
+    """The median SM clock (MHz, `nvidia-smi --query-gpu=clocks.sm` every 100
+    ms) while `fn` runs back to back on the card for about `seconds`: the
+    sampler starts first, and only its samples from 0.2 s after the first
+    call to the moment the card has run the last one count; None when there
+    is none."""
+    import threading
+
     proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
                              "-lms", "100"], stdout=subprocess.PIPE,
                             stderr=subprocess.DEVNULL, text=True)
     samples = []
-    try:
+    started = threading.Event()
+
+    def read():
         for line in proc.stdout:
-            if done.query():
-                break
             if line.strip().isdigit():
-                samples.append(float(line))
-            if len(samples) >= 8:
-                break
-        busy = not done.query()
+                samples.append((time.perf_counter(), float(line)))
+                started.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        started.wait(timeout=15)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+        done = torch.cuda.Event()
+        done.record()
+        while not done.query():
+            time.sleep(0.01)
+        t1 = time.perf_counter()
     finally:
         proc.terminate()
         proc.communicate(timeout=30)
+        reader.join(timeout=30)
     sync(device)
-    return statistics.median(samples) if samples and busy else None
+    busy = [mhz for at, mhz in samples if t0 + 0.2 <= at <= t1]
+    return statistics.median(busy) if busy else None
 
 
 def pairs_per_sm_clock(pairs: float, ms: float, clock_mhz) -> float | None:
@@ -1073,7 +1156,7 @@ def eq_tile_trace(name: str, fn, ms: float, pairs: int, device: torch.device) ->
 
     bodies = sass_count_bodies(build.sass(), f"{name}_kernel")
     log_sass_bodies(f"{name}_kernel", bodies)
-    clock = sm_clock_mhz(fn, ms, device)
+    clock = sm_clock_mhz(fn, device)
     rate = pairs_per_sm_clock(pairs, ms, clock)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     floor = pairs / (SLOTS_PER_SM_CLOCK * sms * clock * 1e6) * 1e3 if clock else None
@@ -1103,7 +1186,7 @@ def eq_general_path(shape: tuple, q: int, device: torch.device) -> None:
     check(torch.equal(got, want), "match_count differs on full-range int32 ids at the "
                                   "per-segment shape")
     del want
-    clock = sm_clock_mhz(lambda: ops.match_count(d, s), ms, device)
+    clock = sm_clock_mhz(lambda: ops.match_count(d, s), device)
     log(f"  match_count on full-range int32 ids (general path) Q={q} N={n} m={m}: {ms:.4f} ms, "
         f"equal to its plain version; SM clock {clock} MHz; "
         f"{pairs_per_sm_clock(q * n * m, ms, clock)} pairs per SM-clock")
@@ -1152,7 +1235,8 @@ def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
     match_ops = 2 * q * n * m                          # one compare and one add per pair and column
     bound_bytes, bound_ops = match_bytes / PEAK_BYTES_PER_S * 1e3, match_ops / PEAK_ALU_OPS_PER_S * 1e3
 
-    ms_hist, hist = timed_ms(lambda: ops.cpq_hist(counts, max_count), device, reps=5, warmup=1)
+    ms_hist, hist = timed_ms(lambda: ops.cpq_hist(counts, max_count), device, reps=10, warmup=1,
+                             hold=True)
     plain_hist, hist_plain = timed_ms(lambda: cpq_hist_plain(counts, max_count), device,
                                       reps=1, warmup=1)
     err_hist = max(parity_err["cpq_hist"], max_abs_err(hist, hist_plain))
@@ -1276,6 +1360,12 @@ def phase_cosine_kernel_times(simhash: dict, launches_count: int, parity_err: di
     tb_bytes, tb_ops = tk_bytes / PEAK_BYTES_PER_S * 1e3, tk_ops / PEAK_ALU_OPS_PER_S * 1e3
     log(f"  packed_cosine_topk buffers [{q}, {slots}] x2 = {2 * q * slots * 4 / 1e6:.1f} MB; "
         f"reducing them with topk_from_candidates: {merge_ms:.3f} ms")
+    clock = sm_clock_mhz(lambda: ops.packed_cosine_topk(d_words, q_words, k=k), device)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = q * n * w / (POPC_PER_SM_CLOCK * sms * clock * 1e6) * 1e3 if clock else None
+    log(f"  packed_cosine_topk: popcount floor {floor} ms (Q*N*W = {q * n * w:.4g} word pairs, "
+        f"{POPC_PER_SM_CLOCK} popcounts per SM-clock on {sms} SMs at the {clock} MHz read while "
+        f"it runs); the kernel takes {ms_tk / floor if floor else float('nan'):.2f}x it")
 
     kernels = [
         kernel_entry("cosine_count", "src/repro_torch/kernels/csrc/cosine_count.cu",
@@ -1527,7 +1617,7 @@ def phase_tanimoto_kernel_times(minhash: dict, launches_count: int, parity_err: 
     plain_f, counts_fp = timed_ms(lambda: tanimoto_count_plain(d_f, q_f), device, reps=1)
     check(torch.equal(counts_f, counts_fp), "tanimoto_count differs at m = 4096")
     f_ops = 2 * q * flash_n * flash_m
-    clock_f = sm_clock_mhz(lambda: ops.tanimoto_count(d_f, q_f), ms_f, device)
+    clock_f = sm_clock_mhz(lambda: ops.tanimoto_count(d_f, q_f), device)
     log(f"  tanimoto_count at m={flash_m}: SM clock {clock_f} MHz; "
         f"{pairs_per_sm_clock(q * flash_n * flash_m, ms_f, clock_f)} pairs per SM-clock")
     log(f"  tanimoto_count at Q={q} N={flash_n} m={flash_m}: {ms_f:.3f} ms; bound "
@@ -1984,6 +2074,28 @@ def _kernel_and_plain(name: str, kernel, plain, parity_err: dict, device: torch.
     return ms, plain_ms, got, max(parity_err[name], max_abs_err(got, want))
 
 
+def hist_at_segment(label: str, counts: torch.Tensor, max_count: int,
+                    device: torch.device) -> None:
+    """Phase 5d: cpq_hist on a path's real counts at its per-segment shape --
+    on the device alone over 10 calls behind a hold, beside its plain version
+    and its bytes bound, bit-equal; the share of the four largest bins says
+    how skewed the counts are."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cpq_hist import cpq_hist_plain
+
+    q, n = counts.shape
+    ms, got = timed_ms(lambda: ops.cpq_hist(counts, max_count), device, reps=10, warmup=1,
+                       hold=True)
+    plain, want = timed_ms(lambda: cpq_hist_plain(counts, max_count), device, reps=1, warmup=1)
+    check(torch.equal(got, want), f"cpq_hist differs on the {label} segment's counts")
+    bound = (q * n + q * (max_count + 1)) * 4 / PEAK_BYTES_PER_S * 1e3
+    top4 = float(want.sum(0).double().topk(min(4, max_count + 1)).values.sum() / (q * n))
+    log(f"  cpq_hist on the {label} segment's counts (Q={q} N={n} bins={max_count + 1}, "
+        f"{100 * top4:.1f}% of them in the four largest bins): {ms:.4f} ms; bytes bound "
+        f"{bound:.4f} ms ({100 * bound / ms:.1f}% of it), {q * n * 4 / (ms / 1e3) / 1e9:.1f} "
+        f"GB/s; plain {plain:.1f} ms; equal")
+
+
 def range_kernel_times(adult: dict, parity_err: dict, device: torch.device) -> dict:
     """Phase 5d, RANGE: range_count at the per-segment shape of phase 4d (no
     one PyTorch call counts per-attribute interval hits: no library_ms)."""
@@ -1995,11 +2107,12 @@ def range_kernel_times(adult: dict, parity_err: dict, device: torch.device) -> d
     n, d = x.shape
     q = lo.shape[0]
     log(f"== phase 5d: range_count at the per-segment shape Q={q} N={n} d={d}")
-    ms, plain, _, err = _kernel_and_plain(
+    ms, plain, counts, err = _kernel_and_plain(
         "range_count", lambda: ops.range_count(x, lo, hi), lambda: range_count_plain(x, lo, hi),
         parity_err, device)
     log(f"  range_count {q * n * d / (ms / 1e3) / 1e12:.3f} T interval tests/s, "
         f"{q * n * 4 / (ms / 1e3) / 1e9:.1f} GB/s of counts written")
+    hist_at_segment("Adult", counts, adult["index"].max_count, device)
     return sa_entry("range_count", "src/repro/kernels/range_count.py:51", adult, err, ms, plain,
                      (n * d + 2 * q * d + q * n) * 4, 3 * q * n * d, PEAK_ALU_OPS_PER_S, None)
 
@@ -2025,6 +2138,7 @@ def minsum_kernel_times(dblp: dict, parity_err: dict, device: torch.device) -> l
     ms_fn, plain, counts, err = _kernel_and_plain(
         "minsum_count", lambda: ops.minsum_count(dc, qc), lambda: ms.minsum_count_plain(dc, qc),
         parity_err, device)
+    hist_at_segment("DBLP", counts, dblp["index"].max_count, device)
     # min(a, b) = (a + b - |a - b|) / 2: exact in float32 for these counts
     qf, df = qc.float(), dc.float()
     try:
@@ -2129,6 +2243,7 @@ def ip_kernel_times(tweets: dict, parity_err: dict, device: torch.device) -> dic
     ms, plain, dots, err = _kernel_and_plain(
         "ip_count", lambda: ops.ip_count(db, qb), lambda: ip_count_plain(db, qb),
         parity_err, device)
+    hist_at_segment("Tweets", dots, tweets["index"].max_count, device)
     b = torch.zeros((-(-n // 8) * 8, v), dtype=torch.int8, device=device)
     b[:n] = db
     try:

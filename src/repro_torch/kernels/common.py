@@ -14,7 +14,7 @@ kernels mask their ragged edges themselves, so `pad_to` / `pick_tile` and the
     `csrc/eq_tile.cuh`; cosine_count, ip_count on the int8 tensor-core tile
     of `csrc/s8_mma_tile.cuh`, whose loader `dot_tile_loader` reports); and
     `launch_fused_topk` with its plain selection `local_topk_plain` for the
-    fused match -> count -> per-tile top-k kernels on `csrc/local_topk.cuh`
+    fused match -> count -> per-tile top-k kernels of `csrc/fused_topk.cuh`
     (packed_cosine_topk, packed_tanimoto_topk).
 """
 from __future__ import annotations
@@ -150,7 +150,7 @@ def launch_fused_topk(name: str, data: torch.Tensor, query: torch.Tensor,
 
 def local_topk_plain(counts: torch.Tensor, k: int,
                      tile_n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The per-tile selection of the fused kernels (`csrc/local_topk.cuh`)
+    """The per-tile selection of the fused kernels (`csrc/fused_topk.cuh`)
     done the plain way, on a full count matrix [Q, N]: cut into tiles of
     `tile_n` ids (the last one filled with count -1), each tile ordered by a
     stable descending sort of its counts (ids ascending within equal counts)

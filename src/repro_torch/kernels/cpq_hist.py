@@ -45,9 +45,11 @@ def cpq_hist(counts: torch.Tensor, max_count: int) -> torch.Tensor:
             f"holds 1..{MAX_BINS} in shared memory"
         )
     q, n = counts.shape
-    hist = torch.zeros((q, nbins), dtype=torch.int32, device=device)
     if q == 0 or n == 0:
-        return hist
+        return torch.zeros((q, nbins), dtype=torch.int32, device=device)
+    # the kernel writes every bin (and zeroes the output itself where it cuts
+    # rows into chunks)
+    hist = torch.empty((q, nbins), dtype=torch.int32, device=device)
     lib = build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream

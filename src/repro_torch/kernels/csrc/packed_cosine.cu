@@ -18,27 +18,32 @@
 //
 // 2. `repro_packed_cosine_topk` replaces `_topk_kernel` +
 //    `local_topk_tile`: match -> count -> per-tile top-kc in one kernel, so the
-//    [Q, N] count matrix is never written.  A block takes TQ = 8 query rows
-//    and a tile of TN = 2048 data rows (TN is this port's choice: only the
-//    result after topk_from_candidates has to equal the reference, and the
-//    candidate buffers shrink with TN -- 113 MB per segment at Q=1024,
-//    N=281250, k=100, against 900 MB at the TPU's 256).  Its 256 threads
-//    count the tile into shared memory, each thread owning 8 data rows whose
-//    words it reads once per word chunk against the staged query words; then
-//    warp i selects the top kc = min(k, TN) of query row i by counting
-//    (local_topk.cuh) and writes only its kc slots of the ids / counts
-//    buffers, int32 [Q, ceil(N/TN) * kc].  Data rows past N enter as -1 and
-//    never reach a slot.  The blocks are persistent (about as many as fit on
-//    the card) and walk the (query tile, data tile) items with query tiles
-//    fastest, so the blocks in flight share a data tile in L2.  The
-//    histogram of a row has 32*W + 1 bins; a warp's bins live in shared
-//    memory, or, for widths whose bins do not fit there (W > 161), in a
-//    device scratch buffer the wrapper allocates.
-//    What bounds it on an H100: the same 2.3e9 xor+popc+add and the selection
-//    passes, against only the candidate buffers' bytes.
+//    [Q, N] count matrix is never written.  It is the fused kernel of
+//    fused_topk.cuh (shared with packed_tanimoto_topk; its header says how an
+//    item is counted and selected) with the sign-word policy `SignWords`
+//    below: a word pair adds popc(q ^ d) disagreements, and a count is 32*W
+//    minus their sum.  Rows are int32 words, so a 4-word group is one 16-byte
+//    load where W is a multiple of 4 and the pointers are 16-byte aligned.
+//    Counts lie in [0, 32*W], 32*W + 1 bins a row.  While W <= 9 the item is
+//    64 query rows over a one-byte count tile with the rows' bins beside it
+//    in shared memory; from W = 8 on the counts outgrow a byte, so the tile
+//    keeps the top 254 counts exactly and stores every count <= L = 32*W -
+//    254 as 0, and pass 4 recounts such an entry from device memory in the
+//    rare row whose threshold is <= L (fewer than kc of its tile's 2048 rows
+//    agree on more than L signs).  Above W = 9 the item is 32 query rows over
+//    a two-byte tile (no count collapses below W = 2048), the bins in shared
+//    memory up to W = 15 and in device scratch above.
+//    What bounds it on an H100: the popcount rate, 16 a clock per SM: Q*N*W
+//    = 2.3e9 word pairs at Q=1024, N=281250, W=8 take 0.551 ms at 1980 MHz,
+//    against only the candidate buffers' bytes; the xor and the add go to the
+//    integer pipe beside it.  What the design does about the rest: a data
+//    tile is staged once per 64 query rows, one 16-byte load a thread per
+//    256-row sub-tile at W = 8, and the histograms ride on the count
+//    write-back, so what stays serial per warp is passes 2 to 4 for its four
+//    rows.
 #include <cuda_runtime.h>
 
-#include "local_topk.cuh"
+#include "fused_topk.cuh"
 
 namespace {
 
@@ -120,101 +125,76 @@ packed_cosine_count_kernel(const unsigned* __restrict__ data,
 }
 
 // ---- fused count -> per-tile top-k ---------------------------------------
-constexpr int K_TQ = 8;                       // query rows per item, one per warp
-constexpr int K_TN = 2048;                    // data rows per tile
-constexpr int K_THREADS = 32 * K_TQ;          // 256
-constexpr int K_ROWS = K_TN / K_THREADS;      // data rows per thread
-constexpr int K_WC = 32;                      // query words staged per step
-constexpr int MAX_SMEM = 232448;              // 227 KB: the most a block may ask
-constexpr int FIXED_SMEM = (K_TQ * K_TN + K_TQ * K_WC) * 4;
+using repro::fused_topk::Fused;
+using repro::fused_topk::K_THREADS;
 
-// counts lie in [0, 32*w]
-__host__ __device__ inline int topk_bins(int w) { return 32 * w + 1; }
+// The sign-word match of the fused kernel: int32 words, 32 signs each (data
+// tail bits 0, query tail bits 1, so every tail bit is a disagreement); words
+// past W and rows past the corpus are staged as 0 on both sides, whose pairs
+// add nothing.
+struct SignWords {
+  using Elem = unsigned;
+  static constexpr bool kCollapses = true;   // one-byte counts from W = 8 on
+  int w;                                     // words per row
+  bool vec;                                  // 4-word groups as one 16-byte load
 
-// each warp's histogram in shared memory beside the count tile (w <= 161)
-bool bins_in_shared(int w) {
-  return FIXED_SMEM + (long long)K_TQ * topk_bins(w) * 4 <= MAX_SMEM;
-}
+  __device__ int words() const { return w; }
+  __device__ int row_elems() const { return w; }
+  __device__ int nbins() const { return 32 * w + 1; }
+  __device__ static int pair(unsigned a, unsigned b) { return __popc(a ^ b); }
+  __device__ int count(int disagree) const { return 32 * w - disagree; }
 
-int topk_smem(int w) {
-  return FIXED_SMEM + (bins_in_shared(w) ? K_TQ * topk_bins(w) * 4 : 0);
-}
+  // words [c, c + 4) of `row`
+  __device__ __forceinline__ void load4(const unsigned* __restrict__ src, long long row,
+                                        bool valid, int c, bool, unsigned (&x)[4]) const {
+    const unsigned* __restrict__ p = src + row * w + c;
+    if (valid && vec && c + 4 <= w) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p);
+      x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+      return;
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) x[b] = valid && c + b < w ? p[b] : 0u;
+  }
 
-__global__ void __launch_bounds__(K_THREADS)
+  // the exact count of entry i of the tile, from device memory
+  __device__ __noinline__ int recount(const unsigned* __restrict__ qrow,
+                                      const unsigned* __restrict__ tile, int i) const {
+    const unsigned* __restrict__ d = tile + (long long)i * w;
+    int disagree = 0;
+    for (int c = 0; c < w; ++c) disagree += __popc(qrow[c] ^ d[c]);
+    return 32 * w - disagree;
+  }
+};
+
+// the widest rows whose bins fit beside a one-byte tile of 64 query rows
+// (32*9 + 1 = 289 bins); wider rows take the two-byte tile of 32
+constexpr int MAX_W_ONE_BYTE = 9;
+using CosU8 = Fused<uint8_t, 64, 16>;
+using CosU16 = Fused<uint16_t, 32, 16>;
+
+// one block of 16 warps an SM: at most 128 registers a thread; SCRATCH: the
+// histograms' bins live in device scratch
+template <class F, bool SCRATCH>
+__global__ void __launch_bounds__(K_THREADS, 1)
 packed_cosine_topk_kernel(const unsigned* __restrict__ data,
                           const unsigned* __restrict__ query,
                           int* __restrict__ ids, int* __restrict__ cnts,
                           long long n_data, int n_query, int w, int kc,
                           int n_tiles, int n_qtiles, int n_items,
                           int* __restrict__ hist_scratch) {
-  extern __shared__ int smem[];
-  int* cnt_s = smem;                                    // [K_TQ][K_TN]
-  unsigned* q_s = (unsigned*)(cnt_s + K_TQ * K_TN);     // [K_TQ][K_WC]
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nbins = topk_bins(w);
-  int* hist = hist_scratch
-      ? hist_scratch + ((long long)blockIdx.x * K_TQ + warp) * nbins
-      : (int*)(q_s + K_TQ * K_WC) + warp * nbins;
-  for (int b = lane; b < nbins; b += 32) hist[b] = 0;
-  const int bits_total = 32 * w;
-  const long long slots = (long long)n_tiles * kc;
+  const bool vec = w % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(query)) & 15) == 0;
+  repro::fused_topk::run<SignWords, F, SCRATCH>(SignWords{w, vec}, data, query, ids, cnts,
+                                                n_data, n_query, kc, n_tiles, n_qtiles, n_items,
+                                                hist_scratch);
+}
 
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int q0 = (item % n_qtiles) * K_TQ;
-    const int tile = item / n_qtiles;
-    const long long n0 = (long long)tile * K_TN;
-    __syncthreads();                    // the previous item's selection is done
-
-    for (int w0 = 0; w0 < w; w0 += K_WC) {
-      const int wc = min(K_WC, w - w0);
-      for (int e = threadIdx.x; e < K_TQ * K_WC; e += K_THREADS) {
-        const int i = e / K_WC;
-        const int c = e % K_WC;
-        const int q = q0 + i;
-        q_s[e] = (q < n_query && c < wc) ? query[(long long)q * w + w0 + c] : 0u;
-      }
-      __syncthreads();
-#pragma unroll 1
-      for (int j = 0; j < K_ROWS; ++j) {
-        const int r = threadIdx.x + j * K_THREADS;
-        const long long n = n0 + r;
-        if (n >= n_data) continue;
-        const unsigned* __restrict__ d = data + n * w + w0;
-        int acc[K_TQ];
-#pragma unroll
-        for (int i = 0; i < K_TQ; ++i) acc[i] = 0;
-#pragma unroll 4
-        for (int c = 0; c < wc; ++c) {
-          const unsigned dv = d[c];
-#pragma unroll
-          for (int i = 0; i < K_TQ; ++i) acc[i] += __popc(q_s[i * K_WC + c] ^ dv);
-        }
-#pragma unroll
-        for (int i = 0; i < K_TQ; ++i)
-          cnt_s[i * K_TN + r] = (w0 == 0 ? 0 : cnt_s[i * K_TN + r]) + acc[i];
-      }
-      __syncthreads();                  // q_s is restaged by the next chunk
-    }
-
-    // disagreements -> agreements; rows past the corpus never enter
-#pragma unroll 1
-    for (int j = 0; j < K_ROWS; ++j) {
-      const int r = threadIdx.x + j * K_THREADS;
-      const bool real = n0 + r < n_data;
-#pragma unroll
-      for (int i = 0; i < K_TQ; ++i)
-        cnt_s[i * K_TN + r] = real ? bits_total - cnt_s[i * K_TN + r] : -1;
-    }
-    __syncthreads();
-
-    const int q = q0 + warp;
-    if (q < n_query) {
-      const long long at = (long long)q * slots + (long long)tile * kc;
-      repro::warp_local_topk(cnt_s + warp * K_TN, K_TN, n0, hist, nbins, kc,
-                             ids + at, cnts + at);
-    }
-  }
+// the kernel of shape F for rows of nbins bins
+template <class F>
+auto cosine_kernel(int nbins) {
+  return F::bins_in_shared(nbins) ? packed_cosine_topk_kernel<F, false>
+                                  : packed_cosine_topk_kernel<F, true>;
 }
 
 }  // namespace
@@ -240,34 +220,20 @@ extern "C" int repro_packed_cosine_count(const void* data, const void* query,
 
 // Launch shape of the fused kernel on the current device for words of width
 // w: the number of persistent blocks, and the ints of device scratch the
-// histograms need (0 when they live in shared memory).  Returns a CUDA error
-// code, 0 on success.
+// histograms need -- 0 when they live in shared memory, which they do up to
+// w = 15 (one-byte counts and 64 query rows an item up to w = 9, two bytes
+// and 32 rows above); above w = 15, grid * 32 rows * (32w + 1) ints.  Returns
+// a CUDA error code, 0 on success.
 extern "C" int repro_packed_cosine_topk_plan(long long n_data, int n_query,
                                              int w, int* grid,
                                              long long* scratch_ints) {
-  if (n_data <= 0 || n_query <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = topk_smem(w);
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_cosine_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, packed_cosine_topk_kernel, K_THREADS, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_qtiles = (n_query + K_TQ - 1) / K_TQ;
-  const long long n_tiles = (n_data + K_TN - 1) / K_TN;
-  const long long items = n_qtiles * n_tiles;
-  if (items > 2147483647LL || per_sm < 1) return (int)cudaErrorInvalidValue;
-  const long long fit = (long long)sms * per_sm;
-  *grid = (int)(items < fit ? items : fit);
-  *scratch_ints = bins_in_shared(w)
-      ? 0 : (long long)(*grid) * K_TQ * topk_bins(w);
-  return 0;
+  if (n_data <= 0 || n_query <= 0 || w <= 0 || w > (1 << 25)) return (int)cudaErrorInvalidValue;
+  const int nbins = 32 * w + 1;
+  return w <= MAX_W_ONE_BYTE
+      ? repro::fused_topk::plan<CosU8>(cosine_kernel<CosU8>(nbins), n_data, n_query, nbins,
+                                       grid, scratch_ints)
+      : repro::fused_topk::plan<CosU16>(cosine_kernel<CosU16>(nbins), n_data, n_query, nbins,
+                                        grid, scratch_ints);
 }
 
 // data uint32 words [n_data, w], query [n_query, w]; ids and counts int32
@@ -281,20 +247,15 @@ extern "C" int repro_packed_cosine_topk(const void* data, const void* query,
                                         long long n_data, int n_query, int w,
                                         int kc, int grid, void* scratch,
                                         void* stream) {
-  if (n_data <= 0 || n_query <= 0 || w <= 0 || kc < 1 || kc > K_TN || grid < 1)
+  if (n_data <= 0 || n_query <= 0 || w <= 0 || w > (1 << 25) || kc < 1 ||
+      kc > repro::fused_topk::K_TN || grid < 1)
     return (int)cudaErrorInvalidValue;
-  if (!bins_in_shared(w) && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const long long n_qtiles = (n_query + K_TQ - 1) / K_TQ;
-  const long long n_tiles = (n_data + K_TN - 1) / K_TN;
-  if (n_qtiles * n_tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const int smem = topk_smem(w);
-  cudaError_t err = cudaFuncSetAttribute(
-      packed_cosine_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  packed_cosine_topk_kernel<<<grid, K_THREADS, smem, (cudaStream_t)stream>>>(
-      (const unsigned*)data, (const unsigned*)query, (int*)ids, (int*)counts,
-      n_data, n_query, w, kc, (int)n_tiles, (int)n_qtiles,
-      (int)(n_qtiles * n_tiles), bins_in_shared(w) ? nullptr : (int*)scratch);
-  return (int)cudaGetLastError();
+  const unsigned* d = (const unsigned*)data;
+  const unsigned* q = (const unsigned*)query;
+  const int nbins = 32 * w + 1;
+  return w <= MAX_W_ONE_BYTE
+      ? repro::fused_topk::launch<CosU8>(cosine_kernel<CosU8>(nbins), d, q, ids, counts,
+                                         n_data, n_query, w, nbins, kc, grid, scratch, stream)
+      : repro::fused_topk::launch<CosU16>(cosine_kernel<CosU16>(nbins), d, q, ids, counts,
+                                          n_data, n_query, w, nbins, kc, grid, scratch, stream);
 }

@@ -30,42 +30,28 @@
 //
 // 2. `repro_packed_tanimoto_topk` replaces `_topk_kernel` + `local_topk_tile`:
 //    match -> count -> per-tile top-kc in one kernel, so the [Q, N] count
-//    matrix is never written.  An item is TQ query rows against a tile of
-//    K_TN = 2048 data rows (the port's tile for the fused kernels: the
-//    candidate buffers shrink with it).  The item's [TQ, 2048] counts live in
-//    shared memory, one byte a count while m <= 254 (a count is <= m; 255
-//    marks a data row past the corpus) with TQ = 64, two bytes above with TQ =
-//    32: 128 KB either way.  The tile is counted in sub-tiles of 256 (512)
-//    data rows: m streams 16 words a step (four steps at m = 238), the 512
-//    threads stage the step's words of the sub-tile and of the TQ query rows,
-//    and each thread counts an 8 x 4 register micro-tile (8 query rows x 4
-//    data rows: a staged data word feeds 8 lane counts, a query word 4) with
-//    its accumulators kept across the steps.  A thread stages four words at a time from five
-//    aligned 32-bit loads joined by __funnelshift_r (load_words4), since a
-//    row of m bytes is 4-byte aligned only when m is a multiple of 4.  When a
-//    sub-tile is counted, each thread writes its 32 counts into the tile and
-//    adds them to their query rows' histograms (shared-memory atomics, m + 1
-//    bins a row), so the selection starts from a finished histogram: each
-//    of the 16 warps then selects TQ / 16 query rows, the top kc = min(k, K_TN) of each by
-//    counting (local_topk.cuh, passes 2 to 4, over the narrow tile), writing
-//    only its kc slots of the ids / counts buffers, int32 [Q, ceil(N/K_TN) *
-//    kc].  Blocks are persistent (one an SM: 209 KB of shared memory at m =
-//    238) and walk the (query tile, data tile) items with query tiles
-//    fastest, so the blocks in flight share a data tile in L2.  The TQ rows'
-//    bins live in shared memory, or, where they do not fit (m > 503), in a
-//    device scratch buffer the wrapper allocates.  m is at most 65534.
+//    matrix is never written.  It is the fused kernel of fused_topk.cuh
+//    (shared with packed_cosine_topk; its header says how an item is counted
+//    and selected) with the byte-lane policy `ByteLanes4` below: words of four
+//    lanes staged four at a time from five aligned 32-bit loads joined by
+//    __funnelshift_r (load_words4), since a row of m bytes is 4-byte aligned
+//    only when m is a multiple of 4; the pair count is eq_lanes.  Counts lie
+//    in [0, m], m + 1 bins a row: one byte a count while m <= 254 (255 marks
+//    a data row past the corpus) with 64 query rows an item, two bytes above
+//    with 32, so no count collapses; the rows' bins live in shared memory up
+//    to m = 503 and in device scratch for m > 503.  m is at most 65534.
 //    What bounds it on an H100: the same word-pair work as the count kernel,
 //    1.7e10 __popc per SIFT segment (Q=1024, N=281250, m=238) at 16 a clock
 //    per SM, about 4.6 ms, against only the candidate buffers' bytes.  What
 //    the design does about the rest: a data tile is staged once per 64 query
 //    rows (16 times per 1024 queries), with one barrier pair per 16 words of
-//    a 256-row sub-tile, and the selection's histogram pass rides on the
-//    count write-back, so what stays serial per warp is passes 2 to 4.
+//    a 256-row sub-tile, and the selection's histogram rides on the count
+//    write-back, so what stays serial per warp is passes 2 to 4.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "eq_tile.cuh"
-#include "local_topk.cuh"
+#include "fused_topk.cuh"
 
 namespace {
 
@@ -178,54 +164,37 @@ packed_tanimoto_count_kernel(const uint8_t* __restrict__ data,
 }
 
 // ---- fused count -> per-tile top-k ---------------------------------------
-constexpr int K_TN = 2048;                    // data rows per tile
-constexpr int K_THREADS = 512;
-constexpr int K_WARPS = K_THREADS / 32;
-constexpr int K_RQ = 8;                       // query rows per thread
-constexpr int K_RN = 4;                       // data rows per thread and sub-tile
-constexpr int MAX_SMEM = 232448;              // 227 KB: the most a block may ask
+using repro::fused_topk::Fused;
+using repro::fused_topk::K_THREADS;
 
-// One shape of the fused kernel: the count type of its [TQ, K_TN] tile, TQ
-// query rows per item, KW words staged per step.  TQ x K_TN counts take 128 KB
-// either way: one byte a count while m <= 254, two bytes (and half the query
-// rows) above.  Shared memory: the count tile, then the TQ rows' histograms
-// (where they fit), then the staged data and query words.
-template <typename CountT, int TQ, int KW>
-struct Fused {
-  using Count = CountT;
-  static constexpr int kTQ = TQ;
-  static constexpr int kKW = KW;
-  static constexpr int TYQ = TQ / K_RQ;                 // threads along the queries
-  static constexpr int TXN = K_THREADS / TYQ;           // threads along the data rows
-  static constexpr int SN = TXN * K_RN;                 // data rows per sub-tile
-  static constexpr int LDD = KW + 1;                    // odd stride: conflict-free rows
-  static constexpr int CNT_BYTES = TQ * K_TN * (int)sizeof(CountT);
-  static constexpr int STAGE_BYTES = (SN * LDD + TQ * KW) * 4;
-  static constexpr int PAST = (int)(CountT)~0u;         // marks a row past the corpus
-  static constexpr int MAX_M = PAST - 1;                // a count is <= m < PAST
-  static_assert(K_TN % SN == 0 && TXN % 32 == 0 && KW % 4 == 0,
-                "sub-tiles cover the tile; a warp shares its query rows; 4-word loads");
+// The byte-lane match of the fused kernel: rows of m bytes, four lanes a
+// staged word, lanes past m and rows past the end staged as the pads.
+struct ByteLanes4 {
+  using Elem = uint8_t;
+  static constexpr bool kCollapses = false;  // every count fits its tile
+  int m;                                     // bytes per row
+
+  __device__ int words() const { return (m + 3) / 4; }
+  __device__ int row_elems() const { return m; }
+  __device__ int nbins() const { return m + 1; }
+  __device__ static int pair(unsigned a, unsigned b) { return eq_lanes(a, b); }
+  __device__ static int count(int equal) { return equal; }
+
+  // words [w, w + 4) of `row`, i.e. bytes [4w, 4w + 16)
+  __device__ __forceinline__ void load4(const uint8_t* __restrict__ src, long long row,
+                                        bool valid, int w, bool query, unsigned (&x)[4]) const {
+    const unsigned pad4 = (query ? PAD_QUERY : PAD_DATA) * 0x01010101u;
+    x[0] = x[1] = x[2] = x[3] = pad4;
+    if (valid) load_words4(src + row * m, m, 4 * w, pad4, x);
+  }
 };
+
 using CountU8 = Fused<uint8_t, 64, 16>;       // m <= 254
 using CountU16 = Fused<uint16_t, 32, 16>;     // 254 < m <= 65534
 
-// counts lie in [0, m]
-__host__ __device__ inline int topk_bins(int m) { return m + 1; }
-
-// the TQ rows' histograms in shared memory (CountU8: always; CountU16: m <=
-// 503), else in device scratch
-template <class F>
-bool bins_in_shared(int m) {
-  return F::CNT_BYTES + F::STAGE_BYTES + (long long)F::kTQ * topk_bins(m) * 4 <= MAX_SMEM;
-}
-
-template <class F>
-int topk_smem(int m) {
-  return F::CNT_BYTES + F::STAGE_BYTES + (bins_in_shared<F>(m) ? F::kTQ * topk_bins(m) * 4 : 0);
-}
-
-// one block of 16 warps an SM: at most 128 registers a thread
-template <class F>
+// one block of 16 warps an SM: at most 128 registers a thread; SCRATCH: the
+// histograms' bins live in device scratch
+template <class F, bool SCRATCH>
 __global__ void __launch_bounds__(K_THREADS, 1)
 packed_tanimoto_topk_kernel(const uint8_t* __restrict__ data,
                             const uint8_t* __restrict__ query,
@@ -233,134 +202,16 @@ packed_tanimoto_topk_kernel(const uint8_t* __restrict__ data,
                             long long n_data, int n_query, int m, int kc,
                             int n_tiles, int n_qtiles, int n_items,
                             int* __restrict__ hist_scratch) {
-  using C = typename F::Count;
-  constexpr int TQ = F::kTQ;
-  constexpr int KW = F::kKW;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nbins = topk_bins(m);
-  C* cnt_s = (C*)smem;                                  // [TQ][K_TN]
-  int* hist = hist_scratch                              // [TQ][nbins]
-      ? hist_scratch + (long long)blockIdx.x * TQ * nbins
-      : (int*)(smem + F::CNT_BYTES);
-  unsigned* d_s = (unsigned*)(smem + F::CNT_BYTES) + (hist_scratch ? 0 : TQ * nbins);
-  unsigned* q_s = d_s + F::SN * F::LDD;                 // [SN][LDD], [TQ][KW]
-  const int warp = threadIdx.x >> 5;
-  const int tx = threadIdx.x % F::TXN;
-  const int ty = threadIdx.x / F::TXN;
-  // zero once: a selection leaves its row's bins zero, and only the rows of
-  // real queries are filled
-  for (int b = threadIdx.x; b < TQ * nbins; b += K_THREADS) hist[b] = 0;
-  const int words = (m + 3) / 4;
-  const int n_chunks = (words + KW - 1) / KW;
-  const long long slots = (long long)n_tiles * kc;
-
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int q0 = (item % n_qtiles) * TQ;
-    const int tile = item / n_qtiles;
-    const long long n0 = (long long)tile * K_TN;
-
-    for (int s0 = 0; s0 < K_TN; s0 += F::SN) {
-      int acc[K_RQ][K_RN];
-#pragma unroll
-      for (int i = 0; i < K_RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < K_RN; ++j) acc[i][j] = 0;
-
-      for (int c = 0; c < n_chunks; ++c) {
-        const int w0 = c * KW;
-        const int kw = min(KW, words - w0);
-        // the staging area is free: the previous step, sub-tile or item's
-        // selection is done with it
-        __syncthreads();
-        if (n_chunks > 1 || s0 == 0)    // whole m: the query rows stay for the item
-          stage_words<KW, K_THREADS>(q_s, KW, query, q0, n_query, m, w0, kw, TQ, PAD_QUERY);
-        stage_words<KW, K_THREADS>(d_s, F::LDD, data, n0 + s0, n_data, m, w0, kw, F::SN, PAD_DATA);
-        __syncthreads();
-        // words past m hold pad lanes on both sides, which never collide
-#pragma unroll 2
-        for (int kk = 0; kk < kw; ++kk) {
-          unsigned qv[K_RQ], dv[K_RN];
-#pragma unroll
-          for (int i = 0; i < K_RQ; ++i) qv[i] = q_s[(ty + F::TYQ * i) * KW + kk];
-#pragma unroll
-          for (int j = 0; j < K_RN; ++j) dv[j] = d_s[(tx + F::TXN * j) * F::LDD + kk];
-#pragma unroll
-          for (int i = 0; i < K_RQ; ++i)
-#pragma unroll
-            for (int j = 0; j < K_RN; ++j) acc[i][j] += eq_lanes(qv[i], dv[j]);
-        }
-      }
-
-      // this sub-tile's counts into the tile and into their query rows'
-      // histograms; rows past the corpus never enter
-#pragma unroll
-      for (int i = 0; i < K_RQ; ++i) {
-        const int qr = ty + F::TYQ * i;
-        const bool live = q0 + qr < n_query;
-#pragma unroll
-        for (int j = 0; j < K_RN; ++j) {
-          const int r = s0 + tx + F::TXN * j;
-          const bool real = n0 + r < n_data;
-          cnt_s[qr * K_TN + r] = (C)(real ? acc[i][j] : F::PAST);
-          if (real && live) atomicAdd(hist + qr * nbins + acc[i][j], 1);
-        }
-      }
-    }
-    __syncthreads();                    // the tile and its histograms are complete
-
-    for (int r = warp; r < TQ; r += K_WARPS) {
-      const int q = q0 + r;
-      if (q >= n_query) break;
-      const long long at = (long long)q * slots + (long long)tile * kc;
-      repro::warp_topk_from_histogram(cnt_s + r * K_TN, K_TN, n0, hist + r * nbins, nbins,
-                                      kc, ids + at, cnts + at);
-    }
-  }
+  repro::fused_topk::run<ByteLanes4, F, SCRATCH>(ByteLanes4{m}, data, query, ids, cnts, n_data,
+                                                 n_query, kc, n_tiles, n_qtiles, n_items,
+                                                 hist_scratch);
 }
 
-// Launch shape of the fused kernel of shape F: persistent blocks, one per SM
-// as the occupancy calculator finds them, and the histograms' device scratch.
+// the kernel of shape F for rows of nbins bins
 template <class F>
-int topk_plan(long long n_data, int n_query, int m, int* grid, long long* scratch_ints) {
-  const int smem = topk_smem<F>(m);
-  cudaError_t err = cudaFuncSetAttribute(packed_tanimoto_topk_kernel<F>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, packed_tanimoto_topk_kernel<F>,
-                                                      K_THREADS, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_qtiles = (n_query + F::kTQ - 1) / F::kTQ;
-  const long long n_tiles = (n_data + K_TN - 1) / K_TN;
-  const long long items = n_qtiles * n_tiles;
-  if (items > 2147483647LL || per_sm < 1) return (int)cudaErrorInvalidValue;
-  const long long fit = (long long)sms * per_sm;
-  *grid = (int)(items < fit ? items : fit);
-  *scratch_ints = bins_in_shared<F>(m) ? 0 : (long long)(*grid) * F::kTQ * topk_bins(m);
-  return 0;
-}
-
-template <class F>
-int topk_launch(const void* data, const void* query, void* ids, void* counts,
-                long long n_data, int n_query, int m, int kc, int grid, void* scratch,
-                void* stream) {
-  if (!bins_in_shared<F>(m) && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const long long n_qtiles = (n_query + F::kTQ - 1) / F::kTQ;
-  const long long n_tiles = (n_data + K_TN - 1) / K_TN;
-  if (n_qtiles * n_tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const int smem = topk_smem<F>(m);
-  cudaError_t err = cudaFuncSetAttribute(packed_tanimoto_topk_kernel<F>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  packed_tanimoto_topk_kernel<F><<<grid, K_THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)data, (const uint8_t*)query, (int*)ids, (int*)counts, n_data,
-      n_query, m, kc, (int)n_tiles, (int)n_qtiles, (int)(n_qtiles * n_tiles),
-      bins_in_shared<F>(m) ? nullptr : (int*)scratch);
-  return (int)cudaGetLastError();
+auto tanimoto_kernel(int nbins) {
+  return F::bins_in_shared(nbins) ? packed_tanimoto_topk_kernel<F, false>
+                                  : packed_tanimoto_topk_kernel<F, true>;
 }
 
 }  // namespace
@@ -382,16 +233,17 @@ extern "C" int repro_packed_tanimoto_count(const void* data, const void* query,
 // scratch the histograms need -- 0 when they live in shared memory, which
 // they do for m <= 503 (one byte a count and 64 query rows an item up to m =
 // 254, two bytes and 32 rows above); above m = 503, grid * 32 rows * (m + 1)
-// ints.  Returns a CUDA error
-// code, 0 on success.
+// ints.  Returns a CUDA error code, 0 on success.
 extern "C" int repro_packed_tanimoto_topk_plan(long long n_data, int n_query,
                                                int m, int* grid,
                                                long long* scratch_ints) {
   if (n_data <= 0 || n_query <= 0 || m <= 0 || m > CountU16::MAX_M)
     return (int)cudaErrorInvalidValue;
   return m <= CountU8::MAX_M
-      ? topk_plan<CountU8>(n_data, n_query, m, grid, scratch_ints)
-      : topk_plan<CountU16>(n_data, n_query, m, grid, scratch_ints);
+      ? repro::fused_topk::plan<CountU8>(tanimoto_kernel<CountU8>(m + 1), n_data, n_query,
+                                         m + 1, grid, scratch_ints)
+      : repro::fused_topk::plan<CountU16>(tanimoto_kernel<CountU16>(m + 1), n_data, n_query,
+                                          m + 1, grid, scratch_ints);
 }
 
 // data uint8 [n_data, m], query uint8 [n_query, m] (1 <= m <= 65534); ids and
@@ -406,11 +258,14 @@ extern "C" int repro_packed_tanimoto_topk(const void* data, const void* query,
                                           int kc, int grid, void* scratch,
                                           void* stream) {
   if (n_data <= 0 || n_query <= 0 || m <= 0 || m > CountU16::MAX_M || kc < 1 ||
-      kc > K_TN || grid < 1)
+      kc > repro::fused_topk::K_TN || grid < 1)
     return (int)cudaErrorInvalidValue;
+  const uint8_t* d = (const uint8_t*)data;
+  const uint8_t* q = (const uint8_t*)query;
   return m <= CountU8::MAX_M
-      ? topk_launch<CountU8>(data, query, ids, counts, n_data, n_query, m, kc, grid,
-                             scratch, stream)
-      : topk_launch<CountU16>(data, query, ids, counts, n_data, n_query, m, kc, grid,
-                              scratch, stream);
+      ? repro::fused_topk::launch<CountU8>(tanimoto_kernel<CountU8>(m + 1), d, q, ids, counts,
+                                           n_data, n_query, m, m + 1, kc, grid, scratch, stream)
+      : repro::fused_topk::launch<CountU16>(tanimoto_kernel<CountU16>(m + 1), d, q, ids,
+                                            counts, n_data, n_query, m, m + 1, kc, grid,
+                                            scratch, stream);
 }

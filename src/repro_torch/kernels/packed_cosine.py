@@ -23,7 +23,11 @@ what the design does about it):
 TILE_N is this port's own choice (2048; the TPU kernel takes 256): only the
 result after `topk_from_candidates` has to equal the reference, and wider
 tiles shrink the candidate buffers (113 MB per 281,250-row segment at
-Q = 1024, k = 100, against 900 MB at 256).
+Q = 1024, k = 100, against 900 MB at 256).  The fused kernel is the template
+of `csrc/fused_topk.cuh`, shared with `packed_tanimoto_topk`: 64 query rows
+an item over a one-byte count tile while W <= 9 (counts at or below
+32W - 254 stored as 0 and recounted in the rare row that needs them), 32
+rows over a two-byte tile above.
 
 Each wrapper launches its kernel for CUDA tensors and raises when it cannot;
 it takes its plain version only for tensors that lie on the CPU.
@@ -35,7 +39,7 @@ import torch
 from repro_torch.core.packing import packed_cosine_match
 from repro_torch.kernels import build, common
 
-# data rows per tile of the fused kernel: K_TN in csrc/packed_cosine.cu, which
+# data rows per tile of the fused kernel: K_TN in csrc/fused_topk.cuh, which
 # must agree (tests/test_torch_cosine.py reads it from the source)
 TILE_N = 2048
 

@@ -14,8 +14,8 @@ what bounds them on an H100 and what the design does about it):
       `packed_tanimoto_count_pallas` (`src/repro/kernels/packed_tanimoto.py`).
   packed_tanimoto_topk   -- the fused match -> count -> per-tile local top-k.
       Replaces `_topk_kernel`, which reuses `local_topk_tile` of the packed
-      COSINE kernel; here the selection is `csrc/local_topk.cuh`, shared with
-      `packed_cosine_topk`, and so is the candidate-buffer contract: each
+      COSINE kernel; here the fused kernel is `csrc/fused_topk.cuh`, shared
+      with `packed_cosine_topk`, and so is the candidate-buffer contract: each
       tile of TILE_N data rows contributes its kc = min(k, TILE_N) best
       candidates by (count desc, id asc), ids / counts int32 [Q, ceil(N /
       TILE_N) * kc], tiles ascending, exhausted slots -1 / -1.  The kernel
@@ -35,8 +35,8 @@ import torch
 from repro_torch.core.packing import packed_tanimoto_match
 from repro_torch.kernels import build, common
 
-# data rows per tile of the fused kernel: K_TN in csrc/packed_tanimoto.cu,
-# which must agree (tests/test_torch_tanimoto.py reads it from the source)
+# data rows per tile of the fused kernel: K_TN in csrc/fused_topk.cuh, which
+# must agree (tests/test_torch_tanimoto.py reads it from the source)
 TILE_N = 2048
 # the widest rows the fused kernel takes: its counts are at most two bytes
 # (CountU16::MAX_M in csrc/packed_tanimoto.cu)

@@ -113,19 +113,21 @@ def test_wrappers_refuse_what_no_kernel_takes(rng):
 
 
 def test_tile_and_header_are_what_the_build_sees(monkeypatch, tmp_path):
-    """The wrapper's TILE_N is the kernel's K_TN, and an edit to a header
-    alone changes the library's digest (it is hashed, not compiled)."""
+    """The wrapper's TILE_N is the fused kernel's K_TN (in the fused kernel's
+    header, which packed_cosine.cu includes), and an edit to a header alone
+    changes the library's digest (it is hashed, not compiled)."""
     src = (build.CSRC_DIR / "packed_cosine.cu").read_text()
-    assert int(re.search(r"constexpr int K_TN = (\d+);", src).group(1)) == TILE_N
-    assert [p.name for p in build.headers()] == ["eq_tile.cuh", "local_topk.cuh",
+    header = (build.CSRC_DIR / "fused_topk.cuh").read_text()
+    assert int(re.search(r"constexpr int K_TN = (\d+);", header).group(1)) == TILE_N
+    assert [p.name for p in build.headers()] == ["eq_tile.cuh", "fused_topk.cuh",
                                                  "s8_mma_tile.cuh"]
-    assert '#include "local_topk.cuh"' in src
+    assert '#include "fused_topk.cuh"' in src
     for p in build.sources() + build.headers():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
     before = build._digest(build.sources())
-    (tmp_path / "local_topk.cuh").write_text(
-        (tmp_path / "local_topk.cuh").read_text() + "\n// edited\n")
+    (tmp_path / "fused_topk.cuh").write_text(
+        (tmp_path / "fused_topk.cuh").read_text() + "\n// edited\n")
     assert build._digest(build.sources()) != before
     assert [p.name for p in build.sources()] == [
         "cosine_count.cu", "cpq_hist.cu", "ip_count.cu", "match_count.cu",

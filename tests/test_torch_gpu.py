@@ -364,3 +364,75 @@ def test_equality_tile_both_paths_and_their_borders_on_the_card():
         ops.match_count(d, s[:, :-1])              # row widths differ
     with pytest.raises(ValueError):
         match_count(d[:, ::2], s[:, ::2])          # not contiguous: the wrapper raises
+
+
+def _near_complement(rng, q, n, v):
+    """Data rows the complement of query 0 with L - 4 + r % 5 signs flipped
+    back (L + 1 in every 97th row, a random row in every 37th), L = max(0,
+    32W - 254) the one-byte count tile's collapsed end: fewer than 100 rows of
+    a tile count above L, so the kernel recounts collapsed entries."""
+    s = (rng.integers(0, 2, (q, v)) * 2 - 1).astype(np.int8)
+    low = max(0, 32 * (-(-v // 32)) - 254)
+    r = np.arange(n)
+    flips = np.clip(np.where(r % 97 == 1, low + 1, low - 4 + r % 5), 0, v)
+    rank = rng.random((n, v)).argsort(axis=1).argsort(axis=1)
+    d = np.where(rank < flips[:, None], s[0], -s[0]).astype(np.int8)
+    d[::37] = (rng.integers(0, 2, (len(range(0, n, 37)), v)) * 2 - 1).astype(np.int8)
+    return torch.from_numpy(d), torch.from_numpy(s)
+
+
+@pytest.mark.gpu
+def test_packed_cosine_topk_across_count_tiles_on_the_card():
+    """The fused COSINE kernel on its one-byte tile at W = 1, 7 (every count
+    kept), 8 and 9 (counts <= 32W - 254 stored as 0), on its two-byte tile at
+    W = 10, 15, 16 (bins in device scratch from 16 on), 17 and 170; k = 1,
+    100 and above the tile; random rows and rows near the complement of a
+    query, whose collapsed counts the kernel recounts."""
+    _need_card()
+    rng = np.random.default_rng(18)
+    common.reset_launch_counts()
+    cases = [(5, 3000, 1, 10, "random"), (70, 10003, 224, 100, "random"),
+             (130, 4500, 238, 1, "random"), (65, 4500, 238, 2500, "random"),
+             (9, 4500, 288, 100, "random"), (3, 2100, 289, 100, "random"),
+             (5, 2100, 480, 10, "random"), (5, 2100, 481, 10, "random"),
+             (9, 4500, 513, 100, "random"), (3, 2100, 5440, 10, "random"),
+             (3, 5000, 238, 100, "complement"), (3, 5000, 238, 2500, "complement"),
+             (2, 4500, 288, 100, "complement"), (2, 4500, 289, 100, "complement")]
+    for q, n, v, k, kind in cases:
+        if kind == "random":
+            d = torch.from_numpy((rng.integers(0, 2, (n, v)) * 2 - 1).astype(np.int8))
+            s = torch.from_numpy((rng.integers(0, 2, (q, v)) * 2 - 1).astype(np.int8))
+        else:
+            d, s = _near_complement(rng, q, n, v)
+        dw = packing.pack_signs_data(d.cuda())
+        sw = packing.pack_signs_queries(s.cuda())
+        got = ops.packed_cosine_topk(dw, sw, k=k)
+        want = packed_cosine_topk_plain(dw, sw, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (q, n, v, k, kind)
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"packed_cosine_topk": len(cases)}
+
+
+@pytest.mark.gpu
+def test_cpq_hist_streaming_edges_on_the_card():
+    """cpq_hist with 1, 15, 239, 255, 453 / 454 (either side of the
+    per-thread counters' limit) and 58,112 bins; whole rows a block (Q fills
+    the card) and chunked rows (Q = 1, N = 1,000,003); odd N, so rows start
+    off a 16-byte boundary; skewed counts with -1 and past-max_count entries,
+    and every entry in one bin."""
+    _need_card()
+    gen = torch.Generator().manual_seed(19)
+    common.reset_launch_counts()
+    cases = [(1, 5, 0), (600, 20001, 14), (1, 1_000_003, 14), (70, 100_003, 238),
+             (3, 257, 254), (5, 30001, 452), (5, 30001, 453), (2, 10007, 58111)]
+    launches = 0
+    for q, n, max_count in cases:
+        c = torch.randint(-1, max_count + 3, (q, n), generator=gen, dtype=torch.int32)
+        c[:, ::3] = max_count // 2
+        for counts in (c, torch.full_like(c, max_count)):
+            counts = counts.cuda()
+            assert torch.equal(ops.cpq_hist(counts, max_count),
+                               cpq_hist_plain(counts, max_count)), (q, n, max_count)
+            launches += 1
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"cpq_hist": launches}

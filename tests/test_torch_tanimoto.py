@@ -126,17 +126,18 @@ def test_tile_headers_and_sources_are_what_the_build_sees():
     """The wrapper's TILE_N is the fused kernel's K_TN; the three equality
     count kernels share one tile header: EQ and TANIMOTO WIDE its equality
     tile, packed TANIMOTO its templated tile through the byte-lane policy;
-    both fused kernels include the selection header."""
+    both fused kernels include the fused kernel's header."""
     src = (build.CSRC_DIR / "packed_tanimoto.cu").read_text()
-    assert int(re.search(r"constexpr int K_TN = (\d+);", src).group(1)) == TILE_N
-    assert '#include "local_topk.cuh"' in src
+    header = (build.CSRC_DIR / "fused_topk.cuh").read_text()
+    assert int(re.search(r"constexpr int K_TN = (\d+);", header).group(1)) == TILE_N
+    assert '#include "fused_topk.cuh"' in src
     for name, body in (("match_count.cu", "eq_tile::count_eq_tile("),
                        ("tanimoto_count.cu", "eq_tile::count_eq_tile("),
                        ("packed_tanimoto.cu", "count_tile<ByteLanes>")):
         text = (build.CSRC_DIR / name).read_text()
         assert '#include "eq_tile.cuh"' in text
         assert body in text
-    assert [p.name for p in build.headers()] == ["eq_tile.cuh", "local_topk.cuh",
+    assert [p.name for p in build.headers()] == ["eq_tile.cuh", "fused_topk.cuh",
                                                  "s8_mma_tile.cuh"]
     # the byte-lane compare: the data and query pads are the reference's sentinels
     assert f"PAD_DATA = {packing.PACKED_BUCKET_PAD_DATA};" in src
@@ -151,7 +152,8 @@ def test_fused_kernel_shapes_and_bins_threshold_are_what_the_source_says():
     from repro_torch.kernels.packed_tanimoto import TOPK_MAX_M
 
     src = (build.CSRC_DIR / "packed_tanimoto.cu").read_text()
-    const = {k: int(v) for k, v in re.findall(r"constexpr int (K_\w+|MAX_SMEM) = (\d+);", src)}
+    header = (build.CSRC_DIR / "fused_topk.cuh").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (K_\w+|MAX_SMEM) = (\d+);", header)}
     shapes = dict(re.findall(r"using (CountU\d+) = Fused<(uint\d+_t, \d+, \d+)>;", src))
     assert shapes == {"CountU8": "uint8_t, 64, 16", "CountU16": "uint16_t, 32, 16"}
     assert TOPK_MAX_M == 2 ** 16 - 2

@@ -100,7 +100,7 @@ def main() -> int:
             status = lib.run(i, out.data_ptr(), blocks, iters, x, y)
             cs.check(status == 0, f"{name}: launch failed with error {status}")
         ms, _ = cs.timed_ms(launch, device, reps=3, warmup=1)
-        clock = cs.sm_clock_mhz(launch, ms, device, seconds=2.0)
+        clock = cs.sm_clock_mhz(launch, device, seconds=2.0)
         count = blocks * THREADS * ITERS * CHAINS * per_step
         rate = count / (ms * 1e-3) / sms / (clock * 1e6) if clock else None
         print(f"{name}: {ms:.4f} ms for {count:.4g} PTX instructions; SM clock {clock} MHz; "
