@@ -31,11 +31,17 @@ as a phase fails:
      topk_from_candidates must also equal a sort of the counts; 2c. the three TANIMOTO kernels the same way:
      tanimoto_count (m from 1 to 8193, the same value classes and identity
      check as match_count), packed_tanimoto_count (bucket ids 0 to
-     253, m from 1 to 4099) and packed_tanimoto_topk (k from 1 to above the
+     253, m from 1 to 8200: across its 32-column chunks and the flush of its
+     lanes after 127 of them, one query row equal to a data row) and
+     packed_tanimoto_topk (k from 1 to above the
      tile; m = 1, 37, 238, 254 and 255 on either side of its one-byte count
      tile, 503 and 504 on either side of its bins' move to device scratch,
-     and 6000); 2d. range_count (d = 1 to 37, empty ranges, lo = hi,
-     INT32_MIN / INT32_MAX), minsum_count (V = 1 to 9000, across its
+     and 6000); 2d. range_count (d = 1 to 37 and 2100, past one flush of its
+     float16 lanes; data all in [-2048, 2048] (its float16 path), the same
+     with +-2049 / +-2050 or the ends of int32 in some tiles, and full-range
+     int32; bounds around +-2049 and at the ends of int32, empty ranges, lo =
+     hi, the pad (1, 0); output rows that are and are not 16-byte aligned),
+     minsum_count (V = 1 to 9000, across its
      4096-column window; dense rows of values 0 to 127, sparse rows of at most
      38 non-zeros and all-zero rows, values near INT32_MAX whose sums wrap,
      -1 pad rows; the wrapper's pick, the sparse kernel and the dense tile
@@ -93,7 +99,12 @@ as a phase fails:
      three COSINE kernels, with packed_cosine_topk's popcount floor at the
      SM clock read while it runs; 5c. the same for the three TANIMOTO kernels (with
      the word-pair rates, and tanimoto_count's SASS and clock as for
-     match_count), and tanimoto_count at m = 4096; 5d. the same for range_count, minsum_count and ip_count:
+     match_count), and tanimoto_count at m = 4096; packed_tanimoto_count
+     also in turns with its previous design (tools/range_ptan_ab.py, built
+     from tools/range_ptan_baseline.cu) and tanimoto_count, at the segment
+     and at m = 4096, with the SM clock, pairs per SM-clock and both designs'
+     SASS floors; 5d. the same for range_count, minsum_count and ip_count
+     (range_count in turns with its previous design, as packed_tanimoto_count):
      minsum_count as the whole call against the bytes the function must
      move, its conversion kernels (minsum_nnz, minsum_csr) and its count
      kernel timed alone, a dense segment of DBLP's shape through the sparse
@@ -176,8 +187,14 @@ HIST_CASES = [(1, 5, 0), (1, 5, 3), (8, 300, 64), (70, 100003, 238), (600, 20001
 # (Q, N, m) for the TANIMOTO count kernels, nothing a multiple of a tile
 TANIMOTO_SHAPES = [(1, 5, 1), (3, 130, 3), (8, 300, 17), (70, 100003, 238), (5, 2100, 600),
                    (3, 1500, 4099)]
-PACKED_TANIMOTO_SHAPES = [(3, 70, 1), (2, 90, 5), (5, 257, 17), (4, 300, 40),
-                          (70, 100003, 238), (3, 1500, 4099)]
+# packed_tanimoto_count counts chunks of 32 columns (31 to 33, 63 to 65) and
+# adds its lanes into the output after 127 chunks (4064 / 4065 columns) and
+# at the end; one query row equals a data row, so a lane reaches its largest
+# count
+PACKED_TANIMOTO_SHAPES = [(3, 70, 1), (2, 90, 5), (5, 257, 17), (3, 301, 31), (130, 301, 32),
+                          (5, 129, 33), (4, 300, 40), (3, 301, 47), (3, 200, 63),
+                          (3, 200, 65), (70, 100003, 238), (2, 200, 300), (3, 1030, 4064),
+                          (3, 1030, 4065), (3, 1500, 4099), (2, 700, 4096), (2, 500, 8200)]
 # (Q, N, m, k) for the fused TANIMOTO top-k: k in {1, 3, 10, 100} and k
 # above the tile, N not a multiple of the tile, N < k, Q past one and two
 # 64-row items; m = 1, 238, 254 (the last with one-byte counts), 255 (the
@@ -1007,23 +1024,41 @@ def profile_one_search(search, device: torch.device) -> None:
 # stores through the MIO queue ("mio").  An SM issues 128 thread-instructions
 # a clock (4 schedulers x 32 threads).
 SASS_PIPES = {"ISETP": "int", "IADD3": "int", "SEL": "int", "LOP3": "int", "IMNMX": "int",
-              "SHF": "int", "LEA": "int", "PLOP3": "int", "VIADD": "int", "HSET2": "fp16x2",
-              "HADD2": "fp16x2", "HFMA2": "fp16x2", "FADD": "fp32", "FFMA": "fp32",
-              "FSEL": "fp32", "IMAD": "imad", "LDS": "mio", "STS": "mio"}
+              "SHF": "int", "LEA": "int", "PLOP3": "int", "VIADD": "int", "PRMT": "int",
+              "HSET2": "fp16x2", "HADD2": "fp16x2", "HFMA2": "fp16x2", "HMUL2": "fp16x2",
+              "FADD": "fp32", "FFMA": "fp32", "FSEL": "fp32", "IMAD": "imad", "POPC": "popc",
+              "LDS": "mio", "STS": "mio"}
 SLOTS_PER_SM_CLOCK = 128
 POPC_PER_SM_CLOCK = 16
 INT_LANES_PER_SM = 64
 SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
 
 
-def sass_count_bodies(sass: dict, kernel: str) -> list:
+def eq_pairs(ops: collections.Counter, full: collections.Counter) -> int:
+    """(query, data, column) pairs an equality count body compares: two an
+    HSET2 (float16 lanes), one an ISETP (int32 ids), four a POPC (byte lanes
+    counted by eq_lanes)."""
+    return 2 * ops["HSET2"] + ops["ISETP"] + 4 * ops["POPC"]
+
+
+def range_pairs(ops: collections.Counter, full: collections.Counter) -> int:
+    """(query, data row, attribute) interval tests a RANGE count body makes:
+    one per saturated float16 add (two a word of two tests: [x >= lo'] and [x
+    <= hi']), one per two ISETPs on the int32 path (lo <= x, x <= hi)."""
+    sat = sum(c for op, c in full.items()
+              if op.split(".")[0] in ("HADD2", "HFMA2") and "SAT" in op.split(".")[1:])
+    return sat + ops["ISETP"] // 2
+
+
+def sass_count_bodies(sass: dict, kernel: str, pairs_of=eq_pairs) -> list:
     """The count bodies of `kernel` in the library's SASS (build.sass()): the
     basic blocks (straight-line runs of instructions) that compare at least 256
-    (query, data, column) pairs -- 2 pairs an HSET2, 1 an ISETP -- largest
-    first.  Each with its path (float16 lanes / int32 compare into float16
-    lanes / int32), pairs, instructions per pair in all, by opcode and by
-    pipe, and the pairs per SM-clock that the issue rate, the float16 pipe
-    and the int pipe allow."""
+    pairs (`pairs_of(base opcodes, full opcodes)`: eq_pairs, or range_pairs
+    for interval tests), largest first.  Each with its path (float16 lanes,
+    with int SWAR where it also pops counts / int32 compare into float16 lanes
+    / int32), pairs, instructions per pair in all, by opcode and by pipe, and
+    the pairs per SM-clock that the issue rate, the float16 pipe, the int pipe
+    and the popc pipe allow."""
     # mangled (length-prefixed) or demangled: not packed_tanimoto_count_kernel
     # for tanimoto_count_kernel
     name = next(n for n in sass
@@ -1040,32 +1075,38 @@ def sass_count_bodies(sass: dict, kernel: str) -> list:
             blocks.append(current)
             current = []
         if hit:
-            current.append(hit.group(2).split(".")[0])
-            if current[-1] in ("BRA", "EXIT", "BAR"):
+            current.append(hit.group(2))
+            if current[-1].split(".")[0] in ("BRA", "EXIT", "BAR"):
                 blocks.append(current)
                 current = []
     blocks.append(current)
     bodies = []
-    for ops in map(collections.Counter, blocks):
-        pairs = 2 * ops["HSET2"] + ops["ISETP"]
+    for block in blocks:
+        full = collections.Counter(block)
+        ops = collections.Counter(op.split(".")[0] for op in block)
+        pairs = pairs_of(ops, full)
         if pairs < 256:
             continue
         pipes = collections.Counter()
         for op, c in ops.items():
             pipes[SASS_PIPES.get(op, "other")] += c
         total = sum(ops.values())
+        fp16_slots = 2 * ops["HSET2"] + ops["HADD2"] + ops["HFMA2"] + ops["HMUL2"]
+        lanes = ops["HSET2"] or any("SAT" in op.split(".")[1:] for op in full)
         bodies.append(dict(
-            path=("float16 lanes" if ops["HSET2"] else
+            path=("float16 lanes" + (" + int SWAR" if ops["POPC"] else "") if lanes else
+                  "int SWAR" if ops["POPC"] else
                   "int32 compare, float16 lanes" if ops["HADD2"] else "int32"),
             pairs=pairs, per_pair=round(total / pairs, 4),
             by_opcode={op: round(c / pairs, 4) for op, c in ops.most_common()},
             by_pipe={p: round(c / pairs, 4) for p, c in pipes.most_common()},
             issue_pairs_per_sm_clock=round(SLOTS_PER_SM_CLOCK * pairs / total, 2),
-            fp16_pipe_pairs_per_sm_clock=round(
-                SLOTS_PER_SM_CLOCK * pairs / (2 * ops["HSET2"] + ops["HADD2"] + ops["HFMA2"]), 2)
-            if pipes["fp16x2"] else None,
+            fp16_pipe_pairs_per_sm_clock=(round(SLOTS_PER_SM_CLOCK * pairs / fp16_slots, 2)
+                                          if fp16_slots else None),
             int_pipe_pairs_per_sm_clock=(round(INT_LANES_PER_SM * pairs / pipes["int"], 2)
-                                         if pipes["int"] else None)))
+                                         if pipes["int"] else None),
+            popc_pipe_pairs_per_sm_clock=(round(POPC_PER_SM_CLOCK * pairs / ops["POPC"], 2)
+                                          if ops["POPC"] else None)))
     return sorted(bodies, key=lambda b: -b["pairs"])
 
 
@@ -1075,7 +1116,8 @@ def log_sass_bodies(kernel: str, bodies: list) -> None:
             f"instructions a pair; by pipe {b['by_pipe']}; by opcode {b['by_opcode']}; "
             f"allows {b['issue_pairs_per_sm_clock']} pairs/SM-clock by issue, "
             f"{b['fp16_pipe_pairs_per_sm_clock']} by the float16 pipe (an HSET2 two slots), "
-            f"{b['int_pipe_pairs_per_sm_clock']} by the int pipe")
+            f"{b['int_pipe_pairs_per_sm_clock']} by the int pipe, "
+            f"{b['popc_pipe_pairs_per_sm_clock']} by the popc pipe")
 
 
 def sm_clock_mhz(fn, device: torch.device, seconds: float = 3.0):
@@ -1190,6 +1232,51 @@ def eq_general_path(shape: tuple, q: int, device: torch.device) -> None:
     log(f"  match_count on full-range int32 ids (general path) Q={q} N={n} m={m}: {ms:.4f} ms, "
         f"equal to its plain version; SM clock {clock} MHz; "
         f"{pairs_per_sm_clock(q * n * m, ms, clock)} pairs per SM-clock")
+
+
+def instruction_floors(library, kernel: str, pairs_of, work: int, clock, unit: str) -> list:
+    """Phase 5c / 5d: the count bodies of `kernel` in the SASS of `library`
+    (None: this checkout's build), and the least time each body's
+    instructions allow for `work` pairs or tests at `clock` MHz, by issue and
+    by the float16, int and popc pipes."""
+    from repro_torch.kernels import build
+
+    bodies = sass_count_bodies(build.sass(library), kernel, pairs_of)
+    log_sass_bodies(kernel, bodies)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in bodies:
+        floors = {k[:-len("_pairs_per_sm_clock")]: work / (v * sms * clock * 1e6) * 1e3
+                  for k, v in b.items() if k.endswith("_pairs_per_sm_clock") and v and clock}
+        log(f"  {kernel} [{b['path']}]: floors for {work:.4g} {unit} at {clock} MHz, ms: "
+            + json.dumps({k: round(v, 4) for k, v in floors.items()}))
+    return bodies
+
+
+def previous_design(kind: str, device: torch.device, *operands) -> dict:
+    """Phase 5c / 5d: this checkout's range_count or packed_tanimoto_count
+    ("range" / "packed") beside the previous design's (the int32 count tile,
+    built from tools/range_ptan_baseline.cu), in turns on the same operands,
+    with the SM clock while each runs, the tests or pairs per SM-clock, and
+    both designs' SASS floors (tools/range_ptan_ab.py)."""
+    from repro_torch.kernels import build
+    from tools import range_ptan_ab as ab
+
+    entries = {"previous": ab.previous_entries(), "this": ab.Entries(build.build())}
+    fn, rule, unit = ((ab.range_ab, range_pairs, "tests") if kind == "range" else
+                      (ab.ptan_ab, eq_pairs, "pairs"))
+    rec = fn(entries, *operands, device)
+    kernel = "range_count_kernel" if kind == "range" else "packed_tanimoto_count_kernel"
+    rate = rec.get("tests_per_sm_clock") or rec.get("pairs_per_sm_clock")
+    log(f"  {kernel[:-7]} in turns with the previous design (ms, each turn): "
+        + json.dumps(rec["ms"]) + f"; SM clock {rec['sm_clock_mhz']} MHz; {unit} per SM-clock "
+        + json.dumps(rate)
+        + (f"; the previous wrapper's torch.stack of lo, hi {rec['stack_ms']:.4f} ms"
+           if kind == "range" else ""))
+    work = rec["Q"] * rec["N"] * (rec["d"] if kind == "range" else rec["m"])
+    instruction_floors(None, kernel, rule, work, rec["sm_clock_mhz"]["this"], unit)
+    instruction_floors(ab.previous_entries_path(), f"baseline_{kernel}", rule, work,
+                       rec["sm_clock_mhz"]["previous"], unit)
+    return rec
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: int, ms: float,
@@ -1583,6 +1670,7 @@ def phase_tanimoto_kernel_times(minhash: dict, launches_count: int, parity_err: 
     check(torch.equal(counts_p, counts_pp), "packed_tanimoto_count differs from its plain version")
     del counts_pp
     lib_pc = library_eq_count(d_u8, q_u8, counts_p, device)
+    previous_design("packed", device, d_sig, q_sig)
     pc_bytes = n * m + q * m + q * n * 4
     pc_ops = 3 * q * n * words                         # xor, lane test, add per word pair
     pcb_bytes, pcb_ops = pc_bytes / PEAK_BYTES_PER_S * 1e3, pc_ops / PEAK_ALU_OPS_PER_S * 1e3
@@ -1623,7 +1711,10 @@ def phase_tanimoto_kernel_times(minhash: dict, launches_count: int, parity_err: 
     log(f"  tanimoto_count at Q={q} N={flash_n} m={flash_m}: {ms_f:.3f} ms; bound "
         f"{f_ops / PEAK_ALU_OPS_PER_S * 1e3:.3f} ms by operations; plain {plain_f:.1f} ms; "
         f"{f_ops / 2 / (ms_f / 1e3) / 1e12:.3f} T compare-adds/s")
-    del d_f, q_f, counts_f, counts_fp
+    del counts_f, counts_fp
+    log(f"  packed_tanimoto_count at Q={q} N={flash_n} m={flash_m}:")
+    previous_design("packed", device, d_f, q_f)
+    del d_f, q_f
 
     kernels = [
         kernel_entry("tanimoto_count", "src/repro_torch/kernels/csrc/tanimoto_count.cu",
@@ -1665,8 +1756,22 @@ DBLP_N, DBLP_LEN, DBLP_GRAM, DBLP_V, DBLP_K = 1_000_000, 40, 3, 4096, 32
 DBLP_ALPHABET, DBLP_MUTATION, DBLP_MAX_COUNT, DBLP_VERIFY = "abcdefghij", 0.1, 127, 64
 TWEETS_N, TWEETS_V, TWEETS_WORDS, TWEETS_PER_DOC = 1_000_000, 8192, 5000, 12
 TWEETS_QUERY_WORDS, TWEETS_MAX_COUNT, TWEETS_ZIPF = 6, 16, 1.05
-# (Q, N, width) for the three kernels' parity, nothing a multiple of a tile
-RANGE_SHAPES = [(1, 5, 1), (3, 130, 3), (70, 100003, 14), (5, 257, 37)]
+# (Q, N, width) for the three kernels' parity, nothing a multiple of a tile;
+# range_count stages 16 attributes a chunk (d = 16, 17, 33; 2100 past the
+# flush of its float16 lanes after 127 chunks), writes 4 counts
+# a thread as one 16-byte store where the output row is aligned (N = 1026:
+# every other row is not; N = 1027 and 4099: most are not), and takes three
+# value classes (range_operands)
+RANGE_SHAPES = [(1, 5, 1), (3, 130, 3), (70, 100003, 14), (5, 257, 37), (130, 1026, 16),
+                (129, 1027, 17), (7, 4099, 33), (200, 61250, 14), (3, 300, 2100)]
+RANGE_KINDS = ("lanes", "mixed", "int32")
+# data values at the float16 path's borders (it takes a chunk whose values all
+# lie in [-2048, 2048]), values that send a chunk to the int32 path, and query
+# bounds around the float16 path's clamp at +-2049 and at the ends of int32
+RANGE_LANE_POOL = [-2048, -2047, -1, 0, 1, 1023, 1024, 2047, 2048]
+RANGE_GENERAL_POOL = [-2**31, -2**31 + 1, -2050, -2049, 2049, 2050, 2**31 - 2, 2**31 - 1]
+RANGE_BOUND_POOL = [-2**31, -2051, -2050, -2049, -2048, -2047, -1, 0, 1, 2047, 2048, 2049,
+                    2050, 2051, 2**31 - 1]
 # MINSUM: V = 1 to DBLP's 4096 and past the count kernel's 4096-column
 # shared-memory window (4097 and 9000, three windows), each shape with dense
 # rows (values 0..127), sparse rows (at most 38 non-zero buckets, all-zero
@@ -1696,6 +1801,46 @@ def minsum_rows(gen: torch.Generator, rows: int, v: int, kind: str) -> torch.Ten
     return x
 
 
+def range_operands(gen: torch.Generator, q: int, n: int, d: int, kind: str) -> tuple:
+    """(x [n, d], lo [q, d], hi [q, d]) int32 RANGE operands on the CPU.  Data:
+    "lanes" values in [-2048, 2048], a third of them from RANGE_LANE_POOL;
+    "mixed" the same with one value of RANGE_GENERAL_POOL in one row of every
+    third 128-row tile from the second on, so that one call counts on both
+    paths; "int32" from the whole int32 range, half of them from both pools.
+    Queries: intervals 0 to 60 wide around data values, a third of the bounds
+    from RANGE_BOUND_POOL (empty intervals among them), lo == hi in every third
+    attribute, and rows 0 to 2 the intervals (INT32_MIN, INT32_MAX) (all),
+    (INT32_MAX, INT32_MIN) (none) and (1, 0) (the TPU wrapper's pad)."""
+    i32 = torch.iinfo(torch.int32)
+
+    def pick(pool, shape):
+        return torch.tensor(pool, dtype=torch.int64)[torch.randint(0, len(pool), shape,
+                                                                   generator=gen)]
+
+    if kind == "int32":
+        x = torch.randint(i32.min, i32.max, (n, d), generator=gen, dtype=torch.int64)
+        share = 0.5
+        pool = RANGE_LANE_POOL + RANGE_GENERAL_POOL
+    else:
+        x = torch.randint(-2048, 2049, (n, d), generator=gen, dtype=torch.int64)
+        share, pool = 1 / 3, RANGE_LANE_POOL
+    x = torch.where(torch.rand((n, d), generator=gen) < share, pick(pool, (n, d)), x)
+    if kind == "mixed":
+        for t in range(1, -(-n // 128), 3):
+            row = 128 * t + int(torch.randint(0, min(128, n - 128 * t), (1,), generator=gen))
+            x[row, t % d] = RANGE_GENERAL_POOL[t % len(RANGE_GENERAL_POOL)]
+    centre = x[torch.randint(0, n, (q,), generator=gen)]
+    lo = centre - torch.randint(0, 31, (q, d), generator=gen)
+    hi = centre + torch.randint(0, 31, (q, d), generator=gen)
+    for b in (lo, hi):
+        swap = torch.rand((q, d), generator=gen) < 1 / 3
+        b[swap] = pick(RANGE_BOUND_POOL, (int(swap.sum()),))
+    hi[:, ::3] = lo[:, ::3]
+    for row, (a, b) in enumerate(((i32.min, i32.max), (i32.max, i32.min), (1, 0))[:q]):
+        lo[row], hi[row] = a, b
+    return tuple(t.clamp(i32.min, i32.max).to(torch.int32) for t in (x, lo, hi))
+
+
 def sa_parity(device: torch.device) -> dict:
     """Phase 2d: range_count, minsum_count and ip_count against their plain
     versions, bit-exact; returns the worst absolute difference per kernel."""
@@ -1709,7 +1854,6 @@ def sa_parity(device: torch.device) -> dict:
     log("== phase 2d: the RANGE, MINSUM and IP kernels against their plain PyTorch versions")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
     worst = {"range_count": 0, "minsum_count": 0, "ip_count": 0}
-    i32 = torch.iinfo(torch.int32)
 
     def compare(name, got, want, what):
         sync(device)
@@ -1719,18 +1863,12 @@ def sa_parity(device: torch.device) -> dict:
               f"{name} differs from its plain version at {what}: max abs err {err}")
 
     for q, n, d in RANGE_SHAPES:
-        x = torch.randint(0, ADULT_BINS, (n, d), generator=gen, dtype=torch.int32)
-        x[::5, 0], x[1::5, -1] = i32.min, i32.max           # the ends of int32
-        lo = torch.randint(0, ADULT_BINS, (q, d), generator=gen, dtype=torch.int32)
-        hi = lo + torch.randint(-20, 2 * ADULT_RADIUS, (q, d), generator=gen, dtype=torch.int32)
-        hi[:, ::3] = lo[:, ::3]                               # lo == hi
-        lo[0], hi[0] = i32.min, i32.max                       # everything
-        if q > 1:
-            lo[1], hi[1] = i32.max, i32.min                   # nothing
-        x, lo, hi = x.to(device), lo.to(device), hi.to(device)
-        compare("range_count", ops.range_count(x, lo, hi), range_count_plain(x, lo, hi),
-                f"(Q,N,d)=({q},{n},{d})")
-        log(f"  range_count (Q,N,d)=({q},{n},{d}) empty ranges, lo == hi, INT32_MIN/MAX: equal")
+        for kind in RANGE_KINDS:
+            x, lo, hi = (t.to(device) for t in range_operands(gen, q, n, d, kind))
+            compare("range_count", ops.range_count(x, lo, hi), range_count_plain(x, lo, hi),
+                    f"(Q,N,d)=({q},{n},{d}) {kind} values")
+        log(f"  range_count (Q,N,d)=({q},{n},{d}) {'/'.join(RANGE_KINDS)} values, bounds at "
+            f"+-2049 and the ends of int32, empty ranges, lo == hi, the pad: equal")
     for q, n, v in MINSUM_SHAPES:
         for kind in MINSUM_KINDS:
             dc, qc = minsum_rows(gen, n, v, kind), minsum_rows(gen, q, v, kind)
@@ -2112,6 +2250,7 @@ def range_kernel_times(adult: dict, parity_err: dict, device: torch.device) -> d
         parity_err, device)
     log(f"  range_count {q * n * d / (ms / 1e3) / 1e12:.3f} T interval tests/s, "
         f"{q * n * 4 / (ms / 1e3) / 1e9:.1f} GB/s of counts written")
+    previous_design("range", device, x, lo, hi)
     hist_at_segment("Adult", counts, adult["index"].max_count, device)
     return sa_entry("range_count", "src/repro/kernels/range_count.py:51", adult, err, ms, plain,
                      (n * d + 2 * q * d + q * n) * 4, 3 * q * n * d, PEAK_ALU_OPS_PER_S, None)

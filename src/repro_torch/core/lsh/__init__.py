@@ -45,8 +45,9 @@ class LshScheme:
     # (counts, m) -> similarity estimate; default is the tau-ANN MLE c/m (Eqn 7)
     mle: Callable[[Any, int], Any] = tau_ann.mle_similarity
 
-    def make_params(self, generator, *, d: int, m: int, device="cpu", **options) -> Any:
-        """Build scheme parameters, keeping only the options this family uses."""
+    def make_params(self, generator, *, d: int, m: int, device=None, **options) -> Any:
+        """Build scheme parameters, keeping only the options this family uses,
+        on `device` (None: the card)."""
         kept = {k: v for k, v in options.items() if k in self.option_names}
         return self.make(generator, d=d, m=m, device=device, **kept)
 

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lsh import rehash as _rehash
-from repro_torch.device import DeviceLike, tensor_from
+from repro_torch.device import DeviceLike, resolve_device, tensor_from
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +51,14 @@ class E2LSHParams:
 
 
 def make(generator: Optional[torch.Generator], d: int, m: int, w: float, p: int = 2,
-         n_buckets: int = 8192, device: DeviceLike = "cpu") -> E2LSHParams:
+         n_buckets: int = 8192, device: DeviceLike = None) -> E2LSHParams:
     """Create m independent p-stable LSH functions for d-dim points.
 
     Parameters are drawn from `generator` on the generator's own device and
-    then moved, so one seed gives one set of functions wherever they run.
+    then moved to `device` (None: the card), so one seed gives one set of
+    functions wherever they run.
     """
+    device = resolve_device(device)
     gdev = generator.device if generator is not None else "cpu"
     if p == 2:
         a = torch.randn((m, d), generator=generator, dtype=torch.float32, device=gdev)
@@ -70,10 +72,11 @@ def make(generator: Optional[torch.Generator], d: int, m: int, w: float, p: int 
 
 
 def params_from_numpy(a, b, seeds, w: float, p: int, n_buckets: int,
-                      device: DeviceLike = "cpu") -> E2LSHParams:
+                      device: DeviceLike = None) -> E2LSHParams:
     """E2LSHParams from another implementation's parameters handed over as
     numpy arrays (a [m, d] float32, b [m] float32, seeds [m] uint32), so both
-    hash with identical functions."""
+    hash with identical functions; on `device` (None: the card)."""
+    device = resolve_device(device)
     a = tensor_from(np.asarray(a, dtype=np.float32))
     b = tensor_from(np.asarray(b, dtype=np.float32))
     seeds = torch.from_numpy(np.asarray(seeds).astype(np.int64) & 0xFFFFFFFF)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lsh import rehash as _rehash
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 
 # the minimum of an empty set: the reference's uint32 0xFFFFFFFF, which its
 # int32 cast turns into -1 and its rehash back into 0xFFFFFFFF
@@ -47,11 +47,13 @@ class MinHashParams:
 
 
 def make(generator: Optional[torch.Generator], m: int, n_buckets: int = 8192,
-         d: Optional[int] = None, device: DeviceLike = "cpu") -> MinHashParams:
+         d: Optional[int] = None, device: DeviceLike = None) -> MinHashParams:
     """`d` is accepted (and ignored) so the scheme registry's uniform
     make_params(generator, d=..., m=..., ...) call works -- minhash is
     dimension-free (permutations act on element ids, not coordinates).
-    Seeds are drawn on the generator's own device and then moved."""
+    Seeds are drawn on the generator's own device and then moved to
+    `device` (None: the card)."""
+    device = resolve_device(device)
     gdev = generator.device if generator is not None else "cpu"
     return MinHashParams(
         seeds=_rehash.make_seeds(generator, m, device=gdev),
@@ -61,10 +63,11 @@ def make(generator: Optional[torch.Generator], m: int, n_buckets: int = 8192,
 
 
 def params_from_numpy(seeds, rehash_seeds, n_buckets: int,
-                      device: DeviceLike = "cpu") -> MinHashParams:
+                      device: DeviceLike = None) -> MinHashParams:
     """MinHashParams from another implementation's seeds handed over as numpy
     arrays (seeds [m] and rehash_seeds [m], uint32), so both hash with
-    identical functions."""
+    identical functions; on `device` (None: the card)."""
+    device = resolve_device(device)
     s = torch.from_numpy(np.asarray(seeds).astype(np.int64) & 0xFFFFFFFF)
     r = torch.from_numpy(np.asarray(rehash_seeds).astype(np.int64) & 0xFFFFFFFF)
     if s.dim() != 1 or r.shape != s.shape:

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.lsh import rehash as _rehash
-from repro_torch.device import DeviceLike, tensor_from
+from repro_torch.device import DeviceLike, resolve_device, tensor_from
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +50,10 @@ class RBHParams:
 
 
 def make(generator: Optional[torch.Generator], d: int, m: int, sigma: float,
-         n_buckets: int = 8192, device: DeviceLike = "cpu") -> RBHParams:
+         n_buckets: int = 8192, device: DeviceLike = None) -> RBHParams:
     """m random grids over d-dim points, drawn from `generator` on the
-    generator's own device and then moved."""
+    generator's own device and then moved to `device` (None: the card)."""
+    device = resolve_device(device)
     gdev = generator.device if generator is not None else "cpu"
     # Gamma(shape=2, scale=sigma): the sum of two Exp(scale=sigma) draws
     e1 = torch.empty((m, d), dtype=torch.float32, device=gdev).exponential_(generator=generator)
@@ -66,10 +67,11 @@ def make(generator: Optional[torch.Generator], d: int, m: int, sigma: float,
 
 
 def params_from_numpy(g, u, dim_seeds, sigma: float, n_buckets: int,
-                      device: DeviceLike = "cpu") -> RBHParams:
+                      device: DeviceLike = None) -> RBHParams:
     """RBHParams from another implementation's parameters handed over as
     numpy arrays (g and u [m, d] float32, dim_seeds [m, d] uint32), so both
-    hash with identical functions."""
+    hash with identical functions; on `device` (None: the card)."""
+    device = resolve_device(device)
     g = tensor_from(np.asarray(g, dtype=np.float32))
     u = tensor_from(np.asarray(u, dtype=np.float32))
     seeds = torch.from_numpy(np.asarray(dim_seeds).astype(np.int64) & 0xFFFFFFFF)

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 
 _MASK = 0xFFFFFFFF
 _C1 = 0x85EBCA6B
@@ -90,8 +90,10 @@ def rehash_vector(signature_vec: torch.Tensor, seeds: torch.Tensor, n_buckets: i
 
 
 def make_seeds(generator: Optional[torch.Generator], m: int,
-               device: DeviceLike = "cpu") -> torch.Tensor:
-    """Draw m independent seeds in [0, 2^31 - 1) from a torch.Generator."""
+               device: DeviceLike = None) -> torch.Tensor:
+    """Draw m independent seeds in [0, 2^31 - 1) from a torch.Generator, on
+    `device` (None: the card)."""
+    device = resolve_device(device)
     seeds = torch.randint(0, 2**31 - 1, (m,), generator=generator, dtype=torch.int64,
                           device=generator.device if generator is not None else "cpu")
     return seeds.to(device)

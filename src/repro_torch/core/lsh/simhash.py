@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, tensor_from
+from repro_torch.device import DeviceLike, resolve_device, tensor_from
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,18 +41,21 @@ class SimHashParams:
 
 
 def make(generator: Optional[torch.Generator], d: int, m: int,
-         device: DeviceLike = "cpu") -> SimHashParams:
+         device: DeviceLike = None) -> SimHashParams:
     """m Gaussian projection vectors for d-dim points, drawn from `generator`
-    on the generator's own device and then moved."""
+    on the generator's own device and then moved to `device` (None: the
+    card)."""
+    device = resolve_device(device)
     gdev = generator.device if generator is not None else "cpu"
     v = torch.randn((m, d), generator=generator, dtype=torch.float32, device=gdev)
     return SimHashParams(v=v).to(device)
 
 
-def params_from_numpy(v, device: DeviceLike = "cpu") -> SimHashParams:
+def params_from_numpy(v, device: DeviceLike = None) -> SimHashParams:
     """SimHashParams from another implementation's projection matrix handed
     over as a numpy array (v [m, d] float32), so both hash with identical
-    functions."""
+    functions; on `device` (None: the card)."""
+    device = resolve_device(device)
     v = tensor_from(np.asarray(v, dtype=np.float32))
     if v.dim() != 2:
         raise ValueError(f"expected v [m, d], got shape {tuple(v.shape)}")

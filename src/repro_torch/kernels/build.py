@@ -197,8 +197,8 @@ def load() -> ctypes.CDLL:
         lib.repro_packed_tanimoto_topk.argtypes = [
             ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
         lib.repro_packed_tanimoto_topk.restype = i32
-        # int repro_range_count(data, lohi, out, n_data, n_query, d, stream)
-        lib.repro_range_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        # int repro_range_count(data, lo, hi, out, n_data, n_query, d, stream)
+        lib.repro_range_count.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_range_count.restype = i32
         # int repro_minsum_nnz(data, nnz, n_data, v, stream)
         lib.repro_minsum_nnz.argtypes = [ptr, ptr, i64, i32, ptr]

@@ -1,6 +1,6 @@
-// The count tiles shared by the EQ, TANIMOTO, RANGE and MINSUM kernels
-// (match_count.cu, tanimoto_count.cu, range_count.cu, packed_tanimoto.cu's
-// count kernel, minsum_count.cu's repro_minsum_count_dense):
+// The count tiles shared by the EQ, TANIMOTO WIDE and MINSUM kernels
+// (match_count.cu, tanimoto_count.cu, minsum_count.cu's
+// repro_minsum_count_dense):
 //
 //     counts[q, n] = sum_i count(query[q, i], data[n, i])       int32 [Q, N]
 //
@@ -38,7 +38,11 @@
 // most 64 registers so that two blocks share an SM.
 //
 // count_tile<P> -- a template on a layout policy P, which says what a
-// shared-memory slot holds and how two slots count:
+// shared-memory slot holds and how two slots count; only MINSUM's dense tile
+// (MinColumns: one int32 column per slot counted by the minimum) uses it now.
+// RANGE and packed TANIMOTO, which used it with an (lo, hi) interval and four
+// byte lanes per slot, have tiles of their own on the float16 pipe
+// (range_count.cu, packed_tanimoto.cu).
 //
 //     P::Elem                 element type in device memory
 //     P::QSlot, P::DSlot      element types of a staged query / data slot
@@ -46,20 +50,12 @@
 //     P::slots(m)             slots per row of m columns
 //     P::stage(dst, ld, src, row0, n_rows, m, s0, rows, query)
 //                             stage slots [s0, s0 + KS) of rows [row0, row0 +
-//                             rows) at dst[r * ld + s - s0] (dst is a QSlot*
-//                             for the queries, a DSlot* for the data); slots
-//                             past P::slots(m) are staged but never counted,
-//                             and where a slot holds several columns, those
-//                             past m must count nothing across the two sides
+//                             rows) at dst[r * ld + s - s0]; slots past
+//                             P::slots(m) are staged but never counted
 //     P::count(a, b)          what a query slot a and a data slot b add
 //
-// MinColumns below is one int32 column per slot counted by the minimum
-// (MINSUM on dense data: sparse n-gram data goes to minsum_count.cu's own
-// kernel over lists of its non-zero entries); RangeColumns an int32 (lo, hi)
-// interval per query slot against an int32 value per data slot (RANGE);
-// packed_tanimoto.cu holds four uint8 byte lanes per slot.  256 threads, an
-// 8 x 8 micro-tile of int32 accumulators, one to three integer instructions
-// per count.
+// 256 threads, an 8 x 8 micro-tile of int32 accumulators, one or two integer
+// instructions per count.
 //
 // What bounds them on an H100: the instruction pipes, not memory.  The
 // equality count at Q=1024, N=281250, m=238 is 6.85e10 pairs against 0.6 GB
@@ -70,7 +66,6 @@
 // thread-instructions per SM-clock, tools/fp16_pipe_rates.py), so a word pair
 // takes three issue slots of that pipe and the tile can reach ~86 pairs per
 // SM-clock; it runs at ~60, the rest going to staging and the [Q, N] write.
-// RANGE at d = 14 is the exception: its [Q, N] int32 write is its bound.
 // Measured times and SASS counts are in PERF.md.
 #pragma once
 
@@ -125,40 +120,6 @@ struct MinColumns {
   }
 
   __device__ __forceinline__ static int count(int a, int b) { return min(a, b); }
-};
-
-// RANGE: a query slot is one attribute's interval (lo, hi), a data slot one
-// attribute value, and a slot pair counts [lo <= x <= hi].  The query operand
-// is int32 [Q, m, 2] with lo and hi interleaved, the data int32 [N, m].
-// KS = 16: a [128, 33] int2 query window and a [128, 33] int window would
-// pass the 48 KB of static shared memory a block may hold.
-struct RangeColumns {
-  using Elem = int;
-  using QSlot = int2;
-  using DSlot = int;
-  static constexpr int KS = 16;   // attributes staged per step (d = 14 in one)
-
-  __device__ static int slots(int m) { return m; }
-
-  // queries: rows past n_rows are staged as the empty interval (1, 0)
-  __device__ __forceinline__ static void stage(int2* __restrict__ dst, int ld,
-                                               const int* __restrict__ src,
-                                               long long row0, long long n_rows,
-                                               int m, int s0, int rows, bool) {
-    stage_columns<KS>(dst, ld, reinterpret_cast<const int2*>(src), row0, n_rows, m,
-                      s0, rows, make_int2(1, 0));
-  }
-
-  __device__ __forceinline__ static void stage(int* __restrict__ dst, int ld,
-                                               const int* __restrict__ src,
-                                               long long row0, long long n_rows,
-                                               int m, int s0, int rows, bool) {
-    stage_columns<KS>(dst, ld, src, row0, n_rows, m, s0, rows, 0);
-  }
-
-  __device__ __forceinline__ static int count(int2 a, int b) {
-    return (a.x <= b && b <= a.y) ? 1 : 0;
-  }
 };
 
 template <class P>

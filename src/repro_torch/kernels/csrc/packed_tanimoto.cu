@@ -3,30 +3,50 @@
 //
 //     counts[q, n] = sum_i (data[n, i] == query[q, i])   uint8 -> int32 [Q, N]
 //
-// Equality is counted four byte lanes at a time: the signature axis is staged
-// into shared memory as 32-bit words (lane b of word w = column 4w + b), and a
-// word pair gives its number of equal lanes as the zero bytes of q ^ d, found
-// exactly by the carry-free test ~(((x & 0x7F7F7F7F) + 0x7F7F7F7F) | x) &
-// 0x80808080 and counted by __popc: an xor, an and, an add, an or-not, a popc
-// and the accumulating add per four columns.  Lanes past m never collide: the
-// data side stages them as 255 and the query side as 254 (the TPU wrapper's pad
-// sentinels, here only in shared memory; nothing is padded on the host).
+// Lanes past m never collide: the data side stages them as 255 and the query
+// side as 254 (the TPU wrapper's pad sentinels, here only in shared memory;
+// nothing is padded on the host).  The signature axis is staged as 32-bit
+// words of four byte lanes (lane b of word w = column 4w + b), read from rows
+// of m bytes by funnel shifts of aligned words (load_word), since a row is
+// 4-byte aligned only when m is a multiple of 4.  A word pair's equal lanes
+// are the zero bytes of q ^ d, found exactly by the carry-free test
+// ~(((x & 0x7F7F7F7F) + 0x7F7F7F7F) | x) & 0x80808080 and counted by __popc
+// (eq_lanes): five integer instructions and a popc per four columns.
 //
 // 1. `repro_packed_tanimoto_count` replaces `_count_kernel` /
 //    `packed_tanimoto_count_pallas` (src/repro/kernels/packed_tanimoto.py),
 //    which streams [128, 512] / [256, 512] byte slabs through VMEM along a
-//    third grid axis and folds them eight columns at a time.  Here it is the
-//    EQ kernel's tile (eq_tile.cuh) with a word of four lanes per slot
-//    (ByteLanes): a block owns a [128, 128] output tile, stages 16 words (64
-//    columns) of both sides per step (stage_words, below), and every thread
-//    keeps an 8 x 8 register micro-tile, so one staged word feeds 8 lane
-//    counts.  Ragged edges are masked in the kernel.  Of the
-//    two ways to count lanes, __vseteq4 summed by __dp4a and the zero-byte
-//    test with __popc, ptxas emits as many instructions per word pair for one
-//    as for the other (PERF.md); this kernel takes the second.
-//    What bounds it on an H100: integer issue.  At Q=1024, N=281250, m=238
-//    (60 words) the Q*N*60 = 1.7e10 word pairs cost about six integer
-//    instructions each, against a Q*N*4-byte count write of 1.15 GB.
+//    third grid axis and folds them eight columns at a time.  What bounds it
+//    on an H100: instruction issue.  At Q = 1024, N = 281,250, m = 238 it
+//    compares 6.85e10 (query, data, column) pairs against 1.15 GB of count
+//    write.  eq_lanes on its own is integer-bound, ~57 pairs per SM-clock (five
+//    instructions of the 64-lane integer pipe per four pairs); the float16
+//    test of the equality tile (eq_tile.cuh: an HSET2, two issue slots of the
+//    float16 pipe, and one add per two pairs) allows ~86.  So the bytes are
+//    counted on the float16 pipe; measured on an H100 80GB HBM3 at 700 W, 4.46
+//    ms at that shape, 69 % of the 3.07 ms that pipe allows (PERF.md):
+//
+//    - every byte is an id in [0, 253] or a pad, so it widens to a 16-bit lane
+//      that is a distinct finite float16 (the pattern b; 0 is the only zero),
+//      and no chunk needs the equality tile's int32 path; the widening (PRMT)
+//      happens once per staged word, not once per pair;
+//    - a chunk is 32 columns of a row, 8 staged byte words widened into 16
+//      words of two float16 lanes, counted as the equality tile counts them:
+//      an HSET2, then an HFMA2 that adds its 1.0 times 2^-24 into the
+//      accumulator, whose lane holds a count k <= 2047 as the float16 k *
+//      2^-24, i.e. with the bit pattern k (the subnormals and the first
+//      binade of float16 are 2^-24 apart); the count is the sum of the lanes'
+//      bits, an and and a shift, added into the int32 output every 127 chunks
+//      and at the end;
+//    - 512 threads, an 8 x 4 micro-tile, a [128, 128] output tile a block,
+//      two blocks an SM; the chunks are double-buffered in shared memory, so
+//      one barrier a chunk, and the last chunk of a row counts only the
+//      groups of four columns that hold columns below m.
+//
+//    Counting a share of the words at the same time with eq_lanes on the
+//    integer and popc pipes (into the same lanes' bits) makes the SASS allow
+//    more pairs per SM-clock, but ran slower at every share measured
+//    (PERF.md), so the kernel counts on the float16 pipe alone.
 //
 // 2. `repro_packed_tanimoto_topk` replaces `_topk_kernel` + `local_topk_tile`:
 //    match -> count -> per-tile top-kc in one kernel, so the [Q, N] count
@@ -50,7 +70,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "eq_tile.cuh"
 #include "fused_topk.cuh"
 
 namespace {
@@ -105,63 +124,171 @@ __device__ __forceinline__ void load_words4(const uint8_t* __restrict__ row, int
   }
 }
 
-// Stage words [w0, w0 + kw) of rows [row0, row0 + rows) of a row-major uint8
-// [n_rows, m] matrix: row r's word w0 + w at dst[r * ld + w], four words a
-// thread; the words of a group past kw are staged but never counted.  Rows
-// past n_rows are staged as `pad`.  A block of NT threads.
-template <int KW, int NT>
-__device__ __forceinline__ void stage_words(unsigned* __restrict__ dst, int ld,
-                                            const uint8_t* __restrict__ src,
-                                            long long row0, long long n_rows, int m,
-                                            int w0, int kw, int rows, uint8_t pad) {
-  constexpr int G = KW / 4;
-  const unsigned pad4 = pad * 0x01010101u;
-  for (int e = threadIdx.x; e < rows * G; e += NT) {
-    const int r = e / G;
-    const int w = 4 * (e % G);
-    if (w >= kw) continue;
-    const long long row = row0 + r;
-    unsigned x[4] = {pad4, pad4, pad4, pad4};
-    if (row < n_rows) load_words4(src + row * m, m, 4 * (w0 + w), pad4, x);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) dst[r * ld + w + b] = x[b];
-  }
+// ---- count ---------------------------------------------------------------
+namespace count {
+
+constexpr int TX = 32;                       // threads along N
+constexpr int TY = 16;                       // threads along Q
+constexpr int RQ = 8;                        // query rows per thread
+constexpr int RN = 4;                        // data rows per thread
+constexpr int TQ = TY * RQ;                  // 128 query rows per block
+constexpr int TN = TX * RN;                  // 128 data rows per block
+constexpr int THREADS = TX * TY;
+constexpr int KH = 16;                       // float16 words a row per chunk
+constexpr int KB = KH / 2;                   // byte words a row per chunk
+constexpr int KS = 4 * KB;                   // columns per chunk
+constexpr int LD = KH + 2;                   // 2 mod 4: conflict-free LDS.64
+constexpr int FLUSH_CHUNKS = 2047 / KH;      // a lane gains at most KH a chunk
+constexpr unsigned EPS2 = 0x00010001u;       // 2^-24 in both lanes
+
+// two float16 lanes: 1.0 where they compare equal, else 0.0 (HSET2.BF.EQ)
+__device__ __forceinline__ unsigned heq2(unsigned a, unsigned b) {
+  unsigned r;
+  asm("set.eq.f16x2.f16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
 }
 
-// ---- count -------------------------------------------------------------
-// The tile of eq_tile.cuh with four byte lanes per staged slot.
-struct ByteLanes {
-  using Elem = uint8_t;
-  using QSlot = unsigned;
-  using DSlot = unsigned;
-  static constexpr int KS = 16;   // words (64 columns) staged per step
+// acc + e * 2^-24 in each lane: one more in the bits of a lane where e = 1.0
+__device__ __forceinline__ unsigned add_bits(unsigned acc, unsigned e) {
+  unsigned r;
+  asm("fma.rn.f16x2 %0, %1, %2, %3;" : "=r"(r) : "r"(e), "r"(EPS2), "r"(acc));
+  return r;
+}
 
-  __device__ static int slots(int m) { return (m + 3) / 4; }
+// A thread's words of one chunk of rows [row0, row0 + ROWS): word e of the
+// [ROWS, KB] chunk for e = threadIdx.x + THREADS * p.
+template <int ROWS>
+struct Words {
+  static constexpr int STAGE = (ROWS * KB + THREADS - 1) / THREADS;
+  unsigned w[STAGE];
 
-  __device__ __forceinline__ static void stage(unsigned* __restrict__ dst, int ld,
-                                               const uint8_t* __restrict__ src,
-                                               long long row0, long long n_rows,
-                                               int m, int s0, int rows, bool query) {
-    stage_words<KS, repro::eq_tile::THREADS>(dst, ld, src, row0, n_rows, m, s0,
-                                             min(KS, slots(m) - s0), rows,
-                                             query ? PAD_QUERY : PAD_DATA);
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ src, long long row0,
+                                       long long n_rows, int m, int s0, unsigned pad4) {
+#pragma unroll
+    for (int p = 0; p < STAGE; ++p) {
+      const int e = threadIdx.x + THREADS * p;
+      const long long row = row0 + e / KB;
+      const int c = s0 + 4 * (e % KB);
+      w[p] = pad4;
+      if (e < ROWS * KB && row < n_rows && c < m) w[p] = load_word(src + row * m, m, c, pad4);
+    }
   }
 
-  __device__ __forceinline__ static int count(unsigned a, unsigned b) {
-    return eq_lanes(a, b);
+  // word k of a row widened into float16 words 2k, 2k + 1 (bytes 0, 1 and
+  // 2, 3 as 16-bit lanes)
+  __device__ __forceinline__ void store(unsigned* __restrict__ dst) const {
+#pragma unroll
+    for (int p = 0; p < STAGE; ++p) {
+      const int e = threadIdx.x + THREADS * p;
+      if (e >= ROWS * KB) continue;
+      const int r = e / KB, k = e % KB;
+      *reinterpret_cast<uint2*>(dst + r * LD + 2 * k) =
+          make_uint2(__byte_perm(w[p], 0u, 0x4140), __byte_perm(w[p], 0u, 0x4342));
+    }
   }
 };
 
-// two blocks per SM: left to itself ptxas gives the unrolled step 250
-// registers and one block per SM, which ran slower on an H100 (PERF.md)
-__global__ void __launch_bounds__(repro::eq_tile::THREADS, 2)
-packed_tanimoto_count_kernel(const uint8_t* __restrict__ data,
-                             const uint8_t* __restrict__ query,
-                             int* __restrict__ out, long long n_data,
-                             int n_query, int m, int n_qtiles) {
-  repro::eq_tile::count_tile<ByteLanes>(data, query, out, n_data, n_query, m,
-                                        n_qtiles);
+// float16 words 2g, 2g + 1 (four columns) of every row
+__device__ __forceinline__ void lanes_step(unsigned (&acc)[RQ][RN], const unsigned* __restrict__ q_s,
+                                           const unsigned* __restrict__ d_s, int tx, int ty, int g) {
+  uint2 dv[RN];
+#pragma unroll
+  for (int j = 0; j < RN; ++j)
+    dv[j] = *reinterpret_cast<const uint2*>(d_s + (tx + TX * j) * LD + 2 * g);
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const uint2 qv = *reinterpret_cast<const uint2*>(q_s + (ty + TY * i) * LD + 2 * g);
+#pragma unroll
+    for (int j = 0; j < RN; ++j)
+      acc[i][j] = add_bits(add_bits(acc[i][j], heq2(qv.x, dv[j].x)), heq2(qv.y, dv[j].y));
+  }
 }
+
+// One chunk of `cols` columns: a whole chunk unrolled; the last chunk of a row
+// only as far as it holds columns below m (the rest is padding, which counts
+// nothing).
+__device__ __forceinline__ void count_chunk(unsigned (&acc)[RQ][RN], const unsigned* __restrict__ q_s,
+                                            const unsigned* __restrict__ d_s, int tx, int ty,
+                                            int cols) {
+  if (cols >= KS) {
+#pragma unroll
+    for (int g = 0; g < KH / 2; ++g) lanes_step(acc, q_s, d_s, tx, ty, g);
+    return;
+  }
+  for (int g = 0; g < (cols + 3) / 4; ++g) lanes_step(acc, q_s, d_s, tx, ty, g);
+}
+
+// Add the lanes into the thread's output elements (written on the first
+// flush of a tile, added to after) and clear them.
+__device__ __forceinline__ void flush(unsigned (&acc)[RQ][RN], int* __restrict__ out,
+                                      long long n_data, int n_query, int q0, long long n0,
+                                      int tx, int ty, bool add) {
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int q = q0 + ty + TY * i;
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const long long n = n0 + tx + TX * j;
+      if (q < n_query && n < n_data) {
+        int* o = out + (long long)q * n_data + n;
+        *o = (add ? *o : 0) + (int)((acc[i][j] & 0xFFFFu) + (acc[i][j] >> 16));
+      }
+      acc[i][j] = 0u;
+    }
+  }
+}
+
+// two blocks per SM (at most 64 registers a thread); one block per (query
+// tile, data tile), query tiles fastest
+__global__ void __launch_bounds__(THREADS, 2)
+packed_tanimoto_count_kernel(const uint8_t* __restrict__ data, const uint8_t* __restrict__ query,
+                             int* __restrict__ out, long long n_data, int n_query, int m,
+                             int n_qtiles) {
+  __shared__ __align__(16) unsigned q_s[2][TQ * LD];
+  __shared__ __align__(16) unsigned d_s[2][TN * LD];
+
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+  const int q0 = (int)(blockIdx.x % n_qtiles) * TQ;
+  const long long n0 = (long long)(blockIdx.x / n_qtiles) * TN;
+  const unsigned pad_q = PAD_QUERY * 0x01010101u, pad_d = PAD_DATA * 0x01010101u;
+
+  unsigned acc[RQ][RN];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0u;
+
+  Words<TQ> qw;
+  Words<TN> dw;
+  qw.load(query, q0, n_query, m, 0, pad_q);
+  dw.load(data, n0, n_data, m, 0, pad_d);
+  qw.store(q_s[0]);
+  dw.store(d_s[0]);
+  __syncthreads();
+  const int chunks = (m + KS - 1) / KS;
+  bool flushed = false;
+  int since = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const bool next = c + 1 < chunks;
+    count_chunk(acc, q_s[c & 1], d_s[c & 1], tx, ty, m - c * KS);
+    if (++since == FLUSH_CHUNKS && next) {
+      flush(acc, out, n_data, n_query, q0, n0, tx, ty, flushed);
+      flushed = true;
+      since = 0;
+    }
+    if (next) {                             // into the buffer last read a barrier ago
+      qw.load(query, q0, n_query, m, (c + 1) * KS, pad_q);
+      dw.load(data, n0, n_data, m, (c + 1) * KS, pad_d);
+      qw.store(q_s[(c + 1) & 1]);
+      dw.store(d_s[(c + 1) & 1]);
+    }
+    __syncthreads();
+  }
+  flush(acc, out, n_data, n_query, q0, n0, tx, ty, flushed);
+}
+
+}  // namespace count
 
 // ---- fused count -> per-tile top-k ---------------------------------------
 using repro::fused_topk::Fused;
@@ -223,9 +350,15 @@ auto tanimoto_kernel(int nbins) {
 extern "C" int repro_packed_tanimoto_count(const void* data, const void* query,
                                            void* out, long long n_data,
                                            int n_query, int m, void* stream) {
-  return repro::eq_tile::launch<ByteLanes>(packed_tanimoto_count_kernel, data,
-                                           query, out, n_data, n_query, m,
-                                           stream);
+  if (n_data <= 0 || n_query <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  const long long n_qtiles = (n_query + count::TQ - 1) / count::TQ;
+  const long long blocks = n_qtiles * ((n_data + count::TN - 1) / count::TN);
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  count::packed_tanimoto_count_kernel<<<(unsigned)blocks, count::THREADS, 0,
+                                        (cudaStream_t)stream>>>(
+      (const uint8_t*)data, (const uint8_t*)query, (int*)out, n_data, n_query, m,
+      (int)n_qtiles);
+  return (int)cudaGetLastError();
 }
 
 // Launch shape of the fused kernel on the current device for rows of m bytes

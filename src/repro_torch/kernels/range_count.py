@@ -4,11 +4,12 @@
 
 Replaces the TPU kernel `_range_count_kernel` / `range_count_pallas`
 (`src/repro/kernels/range_count.py`), whose wrapper pads the queries with the
-empty range lo = 1, hi = 0.  The kernel is `csrc/range_count.cu`: the count
-tile of `csrc/eq_tile.cuh` with an (lo, hi) pair per query slot against one
-value per data slot; it masks its ragged edges, so nothing is padded.  It
-takes lo and hi as one int32 [Q, d, 2] operand, which the wrapper stacks
-(Q * d * 2 ints, nothing beside the [Q, N] count write).
+empty range lo = 1, hi = 0.  The kernel is `csrc/range_count.cu`, a tile of
+its own that tests the intervals on the float16 pipe where a chunk of data
+values lies in [-2048, 2048] and as int32 elsewhere, and stores whole 16-byte
+runs of counts (its header says why and what bounds it).  It masks its ragged
+edges, so nothing is padded, and takes lo and hi as they are: nothing is
+copied on the host.
 
 `range_count` launches the kernel for CUDA tensors and raises when it cannot;
 it takes `range_count_plain` only for tensors that lie on the CPU.
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.match import match_range
-from repro_torch.kernels import common
+from repro_torch.kernels import build, common
 
 # The plain PyTorch version of this kernel is the engine's reference
 # semantics, `core.match.match_range`, bound here under the kernel's name so
@@ -37,5 +38,14 @@ def range_count(data_vals: torch.Tensor, q_lo: torch.Tensor,
     if q_hi.shape != q_lo.shape:
         raise ValueError(f"range_count: q_lo {tuple(q_lo.shape)} and q_hi "
                          f"{tuple(q_hi.shape)} differ in shape")
-    lohi = torch.stack([q_lo, q_hi], dim=-1)           # [Q, d, 2], contiguous
-    return common.launch_count("range_count", data_vals, lohi, n, q, d)
+    out = torch.empty((q, n), dtype=torch.int32, device=data_vals.device)
+    if q == 0 or n == 0:
+        return out
+    lib = build.load()
+    with torch.cuda.device(data_vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.repro_range_count(data_vals.data_ptr(), q_lo.data_ptr(), q_hi.data_ptr(),
+                                       out.data_ptr(), n, q, d, stream)
+    common.check_status("range_count", status)
+    common.note_launch("range_count")
+    return out

@@ -148,7 +148,7 @@ def test_hash_points_dyadic_is_equal(rng):
     x[3, :] = 0.0
     x[3, 0] = 64.0
     v[0, 0] = 0.0                               # x[3] . v[0] == 0
-    params = simhash.params_from_numpy(v)
+    params = simhash.params_from_numpy(v, device="cpu")
     got = simhash.hash_points(params, _t(x))
     want = np.asarray(jsimhash.hash_points(jsimhash.SimHashParams(v=jnp.asarray(v)),
                                            jnp.asarray(x)))
@@ -160,7 +160,7 @@ def test_hash_points_dyadic_is_equal(rng):
 def test_hash_points_gaussian_differs_only_near_zero(rng):
     """Form (ii): the services' own Gaussian parameters."""
     jparams = jsimhash.make(jax.random.PRNGKey(3), d=64, m=120)
-    params = simhash.params_from_numpy(np.asarray(jparams.v))
+    params = simhash.params_from_numpy(np.asarray(jparams.v), device="cpu")
     assert params.dims == (120, 64)
     x = rng.standard_normal((2000, 64)).astype(np.float32)
     got = simhash.hash_points(params, _t(x)).numpy()
@@ -175,10 +175,10 @@ def test_hash_points_gaussian_differs_only_near_zero(rng):
 
 def test_simhash_make_params_and_mle():
     gen = torch.Generator().manual_seed(5)
-    p1 = simhash.make(gen, d=16, m=30)
-    p2 = simhash.make(torch.Generator().manual_seed(5), d=16, m=30)
+    p1 = simhash.make(gen, d=16, m=30, device="cpu")
+    p2 = simhash.make(torch.Generator().manual_seed(5), d=16, m=30, device="cpu")
     assert p1.v.dtype == torch.float32 and p1.dims == (30, 16) and torch.equal(p1.v, p2.v)
     with pytest.raises(ValueError, match="expected v"):
-        simhash.params_from_numpy(np.zeros(4))
+        simhash.params_from_numpy(np.zeros(4), device="cpu")
     counts = np.array([[-1, 0, 7, 30, 31], [15, 16, 29, 2, 30]])
     assert np.array_equal(simhash.mle_cosine(counts, 30), jsimhash.mle_cosine(counts, 30))

@@ -92,7 +92,7 @@ def _pair(rng, layout):
     # test code only: install the parameters before the first add()
     jsvc._params, jsvc._dim = jsimhash.SimHashParams(v=jnp.asarray(v)), DIM
     svc = RetrievalService(scheme="simhash", m_override=M, max_segments=3, device="cpu",
-                           signature_layout=layout, params=simhash.params_from_numpy(v))
+                           signature_layout=layout, params=simhash.params_from_numpy(v, device="cpu"))
     return svc, jsvc
 
 
@@ -127,7 +127,7 @@ def test_services_equal_reference_in_both_layouts(rng):
 def test_service_validation_and_parameter_shapes(rng):
     with pytest.raises(ValueError, match="no packed signature format"):
         RetrievalService(m_override=8, scheme="e2lsh", signature_layout="packed", device="cpu")
-    params = simhash.make(torch.Generator().manual_seed(0), d=4, m=8)
+    params = simhash.make(torch.Generator().manual_seed(0), d=4, m=8, device="cpu")
     svc = RetrievalService(scheme="simhash", m_override=8, device="cpu", params=params)
     with pytest.raises(ValueError, match="embedding dim 5 != dim 4"):
         svc.add(["a"], embeddings=np.zeros((1, 5), np.float32))

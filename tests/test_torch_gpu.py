@@ -436,3 +436,94 @@ def test_cpq_hist_streaming_edges_on_the_card():
             launches += 1
     torch.cuda.synchronize()
     assert common.launch_counts() == {"cpq_hist": launches}
+
+
+# range_count's float16 path takes a 16-attribute chunk of a 128-row data tile
+# whose values all lie in [-2048, 2048]; -2049 / 2049 and the ends of int32
+# send it to the int32 path.  Query bounds around +-2049 (where the float16
+# path moves them) and at the ends of int32.
+RANGE_LANE_POOL = [-2048, -2047, -1, 0, 1, 1023, 2047, 2048]
+RANGE_GENERAL_POOL = [-2**31, -2050, -2049, 2049, 2050, 2**31 - 1]
+RANGE_BOUND_POOL = [-2**31, -2050, -2049, -2048, -2047, 0, 2047, 2048, 2049, 2050, 2**31 - 1]
+
+
+def _pick(gen, pool, shape):
+    return torch.tensor(pool, dtype=torch.int64)[torch.randint(0, len(pool), shape,
+                                                               generator=gen)]
+
+
+def _range_operands(gen, q, n, d, kind):
+    """int32 (x [n, d], lo, hi [q, d]): "lanes" data in [-2048, 2048] with
+    the border values, "mixed" the same with one general value in one row
+    of every third 128-row tile, "int32" anywhere; intervals around data
+    values, bounds from the pool, lo == hi, all / none / the pad (1, 0)."""
+    i32 = torch.iinfo(torch.int32)
+    if kind == "int32":
+        x = torch.randint(i32.min, i32.max, (n, d), generator=gen, dtype=torch.int64)
+        pool = RANGE_LANE_POOL + RANGE_GENERAL_POOL
+    else:
+        x = torch.randint(-2048, 2049, (n, d), generator=gen, dtype=torch.int64)
+        pool = RANGE_LANE_POOL
+    x = torch.where(torch.rand((n, d), generator=gen) < 0.4, _pick(gen, pool, (n, d)), x)
+    if kind == "mixed":
+        for t in range(1, -(-n // 128), 3):
+            x[128 * t + (t * 37) % min(128, n - 128 * t), t % d] = \
+                RANGE_GENERAL_POOL[t % len(RANGE_GENERAL_POOL)]
+    centre = x[torch.randint(0, n, (q,), generator=gen)]
+    lo = centre - torch.randint(0, 31, (q, d), generator=gen)
+    hi = centre + torch.randint(0, 31, (q, d), generator=gen)
+    for b in (lo, hi):
+        swap = torch.rand((q, d), generator=gen) < 1 / 3
+        b[swap] = _pick(gen, RANGE_BOUND_POOL, (int(swap.sum()),))
+    hi[:, ::3] = lo[:, ::3]
+    for row, (a, b) in enumerate(((i32.min, i32.max), (i32.max, i32.min), (1, 0))[:q]):
+        lo[row], hi[row] = a, b
+    return tuple(t.clamp(i32.min, i32.max).to(torch.int32).cuda() for t in (x, lo, hi))
+
+
+@pytest.mark.gpu
+def test_range_count_both_paths_and_their_borders_on_the_card():
+    """range_count on both paths of its tile: chunks of 16 attributes (d = 1
+    to 37 and 2100, past one flush of its float16 lanes), output rows that
+    are and are not 16-byte aligned (N = 1026, 1027, 61,250), Q past one
+    128-row tile, and the bounds the float16 path moves."""
+    _need_card()
+    from repro_torch.kernels.range_count import range_count_plain
+
+    gen = torch.Generator().manual_seed(9)
+    common.reset_launch_counts()
+    shapes = [(1, 5, 1), (3, 130, 3), (5, 257, 37), (130, 1026, 16), (129, 1027, 17),
+              (7, 4099, 33), (200, 61250, 14), (3, 300, 2100)]
+    for q, n, d in shapes:
+        for kind in ("lanes", "mixed", "int32"):
+            x, lo, hi = _range_operands(gen, q, n, d, kind)
+            assert torch.equal(ops.range_count(x, lo, hi), range_count_plain(x, lo, hi)), \
+                (q, n, d, kind)
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"range_count": 3 * len(shapes)}
+
+
+@pytest.mark.gpu
+def test_packed_tanimoto_count_across_chunks_and_flushes_on_the_card():
+    """packed_tanimoto_count across its 32-column chunks (m = 31 to 33, 63 to
+    65), the flush of its lanes after 127 chunks (m = 4064, 4065, 8200), m =
+    1 to 300 and 4096, with one query row equal to a data row (a lane's
+    largest count) and ids at the domain's ends, beside tanimoto_count."""
+    _need_card()
+    gen = torch.Generator().manual_seed(10)
+    common.reset_launch_counts()
+    shapes = [(3, 70, 1), (2, 90, 5), (3, 301, 31), (130, 301, 32), (5, 129, 33), (3, 200, 63),
+              (3, 200, 65), (70, 10003, 238), (2, 200, 300), (3, 1030, 4064), (3, 1030, 4065),
+              (2, 700, 4096), (2, 500, 8200)]
+    for q, n, m in shapes:
+        d = torch.randint(0, 254, (n, m), generator=gen, dtype=torch.int32)
+        s = torch.randint(0, 254, (q, m), generator=gen, dtype=torch.int32)
+        d[:, 0], s[-1, -1] = 253, 0
+        s[0] = d[min(1, n - 1)]
+        d, s = d.cuda(), s.cuda()
+        du, su = packing.pack_buckets(d), packing.pack_buckets(s)
+        got = ops.packed_tanimoto_count(du, su)
+        assert torch.equal(got, packed_tanimoto_count_plain(du, su)), (q, n, m)
+        assert torch.equal(got, tanimoto_count_plain(d, s)) and int(got[0, min(1, n - 1)]) == m
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"packed_tanimoto_count": len(shapes)}

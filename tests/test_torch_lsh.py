@@ -116,14 +116,17 @@ def test_params_from_numpy_carries_everything_over(rng):
     assert np.array_equal(_u32(params.seeds), np.asarray(jparams.seeds))
     assert (params.w, params.p, params.n_buckets) == (2.5, 1, 67)
     with pytest.raises(ValueError, match="expected a"):
-        e2lsh.params_from_numpy(np.zeros((3, 2)), np.zeros(4), np.zeros(3), 4.0, 2, 8)
+        e2lsh.params_from_numpy(np.zeros((3, 2)), np.zeros(4), np.zeros(3), 4.0, 2, 8,
+                                device="cpu")
 
 
 def test_make_draws_from_a_generator():
     gen = torch.Generator().manual_seed(5)
-    p1 = e2lsh.make(gen, d=16, m=30, w=4.0, n_buckets=64)
-    p2 = e2lsh.make(torch.Generator().manual_seed(5), d=16, m=30, w=4.0, n_buckets=64)
-    p3 = e2lsh.make(torch.Generator().manual_seed(6), d=16, m=30, w=4.0, n_buckets=64)
+    p1 = e2lsh.make(gen, d=16, m=30, w=4.0, n_buckets=64, device="cpu")
+    p2 = e2lsh.make(torch.Generator().manual_seed(5), d=16, m=30, w=4.0, n_buckets=64,
+                    device="cpu")
+    p3 = e2lsh.make(torch.Generator().manual_seed(6), d=16, m=30, w=4.0, n_buckets=64,
+                    device="cpu")
     assert tuple(p1.a.shape) == (30, 16) and tuple(p1.b.shape) == (30,)
     assert p1.a.dtype == torch.float32 and p1.seeds.dtype == torch.int64
     assert torch.equal(p1.a, p2.a) and torch.equal(p1.b, p2.b) and torch.equal(p1.seeds, p2.seeds)
@@ -131,10 +134,10 @@ def test_make_draws_from_a_generator():
     assert float(p1.b.min()) >= 0.0 and float(p1.b.max()) < 4.0
     assert int(p1.seeds.min()) >= 0 and int(p1.seeds.max()) < 2**31 - 1
     assert len(set(p1.seeds.tolist())) > 1
-    cauchy = e2lsh.make(torch.Generator().manual_seed(5), d=16, m=30, w=4.0, p=1)
+    cauchy = e2lsh.make(torch.Generator().manual_seed(5), d=16, m=30, w=4.0, p=1, device="cpu")
     assert cauchy.p == 1 and torch.isfinite(cauchy.a).all()
     with pytest.raises(ValueError, match="p-stable"):
-        e2lsh.make(gen, d=4, m=4, w=4.0, p=3)
+        e2lsh.make(gen, d=4, m=4, w=4.0, p=3, device="cpu")
     sig = e2lsh.hash_points(p1, torch.randn(10, 16, generator=gen))
     assert int(sig.min()) >= 0 and int(sig.max()) < 64
 
@@ -151,7 +154,7 @@ def test_scheme_registry():
         lsh.get_scheme("no-such-scheme")
     # options a family does not take are dropped, as in the reference
     params = scheme.make_params(torch.Generator().manual_seed(0), d=4, m=6,
-                                w=4.0, sigma=1.0, n_buckets=32)
+                                w=4.0, sigma=1.0, n_buckets=32, device="cpu")
     assert params.n_buckets == 32 and tuple(params.a.shape) == (6, 4)
     counts = np.array([[6, 3, 0]])
     assert np.array_equal(scheme.mle(counts, 6), jscheme.mle(counts, 6))
@@ -186,3 +189,34 @@ def test_collision_probability_equals_reference(p):
     assert np.all(np.diff(got) < 0)                # strictly decreasing in distance
     with pytest.raises(ValueError):
         e2lsh.collision_prob(torch.from_numpy(dist), 4.0, 3)
+
+
+def _bare_constructor_calls():
+    """Every LSH parameter constructor of the port, called without a device."""
+    from repro_torch.core.lsh import minhash, rbh, simhash
+
+    gen = torch.Generator().manual_seed(0)
+    z2, z1 = np.zeros((3, 2), np.float32), np.zeros(3, np.float32)
+    return {
+        "e2lsh.make": lambda: e2lsh.make(gen, d=2, m=3, w=4.0),
+        "e2lsh.params_from_numpy": lambda: e2lsh.params_from_numpy(z2, z1, z1, 4.0, 2, 8),
+        "simhash.make": lambda: simhash.make(gen, d=2, m=3),
+        "simhash.params_from_numpy": lambda: simhash.params_from_numpy(z2),
+        "minhash.make": lambda: minhash.make(gen, m=3),
+        "minhash.params_from_numpy": lambda: minhash.params_from_numpy(z1, z1, 8),
+        "rbh.make": lambda: rbh.make(gen, d=2, m=3, sigma=1.0),
+        "rbh.params_from_numpy": lambda: rbh.params_from_numpy(z2, z2, z2, 1.0, 8),
+        "rehash.make_seeds": lambda: rehash.make_seeds(gen, 3),
+        "LshScheme.make_params": lambda: lsh.get_scheme("e2lsh").make_params(gen, d=2, m=3,
+                                                                           w=4.0),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_bare_constructor_calls()))
+def test_bare_constructor_targets_the_card_and_raises_without_one(name, monkeypatch):
+    """The device rule (repro_torch.device.resolve_device): no device means the
+    card, so where torch.cuda.is_available() is False a bare call raises
+    instead of carrying on on the CPU; device="cpu" builds on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        _bare_constructor_calls()[name]()

@@ -237,15 +237,17 @@ def test_wrappers_refuse_what_no_kernel_takes():
 
 
 def test_kernel_sources_share_the_tiles():
-    """RANGE runs on the count tile of eq_tile.cuh through its own policy, IP
-    and COSINE on the int8 tensor-core tile of s8_mma_tile.cuh through their
-    own epilogues: no tile body is copied.  That tile issues wgmma s8 x s8 ->
-    s32 and no __dp4a.  MINSUM has kernels of its own: the conversion to
-    lists (minsum_nnz, minsum_csr: warp ballots) and the sparse count over
-    the lists, which stages its queries in dynamic shared memory; its dense
-    tile is eq_tile.cuh's through MinColumns."""
-    for name, header, body in (("range_count.cu", "eq_tile.cuh", "count_tile<repro::eq_tile::RangeColumns>"),
-                               ("ip_count.cu", "s8_mma_tile.cuh", "dot_tile<Dot, kTma>"),
+    """IP and COSINE run on the int8 tensor-core tile of s8_mma_tile.cuh
+    through their own epilogues: no tile body is copied.  That tile issues
+    wgmma s8 x s8 -> s32 and no __dp4a.  RANGE has a tile of its own that
+    tests on the float16 pipe (saturated adds and an fma per two tests, the
+    path picked per block by __syncthreads_and, the int32 path beside it,
+    rows past Q staged as the empty range) in the equality tile's frame.
+    MINSUM has kernels of its own: the conversion to lists (minsum_nnz,
+    minsum_csr: warp ballots) and the sparse count over the lists, which
+    stages its queries in dynamic shared memory; its dense tile is
+    eq_tile.cuh's through MinColumns."""
+    for name, header, body in (("ip_count.cu", "s8_mma_tile.cuh", "dot_tile<Dot, kTma>"),
                                ("cosine_count.cu", "s8_mma_tile.cuh", "dot_tile<Agreements, kTma>")):
         text = (build.CSRC_DIR / name).read_text()
         assert f'#include "{header}"' in text and body in text
@@ -271,7 +273,13 @@ def test_kernel_sources_share_the_tiles():
     tile = (build.CSRC_DIR / "eq_tile.cuh").read_text()
     min_columns = re.search(r"struct MinColumns \{(.*?)\n\};", tile, re.S).group(1)
     assert "stage_columns<KS>" in min_columns and "return min(a, b);" in min_columns
-    assert "make_int2(1, 0)" in tile                     # rows past Q: the empty range
+    assert "RangeColumns" not in tile
+    rng = re.sub(r"//.*", "", (build.CSRC_DIR / "range_count.cu").read_text())
+    assert "eq_tile.cuh" not in rng and "__syncthreads_and(" in rng
+    assert "add.rn.sat.f16x2" in rng and "sub.rn.sat.f16x2" in rng and "fma.rn.f16x2" in rng
+    assert "setp.le.and.s32" in rng                      # the int32 path
+    assert "make_int2(1, 0)" in rng                      # rows past Q: the empty range
+    assert "row[n] = (c > 0 ? row[n] : 0) + lane_sum(" in rng   # runs of 32 counts a warp
 
 
 # ---------------------------------------------------------------------------

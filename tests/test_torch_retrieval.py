@@ -28,7 +28,7 @@ BATCHES = [40, 7, 95, 3, 60, 21, 33, 12]      # 8 adds, max_segments=4: two comp
 def _carry(jparams, **kw):
     params = e2lsh.params_from_numpy(np.asarray(jparams.a), np.asarray(jparams.b),
                                      np.asarray(jparams.seeds), jparams.w, jparams.p,
-                                     jparams.n_buckets)
+                                     jparams.n_buckets, device="cpu")
     return RetrievalService(m_override=M, max_segments=4, device="cpu", params=params, **kw)
 
 
@@ -185,7 +185,7 @@ def test_unported_parameters_raise_and_name_their_roadmap_item(act, item):
 
 
 def test_load_params_rules(rng):
-    params = e2lsh.make(torch.Generator().manual_seed(0), d=4, m=8, w=4.0)
+    params = e2lsh.make(torch.Generator().manual_seed(0), d=4, m=8, w=4.0, device="cpu")
     svc = RetrievalService(m_override=8, device="cpu")
     svc.load_params(params)
     with pytest.raises(ValueError, match="already fixed"):

@@ -123,22 +123,25 @@ def test_wrappers_refuse_what_no_kernel_takes(rng):
 
 
 def test_tile_headers_and_sources_are_what_the_build_sees():
-    """The wrapper's TILE_N is the fused kernel's K_TN; the three equality
-    count kernels share one tile header: EQ and TANIMOTO WIDE its equality
-    tile, packed TANIMOTO its templated tile through the byte-lane policy;
+    """The wrapper's TILE_N is the fused kernel's K_TN; EQ and TANIMOTO WIDE
+    run the equality tile of eq_tile.cuh, packed TANIMOTO a tile of its own
+    (bytes widened to float16 lanes and compared there);
     both fused kernels include the fused kernel's header."""
     src = (build.CSRC_DIR / "packed_tanimoto.cu").read_text()
     header = (build.CSRC_DIR / "fused_topk.cuh").read_text()
     assert int(re.search(r"constexpr int K_TN = (\d+);", header).group(1)) == TILE_N
     assert '#include "fused_topk.cuh"' in src
     for name, body in (("match_count.cu", "eq_tile::count_eq_tile("),
-                       ("tanimoto_count.cu", "eq_tile::count_eq_tile("),
-                       ("packed_tanimoto.cu", "count_tile<ByteLanes>")):
+                       ("tanimoto_count.cu", "eq_tile::count_eq_tile(")):
         text = (build.CSRC_DIR / name).read_text()
         assert '#include "eq_tile.cuh"' in text
         assert body in text
     assert [p.name for p in build.headers()] == ["eq_tile.cuh", "fused_topk.cuh",
                                                  "s8_mma_tile.cuh"]
+    count = src[src.index("namespace count {"):src.index("}  // namespace count")]
+    assert "set.eq.f16x2.f16x2" in count and "__byte_perm(" in count   # float16 lanes alone
+    assert "eq_lanes(" not in count
+    assert "count_tile<" not in src and '#include "eq_tile.cuh"' not in src
     # the byte-lane compare: the data and query pads are the reference's sentinels
     assert f"PAD_DATA = {packing.PACKED_BUCKET_PAD_DATA};" in src
     assert f"PAD_QUERY = {packing.PACKED_BUCKET_PAD_QUERY};" in src
@@ -201,7 +204,7 @@ def test_zero_byte_lane_count_is_exact():
 
 def _carry_minhash(jparams):
     return minhash.params_from_numpy(np.asarray(jparams.seeds), np.asarray(jparams.rehash_seeds),
-                                     jparams.n_buckets)
+                                     jparams.n_buckets, device="cpu")
 
 
 @pytest.mark.parametrize("n_buckets", [128, 8192])
@@ -246,17 +249,18 @@ def test_minhash_hash_sets_equals_reference(rng):
 
 
 def test_minhash_make_and_params_from_numpy():
-    p1 = minhash.make(torch.Generator().manual_seed(5), d=16, m=30, n_buckets=64)
-    p2 = minhash.make(torch.Generator().manual_seed(5), m=30, n_buckets=64)
+    p1 = minhash.make(torch.Generator().manual_seed(5), d=16, m=30, n_buckets=64,
+                      device="cpu")
+    p2 = minhash.make(torch.Generator().manual_seed(5), m=30, n_buckets=64, device="cpu")
     assert p1.seeds.dtype == torch.int64 and p1.dims == (30, None)
     assert torch.equal(p1.seeds, p2.seeds) and torch.equal(p1.rehash_seeds, p2.rehash_seeds)
     assert not torch.equal(p1.seeds, p1.rehash_seeds)
     sig = minhash.hash_points(p1, torch.randn(10, 16, generator=torch.Generator().manual_seed(1)))
     assert tuple(sig.shape) == (10, 30) and int(sig.min()) >= 0 and int(sig.max()) < 64
     with pytest.raises(ValueError, match="expected seeds"):
-        minhash.params_from_numpy(np.zeros((3, 2)), np.zeros((3, 2)), 8)
+        minhash.params_from_numpy(np.zeros((3, 2)), np.zeros((3, 2)), 8, device="cpu")
     big = minhash.params_from_numpy(np.array([0xFFFFFFFF], np.uint32),
-                                    np.array([2**31], np.uint32), 8)
+                                    np.array([2**31], np.uint32), 8, device="cpu")
     assert big.seeds.tolist() == [0xFFFFFFFF] and big.rehash_seeds.tolist() == [2**31]
 
 
@@ -266,7 +270,8 @@ def test_minhash_make_and_params_from_numpy():
 
 def _carry_rbh(jparams):
     return rbh.params_from_numpy(np.asarray(jparams.g), np.asarray(jparams.u),
-                                 np.asarray(jparams.dim_seeds), jparams.sigma, jparams.n_buckets)
+                                 np.asarray(jparams.dim_seeds), jparams.sigma, jparams.n_buckets,
+                                 device="cpu")
 
 
 def _dyadic_rbh(rng, m, d, n_buckets=8192):
@@ -312,8 +317,9 @@ def test_rbh_gaussian_differs_only_at_cell_boundaries(rng):
 
 def test_rbh_make_kernel_and_sigma(rng):
     gen = torch.Generator().manual_seed(5)
-    p1 = rbh.make(gen, d=8, m=200, sigma=2.0, n_buckets=64)
-    p2 = rbh.make(torch.Generator().manual_seed(5), d=8, m=200, sigma=2.0, n_buckets=64)
+    p1 = rbh.make(gen, d=8, m=200, sigma=2.0, n_buckets=64, device="cpu")
+    p2 = rbh.make(torch.Generator().manual_seed(5), d=8, m=200, sigma=2.0, n_buckets=64,
+                  device="cpu")
     assert p1.g.dtype == torch.float32 and p1.dim_seeds.dtype == torch.int64
     assert p1.dims == (200, 8) and torch.equal(p1.g, p2.g) and torch.equal(p1.u, p2.u)
     assert bool((p1.g > 0).all()) and bool((p1.u >= 0).all()) and bool((p1.u <= p1.g).all())
@@ -322,7 +328,8 @@ def test_rbh_make_kernel_and_sigma(rng):
     sig = rbh.hash_points(p1, torch.randn(10, 8, generator=gen))
     assert int(sig.min()) >= 0 and int(sig.max()) < 64
     with pytest.raises(ValueError, match="expected g, u and dim_seeds"):
-        rbh.params_from_numpy(np.zeros((3, 2)), np.zeros((3, 3)), np.zeros((3, 2)), 1.0, 8)
+        rbh.params_from_numpy(np.zeros((3, 2)), np.zeros((3, 3)), np.zeros((3, 2)), 1.0, 8,
+                              device="cpu")
     x = rng.standard_normal((6, 8)).astype(np.float32)
     y = rng.standard_normal((6, 8)).astype(np.float32)
     assert np.allclose(rbh.kernel(_t(x), _t(y), 2.0).numpy(),
@@ -346,7 +353,7 @@ def test_new_schemes_pair_with_the_reference_engines(name):
     assert scheme.option_names == jscheme.option_names
     assert scheme.description == jscheme.description
     params = scheme.make_params(torch.Generator().manual_seed(0), d=6, m=10,
-                                w=4.0, sigma=1.5, n_buckets=32)
+                                w=4.0, sigma=1.5, n_buckets=32, device="cpu")
     assert params.n_buckets == 32 and params.dims[0] == 10
     counts = np.array([[10, 4, 0]])
     assert np.array_equal(scheme.mle(counts, 10), jscheme.mle(counts, 10))

@@ -81,7 +81,7 @@ def test_minhash_services_equal_reference_in_both_layouts(rng):
                                  n_buckets=128, max_segments=3, signature_layout=layout)
         jsvc._params, jsvc._dim = jparams, DIM
         params = minhash.params_from_numpy(np.asarray(jparams.seeds),
-                                           np.asarray(jparams.rehash_seeds), 128)
+                                           np.asarray(jparams.rehash_seeds), 128, device="cpu")
         svc = RetrievalService(scheme="minhash", m_override=M, n_buckets=128, max_segments=3,
                                device="cpu", signature_layout=layout, params=params)
         assert svc._dim is None                 # minhash fixes no input dimension
@@ -107,7 +107,7 @@ def test_rbh_service_equals_reference(rng):
                                   dim_seeds=jnp.asarray(seeds), sigma=2.0, n_buckets=8192)
     jsvc._dim = DIM
     svc = RetrievalService(scheme="rbh", m_override=M, max_segments=3, device="cpu",
-                           params=rbh.params_from_numpy(g, u, seeds, 2.0, 8192))
+                           params=rbh.params_from_numpy(g, u, seeds, 2.0, 8192, device="cpu"))
     emb = rng.integers(-8, 9, size=(sum(BATCHES), DIM)).astype(np.float32)
     _fill(svc, jsvc, emb)
     assert svc._index.engine is Engine.EQ
@@ -124,7 +124,7 @@ def test_scheme_validation_equals_reference(rng):
     emb = rng.standard_normal((30, 6)).astype(np.float32)
     jparams = jminhash.make(jax.random.PRNGKey(0), m=16, n_buckets=8192)
     params = minhash.params_from_numpy(np.asarray(jparams.seeds),
-                                       np.asarray(jparams.rehash_seeds), 8192)
+                                       np.asarray(jparams.rehash_seeds), 8192, device="cpu")
     with pytest.raises(ValueError) as ours:
         RetrievalService(m_override=16, scheme="minhash", signature_layout="packed",
                          device="cpu", params=params).add(range(30), embeddings=emb)
@@ -140,7 +140,7 @@ def test_scheme_validation_equals_reference(rng):
     assert own._params.dims == (8, None) and own._dim == 5
     with pytest.raises(ValueError, match="embedding dim 4 != dim 5"):
         own.add(["c"], embeddings=np.zeros((1, 4), np.float32))
-    params = rbh.make(None, d=4, m=8, sigma=1.0)
+    params = rbh.make(None, d=4, m=8, sigma=1.0, device="cpu")
     with pytest.raises(ValueError, match="m_override=8"):
         RetrievalService(scheme="rbh", m_override=9, device="cpu", params=params)
 

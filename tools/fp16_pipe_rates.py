@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Measure how many of a few SASS instructions an SM issues per clock on one
-CUDA card: the instructions of the equality tile's count loops
-(src/repro_torch/kernels/csrc/eq_tile.cuh).
+CUDA card: the instructions of the float16 count loops (the equality tile of
+src/repro_torch/kernels/csrc/eq_tile.cuh, range_count.cu's interval test).
 
     python3 tools/fp16_pipe_rates.py
 
@@ -34,6 +34,15 @@ OPS = [
     ("HSET2 + HADD2, the fast path's pair",
      "{.reg .b32 t; set.eq.f16x2.f16x2 t, %0, %1; add.rn.f16x2 %0, %0, t;}", 2),
     ("FADD (add.rn.f32)", "add.rn.f32 %0, %0, %1;", 1),
+    ("HADD2.SAT (add.rn.sat.f16x2)", "add.rn.sat.f16x2 %0, %0, %1;", 1),
+    ("HFMA2.SAT (fma.rn.sat.f16x2)", "fma.rn.sat.f16x2 %0, %0, %1, %1;", 1),
+    ("HMNMX2 (min.f16x2)", "min.f16x2 %0, %0, %1;", 1),
+    ("range_count's test: two saturated adds and an fma",
+     "{.reg .b32 a, b; add.rn.sat.f16x2 a, %0, %1; sub.rn.sat.f16x2 b, %1, %0; "
+     "fma.rn.f16x2 %0, a, b, %0;}", 3),
+    ("the test as two HSET2.LE and an fma",
+     "{.reg .b32 a, b; set.le.f16x2.f16x2 a, %0, %1; set.le.f16x2.f16x2 b, %1, %0; "
+     "fma.rn.f16x2 %0, a, b, %0;}", 3),
 ]
 CHAINS, ITERS, BLOCKS_PER_SM, THREADS = 8, 20000, 8, 256
 
