@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels from `src/repro_torch/kernels/csrc/` (first use
 builds them), then runs these phases -- 1 to 3d in order, then each
-full-width phase followed by its kernels' times (4, 5, 4b, 5b, 4c, 5c, 4c',
-4d, 5d, 4e, 5d, 4f, 5d) -- and fails (non-zero exit, no result line) as soon
-as a phase fails:
+full-width phase followed by its multiple-loading case and its kernels'
+times (4, 5, 4g, 4b, 4g, 5b, 4c, 4g, 5c, 4c', 4d, 5d, 4e, 5d, 4f, 5d), and
+last DBLP at its full size through multiple loading (4g) -- and fails
+(non-zero exit, no result line) as soon as a phase fails:
 
   1. environment and build: versions, the card's name and power limit, the
      kernels' build time and what ptxas reports for them;
@@ -22,7 +23,9 @@ as a phase fails:
      N = 1,000,003, odd N, a row of 16.8 M counts past one flush of its
      16-bit counters, skewed counts with -1 and past-max_count entries, every
      entry in one bin), cosine_count (with zero rows), packed_cosine_count
-     (V from 1 to 513), and packed_cosine_topk (k from 1 to above the tile, N
+     (V from 1 to 544; W = 1, 7, 8, 9, 16 and 17 at Q and N past one block of
+     its carry-save tile and ragged, on random, all-equal and complementary
+     rows), and packed_cosine_topk (k from 1 to above the tile, N
      not a multiple of the tile, N < k, all-equal rows; W = 1, 7, 8, 9 on its
      one-byte count tile, 10, 15, 16, 17, 170 on its two-byte one, bins in
      device scratch from 16; rows near the complement of a query, so that
@@ -88,6 +91,28 @@ as a phase fails:
      per search; MINSUM also 16 of each of its two conversion kernels), 8
      sampled rows against the plain path, search and add times, memory and
      the device's idle share;
+     4g. multiple loading (paper section III-D): first small padded round
+     trips -- GenieIndex.search_multiload with 7 parts of 5000 rows, the
+     last carrying each engine's pad rows, for all six engines and both
+     layouts, kernel path = plain path for CPQ / SPQ / SORT --; then, each
+     case with its search
+     times, queries/s, peak device memory, launch counts and idle share:
+     the e2lsh corpus of phase 4 through GenieIndex.search_multiload(n_parts
+     = 16), the scanned form, and through multiload_search_host over its 16
+     segments in pinned host memory, both equal to the SEGMENTED service
+     search bit for bit (ids, counts, threshold); the PACKED simhash and
+     minhash indexes of 4b / 4c through SegmentedIndex.search_multiload
+     (packed_cosine_count / packed_tanimoto_count and cpq_hist 16 times a
+     search), equal to the fused SEGMENTED search; and DBLP -> MINSUM at its
+     full 5.0 M titles in 80 parts of 62,500 rows, each drawn on the card and
+     copied into a pinned host tensor of its own (N cut only where the host
+     cannot pin them and keep 10 GB free), streamed by multiload_search_host:
+     the source title among the 32 candidates of all 1024 queries (drawn from
+     every part), 64 verified by edit distance, 8 rows equal to a sort-method
+     search of the same parts through the plain path.  The host-loop cases
+     also print the pinned bytes, the H2D rate of the copy alone and the
+     share of the copy hidden under the match (against the same search with
+     its parts on the card; for DBLP, 8 parts on the card scaled up);
   5. each kernel's time at the full-width per-segment shape beside the plain
      version's, one PyTorch library call where one computes the same
      function, and the least time the card could take (bytes moved over the
@@ -97,7 +122,10 @@ as a phase fails:
      clock while it runs, the pairs per SM-clock and the issue floor, and its
      time on full-range int32 ids (the general path); 5b. the same for the
      three COSINE kernels, with packed_cosine_topk's popcount floor at the
-     SM clock read while it runs; 5c. the same for the three TANIMOTO kernels (with
+     SM clock read while it runs, and packed_cosine_count in turns with its
+     previous design (tools/packed_count_ab.py, built from
+     tools/packed_count_baseline.cu), with the SM clock, pairs per SM-clock,
+     both designs' SASS floors and the [Q, N] write alone; 5c. the same for the three TANIMOTO kernels (with
      the word-pair rates, and tanimoto_count's SASS and clock as for
      match_count), and tanimoto_count at m = 4096; packed_tanimoto_count
      also in turns with its previous design (tools/range_ptan_ab.py, built
@@ -158,6 +186,13 @@ MATCH_SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (70, 100003
 COSINE_SHAPES = [(1, 5, 3), (3, 130, 17), (8, 300, 64), (5, 257, 33), (2, 90, 33),
                  (4, 300, 256), (1, 40, 513), (70, 100003, 238)]
 PACKED_EXTRA_SHAPES = [(3, 70, 1), (6, 4099, 31), (9, 2500, 95)]
+# (Q, N, V) for the packed count's carry-save tile (1024 data rows and 32
+# query rows a block, eight words a tree): W = 1, 7, 8, 9, 16 and 17 at Q and
+# N past one block and ragged, each on random rows, all-equal rows and rows
+# that are the complements of the queries
+COUNT_EXTRA_SHAPES = [(67, 1025, 32), (65, 2049, 224), (130, 3001, 256), (129, 1023, 288),
+                      (3, 1500, 512), (66, 1100, 544), (1, 1, 5)]
+COUNT_KINDS = ("random", "equal", "complement")
 # (Q, N, V, k) for the fused top-k: k in {1, 3, 10, 100} and one k above the
 # tile, N not a multiple of the tile, N < k (once with k above the tile: the
 # executor fills the missing slots), Q past one and two 64-row items; W = 1,
@@ -563,9 +598,16 @@ def cosine_parity(device: torch.device, gen: torch.Generator) -> dict:
               f"cosine_count differs from its plain version at (Q,N,V)=({q},{n},{v}): "
               f"max abs err {err}")
         log(f"  cosine_count (Q,N,V)=({q},{n},{v}){' with zero rows' if i == 3 else ''}: equal")
-    for q, n, v in COSINE_SHAPES + PACKED_EXTRA_SHAPES:
-        dw = packing.pack_signs_data(_signs(gen, n, v, device))
-        sw = packing.pack_signs_queries(_signs(gen, q, v, device))
+    count_cases = ([(q, n, v, "random") for q, n, v in COSINE_SHAPES + PACKED_EXTRA_SHAPES]
+                   + [(q, n, v, kind) for q, n, v in COUNT_EXTRA_SHAPES for kind in COUNT_KINDS])
+    for q, n, v, kind in count_cases:
+        d, s = _signs(gen, n, v, device), _signs(gen, q, v, device)
+        if kind == "equal":                # every sign agrees: V everywhere
+            d.fill_(1)
+            s.fill_(1)
+        elif kind == "complement":         # query i the complement of data row i: 0 there
+            s[:min(q, n)] = -d[:min(q, n)]
+        dw, sw = packing.pack_signs_data(d), packing.pack_signs_queries(s)
         got = ops.packed_cosine_count(dw, sw)
         want = packed_cosine_count_plain(dw, sw)
         sync(device)
@@ -573,8 +615,14 @@ def cosine_parity(device: torch.device, gen: torch.Generator) -> dict:
         worst["packed_cosine_count"] = max(worst["packed_cosine_count"], err)
         check(got.shape == (q, n) and torch.equal(got, want),
               f"packed_cosine_count differs from its plain version at (Q,N,V)="
-              f"({q},{n},{v}): max abs err {err}")
-        log(f"  packed_cosine_count (Q,N,V)=({q},{n},{v}) W={dw.shape[1]}: equal")
+              f"({q},{n},{v}) {kind} rows: max abs err {err}")
+        if kind == "equal":
+            check(bool((got == v).all()), f"packed_cosine_count: all-equal rows do not count "
+                                          f"V={v}")
+        if kind == "complement":
+            check(bool((got.diagonal()[:min(q, n)] == 0).all()),
+                  f"packed_cosine_count: complementary rows do not count 0 at V={v}")
+        log(f"  packed_cosine_count (Q,N,V)=({q},{n},{v}) W={dw.shape[1]} {kind} rows: equal")
     cases = ([(q, n, v, k, "random") for q, n, v, k in TOPK_CASES] + [(2, 3000, 64, 5, "equal")]
              + [(q, n, v, k, "complement") for q, n, v, k in COMPLEMENT_CASES])
     for q, n, v, k, kind in cases:
@@ -996,11 +1044,16 @@ def profile_one_search(search, device: torch.device) -> None:
         search()
         sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel rows only: an operator's row repeats the time of the kernels it launched
+    # kernel rows only: an operator's row repeats the time of the kernels it
+    # launched; copies (a multiload host loop's run on a side stream, beside
+    # the kernels) are summed apart
     rows = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    copies = sum(r[0] for r in rows if r[2].startswith("Memcpy"))
+    rows = sorted((r for r in rows if r[0] > 0 and not r[2].startswith("Memcpy")), reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    if copies:
+        log(f"  profiler: device copies (Memcpy) {copies:.1f} ms, not counted as busy below")
     if busy_ms == 0:
         log("  profiler: no device time recorded; device busy share not measured")
         return
@@ -1031,6 +1084,8 @@ SASS_PIPES = {"ISETP": "int", "IADD3": "int", "SEL": "int", "LOP3": "int", "IMNM
 SLOTS_PER_SM_CLOCK = 128
 POPC_PER_SM_CLOCK = 16
 INT_LANES_PER_SM = 64
+# the fewest pairs a basic block must compare to count as a count body
+MIN_BODY_PAIRS = 256
 SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
 
 
@@ -1052,9 +1107,10 @@ def range_pairs(ops: collections.Counter, full: collections.Counter) -> int:
 
 def sass_count_bodies(sass: dict, kernel: str, pairs_of=eq_pairs) -> list:
     """The count bodies of `kernel` in the library's SASS (build.sass()): the
-    basic blocks (straight-line runs of instructions) that compare at least 256
-    pairs (`pairs_of(base opcodes, full opcodes)`: eq_pairs, or range_pairs
-    for interval tests), largest first.  Each with its path (float16 lanes,
+    basic blocks (straight-line runs of instructions) that compare at least
+    `pairs_of.min_pairs` pairs, or MIN_BODY_PAIRS where the rule sets none
+    (`pairs_of(base opcodes, full opcodes)`: eq_pairs, or range_pairs for
+    interval tests), largest first.  Each with its path (float16 lanes,
     with int SWAR where it also pops counts / int32 compare into float16 lanes
     / int32), pairs, instructions per pair in all, by opcode and by pipe, and
     the pairs per SM-clock that the issue rate, the float16 pipe, the int pipe
@@ -1085,7 +1141,7 @@ def sass_count_bodies(sass: dict, kernel: str, pairs_of=eq_pairs) -> list:
         full = collections.Counter(block)
         ops = collections.Counter(op.split(".")[0] for op in block)
         pairs = pairs_of(ops, full)
-        if pairs < 256:
+        if pairs < getattr(pairs_of, "min_pairs", MIN_BODY_PAIRS):
             continue
         pipes = collections.Counter()
         for op, c in ops.items():
@@ -1361,6 +1417,35 @@ def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
     return kernels
 
 
+def packed_count_turns(d_words: torch.Tensor, q_words: torch.Tensor,
+                       device: torch.device) -> dict:
+    """Phase 5b: packed_cosine_count in turns with its previous design (the
+    first port's tile, built from tools/packed_count_baseline.cu by
+    tools/packed_count_ab.py) on the segment's words, with the SM clock while
+    each runs, (query, data) pairs per SM-clock, the popcount floor of one
+    POPC a word pair, both designs' SASS floors, and the [Q, N] int32 write
+    alone (Tensor.fill_, the least a store of the counts takes here)."""
+    from repro_torch.kernels import build
+    from tools import packed_count_ab as pab
+
+    rec = pab.count_ab({"previous": pab.previous_entry(), "this": pab.Entry(build.build())},
+                       d_words, q_words, device)
+    log("  packed_cosine_count in turns with the previous design (ms, each turn): "
+        + json.dumps(rec["ms"]) + f"; SM clock {rec['sm_clock_mhz']} MHz; (query, data) pairs "
+        f"per SM-clock {json.dumps(rec['pairs_per_sm_clock'])}; popcount floor of one POPC a "
+        f"word pair {json.dumps(rec['popc_floor_ms'])} ms")
+    (n, w), q = d_words.shape, q_words.shape[0]
+    instruction_floors(None, "packed_cosine_count_kernel", pab.word_pairs, q * n * w,
+                       rec["sm_clock_mhz"]["this"], "word pairs")
+    instruction_floors(pab.previous_entry().path, "baseline_packed_cosine_count_kernel",
+                       pab.word_pairs, q * n * w, rec["sm_clock_mhz"]["previous"],
+                       "word pairs")
+    fill_ms = rec["write_alone_fill_ms"]
+    log(f"  the [Q, N] int32 write alone (Tensor.fill_): {fill_ms:.4f} ms = "
+        f"{q * n * 4 / (fill_ms / 1e3) / 1e12:.3f} TB/s")
+    return rec
+
+
 def phase_cosine_kernel_times(simhash: dict, launches_count: int, parity_err: dict,
                               device: torch.device, k: int = FULL_K) -> list:
     """The three COSINE kernels at the per-segment shape of the simhash path."""
@@ -1424,6 +1509,7 @@ def phase_cosine_kernel_times(simhash: dict, launches_count: int, parity_err: di
     pc_bytes = (n * w + q * w) * 4 + q * n * 4
     pc_ops = 3 * q * n * w                             # xor, popc, add per word pair
     pb_bytes, pb_ops = pc_bytes / PEAK_BYTES_PER_S * 1e3, pc_ops / PEAK_ALU_OPS_PER_S * 1e3
+    packed_count_turns(d_words, q_words, device)
 
     # packed_cosine_topk at the service's k
     ms_tk, (ids, cnts) = timed_ms(lambda: ops.packed_cosine_topk(d_words, q_words, k=k),
@@ -2396,6 +2482,333 @@ def ip_kernel_times(tweets: dict, parity_err: dict, device: torch.device) -> dic
                      n * v + q * v + q * n * 4, 2 * q * n * v, PEAK_INT8_TC_OPS_PER_S, lib)
 
 
+# ---------------------------------------------------------------------------
+# Phase 4g: multiple loading (paper section III-D)
+# ---------------------------------------------------------------------------
+
+# DBLP at its full size (src/repro/configs/genie_datasets.py:54-57): 5.0 M
+# titles in 80 parts of 62,500 rows, 4096 int32 counts a row (1.024 GB a
+# part, 81.9 GB in all), held in pinned host memory and streamed through the
+# card; the host keeps this much memory free beside the pinned parts
+DBLP_FULL_N, DBLP_PART_ROWS = 5_000_000, 62_500
+HOST_HEADROOM_BYTES = 10e9
+
+
+def pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` in a pinned host tensor of its own, from PyTorch's
+    pinned allocator (cudaHostAlloc; it rounds each request up to a power
+    of two, so parts are pinned one by one -- 1.074 GB for a 1.024 GB DBLP
+    part); a plain host tensor where there is no card.  Page-locking the
+    exact size with cudaHostRegister instead copied at 41.4 GB/s against
+    50.8 (PERF.md), so the rounding is kept."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=torch.cuda.is_available())
+    host.copy_(t)
+    return host
+
+
+def release_pinned() -> None:
+    """Hand the pinned allocator's freed blocks back to the host."""
+    if torch.cuda.is_available():
+        torch._C._host_emptyCache()
+
+
+def h2d_ms(parts: list, device: torch.device) -> float:
+    """The copy alone: every part copied host -> device, back to back into
+    one buffer on a side stream, timed by events (ms)."""
+    buf = torch.empty((max(p.shape[0] for p in parts),) + tuple(parts[0].shape[1:]),
+                      dtype=parts[0].dtype, device=device)
+    if device.type != "cuda":
+        return timed_ms(lambda: [buf[:p.shape[0]].copy_(p) for p in parts], device)[0]
+    stream = torch.cuda.Stream(device)
+    sync(device)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(stream):
+        start.record(stream)
+        for p in parts:
+            buf[:p.shape[0]].copy_(p, non_blocking=True)
+        stop.record(stream)
+    stream.synchronize()
+    return start.elapsed_time(stop)
+
+
+def log_streaming(label: str, parts: list, host_ms: float, compute_ms: float,
+                  device: torch.device, how: str = "") -> dict:
+    """Pinned bytes, the H2D rate of the copy alone (the median of three
+    runs), and the share of the copy hidden under the match: (copy +
+    compute - search) / copy, where `compute_ms` is the same search with its
+    parts already on the card.  The share is logged as computed, not
+    clipped: above compute / copy, the copy inside the search ran faster
+    than the copy alone, which is then flagged as no floor of the search."""
+    nbytes = sum(p.numel() * p.element_size() for p in parts)
+    copy_ms = statistics.median(h2d_ms(parts, device) for _ in range(3))
+    hidden = (copy_ms + compute_ms - host_ms) / copy_ms
+    rec = dict(case=label, pinned_bytes=nbytes, h2d_ms=copy_ms,
+               h2d_gb_per_s=nbytes / (copy_ms / 1e3) / 1e9, search_ms=host_ms,
+               compute_ms=compute_ms, compute_how=how or "the parts on the card",
+               hidden_share_of_copy=hidden, copy_alone_above_search=copy_ms > host_ms)
+    log(f"  {label}: {len(parts)} parts, {nbytes / 1e9:.3f} GB pinned; the copy alone "
+        f"{copy_ms:.2f} ms = {rec['h2d_gb_per_s']:.2f} GB/s host -> device; search "
+        f"{host_ms:.2f} ms against {compute_ms:.2f} ms with {rec['compute_how']}: "
+        f"(copy + compute - search) / copy = {100 * hidden:.1f}% of the copy hidden "
+        f"under the match")
+    if copy_ms > host_ms:
+        log(f"  FLAG {label}: the copy alone ({copy_ms:.2f} ms) is slower than the search "
+            f"that holds it ({host_ms:.2f} ms), so it is no floor of the search and the "
+            f"hidden share above overstates what was hidden")
+    log("  multiload streaming: " + json.dumps(rec))
+    return rec
+
+
+def same_result(got, want, what: str) -> None:
+    check(torch.equal(got.ids, want.ids) and torch.equal(got.counts, want.counts)
+          and torch.equal(got.threshold, want.threshold),
+          f"{what}: ids, counts or threshold differ")
+
+
+def phase_multiload_eq(run: dict, device: torch.device, k: int = FULL_K,
+                       n_searches: int = N_SEARCHES) -> None:
+    """Phase 4g (EQ): the e2lsh corpus of phase 4 searched (i) through
+    GenieIndex.search_multiload(n_parts=16), the scanned form over a stacked
+    copy of the corpus, and (ii) through multiload_search_host over its 16
+    segments copied into pinned host memory; both must equal the SEGMENTED
+    service search bit for bit."""
+    from repro_torch.core import Engine, GenieIndex, SearchParams, TopKMethod
+    from repro_torch.core.multiload import multiload_search_host
+    from repro_torch.kernels import common
+
+    svc, qsigs, want = run["service"], run["qsigs"], run["result"]
+    index = svc._index
+    segs = len(index.segments)
+    n_queries = qsigs.shape[0]
+    log(f"== phase 4g: multiple loading, e2lsh -> EQ at the SIFT shape ({segs} parts of "
+        f"{index.segment_rows[0]})")
+    mono = GenieIndex.build(Engine.EQ, torch.cat([s.data for s in index.segments]),
+                            max_count=index.max_count, device=device)
+    per_search = {"match_count": segs, "cpq_hist": segs}
+    log(f"  (i) GenieIndex.search_multiload(n_parts={segs}), the scanned form")
+    common.reset_launch_counts()
+    res = timed_searches(lambda: mono.search_multiload(qsigs, k=k, n_parts=segs), n_queries,
+                         n_searches, per_search, device)
+    same_result(res, want, "scanned EQ multiload against the SEGMENTED service search")
+    log("  ids, counts and threshold equal the SEGMENTED service search on every row")
+    profile_one_search(lambda: mono.search_multiload(qsigs, k=k, n_parts=segs), device)
+    del mono, res
+    torch.cuda.empty_cache()
+
+    log(f"  (ii) multiload_search_host over the {segs} segments in pinned host memory")
+    q_exec = index.model.prepare_queries_for(qsigs, device, index.signature_layout)
+    params = SearchParams(k=k, max_count=index.max_count, method=TopKMethod.CPQ)
+    parts = [pinned_copy(s.data) for s in index.segments]
+    common.reset_launch_counts()
+    res = timed_searches(lambda: multiload_search_host(parts, q_exec, params, Engine.EQ),
+                         n_queries, n_searches, per_search, device)
+    same_result(res, want, "host-loop EQ multiload against the SEGMENTED service search")
+    log("  ids, counts and threshold equal the SEGMENTED service search on every row")
+    profile_one_search(lambda: multiload_search_host(parts, q_exec, params, Engine.EQ), device)
+    host_ms = statistics.median(timed_ms(lambda: multiload_search_host(
+        parts, q_exec, params, Engine.EQ), device)[0] for _ in range(3))
+    resident = [s.data for s in index.segments]
+    compute_ms = statistics.median(timed_ms(lambda: multiload_search_host(
+        resident, q_exec, params, Engine.EQ), device)[0] for _ in range(3))
+    log_streaming("EQ host loop", parts, host_ms, compute_ms, device)
+    del parts
+    release_pinned()
+
+
+def phase_multiload_packed(run: dict, scheme: str, count_kernel: str, device: torch.device,
+                           k: int = FULL_K, n_searches: int = N_SEARCHES) -> dict:
+    """Phase 4g (PACKED simhash / minhash): SegmentedIndex.search_multiload on
+    the PACKED service index of phase 4b / 4c -- the count kernel once a part,
+    the pad mask and cpq_hist, never the fused kernel -- equal to the fused
+    SEGMENTED service search bit for bit.  Returns the launch counts."""
+    from repro_torch.kernels import common
+
+    index, qsigs, want = run["service"]._index, run["qsigs"], run["result"]
+    segs = len(index.segments)
+    log(f"== phase 4g: multiple loading, {scheme} -> PACKED, SegmentedIndex.search_multiload "
+        f"over {segs} segments")
+    common.reset_launch_counts()           # the path starts here
+    res = timed_searches(lambda: index.search_multiload(qsigs, k=k), qsigs.shape[0],
+                         n_searches, {count_kernel: segs, "cpq_hist": segs}, device)
+    launches = common.launch_counts()
+    same_result(res, want, f"PACKED {scheme} multiload against the fused SEGMENTED search")
+    log("  ids, counts and threshold equal the fused SEGMENTED service search on every row")
+    profile_one_search(lambda: index.search_multiload(qsigs, k=k), device)
+    return launches
+
+
+# (engine, signature layout, kernel that counts a part) of the padded
+# multiload round trips: every engine and layout, so that each engine's pad
+# fill reaches its count kernel (EQ's -1 and RANGE's INT32_MIN leave the
+# float16 lanes for the int32 paths of their tiles; MINSUM's -1 rows go
+# through the sparse lists)
+PAD_CASES = [("eq", "wide", "match_count"), ("range", "wide", "range_count"),
+             ("minsum", "wide", "minsum_count"), ("ip", "wide", "ip_count"),
+             ("cosine", "wide", "cosine_count"), ("cosine", "packed", "packed_cosine_count"),
+             ("tanimoto", "wide", "tanimoto_count"),
+             ("tanimoto", "packed", "packed_tanimoto_count")]
+
+
+def phase_multiload_pads(device: torch.device, n: int = 5000, n_queries: int = 33,
+                         n_parts: int = 7, k: int = 20) -> None:
+    """Phase 4g (pads): GenieIndex.search_multiload with n_parts not dividing
+    N, so the last part carries the engine's pad rows, for every engine and
+    layout: the kernel path launches its count kernel once a part and equals
+    the plain path (CPQ, SPQ, SORT), and no pad id reaches a result."""
+    import numpy as np
+
+    from repro_torch.core import Engine, GenieIndex, TopKMethod, engines
+    from repro_torch.kernels import common
+
+    log(f"== phase 4g: padded multiload round trips, N = {n} in {n_parts} parts of "
+        f"{-(-n // n_parts)} (kernel path vs plain path)")
+    for name, layout, kernel in PAD_CASES:
+        engine = Engine(name)
+        rng = np.random.default_rng(SEED + 11)
+        raw, queries, mc = engines.get(engine).example(rng, n, n_queries)
+        built = {uk: GenieIndex.build(engine, raw, max_count=mc, use_kernel=uk,
+                                      signature_layout=layout, device=device)
+                 for uk in (True, False)}
+        for method in TopKMethod:
+            common.reset_launch_counts()
+            got = built[True].search_multiload(queries, k=k, n_parts=n_parts, method=method)
+            launches = common.launch_counts()
+            want = built[False].search_multiload(queries, k=k, n_parts=n_parts, method=method)
+            check(common.launch_counts() == launches, "the plain path launched a kernel")
+            check(launches.get(kernel) == n_parts,
+                  f"{name} {layout}: {kernel} launched {launches} for {n_parts} parts")
+            same_result(got, want, f"padded {name} {layout} multiload {method.value}: kernel "
+                                   f"path against plain path")
+            check(bool(((got.ids < n) | (got.counts == -1)).all()), "a pad row holds a count")
+        log(f"  {name} {layout}: {kernel} {n_parts}x a search; CPQ / SPQ / SORT equal the "
+            f"plain path; no pad row in a result")
+
+
+def mem_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("chip_smoke: /proc/meminfo has no MemAvailable")
+
+
+def phase_multiload_dblp(device: torch.device, n_total: int = DBLP_FULL_N,
+                         part_rows: int = DBLP_PART_ROWS, n_queries: int = FULL_Q,
+                         k: int = DBLP_K, n_verify: int = DBLP_VERIFY,
+                         n_searches: int = N_SEARCHES, resident_parts: int = 8) -> dict:
+    """Phase 4g (DBLP): DBLP -> MINSUM at its full 5.0 M titles, streamed
+    from pinned host memory through multiload_search_host: each part drawn
+    on the card as phase 4e draws it and copied into a pinned tensor of its
+    own.  N is cut only if the host cannot pin the parts and keep
+    HOST_HEADROOM_BYTES free.  Queries come from every part; the source
+    title must be among the K candidates of every query, 64 are verified by
+    edit distance, and 8 rows equal a sort-method search of the same parts
+    through the plain path."""
+    import numpy as np
+
+    from repro_torch.core import Engine, SearchParams, TopKMethod
+    from repro_torch.core.multiload import multiload_search_host
+    from repro_torch.core.sa import ngram, verify
+    from repro_torch.kernels import common
+
+    n_parts = n_total // part_rows
+    part_bytes = part_rows * DBLP_V * 4
+    pinned_each = 1 << (part_bytes - 1).bit_length()     # the allocator's rounding
+    avail = mem_available_bytes()
+    fit = int((avail - HOST_HEADROOM_BYTES) // pinned_each)
+    log(f"== phase 4g: multiple loading, DBLP -> MINSUM at {n_total} titles: {n_parts} parts "
+        f"of {part_rows} x {DBLP_V} int32 ({n_parts * part_bytes / 1e9:.1f} GB); host "
+        f"MemAvailable {avail / 1e9:.1f} GB, {pinned_each / 1e9:.3f} GB pinned a part, "
+        f"{HOST_HEADROOM_BYTES / 1e9:.0f} GB kept free")
+    if fit < n_parts:
+        check(fit >= 2, "the host cannot pin two DBLP parts")
+        log(f"  CUT: the host can pin {fit} parts with {HOST_HEADROOM_BYTES / 1e9:.0f} GB "
+            f"left, so N = {fit * part_rows} of {n_total}")
+        n_parts = fit
+    n = n_parts * part_rows
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    table = gram_table(DBLP_V, device)
+    picks = spread(n, n_queries, device)
+    t0 = time.perf_counter()
+    parts, titles = [], []
+    for p in range(n_parts):
+        t = torch.randint(0, len(DBLP_ALPHABET), (part_rows, DBLP_LEN), generator=gen,
+                          device=device, dtype=torch.int8)
+        parts.append(pinned_copy(title_count_vectors(t, table, DBLP_V)))
+        titles.append(t.cpu())
+    titles = torch.cat(titles)
+    sync(device)
+    log(f"  {n_parts} parts drawn on the card and pinned in {time.perf_counter() - t0:.1f} s")
+    sample = spread(n, 64, torch.device("cpu"))
+    want = ngram.count_vectors(decode_titles(titles[sample]), DBLP_GRAM, DBLP_V)
+    got = torch.stack([parts[int(i) // part_rows][int(i) % part_rows] for i in sample])
+    check(torch.equal(got, torch.from_numpy(want)),
+          "pinned count vectors differ from ngram.count_vectors of their titles")
+    log("  64 sampled rows of the pinned parts equal ngram.count_vectors of their titles")
+    rng = np.random.default_rng(SEED)
+    qstrs = [mutate(t, rng) for t in decode_titles(titles[picks.cpu()])]
+    queries = torch.from_numpy(ngram.count_vectors(qstrs, DBLP_GRAM, DBLP_V)).to(device)
+    params = SearchParams(k=k, max_count=DBLP_MAX_COUNT, method=TopKMethod.CPQ)
+
+    def search():
+        return multiload_search_host(parts, queries, params, Engine.MINSUM)
+
+    common.reset_launch_counts()           # the path starts here
+    res = timed_searches(search, n_queries, n_searches,
+                         {"minsum_nnz": n_parts, "minsum_csr": n_parts,
+                          "minsum_count": n_parts, "cpq_hist": n_parts}, device)
+    check_result(res, n_queries, k, n)
+    found = (res.ids == picks[:, None].to(torch.int32)).any(dim=1)
+    log(f"  source title among the K = {k} candidates: {float(found.float().mean()):.4f}")
+    check(bool(found.all()), "a source title is missing from its query's candidates")
+    certified = 0
+    for i in range(0, n_queries, n_queries // n_verify)[:n_verify]:
+        ids = res.ids[i].cpu()
+        cands = decode_titles(titles[ids.clamp(min=0).to(torch.int64)])
+        enc, lens = ngram.encode_sequences(
+            [c if int(j) >= 0 else "" for c, j in zip(cands, ids.tolist())], DBLP_LEN + 8)
+        qenc, qlen = ngram.encode_sequences([qstrs[i]], DBLP_LEN + 8)
+        ver = verify.verify_topk(torch.from_numpy(qenc[0]).to(device), int(qlen[0]),
+                                 torch.from_numpy(enc).to(device),
+                                 torch.from_numpy(lens).to(device), res.counts[i], k=1,
+                                 n=DBLP_GRAM)
+        best = int(ids[int(ver["order"][0])])
+        check(best == int(picks[i]), f"query {i}: verification picked {best}, "
+              f"not the source title {int(picks[i])}")
+        certified += bool(ver["certified_exact"])
+    log(f"  verify_topk(k=1) on {n_verify} queries: the best candidate is the source title on "
+        f"all of them ({certified} certified exact by the count filter)")
+    rows = torch.arange(0, n_queries, n_queries // 8, device=device)[:8]
+    before = common.launch_counts()
+    oracle = multiload_search_host(parts, queries[rows], SearchParams(
+        k=k, max_count=DBLP_MAX_COUNT, method=TopKMethod.SORT, use_kernel=False), Engine.MINSUM)
+    check(common.launch_counts() == before, "the plain path launched a kernel")
+    check(torch.equal(oracle.ids, res.ids[rows]) and torch.equal(oracle.counts, res.counts[rows])
+          and torch.equal(oracle.threshold, res.threshold[rows]),
+          "the kernel path differs from the sort oracle on the sampled rows")
+    log(f"  rows {rows.tolist()} equal a sort-method search of the same parts through the "
+        f"plain path")
+    profile_one_search(search, device)
+    host_ms = statistics.median(timed_ms(search, device)[0] for _ in range(2))
+    # the match of every part with its data on the card: the parts in
+    # chunks of `resident_parts` (they do not all fit the card), each
+    # chunk searched on its own, the chunks' times summed
+    compute_ms = 0.0
+    for c in range(0, n_parts, resident_parts):
+        resident = [q.to(device) for q in parts[c:c + resident_parts]]
+        compute_ms += statistics.median(timed_ms(lambda: multiload_search_host(
+            resident, queries, params, Engine.MINSUM), device)[0] for _ in range(3))
+        del resident
+    stream = log_streaming("DBLP host loop", parts, host_ms, compute_ms, device,
+                           f"all {n_parts} parts on the card, {resident_parts} a search, "
+                           f"the searches' times summed")
+    out = dict(n=n, n_parts=n_parts, result=res, streaming=stream)
+    del parts
+    release_pinned()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one "
@@ -2406,22 +2819,29 @@ def main() -> int:
     phase_environment_and_build()
     parity_err = phase_kernel_parity(device)
     phase_small_service(device)
-    count_launches = phase_small_simhash(device)
-    tanimoto_launches = phase_small_minhash(device)
+    phase_small_simhash(device)
+    phase_small_minhash(device)
     phase_small_sa(device)
+    phase_multiload_pads(device)
     full = phase_full_width(device)
     svc = full["service"]
     search_split(svc, full["queries"], FULL_K, device)
     profile_one_search(service_search(full, FULL_K), device)
     kernels = phase_kernel_times(svc._index.segments[0].data, full["qsigs"], svc.m,
                                  full["launches"], parity_err, device)
+    phase_multiload_eq(full, device)
     del full, svc                          # free the EQ corpus before the simhash one
     torch.cuda.empty_cache()
     simhash = phase_full_width_simhash(device)
+    count_launches = phase_multiload_packed(simhash["packed"], "simhash", "packed_cosine_count",
+                                            device).get("packed_cosine_count", 0)
     kernels += phase_cosine_kernel_times(simhash, count_launches, parity_err, device)
     del simhash                            # free the simhash corpus before the minhash one
     torch.cuda.empty_cache()
     minhash = phase_full_width_minhash(device)
+    tanimoto_launches = phase_multiload_packed(minhash["packed"], "minhash",
+                                               "packed_tanimoto_count", device).get(
+                                                   "packed_tanimoto_count", 0)
     kernels += phase_tanimoto_kernel_times(minhash, tanimoto_launches, parity_err, device)
     del minhash
     torch.cuda.empty_cache()
@@ -2437,6 +2857,7 @@ def main() -> int:
         kernels += timed if isinstance(timed, list) else [timed]
         del run                            # free the corpus before the next one
         torch.cuda.empty_cache()
+    phase_multiload_dblp(device)
     torch.cuda.synchronize()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power_limit())

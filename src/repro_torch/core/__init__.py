@@ -5,10 +5,11 @@
 # search path builds a QueryPlan and delegates to the one executor that calls
 # match kernels, pad masks, select_topk, and the merge buffers.
 from repro_torch.core import (  # noqa: F401
-    cpq, engines, index, match, merge, plan, routing, segments, select, spq,
+    cpq, engines, index, match, merge, multiload, plan, routing, segments, select, spq,
 )
 from repro_torch.core.engines import MatchModel  # noqa: F401
 from repro_torch.core.index import GenieIndex  # noqa: F401
+from repro_torch.core.multiload import multiload_search, multiload_search_host  # noqa: F401
 from repro_torch.core.plan import Layout, QueryPlan, execute, plan_search  # noqa: F401
 from repro_torch.core.routing import Routing  # noqa: F401
 from repro_torch.core.segments import SegmentedIndex  # noqa: F401

@@ -18,10 +18,14 @@ dispatch, pad masking, top-k selection, and merging.
     result = index.search(query_sigs, k=100)             # TopKResult
     result = index.search((lo, hi), k=100)               # RANGE: intervals
 
+    result = index.search_multiload(query_sigs, k=100, n_parts=16)
+
 `device=None` places the index on the card and raises when there is none;
-`device="cpu"` runs the plain PyTorch path.  `search_multiload` (ROADMAP
-queue 1 item 4) and the routing summary (`summary`, queue 1 item 6) are not
-ported yet: `summary` is always None.
+`device="cpu"` runs the plain PyTorch path.  `search_multiload` (paper
+section III-D, the scanned form) is ported without the reference's
+`tile_overrides` / `autotune` arguments, which wait for the autotuner
+(ROADMAP queue 1 item 8); the routing summary (`summary`, queue 1 item 6)
+is not ported yet and is always None.
 """
 from __future__ import annotations
 
@@ -173,3 +177,21 @@ class GenieIndex:
             signature_layout=self.signature_layout,
         )
         return _plan.execute(plan, self.data, self.prepare_queries(queries))
+
+    def search_multiload(self, queries, k: int, n_parts: int,
+                         method: TopKMethod = TopKMethod.CPQ,
+                         candidate_cap: int | None = None) -> TopKResult:
+        """Paper section III-D: split this index into parts and stream them.
+
+        Works for every registered engine: the planned layout pads parts with
+        the engine's fill and the executor masks pad rows out of the merged
+        result.
+        """
+        plan = _plan.plan_search(
+            self.engine, k, self.max_count, layout=_plan.Layout.MULTILOAD,
+            n_parts=n_parts, n_objects=self.stats.n_objects, method=method,
+            candidate_cap=candidate_cap, use_kernel=self.use_kernel,
+            signature_layout=self.signature_layout,
+        )
+        chunks = _plan.pad_and_stack(plan, self.data)
+        return _plan.execute(plan, chunks, self.prepare_queries(queries))

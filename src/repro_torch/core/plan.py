@@ -15,15 +15,34 @@ Layouts ported so far, and their merge strategies:
   SEGMENTED    host loop over immutable per-segment parts (heterogeneous
                rows); per-part buffers of width min(k, rows) merged exactly
                by `merge_ragged` (parts partition the object set).
+  MULTILOAD    paper section III-D part streaming: either a stacked
+               [C, Nc, ...] tensor walked chunk by chunk with an incremental
+               pairwise merge (`host_loop=False`, the scanned form), or the
+               literal host loop (`host_loop=True`): parts held in host
+               memory are copied to the queries' device one at a time --
+               from pinned memory on a side stream into two reused device
+               buffers, so that part i + 1 is in flight while part i is
+               matched -- and merged like SEGMENTED parts.
 
-PACKED signatures are planned like WIDE ones; on the kernel path of both
-ported layouts with nothing padded, a PACKED plan carries the engine's fused
-match->count->local-top-k kernel (`fused_match`), which replaces the count
-matrix, the pad mask and `select_topk` (and so ignores `method` and
-`candidate_cap`, as the reference does).  MULTILOAD (part streaming),
-DISTRIBUTED (mesh shards), routed plans, tile overrides and the autotuner
-are parts of `repro/core/plan.py` that are still to be ported; planning one
-of them raises NotImplementedError naming its ROADMAP item.
+PACKED signatures are planned like WIDE ones; on the kernel path of
+MONOLITHIC and SEGMENTED with nothing padded, a PACKED plan carries the
+engine's fused match->count->local-top-k kernel (`fused_match`), which
+replaces the count matrix, the pad mask and `select_topk` (and so ignores
+`method` and `candidate_cap`, as the reference does).  MULTILOAD plans never
+carry it: every one sets `n_objects`, so they run the count kernel and the
+pad mask.
+
+One difference from the reference, in `describe()["fused_hist"]`: the JAX
+package keeps the plain histogram on its MULTILOAD layout (`fused_hist =
+False`: its TPU scan kept the jnp histogram), while the port runs the
+histogram kernel on every kernel-path layout, MULTILOAD included, because
+the port's plain histogram takes ~495 ms a SIFT segment on the card.  The
+histogram is exact, so results are the same bit for bit.
+
+DISTRIBUTED (mesh shards, ROADMAP queue 1 item 9), routed plans (item 6),
+tile overrides and the autotuner (item 8) are parts of `repro/core/plan.py`
+that are still to be ported; planning one of them raises
+NotImplementedError naming its ROADMAP item.
 
 PyTorch runs eagerly, so there is no compiled executable to cache: the JAX
 package's `_EXEC_CACHE`, `trace_count`, `plan_cache_size` and
@@ -43,6 +62,7 @@ import dataclasses
 import enum
 from typing import Any, Callable, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import cpq as _cpq
@@ -63,12 +83,11 @@ class Layout(str, enum.Enum):
 
     MONOLITHIC = "monolithic"      # one device-resident data matrix
     SEGMENTED = "segmented"        # host loop over sealed per-batch segments
-    MULTILOAD = "multiload"        # streamed index parts (not ported yet)
+    MULTILOAD = "multiload"        # streamed index parts (scan or host loop)
     DISTRIBUTED = "distributed"    # object shards across devices (not ported yet)
 
 
 _UNPORTED_LAYOUTS = {
-    Layout.MULTILOAD: "ROADMAP queue 1 item 4 (multiple loading)",
     Layout.DISTRIBUTED: "ROADMAP queue 1 item 9 (distributed layout)",
 }
 
@@ -89,6 +108,7 @@ class QueryPlan:
     engine: Optional[Engine] = None    # None when `match` is a raw callable
     pad_value: Any = None              # engine fill for padded rows
     fused_hist: bool = False           # histogram from the CUDA kernel
+    host_loop: bool = False            # MULTILOAD: host streaming vs scanned stack
     # signature storage format the match fn expects
     signature_layout: SignatureLayout = SignatureLayout.WIDE
     # fused match->count->local-top-k kernel fn(data, queries, k) ->
@@ -120,6 +140,8 @@ class QueryPlan:
     def merge_strategy(self) -> str:
         if self.layout == Layout.MONOLITHIC:
             return "none"
+        if self.layout == Layout.MULTILOAD and not self.host_loop:
+            return "incremental-pairwise"
         return "ragged-buffer"
 
     def describe(self) -> dict:
@@ -142,6 +164,7 @@ class QueryPlan:
             n_objects=self.n_objects,
             pad_rows=self.pad_rows,
             merge=self.merge_strategy(),
+            host_loop=self.host_loop,
             fused_hist=self.fused_hist,
             signature_layout=self.signature_layout.value,
             fused_match=self.fused_match is not None,
@@ -156,10 +179,12 @@ def plan_search(
     *,
     layout: Layout = Layout.MONOLITHIC,
     part_rows: Optional[Sequence[int]] = None,
+    n_parts: Optional[int] = None,
     n_objects: Optional[int] = None,
     method: TopKMethod = TopKMethod.CPQ,
     candidate_cap: Optional[int] = None,
     use_kernel: bool = True,
+    host_loop: bool = False,
     signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
     routing: Routing | str = Routing.NONE,
 ) -> QueryPlan:
@@ -169,9 +194,13 @@ def plan_search(
     `engine` may be an Engine, its string value, a MatchModel, or a raw
     canonical callable ``fn(data, queries) -> counts``.
 
-    Layout shape: pass `part_rows` (explicit, possibly ragged part sizes).
-    `n_objects` is the count of real rows when the data carries engine-fill
-    pad rows past it; those can then never reach a result.
+    Layout shape: pass `part_rows` (explicit, possibly ragged part sizes) or
+    `n_parts` with `n_objects` (an even split padded up to divisibility --
+    the classic multiload partition).  `n_objects` is the count of real rows
+    when the data carries engine-fill pad rows past it; those can then never
+    reach a result.  A MULTILOAD plan streams host parts with
+    `host_loop=True` (ragged parts allowed) or walks a stacked [C, Nc, ...]
+    tensor (uniform parts).
 
     `signature_layout` selects the storage format the data/queries arrive in
     (core/packing.py): PACKED plans dispatch the packed match fns and -- on
@@ -197,26 +226,40 @@ def plan_search(
         raise NotImplementedError(
             f"the {layout.value} layout is not ported yet: {_UNPORTED_LAYOUTS[layout]}"
         )
+    if part_rows is None and n_parts is not None:
+        if n_parts < 1:
+            raise ValueError(f"n_parts must be >= 1, got {n_parts}")
+        if n_objects is None:
+            raise ValueError("an even multiload split needs n_objects")
+        per = -(-n_objects // n_parts)
+        part_rows = (per,) * n_parts
     rows = tuple(int(r) for r in part_rows) if part_rows is not None else ()
-    if layout == Layout.SEGMENTED and not rows:
-        raise ValueError(f"{layout.value} layout requires part_rows")
+    if layout in (Layout.SEGMENTED, Layout.MULTILOAD) and not rows:
+        raise ValueError(f"{layout.value} layout requires part_rows (or n_parts)")
     if layout == Layout.MONOLITHIC and len(rows) > 1:
         raise ValueError(f"monolithic layout got {len(rows)} parts")
     if any(r < 1 for r in rows):
         raise ValueError(f"part_rows must be positive, got {rows}")
+    if layout == Layout.MULTILOAD and not host_loop and len(set(rows)) > 1:
+        # the scanned executor derives global-id offsets as i * part_rows[0];
+        # ragged parts would globalise wrong ids
+        raise ValueError(
+            f"scanned multiload layout requires uniform part_rows, got {rows}; "
+            f"pass host_loop=True to stream ragged parts"
+        )
 
     routing = _routing.require_none(routing)
     params = SearchParams(k=k, max_count=max_count, method=method,
                           candidate_cap=candidate_cap, use_kernel=use_kernel)
-    # The histogram kernel runs on the kernel path of both ported layouts
-    # (the JAX package keeps the plain histogram on its scan / shard_map
-    # layouts, which are not ported yet).
-    fused = use_kernel and layout in (Layout.MONOLITHIC, Layout.SEGMENTED)
+    # The histogram kernel runs on the kernel path of every ported layout,
+    # MULTILOAD included, where the JAX package keeps its plain histogram
+    # (the module docstring says why).
+    fused = use_kernel
     # The fused match->count->local-top-k kernel replaces the whole
-    # count+select pipeline.  Same gating as fused_hist, plus n_objects None:
-    # the kernel masks rows by *physical* row id, so engine-filled pad rows
-    # must not be present -- padded data keeps the packed count kernel + the
-    # structural _mask_pad_counts instead.
+    # count+select pipeline.  Single-device MONOLITHIC / SEGMENTED only, plus
+    # n_objects None: the kernel masks rows by *physical* row id, so
+    # engine-filled pad rows (multiload stacks) must not be present -- padded
+    # data keeps the packed count kernel + the structural _mask_pad_counts.
     fused_topk = None
     if (model is not None and sig_layout is SignatureLayout.PACKED
             and use_kernel and n_objects is None
@@ -226,8 +269,8 @@ def plan_search(
         match=match, params=params, layout=layout, part_rows=rows,
         n_objects=n_objects, engine=model.engine if model else None,
         pad_value=model.pad_value_for(sig_layout) if model else None,
-        fused_hist=fused, signature_layout=sig_layout,
-        fused_match=fused_topk, routing=routing,
+        fused_hist=fused, host_loop=bool(host_loop) and layout == Layout.MULTILOAD,
+        signature_layout=sig_layout, fused_match=fused_topk, routing=routing,
     )
 
 
@@ -317,6 +360,27 @@ def pad_to_multiple(data: torch.Tensor, multiple: int, pad_value) -> tuple[torch
     return data, n
 
 
+def pad_and_stack(plan: QueryPlan, data: torch.Tensor) -> torch.Tensor:
+    """Materialise a MULTILOAD scan layout from a monolithic data matrix:
+    pad with the plan's engine fill and stack into [C, Nc, ...] chunks (a
+    view of `data` when nothing is padded)."""
+    if plan.layout != Layout.MULTILOAD or not plan.part_rows:
+        raise ValueError(f"pad_and_stack needs a MULTILOAD plan, got {plan.layout}")
+    if plan.pad_value is None:
+        raise ValueError("pad_and_stack needs an engine-resolved plan "
+                         "(raw-callable plans carry no pad fill)")
+    per = plan.part_rows[0]
+    want = per * plan.n_parts
+    n = int(data.shape[0])
+    if n > want:
+        raise ValueError(f"data has {n} rows but the plan lays out {want}")
+    if n < want:
+        fill = torch.full((want - n,) + tuple(data.shape[1:]), plan.pad_value,
+                          dtype=data.dtype, device=data.device)
+        data = torch.cat([data, fill], dim=0)
+    return data.reshape(plan.n_parts, per, *data.shape[1:])
+
+
 # ---------------------------------------------------------------------------
 # Executors: the ONLY callers of match kernels, pad masks, select, and merge
 # ---------------------------------------------------------------------------
@@ -377,17 +441,126 @@ def _run_monolithic(plan: QueryPlan, data: torch.Tensor, queries: Any) -> TopKRe
     return select_topk(counts, plan.params, use_fused_hist=plan.fused_hist)
 
 
+def _first_query_tensor(queries: Any) -> torch.Tensor:
+    """The query tensor, or the first of a tuple (RANGE's (lo, hi)): its rows
+    are the queries, its device is where every part is matched."""
+    return queries[0] if isinstance(queries, (tuple, list)) else queries
+
+
+def _run_scan(plan: QueryPlan, chunks: torch.Tensor, queries: Any) -> TopKResult:
+    """The scanned MULTILOAD form: the [C, Nc, ...] chunks of a stacked
+    tensor one after another, each selected at the full k and merged into
+    the running best by `topk_from_candidates` over [best, part] -- the
+    reference's lax.scan step, whose tie order (best first, then the part's
+    id-ascending buffer) it keeps."""
+    if chunks.dim() < 2 or int(chunks.shape[0]) != plan.n_parts \
+            or int(chunks.shape[1]) != plan.part_rows[0]:
+        raise ValueError(f"plan lays out {plan.n_parts} chunks of {plan.part_rows[0]} rows, "
+                         f"got a stack of shape {tuple(chunks.shape)}")
+    k, nc = plan.params.k, plan.part_rows[0]
+    first = _first_query_tensor(queries)
+    best_ids = torch.full((first.shape[0], k), -1, dtype=torch.int32, device=first.device)
+    best_counts = torch.full_like(best_ids, -1)
+    for i in range(plan.n_parts):
+        gids, gcnt = _part_topk(plan, chunks[i], queries, i * nc)
+        # genielint: ignore[executor-sovereignty] -- the port's own executor
+        best_ids, best_counts = _cpq.topk_from_candidates(
+            torch.cat([best_ids, gids[:, :k]], dim=-1),
+            torch.cat([best_counts, gcnt[:, :k]], dim=-1), k)
+    return TopKResult(ids=best_ids, counts=best_counts, threshold=best_counts[:, -1])
+
+
+def _host_tensor(part) -> torch.Tensor:
+    """A part as a tensor: numpy arrays wrapped (no copy), tensors as they are."""
+    return part if isinstance(part, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(part))
+
+
+def _device_parts(parts: Sequence, device: torch.device):
+    """Yield the parts on `device`, in order.
+
+    A part already there is yielded as it is; on a CPU device a numpy part
+    is wrapped.  A part in host memory bound for a card is copied by a side
+    stream into one of two device buffers, sized for the largest part and
+    reused, with part i + 1's copy enqueued before part i is yielded: from
+    pinned memory the copy runs while part i is matched (from pageable
+    memory, or numpy, it still works, without the overlap).  CUDA events
+    order the two streams: a buffer is first filled only after all the work
+    enqueued on the consumer's stream before its allocation (the allocator
+    may hand it memory that work still reads or writes), it is refilled only
+    after the work the consumer enqueued on part i - 2 (which used it) has
+    run, and part i is matched only after its copy has landed.  A part on
+    another card is moved with `.to(device)`.  On a CPU device a part on a
+    card raises ValueError: a failed copy or a mismatch raises, and nothing
+    moves to the CPU on its own."""
+    if device.type != "cuda":
+        for part in parts:
+            host = _host_tensor(part)
+            if host.device != device:
+                raise ValueError(f"a part lies on {host.device} and the queries on {device}: "
+                                 f"move the queries to the part's device or the part to "
+                                 f"host memory")
+            yield host
+        return
+    hosts = [_host_tensor(p) if not (isinstance(p, torch.Tensor) and p.is_cuda) else None
+             for p in parts]
+    order = [i for i, h in enumerate(hosts) if h is not None]
+    current = torch.cuda.current_stream(device)
+    copier = torch.cuda.Stream(device)
+    rows = max((int(hosts[i].shape[0]) for i in order), default=0)
+    slot_of = {i: pos % 2 for pos, i in enumerate(order)}
+    bufs: list[Optional[torch.Tensor]] = [None, None]
+    ready = [torch.cuda.Event(), torch.cuda.Event()]
+    free: list[Optional[torch.cuda.Event]] = [None, None]
+
+    def stage(i: int) -> None:
+        host, slot = hosts[i], slot_of[i]
+        buf = bufs[slot]
+        if buf is None or buf.dtype != host.dtype or buf.shape[1:] != host.shape[1:]:
+            # allocated on the consumer's stream, filled on the side stream:
+            # the side stream waits for the consumer's earlier work, which may
+            # still use this memory, and the allocator keeps the block until
+            # the side stream's copies have run
+            buf = bufs[slot] = torch.empty((rows,) + tuple(host.shape[1:]), dtype=host.dtype,
+                                           device=device)
+            copier.wait_stream(current)
+            buf.record_stream(copier)
+        with torch.cuda.stream(copier):
+            if free[slot] is not None:
+                copier.wait_event(free[slot])
+            buf[:host.shape[0]].copy_(host, non_blocking=True)
+            ready[slot].record(copier)
+
+    if order:
+        stage(order[0])
+    pos = 0
+    for i, part in enumerate(parts):
+        if hosts[i] is None:
+            yield part.to(device)
+            continue
+        pos += 1
+        if pos < len(order):
+            stage(order[pos])              # part i + 1 in flight while part i is matched
+        slot = slot_of[i]
+        current.wait_event(ready[slot])
+        yield bufs[slot][:hosts[i].shape[0]]
+        free[slot] = torch.cuda.Event()
+        free[slot].record(current)
+
+
 def _scan_host_parts(plan: QueryPlan, parts, queries) -> TopKResult:
-    """One pass of the host loop over the parts: each part is selected into
-    a buffer of width min(k, rows) with its ids globalised by the running
-    row offset, and the ragged buffers merge exactly."""
+    """One pass of the host loop over the parts: each part is brought to the
+    queries' device (`_device_parts`), selected into a buffer of width
+    min(k, rows) with its ids globalised by the running row offset, and the
+    ragged buffers merge exactly."""
     if len(parts) != plan.n_parts:
         raise ValueError(f"plan lays out {plan.n_parts} parts, got {len(parts)}")
-    buf_ids, buf_counts = [], []
-    offset = 0
     for part, rows in zip(parts, plan.part_rows):
         if int(part.shape[0]) != rows:
             raise ValueError(f"part has {int(part.shape[0])} rows, plan says {rows}")
+    buf_ids, buf_counts = [], []
+    offset = 0
+    for part, rows in zip(_device_parts(parts, _first_query_tensor(queries).device),
+                          plan.part_rows):
         gids, gcnt = _part_topk(plan, part, queries, offset, k=plan.part_k(rows))
         buf_ids.append(gids)
         buf_counts.append(gcnt)
@@ -400,8 +573,12 @@ def execute(plan: QueryPlan, data, queries) -> TopKResult:
     """Run a planned search.  The only public door to the match/select/merge
     machinery -- every index/serving entry point delegates here.
 
-    `data` follows the layout: one tensor (MONOLITHIC) or a list of per-part
-    tensors (SEGMENTED)."""
-    if plan.layout == Layout.SEGMENTED:
+    `data` follows the layout: one tensor (MONOLITHIC), a list of per-part
+    tensors (SEGMENTED), a stacked [C, Nc, ...] tensor (scanned MULTILOAD) or
+    a list of per-part tensors or numpy arrays, on the device or in host
+    memory (MULTILOAD host loop)."""
+    if plan.layout == Layout.SEGMENTED or (plan.layout == Layout.MULTILOAD and plan.host_loop):
         return _scan_host_parts(plan, data, queries)
+    if plan.layout == Layout.MULTILOAD:
+        return _run_scan(plan, data, queries)
     return _run_monolithic(plan, data, queries)

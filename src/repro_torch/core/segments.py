@@ -28,9 +28,10 @@ Segments are sealed in the index's signature layout: PACKED segments hold
 packed rows (COSINE words, TANIMOTO uint8 buckets), a compaction concatenates
 them row-wise (still valid packed rows), and `search` packs the queries.
 
-Not ported yet: `search_multiload` (ROADMAP queue 1 item 4), `router()` and
-routed search (queue 1 item 6) and the autotuned layout switch (queue 1
-item 8).
+`search_multiload` streams the segments through the MULTILOAD host loop
+(paper section III-D); it and `search` take `routing="none"` only.  Not
+ported yet: `router()` and routed search (ROADMAP queue 1 item 6) and the
+autotuned switch from `search` to `search_multiload` (queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -187,6 +188,25 @@ class SegmentedIndex:
             self.engine, k, self.max_count, layout=_plan.Layout.SEGMENTED,
             part_rows=tuple(self.segment_rows), method=method,
             candidate_cap=candidate_cap, use_kernel=self.use_kernel,
+            signature_layout=self.signature_layout, routing=routing,
+        )
+        q_exec = self.model.prepare_queries_for(queries, self.device,
+                                                self.signature_layout)
+        return _plan.execute(plan, [s.data for s in self.segments], q_exec)
+
+    def search_multiload(self, queries, k: int, method: TopKMethod = TopKMethod.CPQ,
+                         candidate_cap: int | None = None,
+                         routing: _routing.Routing | str = _routing.Routing.NONE) -> TopKResult:
+        """Stream the segments through the device one at a time (paper
+        section III-D's host loop) -- segments of heterogeneous sizes are the
+        parts, so nothing is re-concatenated or re-padded."""
+        if not self.segments:
+            raise ValueError("empty SegmentedIndex: add() first")
+        plan = _plan.plan_search(
+            self.engine, k, self.max_count, layout=_plan.Layout.MULTILOAD,
+            part_rows=tuple(self.segment_rows), n_objects=self.n_objects,
+            method=method, candidate_cap=candidate_cap,
+            use_kernel=self.use_kernel, host_loop=True,
             signature_layout=self.signature_layout, routing=routing,
         )
         q_exec = self.model.prepare_queries_for(queries, self.device,

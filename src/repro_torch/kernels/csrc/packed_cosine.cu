@@ -7,14 +7,28 @@
 // 1. `repro_packed_cosine_count` replaces `_count_kernel` /
 //    `packed_cosine_count_pallas` (src/repro/kernels/packed_cosine.py), which
 //    holds a [128, W] query block and a [256, W] data block in VMEM and folds
-//    W eight words at a time.  Here a block owns a [128, 128] output tile,
-//    stages the words through shared memory KW at a time, and every thread
-//    keeps an 8 x 8 register micro-tile of int32 accumulators, so one staged
-//    word feeds 8 xor-popc-adds.  Ragged edges are masked in the kernel.
-//    What bounds it on an H100: the Q*N*4-byte count write (1.15 GB, 0.34 ms
-//    at Q=1024, N=281250), against Q*N*W = 2.3e9 xor+popc+add; __popc issues
-//    at a lower rate than an integer add, so this first version meets the
-//    popc issue rate before the write.
+//    W eight words at a time.
+//    What bounds it on an H100: the Q*N*4-byte count write (1.15 GB, 0.347 ms
+//    at Q=1024, N=281250, W=8).  One POPC per word pair would cap it at the
+//    popc pipe's 16 a clock per SM, 2 (query, data) pairs per SM-clock at
+//    W = 8 (0.551 ms at 1980 MHz), above the write.  So the words of a pair
+//    are summed first, eight at a time, by a carry-save tree of LOP3s
+//    (Harley-Seal): four carry-save adders turn the eight xor words into one
+//    word of ones, one of twos and one of fours beside the eighth word, so a
+//    pair of eight words costs 4 POPC, 16 LOP3 (8 xors, 2 per adder) and a
+//    few adds -- about 3.5 pairs per SM-clock on the 64-lane integer pipe,
+//    0.31 ms, and 4 on the popc pipe: below the write.
+//    The layout is the one of range_count.cu: a thread's data rows are 32
+//    apart, so a warp stores each query row's counts as runs of 32
+//    consecutive ints (128 bytes).  A block of 8 warps owns 1024 data rows
+//    (128 a warp, 4 a thread, their words held in registers) and 32 query
+//    rows, staged in shared memory; a warp walks the query rows, reading a
+//    row's eight words with two broadcast 16-byte loads, makes the row's
+//    four trees and stores their counts at once, so the stores run beside
+//    the trees all along and not in a burst at the end of a tile.  Words past
+//    W are staged as 0 on both sides (no disagreement); above W = 8 the
+//    words go eight at a time and every group after the first subtracts its
+//    disagreements from the counts the thread stored before.
 //
 // 2. `repro_packed_cosine_topk` replaces `_topk_kernel` +
 //    `local_topk_tile`: match -> count -> per-tile top-kc in one kernel, so the
@@ -48,81 +62,105 @@
 namespace {
 
 // ---- count -------------------------------------------------------------
-constexpr int TX = 16;            // threads along N
-constexpr int TY = 16;            // threads along Q
-constexpr int RQ = 8;             // query rows per thread
-constexpr int RN = 8;             // data rows per thread
-constexpr int TQ = TY * RQ;       // 128 query rows per block
-constexpr int TN = TX * RN;       // 128 data rows per block
-constexpr int KW = 16;            // words staged per step
-constexpr int LD = KW + 1;        // padded row stride: conflict-free columns
-constexpr int THREADS = TX * TY;
+namespace count {
 
-__device__ __forceinline__ void stage(unsigned* __restrict__ dst,
-                                      const unsigned* __restrict__ src,
-                                      long long row0, long long n_rows, int w,
-                                      int k0, int kw, int rows_in_tile) {
-  for (int e = threadIdx.x; e < rows_in_tile * KW; e += THREADS) {
-    const int r = e / KW;
-    const int c = e % KW;
-    const long long row = row0 + r;
-    unsigned x = 0;
-    if (row < n_rows && c < kw) x = src[row * w + k0 + c];
-    dst[r * LD + c] = x;
+constexpr int THREADS = 256;                 // 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int RN = 4;                        // data rows per thread, 32 apart
+constexpr int TN = WARPS * 32 * RN;          // 1024 data rows per block
+constexpr int TQ = 32;                       // query rows per block
+constexpr int G = 8;                         // words per carry-save tree
+
+__device__ __forceinline__ unsigned xor3(unsigned a, unsigned b, unsigned c) {
+  unsigned d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x96;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ unsigned maj3(unsigned a, unsigned b, unsigned c) {
+  unsigned d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xE8;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// the disagreements of eight query words (q0, q1) with eight data words d:
+// sum_w popc(q_w ^ d_w) = popc(ones) + popc(x7) + 2 popc(twos) + 4 popc(fours)
+__device__ __forceinline__ int disagree8(const uint4& q0, const uint4& q1,
+                                         const unsigned (&d)[G]) {
+  const unsigned x0 = q0.x ^ d[0], x1 = q0.y ^ d[1], x2 = q0.z ^ d[2], x3 = q0.w ^ d[3];
+  const unsigned x4 = q1.x ^ d[4], x5 = q1.y ^ d[5], x6 = q1.z ^ d[6], x7 = q1.w ^ d[7];
+  const unsigned s1 = xor3(x0, x1, x2), c1 = maj3(x0, x1, x2);
+  const unsigned s2 = xor3(x3, x4, x5), c2 = maj3(x3, x4, x5);
+  const unsigned ones = xor3(s1, s2, x6), c3 = maj3(s1, s2, x6);
+  const unsigned twos = xor3(c1, c2, c3), fours = maj3(c1, c2, c3);
+  return __popc(ones) + __popc(x7) + 2 * (__popc(twos) + 2 * __popc(fours));
+}
+
+// a thread's data rows n0 + 32 j, words [k0, k0 + kw) (0 past kw and past
+// the last row)
+__device__ __forceinline__ void load_rows(unsigned (&d)[RN][G], const unsigned* __restrict__ data,
+                                          long long n0, long long n_data, int w, int k0, int kw,
+                                          bool vec) {
+#pragma unroll
+  for (int j = 0; j < RN; ++j) {
+    const long long row = n0 + 32 * j;
+    const unsigned* __restrict__ p = data + row * w + k0;
+    if (row < n_data && vec && kw == G) {
+      const uint4 a = *reinterpret_cast<const uint4*>(p);
+      const uint4 b = *reinterpret_cast<const uint4*>(p + 4);
+      d[j][0] = a.x, d[j][1] = a.y, d[j][2] = a.z, d[j][3] = a.w;
+      d[j][4] = b.x, d[j][5] = b.y, d[j][6] = b.z, d[j][7] = b.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < G; ++c) d[j][c] = row < n_data && c < kw ? p[c] : 0u;
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// three blocks an SM (at most 85 registers a thread); one block per (query
+// tile, data tile), query tiles fastest
+__global__ void __launch_bounds__(THREADS, 3)
 packed_cosine_count_kernel(const unsigned* __restrict__ data,
                            const unsigned* __restrict__ query,
                            int* __restrict__ out, long long n_data, int n_query,
                            int w, int n_qtiles) {
-  __shared__ unsigned q_s[TQ * LD];
-  __shared__ unsigned d_s[TN * LD];
+  __shared__ __align__(16) uint4 q_s[TQ * G / 4];
 
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q0 = (int)(blockIdx.x % n_qtiles) * TQ;
-  const long long n0 = (long long)(blockIdx.x / n_qtiles) * TN;
+  const int rows_q = min(TQ, n_query - q0);
+  const long long n0 = (long long)(blockIdx.x / n_qtiles) * TN + 32 * RN * warp + lane;
+  const bool vec = w % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(query)) & 15) == 0;
+  unsigned* q_w = reinterpret_cast<unsigned*>(q_s);
 
-  int acc[RQ][RN];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < w; k0 += KW) {
-    const int kw = min(KW, w - k0);
-    stage(q_s, query, q0, n_query, w, k0, kw, TQ);
-    stage(d_s, data, n0, n_data, w, k0, kw, TN);
-    __syncthreads();
-    for (int kk = 0; kk < kw; ++kk) {
-      unsigned qv[RQ];
-      unsigned dv[RN];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) qv[i] = q_s[(ty + TY * i) * LD + kk];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) dv[j] = d_s[(tx + TX * j) * LD + kk];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] += __popc(qv[i] ^ dv[j]);
+  for (int k0 = 0; k0 < w; k0 += G) {
+    const int kw = min(G, w - k0);
+    if (k0 > 0) __syncthreads();             // the previous group's reads of q_s
+    for (int e = threadIdx.x; e < TQ * G; e += THREADS) {
+      const int r = e / G, c = e % G;
+      q_w[e] = r < rows_q && c < kw ? query[(long long)(q0 + r) * w + k0 + c] : 0u;
     }
+    unsigned d[RN][G];
+    load_rows(d, data, n0, n_data, w, k0, kw, vec);
     __syncthreads();
-  }
-
-  const int bits_total = 32 * w;
+#pragma unroll 2
+    for (int i = 0; i < rows_q; ++i) {
+      const uint4 qa = q_s[2 * i], qb = q_s[2 * i + 1];
+      int* __restrict__ row = out + (long long)(q0 + i) * n_data;
+      int dis[RN];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int q = q0 + ty + TY * i;
-    if (q >= n_query) continue;
+      for (int j = 0; j < RN; ++j) dis[j] = disagree8(qa, qb, d[j]);
 #pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const long long n = n0 + tx + TX * j;
-      if (n < n_data) out[(long long)q * n_data + n] = bits_total - acc[i][j];
+      for (int j = 0; j < RN; ++j) {
+        const long long n = n0 + 32 * j;
+        if (n < n_data) row[n] = (k0 == 0 ? 32 * w : row[n]) - dis[j];
+      }
     }
   }
 }
+
+}  // namespace count
 
 // ---- fused count -> per-tile top-k ---------------------------------------
 using repro::fused_topk::Fused;
@@ -207,12 +245,11 @@ extern "C" int repro_packed_cosine_count(const void* data, const void* query,
                                          void* out, long long n_data,
                                          int n_query, int w, void* stream) {
   if (n_data <= 0 || n_query <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
-  const long long n_qtiles = (n_query + TQ - 1) / TQ;
-  const long long n_ntiles = (n_data + TN - 1) / TN;
-  const long long blocks = n_qtiles * n_ntiles;
+  const long long n_qtiles = (n_query + count::TQ - 1) / count::TQ;
+  const long long blocks = n_qtiles * ((n_data + count::TN - 1) / count::TN);
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  packed_cosine_count_kernel<<<(unsigned)blocks, THREADS, 0,
-                               (cudaStream_t)stream>>>(
+  count::packed_cosine_count_kernel<<<(unsigned)blocks, count::THREADS, 0,
+                                      (cudaStream_t)stream>>>(
       (const unsigned*)data, (const unsigned*)query, (int*)out, n_data, n_query,
       w, (int)n_qtiles);
   return (int)cudaGetLastError();

@@ -11,7 +11,10 @@ needs no knowledge of V.  Two entry points, both kernels in
 what the design does about it):
 
   packed_cosine_count  -- counts int32 [Q, N].  Replaces `_count_kernel` /
-      `packed_cosine_count_pallas` (`src/repro/kernels/packed_cosine.py`).
+      `packed_cosine_count_pallas` (`src/repro/kernels/packed_cosine.py`):
+      the eight xor words of a pair summed by a carry-save tree of LOP3s (4
+      popcounts a pair of eight words where one a word took 8), a warp's
+      data rows consecutive so that it stores 128-byte runs.
   packed_cosine_topk   -- the fused match -> count -> per-tile local top-k.
       Replaces `_topk_kernel` + `local_topk_tile`: each tile of TILE_N data
       rows contributes its kc = min(k, TILE_N) best candidates by (count desc,

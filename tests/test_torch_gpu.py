@@ -527,3 +527,95 @@ def test_packed_tanimoto_count_across_chunks_and_flushes_on_the_card():
         assert torch.equal(got, tanimoto_count_plain(d, s)) and int(got[0, min(1, n - 1)]) == m
     torch.cuda.synchronize()
     assert common.launch_counts() == {"packed_tanimoto_count": len(shapes)}
+
+
+@pytest.mark.gpu
+def test_packed_cosine_count_carry_save_tile_on_the_card():
+    """The count tile at W = 1 to 17 (one and three trees of eight words),
+    Q and N past one block (32 query, 1024 data rows) and ragged, on random,
+    all-equal and complementary rows."""
+    _need_card()
+    gen = torch.Generator().manual_seed(7)
+    for q, n, v in [(67, 1025, 32), (65, 2049, 224), (130, 3001, 256), (129, 1023, 288),
+                    (3, 1500, 512), (66, 1100, 544), (1, 1, 5)]:
+        for kind in ("random", "equal", "complement"):
+            d = (torch.randint(0, 2, (n, v), generator=gen, dtype=torch.int8) * 2 - 1).cuda()
+            s = (torch.randint(0, 2, (q, v), generator=gen, dtype=torch.int8) * 2 - 1).cuda()
+            if kind == "equal":
+                d.fill_(1)
+                s.fill_(1)
+            elif kind == "complement":
+                s[:min(q, n)] = -d[:min(q, n)]
+            dw, sw = packing.pack_signs_data(d), packing.pack_signs_queries(s)
+            got = ops.packed_cosine_count(dw, sw)
+            assert torch.equal(got, packed_cosine_count_plain(dw, sw)), (q, n, v, kind)
+            if kind == "equal":
+                assert bool((got == v).all())
+            if kind == "complement":
+                assert bool((got.diagonal()[:min(q, n)] == 0).all())
+
+
+@pytest.mark.gpu
+def test_multiload_host_loop_from_pinned_parts_equals_the_device_search():
+    """Parts in pinned host memory (copied on a side stream into two reused
+    buffers), pageable parts and numpy parts stream to the same result as
+    the parts held on the card, for a PACKED simhash index (the packed count
+    kernel once a part)."""
+    _need_card()
+    from repro_torch.core import Engine, SearchParams, SegmentedIndex
+    from repro_torch.core.multiload import multiload_search_host
+    from repro_torch.core.types import SignatureLayout
+
+    rng = np.random.default_rng(3)
+    seg = SegmentedIndex(Engine.COSINE, signature_layout="packed")
+    for rows in (700, 1300, 90, 1024):
+        seg.add(rng.standard_normal((rows, 100)).astype(np.float32))
+    queries = rng.standard_normal((37, 100)).astype(np.float32)
+    q_exec = seg.model.prepare_queries_for(queries, seg.device, seg.signature_layout)
+    params = SearchParams(k=25, max_count=seg.max_count)
+    # a raw match callable: a registry engine would plan its WIDE match
+    packed_match = seg.model.match_fn(True, SignatureLayout.PACKED)
+    want = seg.search_multiload(queries, k=25)
+    resident = [s.data for s in seg.segments]
+    for parts in ([p.cpu().pin_memory() for p in resident], [p.cpu() for p in resident],
+                  [p.cpu().numpy() for p in resident]):
+        common.reset_launch_counts()
+        got = multiload_search_host(parts, q_exec, params, packed_match)
+        torch.cuda.synchronize()
+        assert common.launch_counts() == {"packed_cosine_count": 4, "cpq_hist": 4}
+        assert torch.equal(got.ids, want.ids) and torch.equal(got.counts, want.counts)
+        assert torch.equal(got.threshold, want.threshold)
+    fused = seg.search(queries, k=25)
+    assert torch.equal(fused.ids, want.ids) and torch.equal(fused.counts, want.counts)
+
+
+@pytest.mark.gpu
+def test_multiload_host_loop_copies_wait_for_earlier_work_on_freed_memory():
+    """The side stream's first copy into a part buffer is ordered after the
+    work already enqueued on the caller's stream: memory that a slow pending
+    kernel still writes, freed just before the search and handed back by the
+    allocator as a part buffer, is not filled until that kernel has run, so
+    the pinned parts stream to the same result as the parts on the card."""
+    _need_card()
+    from repro_torch.core import Engine, SearchParams
+    from repro_torch.core.multiload import multiload_search_host
+
+    device = torch.device("cuda", 0)
+    gen = torch.Generator(device=device).manual_seed(5)
+    rows, m, n_parts = 4096, 64, 4
+    resident = [torch.randint(0, 16, (rows, m), generator=gen, device=device,
+                              dtype=torch.int32) for _ in range(n_parts)]
+    queries = resident[1][:50].clone()
+    params = SearchParams(k=10, max_count=m)
+    want = multiload_search_host(resident, queries, params, Engine.EQ)
+    pinned = [p.cpu().pin_memory() for p in resident]
+    for _ in range(3):
+        torch.cuda.synchronize()
+        stale = [torch.empty((rows, m), dtype=torch.int32, device=device) for _ in range(2)]
+        torch.cuda._sleep(200_000_000)          # ~0.1 s on the caller's stream
+        for t in stale:
+            t.fill_(-5)                         # runs after the sleep
+        del stale                               # freed with the fills still pending
+        got = multiload_search_host(pinned, queries, params, Engine.EQ)
+        assert torch.equal(got.ids, want.ids) and torch.equal(got.counts, want.counts)
+        assert torch.equal(got.threshold, want.threshold)

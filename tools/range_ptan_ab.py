@@ -127,37 +127,40 @@ def emit(**record) -> None:
     print(json.dumps(record), flush=True)
 
 
-def build_variants(names) -> dict:
-    """Compile each named variant into OUT_DIR/<name>.so (reused when it is
-    there and newer than its sources), all nvcc processes started together;
-    returns name -> (library path, ptxas output)."""
+def build_variants(names, variants=None, baseline: Path = BASELINE,
+                   out_dir: Path = OUT_DIR) -> dict:
+    """Compile each named variant of `variants` (default VARIANTS) into
+    out_dir/<name>.so (reused when it is there and newer than its sources),
+    all nvcc processes started together; a variant's source is a file of
+    csrc/ or the baseline beside it.  Returns name -> (library path, ptxas
+    output)."""
     from repro_torch.kernels import build
 
     nvcc = build.find_nvcc()
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    newest = max(p.stat().st_mtime for p in [BASELINE, *CSRC.iterdir()])
+    out_dir.mkdir(parents=True, exist_ok=True)
+    newest = max(p.stat().st_mtime for p in [baseline, *CSRC.iterdir()])
     procs, out = {}, {}
-    for name, source, defines, edits in VARIANTS:
+    for name, source, defines, edits in VARIANTS if variants is None else variants:
         if name not in names:
             continue
         tag = re.sub(r"\W+", "_", name)
-        lib = OUT_DIR / f"{tag}.so"
-        log = OUT_DIR / f"{tag}.log"
+        lib = out_dir / f"{tag}.so"
+        log = out_dir / f"{tag}.log"
         if lib.exists() and log.exists() and lib.stat().st_mtime > newest:
             out[name] = (lib, log.read_text())
             continue
         src_dir = CSRC
         if edits:
-            src_dir = OUT_DIR / tag
+            src_dir = out_dir / tag
             if src_dir.exists():
                 shutil.rmtree(src_dir)
             shutil.copytree(CSRC, src_dir)
-            shutil.copy(BASELINE, src_dir)
+            shutil.copy(baseline, src_dir)
             for file, pattern, repl in edits:
                 text, n = re.subn(pattern, repl, (src_dir / file).read_text())
                 cs.check(n > 0, f"variant {name}: no match for {pattern} in {file}")
                 (src_dir / file).write_text(text)
-        src = src_dir / source if (src_dir / source).exists() else BASELINE
+        src = src_dir / source if (src_dir / source).exists() else baseline
         cmd = [nvcc, *build.NVCC_FLAGS, *defines, f"-I{src_dir}", "-shared", "-o", str(lib),
                str(src)]
         procs[name] = (lib, log, subprocess.Popen(cmd, stdout=subprocess.PIPE,
