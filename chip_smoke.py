@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `src/repro_torch/kernels/csrc/` (first use
-builds them), then runs these phases -- 1 to 3d in order, then each
-full-width phase followed by its multiple-loading case and its kernels'
-times (4, 5, 4g, 4b, 4g, 5b, 4c, 4g, 5c, 4c', 4d, 5d, 4e, 5d, 4f, 5d), and
-last DBLP at its full size through multiple loading (4g) -- and fails
-(non-zero exit, no result line) as soon as a phase fails:
+builds them), then runs these phases -- 1 to 3d, 4g's padded round trips and
+3e in order, then each full-width phase followed by its multiple-loading
+case and its kernels' times (4, 5, 4g, 4h, 4i, 4b, 4g, 5b, 4c, 4g, 5c, 4c',
+4d, 4i, 5d, 4e, 5d, 4f, 5d), and last DBLP at its full size through multiple
+loading (4g) -- and fails (non-zero exit, no result line) as soon as a
+phase fails:
 
   1. environment and build: versions, the card's name and power limit, the
      kernels' build time and what ptxas reports for them;
@@ -66,7 +67,13 @@ last DBLP at its full size through multiple loading (4g) -- and fails
      `scheme="rbh"` (-> EQ), kernel path against plain path; 3d. RANGE,
      MINSUM and IP through `SegmentedIndex` at their configurations' widths:
      17 uneven adds, one compaction, CPQ / SPQ / SORT, kernel path = plain
-     path = a monolithic `GenieIndex.build`;
+     path = a monolithic `GenieIndex.build`; 3e. coarse routing on all six
+     engines, WIDE and PACKED, five uneven segments: ROUTED_VERIFIED = NONE
+     for CPQ / SPQ / SORT on SEGMENTED and the host loop, ROUTED = a sort of
+     the selected segments alone; a cold segment (upper bound under the
+     threshold) is never scanned -- one match_count launch fewer, and from
+     pinned parts its bytes are never copied (`plan.copied_bytes`) --, and a
+     tied bound and an unfilled slot each force the fallback;
   4. the main path at full width -- the SIFT configuration's shape with the
      service's defaults: 4.5 M points of 128 dimensions in 16 sealed
      segments, m = required_m(0.06, 0.06) E2LSH functions into 8192 buckets,
@@ -113,6 +120,19 @@ last DBLP at its full size through multiple loading (4g) -- and fails
      also print the pinned bytes, the H2D rate of the copy alone and the
      share of the copy hidden under the match (against the same search with
      its parts on the card; for DBLP, 8 parts on the card scaled up);
+     4h. routing at the SIFT shape, on the e2lsh service of phase 4: the
+     summary's cost alone and in `add`, the route's host stages, ROUTED and
+     ROUTED_VERIFIED at nprobe 4 (the default) and 8 -- segments selected,
+     fallback, search times, VERIFIED = NONE on every row, ROUTED's
+     recall@100 against NONE --, and the routed host loop over the 16
+     segments in pinned memory with the bytes it copies; 4i. the serving
+     front-end over the same service: single requests of Q = 1, 4, 16, 64
+     through `ServingFrontend` and `RetrievalService.search` (median ms),
+     then 32 submitter threads sending 256 requests of 1 to 64 queries, k
+     10 or 100, each equal to its serial search (queries/s, p50 / p99,
+     dispatches, rows a dispatch); after 4d, the Adult RANGE index as an
+     `IndexService` tenant (stacked (lo, hi) queries), so that range_count
+     runs through the front-end;
   5. each kernel's time at the full-width per-segment shape beside the plain
      version's, one PyTorch library call where one computes the same
      function, and the least time the card could take (bytes moved over the
@@ -894,7 +914,8 @@ def drive_full_width(device: torch.device, expect_launches: dict, sim_range: tup
 
     qsigs = svc._hash(queries)
     check_sample_on_plain_path(svc._index, qsigs, res, k, device)
-    return dict(launches=launches, service=svc, qsigs=qsigs, queries=queries, result=res)
+    return dict(launches=launches, service=svc, qsigs=qsigs, queries=queries, result=res,
+                add_seconds=add_seconds)
 
 
 def check_result(res, n_queries: int, k: int, n_total: int) -> None:
@@ -2809,6 +2830,389 @@ def phase_multiload_dblp(device: torch.device, n_total: int = DBLP_FULL_N,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 3e, 4h, 4i: coarse routing and the serving front-end
+# ---------------------------------------------------------------------------
+
+ROUTE_SEGMENTS = [2000, 700, 1500, 300, 1500]     # 3e: five uneven segments
+
+
+def selected_oracle(index, q_exec, mask, k: int):
+    """The top k of the segments `mask` selects, and only those, by a stable
+    sort of their plain counts (ids ascending within equal counts); slots
+    past the selected rows hold -1 / -1."""
+    match = index.model.match_fn(False, index.signature_layout)
+    counts, ids, offset = [], [], 0
+    for keep, seg in zip(mask, index.segments):
+        n = seg.stats.n_objects
+        if keep:
+            counts.append(match(seg.data, q_exec))
+            ids.append(torch.arange(offset, offset + n, dtype=torch.int32,
+                                    device=seg.data.device))
+        offset += n
+    counts, ids = torch.cat(counts, dim=1), torch.cat(ids)
+    vals, order = torch.sort(counts, dim=1, descending=True, stable=True)
+    vals, top = vals[:, :k], ids[order[:, :k]]
+    if vals.shape[1] < k:
+        fill = vals.new_full((vals.shape[0], k - vals.shape[1]), -1)
+        vals, top = torch.cat([vals, fill], 1), torch.cat([top, fill.to(top.dtype)], 1)
+    return top, vals
+
+
+def launches_of(fn, device):
+    """(result, launch counts) of one call, the counts reset just before."""
+    from repro_torch.kernels import common
+
+    common.reset_launch_counts()
+    out = fn()
+    sync(device)
+    return out, common.launch_counts()
+
+
+def phase_small_routing(device: torch.device, k: int = 20, n_queries: int = 33) -> None:
+    """Phase 3e: routed search on every engine and layout at a small size.
+    ROUTED_VERIFIED equals NONE (CPQ / SPQ / SORT, SEGMENTED and the host
+    loop); ROUTED equals a sort over the selected segments alone; a cold
+    segment is never scanned (one match launch fewer, and from pinned parts
+    its bytes are never copied); a tied bound and an unfilled slot each
+    force the fallback."""
+    import numpy as np
+
+    from repro_torch.core import Engine, SegmentedIndex, TopKMethod, engines, plan
+    from repro_torch.core.plan import _host_array
+
+    log(f"== phase 3e: routed search, small, all six engines ({gpu_name_and_power_limit()})")
+    for name, layout, _ in PAD_CASES:
+        engine = Engine(name)
+        model = engines.get(engine)
+        rng = np.random.default_rng(SEED + 13)
+        raw, queries, mc = model.example(rng, sum(ROUTE_SEGMENTS), n_queries)
+        index = SegmentedIndex(engine, max_count=mc, device=device, signature_layout=layout)
+        lo = 0
+        for rows in ROUTE_SEGMENTS:
+            hi = lo + rows
+            index.add(raw[lo:hi])
+            lo = hi
+        # ROUTED on the first two queries at nprobe 1: over the whole batch the
+        # union of the queries' picks may hold every segment
+        few = tuple(x[:2] for x in queries) if isinstance(queries, tuple) else queries[:2]
+        q_wide = model.prepare_queries(few, device)
+        q_exec = model.pack_queries(q_wide) if layout == "packed" else q_wide
+        mask, _ = index.router().select(_host_array(q_wide), 1)
+        for method in TopKMethod:
+            for how in ("search", "search_multiload"):
+                search = getattr(index, how)
+                full = search(queries, k=k, method=method)
+                same_result(search(queries, k=k, method=method, routing="routed_verified",
+                                   nprobe=1), full,
+                            f"{name} {layout} {how} {method.value}: ROUTED_VERIFIED vs NONE")
+                routed = search(few, k=k, method=method, routing="routed", nprobe=1)
+                ids, counts = selected_oracle(index, q_exec, mask, k)
+                check(torch.equal(routed.ids, ids) and torch.equal(routed.counts, counts)
+                      and torch.equal(routed.threshold, counts[:, -1]),
+                      f"{name} {layout} {how} {method.value}: ROUTED differs from a search "
+                      f"of the selected segments")
+        log(f"  {name} {layout}: ROUTED_VERIFIED (nprobe 1) = NONE; ROUTED (nprobe 1, two "
+            f"queries, segments {np.flatnonzero(mask).tolist()} of {len(mask)}) = a sort of "
+            f"those segments alone; CPQ / SPQ / SORT, SEGMENTED and host loop")
+
+    # a cold segment (bucket 0 only) beside a hot one (bucket 7): its bound 0
+    # is under the threshold of every query
+    m, cold_rows, hot_rows = 64, 4000, 3000
+    for value, what in ((0, "cold"), (7, "tied")):
+        index = SegmentedIndex(Engine.EQ, device=device)
+        index.add(torch.full((cold_rows, m), value, dtype=torch.int32, device=device))
+        index.add(torch.full((hot_rows, m), 7, dtype=torch.int32, device=device))
+        q = torch.full((4, m), 7, dtype=torch.int32, device=device)
+        full, base = launches_of(lambda: index.search(q, k=k), device)
+        got, routed = launches_of(
+            lambda: index.search(q, k=k, routing="routed_verified", nprobe=1), device)
+        same_result(got, full, f"{what} segment: ROUTED_VERIFIED vs NONE")
+        want = 1 if what == "cold" else 3          # the tie rescans both
+        check(base.get("match_count") == 2 and routed.get("match_count") == want,
+              f"{what} segment: match_count {routed} routed, {base} full")
+        log(f"  {what} segment: match_count {routed.get('match_count')} routed against "
+            f"{base.get('match_count')} in the full scan; result = NONE")
+        if what == "cold":
+            parts = [pinned_copy(s.data) for s in index.segments]
+            p = plan.plan_search(Engine.EQ, k, index.max_count, layout="multiload",
+                                 part_rows=tuple(index.segment_rows),
+                                 n_objects=index.n_objects, host_loop=True,
+                                 routing="routed_verified", nprobe=1)
+            plan.reset_copied_bytes()
+            got, routed = launches_of(lambda: plan.execute(p, parts, q, router=index.router()),
+                                      device)
+            copied, selected = plan.copied_bytes(), parts[1].numel() * parts[1].element_size()
+            same_result(got, full, "cold segment, host loop: ROUTED_VERIFIED vs NONE")
+            check(copied == selected and routed.get("match_count") == 1,
+                  f"cold segment, host loop: copied {copied} bytes, the selected part holds "
+                  f"{selected}; launches {routed}")
+            log(f"  cold segment, host loop from pinned parts: {copied} bytes copied = the "
+                f"selected part's {selected} (the cold part's "
+                f"{parts[0].numel() * parts[0].element_size()} never copied)")
+            del parts
+            # an unfilled slot: k above the hot rows leaves threshold -1
+            kk = hot_rows + 500
+            full, _ = launches_of(lambda: index.search(q, k=kk), device)
+            got, routed = launches_of(
+                lambda: index.search(q, k=kk, routing="routed_verified", nprobe=1), device)
+            same_result(got, full, "unfilled slot: ROUTED_VERIFIED vs NONE")
+            check(routed.get("match_count") == 3, f"unfilled slot: no fallback ({routed})")
+            log(f"  unfilled slot (k = {kk} > {hot_rows} routed rows): match_count "
+                f"{routed.get('match_count')}, the fallback ran; result = NONE")
+    release_pinned()
+
+
+def recall_at_k(got, want) -> float:
+    """Mean share of each row's reference ids found in the row (ids >= 0)."""
+    hit = (got.ids[:, :, None] == want.ids[:, None, :]) & (want.ids[:, None, :] >= 0)
+    return float((hit.any(dim=1).sum(dim=1).float()
+                  / (want.ids >= 0).sum(dim=1).clamp(min=1).float()).mean())
+
+
+def phase_routing_full_width(run: dict, device: torch.device, k: int = FULL_K,
+                             n_searches: int = N_SEARCHES) -> list:
+    """Phase 4h: the SIFT e2lsh service of phase 4 searched ROUTED and
+    ROUTED_VERIFIED at the default nprobe and at 8; VERIFIED must equal NONE
+    on every row.  Also the routed host loop over the 16 segments in pinned
+    host memory, with the bytes it copies, and the summary's cost per add.
+    Returns the records logged."""
+    from repro_torch.core import Engine, plan, routing
+
+    svc, queries, qsigs, want = run["service"], run["queries"], run["qsigs"], run["result"]
+    index = svc._index
+    hw = gpu_name_and_power_limit()
+    log(f"== phase 4h: routed search, e2lsh -> EQ at the SIFT shape ({len(index.segments)} "
+        f"segments of {index.segment_rows[0]}); {hw}")
+    summary_ms = statistics.median(timed_ms(
+        lambda: routing.summarize(Engine.EQ, index.segments[0].data), device)[0]
+        for _ in range(3))
+    add_s = statistics.median(run["add_seconds"])
+    records = [dict(case="summary", summary_ms=summary_ms, add_s_median=add_s, card=hw)]
+    log(f"  summary of one segment alone: {summary_ms:.3f} ms; add, the summary included: "
+        f"{add_s:.4f} s/batch median ({hw})")
+    router = svc._router()
+    sync(device)
+    t0 = time.perf_counter()
+    hq = qsigs.cpu().numpy()
+    t1 = time.perf_counter()
+    ubs = router.upper_bounds(hq)
+    t2 = time.perf_counter()
+    router.select(hq, None, ubs=ubs)
+    t3 = time.perf_counter()
+    route = dict(copy_ms=(t1 - t0) * 1e3, upper_bounds_ms=(t2 - t1) * 1e3,
+                 select_ms=(t3 - t2) * 1e3)
+    records.append(dict(case="route on the host", **route, card=hw))
+    log(f"  the route on the host, once a search: the queries' copy {route['copy_ms']:.2f} ms, "
+        f"upper bounds {route['upper_bounds_ms']:.2f} ms, select {route['select_ms']:.2f} ms "
+        f"({hw})")
+    for nprobe in (None, 8):
+        mask, ubs = router.select(hq, nprobe)
+        selected = [int(i) for i in mask.nonzero()[0]]
+        log(f"  nprobe {nprobe or router.default_nprobe()}: {len(selected)} of "
+            f"{len(mask)} segments selected {selected}; upper bounds {ubs.min():.0f} to "
+            f"{ubs.max():.0f} (m = {svc.m})")
+        for mode in ("routed", "routed_verified"):
+            from repro_torch.kernels import common
+
+            common.reset_launch_counts()
+            times, res = [], None
+            for _ in range(n_searches):
+                ms, res = timed_ms(lambda: svc.search(None, k=k, embeddings=queries,
+                                                      routing=mode, nprobe=nprobe)[0], device)
+                times.append(ms)
+            per_search = common.launch_counts().get("match_count", 0) / n_searches
+            fell_back = per_search > len(selected)
+            rec = dict(case=f"{mode} nprobe={nprobe or router.default_nprobe()}",
+                       selected=selected, match_launches_per_search=per_search,
+                       fell_back=fell_back, first_ms=times[0],
+                       median_ms=statistics.median(times[1:]), card=hw)
+            if mode == "routed_verified":
+                same_result(res, want, f"ROUTED_VERIFIED nprobe={nprobe} against NONE")
+                rec["equals_none"] = True
+            else:
+                rec["recall_at_k_vs_none"] = recall_at_k(res, want)
+            records.append(rec)
+            log(f"  {rec['case']}: search first {times[0]:.2f} ms, median of the next "
+                f"{n_searches - 1} {rec['median_ms']:.2f} ms; match_count {per_search:.0f} a "
+                f"search; fell back: {fell_back}; "
+                + ("= NONE on every row" if mode == "routed_verified"
+                   else f"recall@{k} against NONE {rec['recall_at_k_vs_none']:.4f}"))
+    parts = [pinned_copy(s.data) for s in index.segments]
+    part_bytes = [p.numel() * p.element_size() for p in parts]
+    for mode in ("routed", "routed_verified"):
+        p = plan.plan_search(Engine.EQ, k, index.max_count, layout="multiload",
+                             part_rows=tuple(index.segment_rows), n_objects=index.n_objects,
+                             host_loop=True, routing=mode)
+        mask, _ = router.select(hq, None)
+        plan.reset_copied_bytes()
+        times, res = [], None
+        for _ in range(n_searches):
+            ms, res = timed_ms(lambda: plan.execute(p, parts, qsigs, router=router), device)
+            times.append(ms)
+        copied = plan.copied_bytes() / n_searches
+        sel_bytes = sum(b for b, keep in zip(part_bytes, mask) if keep)
+        check(mode == "routed_verified" or copied == sel_bytes,
+              f"routed host loop copied {copied} bytes, the selected parts hold {sel_bytes}")
+        if mode == "routed_verified":
+            same_result(res, want, "routed host loop ROUTED_VERIFIED against NONE")
+        rec = dict(case=f"host loop {mode} nprobe={router.default_nprobe()}",
+                   copied_bytes_per_search=copied, selected_part_bytes=sel_bytes,
+                   all_part_bytes=sum(part_bytes), first_ms=times[0],
+                   median_ms=statistics.median(times[1:]), card=hw)
+        records.append(rec)
+        log(f"  {rec['case']} over {len(parts)} pinned parts: {copied / 1e9:.4f} GB copied a "
+            f"search, the selected parts {sel_bytes / 1e9:.4f} GB of "
+            f"{sum(part_bytes) / 1e9:.4f}; search first {times[0]:.2f} ms, median "
+            f"{rec['median_ms']:.2f} ms")
+    del parts
+    release_pinned()
+    for rec in records:
+        log("  routing: " + json.dumps(rec))
+    return records
+
+
+def frontend_serial_equal(svc, requests: list) -> None:
+    """Every (rows, k, (result, sims)) of the front-end equals a serial
+    search of the same rows, ids / counts / threshold and sims."""
+    import numpy as np
+
+    for rows, k, (got, sims) in requests:
+        want, want_sims = svc.search(None, k=k, embeddings=rows)
+        check(np.array_equal(got.ids, want.ids.cpu().numpy())
+              and np.array_equal(got.counts, want.counts.cpu().numpy())
+              and np.array_equal(got.threshold, want.threshold.cpu().numpy())
+              and (sims is None or np.array_equal(sims, want_sims)),
+              "a front-end request differs from its serial search")
+
+
+def phase_frontend(run: dict, device: torch.device, sizes=(1, 4, 16, 64), reps: int = 9,
+                   n_threads: int = 32, n_requests: int = 256, wait_s: float = 300) -> dict:
+    """Phase 4i: the SIFT e2lsh service of phase 4 behind ServingFrontend.
+    Single requests of Q = 1 to 64 through the front-end and through
+    RetrievalService.search directly (median ms); then 32 submitter threads,
+    each sending its share of 256 requests of 1 to 64 queries, k 10 or 100,
+    one at a time: every request equal to its serial search, and the
+    front-end's queries/s, p50 / p99 latency, dispatches and rows per
+    dispatch."""
+    import random
+    import threading
+
+    from repro_torch.kernels import common
+    from repro_torch.serve import ServingFrontend
+
+    svc, queries = run["service"], run["queries"]
+    hw = gpu_name_and_power_limit()
+    log(f"== phase 4i: the serving front-end over the SIFT e2lsh service; {hw}")
+    out = dict(card=hw, single={})
+    fe = ServingFrontend(max_wait_us=0)
+    try:
+        fe.register("sift", svc)
+        for q in sizes:
+            rows = queries[:q]
+            direct, front = [], []
+            for i in range(reps + 1):
+                sync(device)
+                t0 = time.perf_counter()
+                svc.search(None, k=FULL_K, embeddings=rows)
+                sync(device)
+                direct.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                fe.search("sift", None, k=FULL_K, embeddings=rows, timeout=wait_s)
+                front.append((time.perf_counter() - t0) * 1e3)
+            out["single"][q] = dict(direct_ms=statistics.median(direct[1:]),
+                                    frontend_ms=statistics.median(front[1:]))
+            log(f"  Q = {q:2d}, k = {FULL_K}: RetrievalService.search "
+                f"{out['single'][q]['direct_ms']:.2f} ms, ServingFrontend "
+                f"{out['single'][q]['frontend_ms']:.2f} ms (medians of {reps}; {hw})")
+    finally:
+        fe.close(timeout=wait_s)
+
+    fe = ServingFrontend(max_wait_us=2000, max_batch=1024, max_queue=1024)
+    done, lock = [], threading.Lock()
+    try:
+        fe.register("sift", svc)
+
+        def client(worker: int) -> None:
+            rng = random.Random(SEED + worker)
+            for _ in range(n_requests // n_threads):
+                q = rng.randint(1, 64)
+                lo = rng.randint(0, queries.shape[0] - q)
+                k = rng.choice((10, 100))
+                res = fe.submit("sift", None, k=k, embeddings=queries[lo:lo + q]).result(wait_s)
+                with lock:
+                    done.append((queries[lo:lo + q], k, res))
+
+        threads = [threading.Thread(target=client, args=(w,)) for w in range(n_threads)]
+        common.reset_launch_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(wait_s)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a submitter thread did not finish")
+        launches = common.launch_counts()
+        stats = fe.stats()
+    finally:
+        fe.close(timeout=wait_s)
+    check(len(done) == n_requests, f"{len(done)} of {n_requests} requests answered")
+    check(launches.get("match_count", 0) > 0 and launches.get("cpq_hist", 0) > 0,
+          f"the front-end's dispatches launched {launches}")
+    frontend_serial_equal(svc, done)
+    n_rows = sum(r.shape[0] for r, _, _ in done)
+    out.update(concurrent=dict(
+        threads=n_threads, requests=n_requests, queries=n_rows, wall_s=wall,
+        queries_per_s=n_rows / wall, p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
+        dispatches=stats["dispatches"], rows_per_dispatch=stats["batch_occupancy"],
+        coalesce_ratio=stats["coalesce_ratio"], launches=launches))
+    c = out["concurrent"]
+    log(f"  {n_threads} threads, {n_requests} requests of 1 to 64 queries ({n_rows} in all), "
+        f"k 10 / 100: {c['queries_per_s']:.1f} queries/s; p50 {c['p50_ms']:.2f} ms, p99 "
+        f"{c['p99_ms']:.2f} ms; {c['dispatches']} dispatches, {c['rows_per_dispatch']:.1f} rows "
+        f"and {c['coalesce_ratio']:.2f} requests a dispatch; every request = its serial "
+        f"search; launches {launches} ({hw})")
+    log("  frontend: " + json.dumps(out))
+    return out
+
+
+def phase_frontend_range(run: dict, device: torch.device, wait_s: float = 300) -> None:
+    """Phase 4i (RANGE): the Adult index of phase 4d as an IndexService
+    tenant, its (lo, hi) queries stacked [q, 2, d] with a query_adapter:
+    coalesced requests run range_count and equal their serial searches."""
+    import numpy as np
+
+    from repro_torch.kernels import common
+    from repro_torch.serve import IndexService, ServingFrontend
+
+    index, (lo, hi) = run["index"], run["queries"]
+    log(f"== phase 4i: an IndexService tenant over the Adult RANGE index "
+        f"({gpu_name_and_power_limit()})")
+    stacked = torch.stack([lo, hi], dim=1)
+    svc = IndexService(index=index, query_adapter=lambda a: (a[:, 0, :], a[:, 1, :]))
+    slices = [(0, 5, 10), (5, 37, 100), (37, 101, 64), (101, 102, 1), (200, 264, 100)]
+    fe = ServingFrontend(max_wait_us=0, start=False)
+    try:
+        fe.register("adult", svc)
+        futs = [fe.submit("adult", None, k=k, embeddings=stacked[a:b]) for a, b, k in slices]
+        common.reset_launch_counts()
+        fe.start()
+        results = [f.result(timeout=wait_s) for f in futs]
+        sync(device)
+        launches = common.launch_counts()
+        stats = fe.stats()
+    finally:
+        fe.close(timeout=wait_s)
+    for (a, b, k), (got, _) in zip(slices, results):
+        want = index.search((lo[a:b], hi[a:b]), k=k)
+        check(np.array_equal(got.ids, want.ids.cpu().numpy())
+              and np.array_equal(got.counts, want.counts.cpu().numpy()),
+              f"Adult front-end rows {a}:{b} differ from the serial search")
+    check(launches.get("range_count", 0) > 0, f"range_count did not launch: {launches}")
+    log(f"  {len(slices)} requests in {stats['dispatches']} dispatches; each = its serial "
+        f"search; launches {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one "
@@ -2823,6 +3227,7 @@ def main() -> int:
     phase_small_minhash(device)
     phase_small_sa(device)
     phase_multiload_pads(device)
+    phase_small_routing(device)
     full = phase_full_width(device)
     svc = full["service"]
     search_split(svc, full["queries"], FULL_K, device)
@@ -2830,6 +3235,8 @@ def main() -> int:
     kernels = phase_kernel_times(svc._index.segments[0].data, full["qsigs"], svc.m,
                                  full["launches"], parity_err, device)
     phase_multiload_eq(full, device)
+    phase_routing_full_width(full, device)
+    phase_frontend(full, device)
     del full, svc                          # free the EQ corpus before the simhash one
     torch.cuda.empty_cache()
     simhash = phase_full_width_simhash(device)
@@ -2851,6 +3258,8 @@ def main() -> int:
                                 (phase_full_width_dblp, minsum_kernel_times),
                                 (phase_full_width_tweets, ip_kernel_times)):
         run = phase(device)
+        if phase is phase_full_width_adult:
+            phase_frontend_range(run, device)
         run["index"].segments[1:] = []     # the kernel times need one segment
         torch.cuda.empty_cache()
         timed = kernel_times(run, parity_err, device)

@@ -21,21 +21,24 @@ dispatch, pad masking, top-k selection, and merging.
     result = index.search_multiload(query_sigs, k=100, n_parts=16)
 
 `device=None` places the index on the card and raises when there is none;
-`device="cpu"` runs the plain PyTorch path.  `search_multiload` (paper
-section III-D, the scanned form) is ported without the reference's
-`tile_overrides` / `autotune` arguments, which wait for the autotuner
-(ROADMAP queue 1 item 8); the routing summary (`summary`, queue 1 item 6)
-is not ported yet and is always None.
+`device="cpu"` runs the plain PyTorch path.  `build` also makes the segment's
+routing summary (`summary`, core/routing.py) from the prepared WIDE tensor,
+on its device, before any packing.  `search` and `search_multiload` take the
+reference's `tile_overrides` / `autotune` keywords at their defaults (None);
+anything else raises NotImplementedError, as the autotuner is ROADMAP queue
+1 item 8.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
 from repro_torch.core import engines as _engines
 from repro_torch.core import plan as _plan
+from repro_torch.core import routing as _routing
 from repro_torch.core.types import (Engine, IndexStats, SignatureLayout,
                                     TopKMethod, TopKResult)
 from repro_torch.device import DeviceLike, resolve_device, synchronize
@@ -57,8 +60,9 @@ class GenieIndex:
     # storage format of `data` (core/packing.py); PACKED indexes hold the
     # packed tensor and dispatch the packed match kernels
     signature_layout: SignatureLayout = SignatureLayout.WIDE
-    # routing summary (core/routing.py of the JAX package): not ported yet
-    summary: None = None
+    # seal-time routing summary (core/routing.py); None for a segment
+    # assembled by hand outside build()
+    summary: Optional[_routing.SegmentSummary] = None
 
     # ------------------------------------------------------------------
     # Construction
@@ -87,9 +91,11 @@ class GenieIndex:
         # a negative build duration
         t0 = time.perf_counter()
         arr = model.prepare_data(data, dev)
-        # stats, postings and the count bound read the *logical* WIDE shape:
-        # resolve them before packing (the packed width is words, not slots)
+        # stats, postings, the count bound and the routing summary read the
+        # *logical* WIDE shape: resolve them before packing (the packed width
+        # is words, not slots)
         stats = model.build_stats(arr)
+        summary = _routing.summarize(model.engine, arr)
         max_count = model.resolve_max_count(arr, max_count)
         if layout is SignatureLayout.PACKED:
             arr = model.pack_data(arr)
@@ -101,7 +107,7 @@ class GenieIndex:
         stats.build_seconds = time.perf_counter() - t0
         return cls(engine=model.engine, max_count=max_count,
                    data=arr, stats=stats, use_kernel=use_kernel,
-                   signature_layout=layout)
+                   signature_layout=layout, summary=summary)
 
     @classmethod
     def build_lsh(cls, signatures, max_count: int | None = None,
@@ -169,18 +175,21 @@ class GenieIndex:
                                        self.signature_layout)
 
     def search(self, queries, k: int, method: TopKMethod = TopKMethod.CPQ,
-               candidate_cap: int | None = None) -> TopKResult:
+               candidate_cap: int | None = None,
+               tile_overrides=None, autotune=None) -> TopKResult:
         plan = _plan.plan_search(
             self.engine, k, self.max_count, layout=_plan.Layout.MONOLITHIC,
             part_rows=(self.stats.n_objects,), method=method,
             candidate_cap=candidate_cap, use_kernel=self.use_kernel,
             signature_layout=self.signature_layout,
+            tile_overrides=tile_overrides, autotune=autotune,
         )
         return _plan.execute(plan, self.data, self.prepare_queries(queries))
 
     def search_multiload(self, queries, k: int, n_parts: int,
                          method: TopKMethod = TopKMethod.CPQ,
-                         candidate_cap: int | None = None) -> TopKResult:
+                         candidate_cap: int | None = None,
+                         tile_overrides=None, autotune=None) -> TopKResult:
         """Paper section III-D: split this index into parts and stream them.
 
         Works for every registered engine: the planned layout pads parts with
@@ -192,6 +201,7 @@ class GenieIndex:
             n_parts=n_parts, n_objects=self.stats.n_objects, method=method,
             candidate_cap=candidate_cap, use_kernel=self.use_kernel,
             signature_layout=self.signature_layout,
+            tile_overrides=tile_overrides, autotune=autotune,
         )
         chunks = _plan.pad_and_stack(plan, self.data)
         return _plan.execute(plan, chunks, self.prepare_queries(queries))

@@ -32,6 +32,13 @@ replaces the count matrix, the pad mask and `select_topk` (and so ignores
 carry it: every one sets `n_objects`, so they run the count kernel and the
 pad mask.
 
+Coarse routing (core/routing.py) applies to the host-loop layouts, SEGMENTED
+and MULTILOAD with `host_loop=True`: ROUTED plans match only the parts a
+`Router` selects, and ROUTED_VERIFIED plans fall back to the full scan when
+a skipped part's upper bound reaches the routed threshold.  A skipped part
+is never matched, and in the host loop never copied to the card.  The
+router runs on the host, on the route queries copied there once a search.
+
 One difference from the reference, in `describe()["fused_hist"]`: the JAX
 package keeps the plain histogram on its MULTILOAD layout (`fused_hist =
 False`: its TPU scan kept the jnp histogram), while the port runs the
@@ -39,17 +46,22 @@ histogram kernel on every kernel-path layout, MULTILOAD included, because
 the port's plain histogram takes ~495 ms a SIFT segment on the card.  The
 histogram is exact, so results are the same bit for bit.
 
-DISTRIBUTED (mesh shards, ROADMAP queue 1 item 9), routed plans (item 6),
-tile overrides and the autotuner (item 8) are parts of `repro/core/plan.py`
-that are still to be ported; planning one of them raises
-NotImplementedError naming its ROADMAP item.
+Still to be ported, each refused with NotImplementedError naming its
+ROADMAP item: DISTRIBUTED (mesh shards, and with it `hierarchical=`,
+`mesh_axes=`, `execute(mesh=)`; queue 1 item 9) and the autotuner
+(`tile_overrides=`, `autotune=`, `tune_width=`; queue 1 item 8).  The
+keywords themselves are accepted at their defaults, as the reference
+accepts them.
 
 PyTorch runs eagerly, so there is no compiled executable to cache: the JAX
 package's `_EXEC_CACHE`, `trace_count`, `plan_cache_size` and
-`clear_plan_cache` have no counterpart in this slice (ROADMAP queue 1 item 7,
-the serving front-end, decides what they count without a tracer).  A
-QueryPlan is still hashable and still the key two requests must share to be
-batched together (`batch_compat_key`).
+`clear_plan_cache` count jit traces, and have no counterpart here.  That is
+a difference by design, not a missing part: what they checked in the
+reference -- a warm search compiles nothing new -- is checked in the port on
+the kernel build cache (`kernels/build.py`, one build per source state) and
+on the launch counts per kernel (`kernels/common.py`).  A QueryPlan is still
+hashable and still the key two requests must share to be batched together
+(`batch_compat_key`).
 
 Invariants owned here: pad-never-in-topk (counts of rows with global id >=
 n_objects are forced to -1 *before* selection), the (count desc, id asc)
@@ -114,8 +126,11 @@ class QueryPlan:
     # fused match->count->local-top-k kernel fn(data, queries, k) ->
     # (ids, counts) candidate buffers; None => count matrix + select_topk
     fused_match: Optional[Callable[[torch.Tensor, Any, int], tuple]] = None
-    # coarse routing mode; always NONE until the router is ported
+    # coarse routing mode (core/routing.py): NONE scans every part; ROUTED /
+    # ROUTED_VERIFIED prune through a Router built from segment summaries
     routing: Routing = Routing.NONE
+    # probe width for ROUTED/ROUTED_VERIFIED; None = Router's sqrt(S) default
+    nprobe: Optional[int] = None
 
     # -- derived layout facts ----------------------------------------------
     @property
@@ -145,8 +160,11 @@ class QueryPlan:
         return "ragged-buffer"
 
     def describe(self) -> dict:
-        """Host-side plan summary: the keys of the JAX package's
-        `QueryPlan.describe()` whose machinery is ported."""
+        """Host-side plan summary, with the keys of the JAX package's
+        `QueryPlan.describe()`.  `hierarchical`, `mesh_axes` and
+        `tile_overrides` belong to layouts and knobs not ported yet (ROADMAP
+        queue 1 items 8, 9), so a plan of the port always holds their
+        defaults."""
         rows = list(self.part_rows)
         # both per-part lists truncate identically: a "..." marker past 32
         # parts, never a silent cut (the lists must stay row-aligned)
@@ -165,10 +183,14 @@ class QueryPlan:
             pad_rows=self.pad_rows,
             merge=self.merge_strategy(),
             host_loop=self.host_loop,
+            hierarchical=False,
+            mesh_axes=[],
             fused_hist=self.fused_hist,
             signature_layout=self.signature_layout.value,
             fused_match=self.fused_match is not None,
             routing=self.routing.value,
+            nprobe=self.nprobe,
+            tile_overrides={},
         )
 
 
@@ -185,8 +207,14 @@ def plan_search(
     candidate_cap: Optional[int] = None,
     use_kernel: bool = True,
     host_loop: bool = False,
+    hierarchical: bool = False,
+    mesh_axes: Sequence[str] = (),
     signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
     routing: Routing | str = Routing.NONE,
+    nprobe: Optional[int] = None,
+    tile_overrides: Optional[Any] = None,
+    autotune: Optional[Any] = None,
+    tune_width: Optional[int] = None,
 ) -> QueryPlan:
     """The single planning entry point: resolve the engine, lay out the
     parts, fix the pad policy and merge strategy, return the QueryPlan.
@@ -210,7 +238,22 @@ def plan_search(
     reference also lets a measured autotune entry switch the fusion off;
     the autotuner is not ported (ROADMAP queue 1 item 8), so that clause of
     the gating is left out.
+
+    `routing` plans coarse segment pruning (core/routing.py): ROUTED and
+    ROUTED_VERIFIED plans execute against a Router built from segment
+    summaries (`execute(..., router=...)`) and skip the parts the router
+    rules out.  Routing prunes host-looped parts, so it requires SEGMENTED
+    or MULTILOAD with host_loop=True; MONOLITHIC and scanned MULTILOAD have
+    nothing to skip and reject it here.  `nprobe` (>= 1) is kept on routed
+    plans only.
+
+    `hierarchical` / `mesh_axes` (the distributed layout, ROADMAP queue 1
+    item 9) and `tile_overrides` / `autotune` / `tune_width` (the autotuner,
+    item 8) are taken at their defaults only.
     """
+    refuse_unported(hierarchical=hierarchical, mesh_axes=mesh_axes,
+                    tile_overrides=tile_overrides, autotune=autotune,
+                    tune_width=tune_width)
     sig_layout = SignatureLayout(signature_layout)
     model: Optional[_engines.MatchModel] = None
     if callable(engine) and not isinstance(engine, (_engines.MatchModel, Engine, str)):
@@ -248,7 +291,22 @@ def plan_search(
             f"pass host_loop=True to stream ragged parts"
         )
 
-    routing = _routing.require_none(routing)
+    routing = Routing(routing)
+    host_looped = bool(host_loop) and layout == Layout.MULTILOAD
+    if routing is not Routing.NONE:
+        if not (layout == Layout.SEGMENTED or host_looped):
+            raise ValueError(
+                f"routing={routing.value!r} prunes host-looped parts; a "
+                f"{layout.value} plan"
+                f"{'' if host_loop or layout != Layout.MULTILOAD else ' (scanned)'}"
+                f" is one pass over one tensor with nothing to skip -- use "
+                f"routing='none', or a SEGMENTED / MULTILOAD host_loop layout"
+            )
+        if nprobe is not None and int(nprobe) < 1:
+            raise ValueError(f"nprobe must be >= 1, got {nprobe}")
+        nprobe = None if nprobe is None else int(nprobe)
+    else:
+        nprobe = None  # full-scan plans stay equal whatever nprobe was passed
     params = SearchParams(k=k, max_count=max_count, method=method,
                           candidate_cap=candidate_cap, use_kernel=use_kernel)
     # The histogram kernel runs on the kernel path of every ported layout,
@@ -269,9 +327,33 @@ def plan_search(
         match=match, params=params, layout=layout, part_rows=rows,
         n_objects=n_objects, engine=model.engine if model else None,
         pad_value=model.pad_value_for(sig_layout) if model else None,
-        fused_hist=fused, host_loop=bool(host_loop) and layout == Layout.MULTILOAD,
+        fused_hist=fused, host_loop=host_looped,
         signature_layout=sig_layout, fused_match=fused_topk, routing=routing,
+        nprobe=nprobe,
     )
+
+
+def refuse_unported(**keywords) -> None:
+    """Raise NotImplementedError, naming its ROADMAP item, for a keyword of
+    the reference whose machinery is not ported, unless it holds its
+    default (None, False or empty)."""
+    for name, value in keywords.items():
+        if value is None or value is False or (hasattr(value, "__len__") and not len(value)):
+            continue
+        item = _UNPORTED_KEYWORDS[name]
+        raise NotImplementedError(
+            f"{name}={value!r} is not ported yet: ROADMAP queue 1 {item}; "
+            f"leave it at its default")
+
+
+_UNPORTED_KEYWORDS = {
+    "hierarchical": "item 9 (distributed layout)",
+    "mesh_axes": "item 9 (distributed layout)",
+    "mesh": "item 9 (distributed layout)",
+    "tile_overrides": "item 8 (autotuner)",
+    "autotune": "item 8 (autotuner)",
+    "tune_width": "item 8 (autotuner)",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -475,6 +557,20 @@ def _host_tensor(part) -> torch.Tensor:
     return part if isinstance(part, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(part))
 
 
+# bytes the host loop has copied from host memory to a card (`_device_parts`)
+_COPIED = [0]
+
+
+def copied_bytes() -> int:
+    """Bytes of host parts the host loop copied to a card since the last
+    reset (a part it skips, or one already on the card, adds nothing)."""
+    return _COPIED[0]
+
+
+def reset_copied_bytes() -> None:
+    _COPIED[0] = 0
+
+
 def _device_parts(parts: Sequence, device: torch.device):
     """Yield the parts on `device`, in order.
 
@@ -529,6 +625,7 @@ def _device_parts(parts: Sequence, device: torch.device):
                 copier.wait_event(free[slot])
             buf[:host.shape[0]].copy_(host, non_blocking=True)
             ready[slot].record(copier)
+        _COPIED[0] += host.numel() * host.element_size()
 
     if order:
         stage(order[0])
@@ -547,38 +644,123 @@ def _device_parts(parts: Sequence, device: torch.device):
         free[slot].record(current)
 
 
-def _scan_host_parts(plan: QueryPlan, parts, queries) -> TopKResult:
-    """One pass of the host loop over the parts: each part is brought to the
-    queries' device (`_device_parts`), selected into a buffer of width
-    min(k, rows) with its ids globalised by the running row offset, and the
-    ragged buffers merge exactly."""
-    if len(parts) != plan.n_parts:
-        raise ValueError(f"plan lays out {plan.n_parts} parts, got {len(parts)}")
+def _scan_host_parts(plan: QueryPlan, parts, queries,
+                     part_mask: Optional[np.ndarray] = None) -> TopKResult:
+    """One pass of the host loop over the (optionally masked) parts: each
+    scanned part is brought to the queries' device (`_device_parts`),
+    selected into a buffer of width min(k, rows) with its ids globalised by
+    its row offset, and the ragged buffers merge exactly.  A skipped part
+    never reaches the device -- it is neither copied nor matched -- and its
+    rows still advance the offset, so scanned parts keep their id ranges."""
+    offsets = []
+    offset = 0
     for part, rows in zip(parts, plan.part_rows):
         if int(part.shape[0]) != rows:
             raise ValueError(f"part has {int(part.shape[0])} rows, plan says {rows}")
+        offsets.append(offset)
+        offset += rows
+    picked = [i for i in range(plan.n_parts) if part_mask is None or part_mask[i]]
+    first = _first_query_tensor(queries)
     buf_ids, buf_counts = [], []
-    offset = 0
-    for part, rows in zip(_device_parts(parts, _first_query_tensor(queries).device),
-                          plan.part_rows):
-        gids, gcnt = _part_topk(plan, part, queries, offset, k=plan.part_k(rows))
+    for i, part in zip(picked, _device_parts([parts[i] for i in picked], first.device)):
+        gids, gcnt = _part_topk(plan, part, queries, offsets[i],
+                                k=plan.part_k(plan.part_rows[i]))
         buf_ids.append(gids)
         buf_counts.append(gcnt)
-        offset += rows
+    if not buf_ids:  # defensive: a router always selects >= 1 segment
+        empty = torch.full((first.shape[0], plan.params.k), -1, dtype=torch.int32,
+                           device=first.device)
+        return TopKResult(ids=empty, counts=empty, threshold=empty[:, -1])
     # genielint: ignore[executor-sovereignty] -- the port's own executor
     return _merge.merge_ragged(buf_ids, buf_counts, plan.params.k)
 
 
-def execute(plan: QueryPlan, data, queries) -> TopKResult:
+def _host_array(x):
+    """A tensor (or a tuple of them: RANGE's (lo, hi)) as host numpy."""
+    if isinstance(x, (tuple, list)):
+        return tuple(_host_array(v) for v in x)
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _route(plan: QueryPlan, router: Optional["_routing.Router"],
+           queries, route_queries) -> tuple[np.ndarray, np.ndarray]:
+    """Resolve the routed plan's (segment mask, upper bounds) on the host.
+
+    `route_queries` are the canonical WIDE queries the summaries were built
+    against; they default to the execution queries (right whenever the
+    plan's signature_layout is WIDE).  They are copied to the host once."""
+    if router is None:
+        raise ValueError(
+            f"a routing={plan.routing.value!r} plan needs router= (built "
+            f"from segment summaries, e.g. SegmentedIndex.router())"
+        )
+    if tuple(router.part_rows) != plan.part_rows:
+        raise ValueError(
+            f"router summarises parts {tuple(router.part_rows)} but the plan "
+            f"lays out {plan.part_rows}; rebuild the router from the current "
+            f"segments"
+        )
+    rq = queries if route_queries is None else route_queries
+    return router.select(_host_array(rq), plan.nprobe)
+
+
+def _skipped_could_contribute(result: TopKResult, ubs: np.ndarray,
+                              verify_mask: np.ndarray) -> bool:
+    """ROUTED_VERIFIED's fallback predicate: could any unscanned segment
+    still place a member in the top-k?  True when a skipped segment's upper
+    bound reaches the routed result's k-th count -- `>=`, not `>`, because a
+    tied count with a smaller id displaces the k-th slot under the
+    (count desc, id asc) order, and because an unfilled slot (threshold -1)
+    must always force the fallback (every bound is >= a real count of 0)."""
+    if not verify_mask.any():
+        return False
+    thresholds = _host_array(result.threshold).astype(np.float64)  # [Q]
+    return bool((ubs[:, verify_mask] >= thresholds[:, None]).any())
+
+
+def _run_host_parts(plan: QueryPlan, parts, queries, router=None,
+                    route_queries=None) -> TopKResult:
+    """The host-loop layouts (SEGMENTED and MULTILOAD host_loop), with coarse
+    routing when the plan asks for it: ROUTED scans only the router-selected
+    parts; ROUTED_VERIFIED also checks the skipped parts' upper bounds
+    against the routed threshold and falls back to the full scan when a
+    skipped part could still contribute -- equal to routing=NONE bit for
+    bit."""
+    if len(parts) != plan.n_parts:
+        raise ValueError(f"plan lays out {plan.n_parts} parts, got {len(parts)}")
+    if plan.routing is Routing.NONE:
+        return _scan_host_parts(plan, parts, queries)
+    mask, ubs = _route(plan, router, queries, route_queries)
+    routed = _scan_host_parts(plan, parts, queries, part_mask=mask)
+    if plan.routing is Routing.ROUTED:
+        return routed
+    if not _skipped_could_contribute(routed, ubs, ~mask):
+        return routed
+    return _scan_host_parts(plan, parts, queries)
+
+
+def execute(plan: QueryPlan, data, queries, mesh=None,
+            router: Optional["_routing.Router"] = None,
+            route_queries=None) -> TopKResult:
     """Run a planned search.  The only public door to the match/select/merge
     machinery -- every index/serving entry point delegates here.
 
     `data` follows the layout: one tensor (MONOLITHIC), a list of per-part
     tensors (SEGMENTED), a stacked [C, Nc, ...] tensor (scanned MULTILOAD) or
     a list of per-part tensors or numpy arrays, on the device or in host
-    memory (MULTILOAD host loop)."""
+    memory (MULTILOAD host loop).
+
+    Routed plans (`plan.routing` != NONE) need `router=` -- a
+    `routing.Router` over the current segments' summaries
+    (`SegmentedIndex.router()`).  `route_queries=` supplies the canonical
+    WIDE queries the summaries score against; it defaults to `queries` and
+    must be passed whenever `queries` are PACKED (the router cannot read
+    packed words).  `mesh=` belongs to the distributed layout (ROADMAP
+    queue 1 item 9) and is taken at its default, None, only."""
+    refuse_unported(mesh=mesh)
     if plan.layout == Layout.SEGMENTED or (plan.layout == Layout.MULTILOAD and plan.host_loop):
-        return _scan_host_parts(plan, data, queries)
+        return _run_host_parts(plan, data, queries, router=router,
+                               route_queries=route_queries)
     if plan.layout == Layout.MULTILOAD:
         return _run_scan(plan, data, queries)
     return _run_monolithic(plan, data, queries)

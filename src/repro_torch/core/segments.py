@@ -29,9 +29,13 @@ packed rows (COSINE words, TANIMOTO uint8 buckets), a compaction concatenates
 them row-wise (still valid packed rows), and `search` packs the queries.
 
 `search_multiload` streams the segments through the MULTILOAD host loop
-(paper section III-D); it and `search` take `routing="none"` only.  Not
-ported yet: `router()` and routed search (ROADMAP queue 1 item 6) and the
-autotuned switch from `search` to `search_multiload` (queue 1 item 8).
+(paper section III-D).  Both searches route (core/routing.py): `router()`
+builds a Router over the segments' seal-time summaries, which compaction
+merges, and `routing="routed"` / `"routed_verified"` with `nprobe=` skip the
+segments it rules out.  They take the reference's `tile_overrides` /
+`autotune` keywords at their defaults only: the autotuner, and with it the
+autotuned switch from `search` to `search_multiload`, is ROADMAP queue 1
+item 8.
 """
 from __future__ import annotations
 
@@ -177,41 +181,86 @@ class SegmentedIndex:
         return seg
 
     # ------------------------------------------------------------------
+    # Coarse routing (core/routing.py)
+    # ------------------------------------------------------------------
+    def router(self) -> _routing.Router:
+        """A Router over the sealed segments' summaries (built at seal time,
+        merged through compaction).  Raises when any segment lacks one --
+        e.g. a GenieIndex assembled by hand outside build()."""
+        if not self.segments:
+            raise ValueError("empty SegmentedIndex: add() first")
+        missing = [i for i, s in enumerate(self.segments) if s.summary is None]
+        if missing:
+            raise ValueError(
+                f"segments {missing} carry no routing summary (assembled "
+                f"outside GenieIndex.build?); routing needs per-segment "
+                f"summaries"
+            )
+        return _routing.Router(engine=self.engine,
+                               summaries=[s.summary for s in self.segments])
+
+    def _routed_execute(self, plan, queries, routing: _routing.Routing,
+                        router: _routing.Router | None = None) -> TopKResult:
+        # the router scores canonical WIDE queries; the executor gets them
+        # packed when the segments are PACKED
+        q_wide = self.model.prepare_queries(queries, self.device)
+        q_exec = q_wide
+        if self.signature_layout is SignatureLayout.PACKED:
+            q_exec = self.model.pack_queries(q_wide)
+        if routing is _routing.Routing.NONE:
+            router = None
+        elif router is None:
+            router = self.router()
+        return _plan.execute(plan, [s.data for s in self.segments], q_exec,
+                             router=router, route_queries=q_wide)
+
+    # ------------------------------------------------------------------
     # Search: per-segment match + select, exact cap-buffer merge
     # ------------------------------------------------------------------
     def search(self, queries, k: int, method: TopKMethod = TopKMethod.CPQ,
                candidate_cap: int | None = None,
-               routing: _routing.Routing | str = _routing.Routing.NONE) -> TopKResult:
+               routing: _routing.Routing | str = _routing.Routing.NONE,
+               nprobe: int | None = None,
+               router: _routing.Router | None = None,
+               tile_overrides=None, autotune=None) -> TopKResult:
+        """`router` lets a caller that caches the Router across searches
+        (serve/retrieval.py keys it on the corpus fingerprint) skip the
+        per-search rebuild; ignored when routing is NONE."""
         if not self.segments:
             raise ValueError("empty SegmentedIndex: add() first")
+        routing = _routing.Routing(routing)
         plan = _plan.plan_search(
             self.engine, k, self.max_count, layout=_plan.Layout.SEGMENTED,
             part_rows=tuple(self.segment_rows), method=method,
             candidate_cap=candidate_cap, use_kernel=self.use_kernel,
-            signature_layout=self.signature_layout, routing=routing,
+            signature_layout=self.signature_layout,
+            routing=routing, nprobe=nprobe,
+            tile_overrides=tile_overrides, autotune=autotune,
         )
-        q_exec = self.model.prepare_queries_for(queries, self.device,
-                                                self.signature_layout)
-        return _plan.execute(plan, [s.data for s in self.segments], q_exec)
+        return self._routed_execute(plan, queries, routing, router=router)
 
     def search_multiload(self, queries, k: int, method: TopKMethod = TopKMethod.CPQ,
                          candidate_cap: int | None = None,
-                         routing: _routing.Routing | str = _routing.Routing.NONE) -> TopKResult:
+                         routing: _routing.Routing | str = _routing.Routing.NONE,
+                         nprobe: int | None = None,
+                         router: _routing.Router | None = None,
+                         tile_overrides=None, autotune=None) -> TopKResult:
         """Stream the segments through the device one at a time (paper
         section III-D's host loop) -- segments of heterogeneous sizes are the
         parts, so nothing is re-concatenated or re-padded."""
         if not self.segments:
             raise ValueError("empty SegmentedIndex: add() first")
+        routing = _routing.Routing(routing)
         plan = _plan.plan_search(
             self.engine, k, self.max_count, layout=_plan.Layout.MULTILOAD,
             part_rows=tuple(self.segment_rows), n_objects=self.n_objects,
             method=method, candidate_cap=candidate_cap,
             use_kernel=self.use_kernel, host_loop=True,
-            signature_layout=self.signature_layout, routing=routing,
+            signature_layout=self.signature_layout,
+            routing=routing, nprobe=nprobe,
+            tile_overrides=tile_overrides, autotune=autotune,
         )
-        q_exec = self.model.prepare_queries_for(queries, self.device,
-                                                self.signature_layout)
-        return _plan.execute(plan, [s.data for s in self.segments], q_exec)
+        return self._routed_execute(plan, queries, routing, router=router)
 
     # ------------------------------------------------------------------
     # Compaction
@@ -256,10 +305,19 @@ class SegmentedIndex:
                                          + b.bytes_signatures_packed),
                 extra={"engine": self.engine.value},
             )
+            # routing summaries merge like the stats: bounds widen, sketches
+            # OR, centroids row-weight -- no recompute on the (possibly
+            # packed) concatenated tensor.  A hand-assembled summary-less
+            # source poisons the merge to None (router() then says why).
+            summary = None
+            if segs[i].summary is not None and segs[i + 1].summary is not None:
+                summary = _routing.merge_summaries(segs[i].summary,
+                                                   segs[i + 1].summary)
             segs[i:i + 2] = [GenieIndex(engine=self.engine, max_count=self.max_count,
                                         data=arr, stats=stats,
                                         use_kernel=self.use_kernel,
-                                        signature_layout=self.signature_layout)]
+                                        signature_layout=self.signature_layout,
+                                        summary=summary)]
         self.segments = segs
         self.compaction_count += 1
         self.compaction_seconds += t_total

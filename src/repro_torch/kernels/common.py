@@ -95,7 +95,7 @@ def launch_count(name: str, data: torch.Tensor, query: torch.Tensor,
         return out
     lib = build.load()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(device).cuda_stream
         status = getattr(lib, f"repro_{entry or name}")(
             data.data_ptr(), query.data_ptr(), out.data_ptr(), n, q, width, stream)
     check_status(name, status)
@@ -138,7 +138,7 @@ def launch_fused_topk(name: str, data: torch.Tensor, query: torch.Tensor,
         # histogram bins that do not fit in shared memory
         scratch = (torch.empty(scratch_ints.value, dtype=torch.int32, device=device)
                    if scratch_ints.value else None)
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(device).cuda_stream
         status = getattr(lib, f"repro_{name}")(
             data.data_ptr(), query.data_ptr(), ids.data_ptr(), cnts.data_ptr(),
             n, q, width, kc, grid.value,

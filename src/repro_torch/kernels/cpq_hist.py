@@ -52,7 +52,7 @@ def cpq_hist(counts: torch.Tensor, max_count: int) -> torch.Tensor:
     hist = torch.empty((q, nbins), dtype=torch.int32, device=device)
     lib = build.load()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.repro_cpq_hist(counts.data_ptr(), hist.data_ptr(),
                                     n, q, nbins, stream)
     common.check_status("cpq_hist", status)

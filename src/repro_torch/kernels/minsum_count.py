@@ -54,8 +54,10 @@ def minsum_csr_plain(data_cnt: torch.Tensor) -> torch.Tensor:
     return torch.stack([cols.to(torch.int32), data_cnt[rows, cols].to(torch.int32)], dim=1)
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    """The current stream of the operands' device (not of the calling
+    thread's current device)."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def minsum_nnz(data_cnt: torch.Tensor) -> torch.Tensor:
@@ -67,7 +69,7 @@ def minsum_nnz(data_cnt: torch.Tensor) -> torch.Tensor:
     nnz = torch.empty(n, dtype=torch.int32, device=data_cnt.device)
     with torch.cuda.device(data_cnt.device):
         status = build.load().repro_minsum_nnz(data_cnt.data_ptr(), nnz.data_ptr(), n, v,
-                                               _stream())
+                                               _stream(data_cnt.device))
     common.check_status("minsum_nnz", status)
     common.note_launch("minsum_nnz")
     return nnz
@@ -90,7 +92,7 @@ def minsum_csr(data_cnt: torch.Tensor, offsets: torch.Tensor, total: int) -> tor
     entries = torch.empty((total, 2), dtype=torch.int32, device=data_cnt.device)
     with torch.cuda.device(data_cnt.device):
         status = build.load().repro_minsum_csr(data_cnt.data_ptr(), offsets.data_ptr(),
-                                               entries.data_ptr(), n, v, _stream())
+                                               entries.data_ptr(), n, v, _stream(data_cnt.device))
     common.check_status("minsum_csr", status)
     common.note_launch("minsum_csr")
     return entries
@@ -116,7 +118,7 @@ def minsum_count_sparse(data_cnt: torch.Tensor, query_cnt: torch.Tensor,
     with torch.cuda.device(data_cnt.device):
         status = build.load().repro_minsum_count(
             entries.data_ptr(), offsets.data_ptr(), query_cnt.data_ptr(), out.data_ptr(),
-            n, q, v, _stream())
+            n, q, v, _stream(data_cnt.device))
     common.check_status("minsum_count", status)
     common.note_launch("minsum_count")
     return out

@@ -86,7 +86,7 @@ def packed_cosine_count(data_words: torch.Tensor, query_words: torch.Tensor) -> 
         return out
     lib = build.load()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.repro_packed_cosine_count(
             data_words.data_ptr(), query_words.data_ptr(), out.data_ptr(),
             n, q, w, stream)

@@ -82,7 +82,7 @@ def packed_tanimoto_count(data_u8: torch.Tensor, query_u8: torch.Tensor) -> torc
         return out
     lib = build.load()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.repro_packed_tanimoto_count(
             data_u8.data_ptr(), query_u8.data_ptr(), out.data_ptr(), n, q, m, stream)
     common.check_status("packed_tanimoto_count", status)

@@ -43,7 +43,7 @@ def range_count(data_vals: torch.Tensor, q_lo: torch.Tensor,
         return out
     lib = build.load()
     with torch.cuda.device(data_vals.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(data_vals.device).cuda_stream
         status = lib.repro_range_count(data_vals.data_ptr(), q_lo.data_ptr(), q_hi.data_ptr(),
                                        out.data_ptr(), n, q, d, stream)
     common.check_status("range_count", status)

@@ -1,3 +1,6 @@
-# Serving: the GENIE retrieval service (the LM serving engine and the
-# multi-tenant front-end of the JAX package are still to be ported).
+# Serving: the GENIE retrieval service and the multi-tenant front-end (the LM
+# serving engine of the JAX package is still to be ported).
+from repro_torch.serve.frontend import IndexService, ServingFrontend  # noqa: F401
+from repro_torch.serve.metrics import FrontendMetrics  # noqa: F401
 from repro_torch.serve.retrieval import RetrievalService  # noqa: F401
+from repro_torch.serve.scheduler import Overloaded, Request, RequestQueue  # noqa: F401

@@ -36,9 +36,12 @@ host.  The E2LSH and simhash projections are float32 matrix products: the
 service turns TF32 off for CUDA matmuls when it is built, because a TF32
 product would move points across bucket boundaries or flip signs near 0.
 
+`search(routing=, nprobe=)` puts the coarse router (core/routing.py) in
+front of the exact match; the service keeps one Router and rebuilds it only
+when the corpus fingerprint changes (an add or a compaction).
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-sharded serving (`mesh=`), routed search (`routing=` / `nprobe=`), the
-autotuner (`autotune=`, `tune()`).
+sharded serving (`mesh=`) and the autotuner (`autotune=`, `tune()`).
 """
 from __future__ import annotations
 
@@ -107,6 +110,8 @@ class RetrievalService:
             self.load_params(self.params)
         self._index: Optional[SegmentedIndex] = None
         self._items: list = []
+        # (corpus fingerprint, Router) of the last routed search
+        self._routed: Optional[tuple] = None
 
     def load_params(self, params) -> None:
         """Install scheme parameters made elsewhere in place of drawing them
@@ -199,6 +204,18 @@ class RetrievalService:
             )
         return self._index.stats
 
+    def _corpus_fingerprint(self) -> tuple:
+        idx = self._index
+        return (len(idx.segments), idx.n_objects, idx.compaction_count)
+
+    def _router(self) -> routing_lib.Router:
+        """Router over the current segments' summaries, cached until the
+        corpus changes."""
+        fp = self._corpus_fingerprint()
+        if self._routed is None or self._routed[0] != fp:
+            self._routed = (fp, self._index.router())
+        return self._routed[1]
+
     def resolve_queries(self, queries, embeddings=None):
         """Materialise and embed one query batch, validating it eagerly:
         iterators are listed before len(), row counts and dims are checked,
@@ -241,22 +258,29 @@ class RetrievalService:
                routing: routing_lib.Routing | str = routing_lib.Routing.NONE,
                nprobe: Optional[int] = None):
         """tau-ANN retrieval over the sealed corpus: (TopKResult of tensors
-        on the service's device, similarity estimates as a numpy array)."""
+        on the service's device, similarity estimates as a numpy array).
+
+        `routing` plugs the coarse router (core/routing.py) in front of the
+        exact match: 'routed' scans only the segments the router selects
+        (approximate), 'routed_verified' also verifies the result threshold
+        against the skipped segments' upper bounds and falls back to the
+        full scan when one could still contribute (results then equal
+        'none' bit for bit)."""
         if self._index is None:
             # a real exception, not an assert: asserts vanish under python -O
             raise ValueError(
                 "RetrievalService index is empty (no items added yet): "
                 "call add() before search()"
             )
-        routing = routing_lib.require_none(routing)
-        if nprobe is not None:
-            raise NotImplementedError(
-                "nprobe= belongs to routed search, which is not ported yet "
-                "(ROADMAP queue 1 item 6)")
+        routing = routing_lib.Routing(routing)
         emb = self.resolve_queries(queries, embeddings)
         qsigs = self._hash(emb)
+        # the cached router rides into the segment search, so interleaved
+        # add / search rebuild routing state only when the corpus changed
+        router = self._router() if routing is not routing_lib.Routing.NONE else None
         res = self._index.search(qsigs, k=k, method=method,
-                                 candidate_cap=candidate_cap, routing=routing)
+                                 candidate_cap=candidate_cap, routing=routing,
+                                 nprobe=nprobe, router=router)
         # scheme-paired MLE: c/m for bucketed families (Eqn 7), the simhash
         # angle inversion for COSINE
         sims = self._scheme.mle(res.counts.cpu().numpy(), self.m)

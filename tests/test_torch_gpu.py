@@ -7,6 +7,8 @@ holds only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -619,3 +621,128 @@ def test_multiload_host_loop_copies_wait_for_earlier_work_on_freed_memory():
         got = multiload_search_host(pinned, queries, params, Engine.EQ)
         assert torch.equal(got.ids, want.ids) and torch.equal(got.counts, want.counts)
         assert torch.equal(got.threshold, want.threshold)
+
+
+def _cold_hot_segments(engine, rng, rows=(3000, 2500, 4000, 1700), m=64):
+    """An EQ / TANIMOTO corpus whose segments hold disjoint bucket ranges,
+    so a query batch drawn from segment 1 rules the others out."""
+    from repro_torch.core import SegmentedIndex
+
+    seg = SegmentedIndex(engine)
+    for i, n in enumerate(rows):           # ids up to 230: PACKED TANIMOTO takes them
+        seg.add(rng.integers(60 * i, 60 * i + 50, (n, m)).astype(np.int32))
+    queries = rng.integers(60, 110, (40, m)).astype(np.int32)
+    return seg, queries
+
+
+@pytest.mark.gpu
+def test_routed_search_on_the_card_equals_the_full_scan():
+    """ROUTED_VERIFIED equals NONE on the card, for EQ and TANIMOTO (WIDE
+    and PACKED), on SEGMENTED and the host loop; the skipped segments'
+    match kernels never launch."""
+    _need_card()
+    from repro_torch.core import Engine
+
+    rng = np.random.default_rng(7)
+    for engine, layout, kernel in ((Engine.EQ, "wide", "match_count"),
+                                   (Engine.TANIMOTO, "wide", "tanimoto_count"),
+                                   (Engine.TANIMOTO, "packed", "packed_tanimoto_topk")):
+        seg, queries = _cold_hot_segments(engine, rng)
+        if layout == "packed":
+            from repro_torch.core import SegmentedIndex
+            packed = SegmentedIndex(engine, signature_layout="packed")
+            for s in seg.segments:
+                packed.add(s.data)
+            seg = packed
+        for name in ("search", "search_multiload"):
+            search = getattr(seg, name)
+            full = search(queries, k=20)
+            common.reset_launch_counts()
+            got = search(queries, k=20, routing="routed_verified", nprobe=1)
+            torch.cuda.synchronize()
+            launches = common.launch_counts()
+            assert torch.equal(got.ids, full.ids) and torch.equal(got.counts, full.counts)
+            assert torch.equal(got.threshold, full.threshold)
+            count = "packed_tanimoto_count" if (layout == "packed"
+                                               and name == "search_multiload") else kernel
+            assert launches.get(count) == 1, (engine, layout, name, launches)
+            assert int(got.ids.min()) >= 3000 and int(got.ids.max()) < 5500
+
+
+@pytest.mark.gpu
+def test_routed_host_loop_copies_only_the_selected_parts():
+    """The routed host loop over pinned parts copies the selected parts and
+    nothing else (`plan.copied_bytes`), and equals the resident search."""
+    _need_card()
+    from repro_torch.core import Engine, plan
+
+    rng = np.random.default_rng(8)
+    seg, queries = _cold_hot_segments(Engine.EQ, rng)
+    pinned = [s.data.cpu().pin_memory() for s in seg.segments]
+    q = seg.model.prepare_queries(queries, seg.device)
+    want = seg.search_multiload(queries, k=15, routing="routed", nprobe=1)
+    for routing, copied in (("routed", pinned[1].numel() * 4),
+                            ("none", sum(p.numel() * 4 for p in pinned))):
+        p = plan.plan_search(Engine.EQ, 15, seg.max_count, layout="multiload",
+                             part_rows=tuple(seg.segment_rows), n_objects=seg.n_objects,
+                             host_loop=True, routing=routing, nprobe=1)
+        plan.reset_copied_bytes()
+        got = plan.execute(p, pinned, q, router=seg.router())
+        torch.cuda.synchronize()
+        assert plan.copied_bytes() == copied, routing
+        if routing == "routed":
+            assert torch.equal(got.ids, want.ids) and torch.equal(got.counts, want.counts)
+
+
+@pytest.mark.gpu
+def test_frontend_on_the_card_equals_serial_searches():
+    """Coalesced front-end dispatches on the card equal serial searches bit
+    for bit, the dispatch thread launches with the service's device current,
+    and a warm dispatch builds nothing and repeats its launches."""
+    _need_card()
+    from repro_torch.kernels import build
+    from repro_torch.serve import ServingFrontend
+
+    rng = np.random.default_rng(9)
+    emb = rng.standard_normal((4000, 16)).astype(np.float32)
+    svc = RetrievalService(m_override=64)
+    for lo in range(0, 4000, 1000):
+        svc.add(range(lo, lo + 1000), embeddings=emb[lo:lo + 1000])
+    seen = []
+    search = svc.search
+
+    def spy(*args, **kw):
+        seen.append((torch.cuda.current_device(), threading.current_thread().name))
+        return search(*args, **kw)
+
+    svc.search = spy
+    queries = torch.from_numpy(emb[::50] + 0.01).cuda()
+    fe = ServingFrontend(max_wait_us=0, start=False)
+    try:
+        fe.register("t", svc)
+        slices = [(0, 7, 5), (7, 30, 10), (30, 80, 3), (3, 9, 16)]
+        futs = [fe.submit("t", None, k=k, embeddings=queries[lo:hi]) for lo, hi, k in slices]
+        fe.start()
+        results = [f.result(timeout=120) for f in futs]
+        builds = []
+        real_build = build.build
+        build.build = lambda: builds.append(1) or real_build()
+        try:
+            launches = []
+            for _ in range(2):
+                common.reset_launch_counts()
+                fe.search("t", None, k=10, embeddings=queries[:16], timeout=120)
+                torch.cuda.synchronize()
+                launches.append(common.launch_counts())
+        finally:
+            build.build = real_build
+    finally:
+        fe.close(timeout=120)
+    assert fe.stats()["dispatches"] < len(slices) + 2
+    assert {d for d, _ in seen} == {svc.device.index or 0}
+    assert {t for _, t in seen} == {"serving-frontend"}
+    assert launches[0] == launches[1] == {"match_count": 4, "cpq_hist": 4} and builds == []
+    for (lo, hi, k), (got, _) in zip(slices, results):
+        want, _ = search(None, k=k, embeddings=queries[lo:hi])
+        assert np.array_equal(got.ids, want.ids.cpu().numpy())
+        assert np.array_equal(got.counts, want.counts.cpu().numpy())

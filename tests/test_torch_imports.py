@@ -32,7 +32,10 @@ def test_module_list_covers_the_slice():
                  "repro_torch.kernels.range_count", "repro_torch.kernels.minsum_count",
                  "repro_torch.kernels.ip_count", "repro_torch.core.sa",
                  "repro_torch.core.sa.ngram", "repro_torch.core.sa.document",
-                 "repro_torch.core.sa.relational", "repro_torch.core.sa.verify"):
+                 "repro_torch.core.sa.relational", "repro_torch.core.sa.verify",
+                 "repro_torch.core.routing", "repro_torch.runtime",
+                 "repro_torch.runtime.fault_tolerance", "repro_torch.serve.frontend",
+                 "repro_torch.serve.scheduler", "repro_torch.serve.metrics"):
         assert name in _MODULES
 
 

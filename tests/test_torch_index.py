@@ -36,7 +36,12 @@ def test_genie_index_equals_reference(method, use_kernel, rng):
     data, q = _sigs(rng, 400), _sigs(rng, 9)
     idx = GenieIndex.build(Engine.EQ, data, use_kernel=use_kernel, device="cpu")
     jidx = JGenieIndex.build(JEngine.EQ, data, use_kernel=use_kernel)
-    assert idx.max_count == jidx.max_count == 24 and idx.summary is None
+    assert idx.max_count == jidx.max_count == 24
+    # the seal-time routing summary, built on the index's device, equals the
+    # reference's array for array
+    for field in ("col_min", "col_max", "centroid", "occupancy"):
+        assert np.array_equal(getattr(idx.summary, field), getattr(jidx.summary, field)), field
+    assert idx.summary.n_rows == jidx.summary.n_rows == 400
     assert np.array_equal(idx.match_counts(q).numpy(), np.asarray(jidx.match_counts(q)))
     _same(idx.search(q, k=15, method=TopKMethod(method)),
           jidx.search(q, k=15, method=JMethod(method)))
@@ -131,8 +136,11 @@ def test_segmented_index_validation(rng):
         seg.compact(0)
     with pytest.raises(ValueError, match="no packed signature format"):
         SegmentedIndex(Engine.EQ, signature_layout="packed", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        seg.search(_sigs(rng, 2), k=3, routing="routed")
+    # routed search is ported: on one segment ROUTED equals the reference's
+    jseg = JSegmentedIndex(JEngine.EQ)
+    jseg.add(np.asarray(seg.segments[0].data))
+    q = _sigs(rng, 2)
+    _same(seg.search(q, k=3, routing="routed"), jseg.search(q, k=3, routing="routed"))
     # an engine with no derivable count bound: the first add needs max_count,
     # and says so in the reference's words
     with pytest.raises(ValueError) as ours:
@@ -187,8 +195,9 @@ def test_describe_equals_reference_where_ported(layout, rows, n_objects, use_ker
     want = jplan.plan_search("eq", 12, 24, **{**kw, "method": JMethod.SPQ}).describe()
     assert set(got) <= set(want)
     assert got == {key: want[key] for key in got}
-    # what the port leaves out is exactly the unported machinery
-    assert set(want) - set(got) == {"hierarchical", "mesh_axes", "nprobe", "tile_overrides"}
+    # every key of the reference is there (the unported machinery at its
+    # defaults)
+    assert set(want) - set(got) == set()
 
 
 def test_plan_is_hashable_and_validates():
@@ -207,8 +216,13 @@ def test_plan_is_hashable_and_validates():
         plan_search(Engine.EQ, 5, 24, signature_layout=SignatureLayout.PACKED)
     with pytest.raises(NotImplementedError, match="item 9"):
         plan_search(Engine.EQ, 5, 24, layout=Layout.DISTRIBUTED, part_rows=(3,))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        plan_search(Engine.EQ, 5, 24, layout=Layout.SEGMENTED, part_rows=(3,),
+    # routing is ported: a routed SEGMENTED plan keeps its nprobe, and a
+    # routed DISTRIBUTED one still names the distributed layout's item
+    routed = plan_search(Engine.EQ, 5, 24, layout=Layout.SEGMENTED, part_rows=(3,),
+                         routing=Routing.ROUTED_VERIFIED, nprobe=2)
+    assert routed.routing is Routing.ROUTED_VERIFIED and routed.nprobe == 2
+    with pytest.raises(NotImplementedError, match="item 9"):
+        plan_search(Engine.EQ, 5, 24, layout=Layout.DISTRIBUTED, part_rows=(3,),
                     routing=Routing.ROUTED_VERIFIED)
     with pytest.raises(ValueError, match="plan lays out 2 parts"):
         execute(a, [torch.zeros((4, 24), dtype=torch.int32)], torch.zeros((1, 24), dtype=torch.int32))

@@ -196,7 +196,7 @@ def test_describe_equals_reference_but_fused_hist(host_loop, rows, n_objects,
     assert set(got) <= set(want)
     assert {key: v for key, v in got.items() if key != "fused_hist"} == \
         {key: want[key] for key in got if key != "fused_hist"}
-    assert set(want) - set(got) == {"hierarchical", "mesh_axes", "nprobe", "tile_overrides"}
+    assert set(want) - set(got) == set()
     assert got["merge"] == ("ragged-buffer" if host_loop else "incremental-pairwise")
     assert got["host_loop"] is host_loop and plan.fused_match is None
     # the one difference: the port runs the histogram kernel on MULTILOAD
@@ -228,10 +228,14 @@ def test_multiload_errors_match_the_reference(rng):
                        host_loop=True)
     assert plan.host_loop and plan.n_parts == 2
     seg = SegmentedIndex(Engine.EQ, device="cpu")
-    seg.add(rng.integers(0, 4, (20, 8)).astype(np.int32))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        seg.search_multiload(rng.integers(0, 4, (2, 8)).astype(np.int32), k=3,
-                             routing="routed")
+    jseg = JSegmentedIndex(JEngine.EQ)
+    data = rng.integers(0, 4, (20, 8)).astype(np.int32)
+    seg.add(data)
+    jseg.add(data)
+    # routed multiload is ported: ROUTED equals the reference's ROUTED
+    q = rng.integers(0, 4, (2, 8)).astype(np.int32)
+    _same(seg.search_multiload(q, k=3, routing="routed"),
+          jseg.search_multiload(q, k=3, routing="routed"))
     with pytest.raises(ValueError, match="empty SegmentedIndex"):
         SegmentedIndex(Engine.EQ, device="cpu").search_multiload(np.zeros((1, 8), np.int32), 3)
     with pytest.raises(ValueError, match="pad_and_stack needs a MULTILOAD plan"):
