@@ -6,10 +6,19 @@
 Builds the CUDA kernels from `src/repro_torch/kernels/csrc/` (first use
 builds them), then runs these phases -- 1 to 3d, 4g's padded round trips and
 3e in order, then each full-width phase followed by its multiple-loading
-case and its kernels' times (4, 5, 4g, 4h, 4i, 4b, 4g, 5b, 4c, 4g, 5c, 4c',
-4d, 4i, 5d, 4e, 5d, 4f, 5d), and last DBLP at its full size through multiple
-loading (4g) -- and fails (non-zero exit, no result line) as soon as a
-phase fails:
+case and its kernels' times (4, 5, 4g, 4h, 4i, 5's block shapes, 4j, 4b,
+4g, 5b, 4j, 4c, 4g, 5c, 4c', 4d, 4i, 5d, 4e, 5d, 4f, 5d), and last DBLP at
+its full size through multiple loading (4g) -- and fails (non-zero exit, no
+result line) as soon as a phase fails.  The kernels compiled in several
+block shapes, which the tile knobs select (`kernels/ops.py` VARIANTS), are
+held and timed in each: match_count and tanimoto_count with 128 and 32
+query rows a block (phases 2, 2c: each shape through its C entry at every
+parity shape, the 32-row one also at Q = 1, 7, 31, 32, 33 with m odd and
+4095 to 8193, and the identity; phase 5 at Q = 1, 16, 64, 1024; 4i and 4c
+launch the 32-row shape on the main path), packed_cosine_topk and
+packed_tanimoto_topk with tiles of 2048 and 1024 data rows (2, 2c: every
+case at both tiles; 5b, 5c: both tiles with topk_from_candidates, and the
+PACKED search with a tuned 1024-row tile in turns with the default):
 
   1. environment and build: versions, the card's name and power limit, the
      kernels' build time and what ptxas reports for them;
@@ -130,7 +139,15 @@ phase fails:
      through `ServingFrontend` and `RetrievalService.search` (median ms),
      then 32 submitter threads sending 256 requests of 1 to 64 queries, k
      10 or 100, each equal to its serial search (queries/s, p50 / p99,
-     dispatches, rows a dispatch); after 4d, the Adult RANGE index as an
+     dispatches, rows a dispatch), and the single requests again with the
+     equality tile's default pick (32 query rows a block up to Q = 32) and
+     with its 128-row shape only, in turns; 4j. the autotuner:
+     RetrievalService.tune() (budget 8, 2 repeats) on the e2lsh service and
+     on the simhash PACKED one, its entry, default and tuned times and the
+     time tune() takes, the tuned search equal to the untuned one bit for
+     bit, the cache saved to a file and reloaded, a cache with another
+     card's fingerprint keeping the defaults, and the single requests of 4i
+     through the tuned e2lsh service; after 4d, the Adult RANGE index as an
      `IndexService` tenant (stacked (lo, hi) queries), so that range_count
      runs through the front-end;
   5. each kernel's time at the full-width per-segment shape beside the plain
@@ -270,6 +287,13 @@ TANIMOTO_TOPK_CASES = [(5, 5000, 238, 1), (7, 5000, 238, 3), (33, 9000, 238, 10)
 EQ_EXTRA_SHAPES = [(7, 129, 1), (5, 133, 2), (9, 1001, 63), (3, 301, 4095), (5, 257, 4096),
                    (2, 130, 4097), (3, 131, 8193)]
 EQ_KINDS = ("lanes", "mixed", "int32")
+# (Q, N, m) for the equality tile's Narrow shape (32 query rows a block,
+# tile_q = 32): Q = 1, 7, 31, 32, 33 (one and two query tiles), m odd and
+# 4095 to 8193 around the 4096-column flush
+NARROW_EQ_SHAPES = [(1, 1001, 63), (7, 301, 4095), (31, 257, 4096), (32, 130, 4097),
+                    (33, 131, 8193), (1, 100003, 238), (7, 5, 1), (33, 1029, 33)]
+# the fused top-k kernels' tiles (tile_n): the default and the narrow one
+FUSED_TILES = (2048, 1024)
 LANE_END = 0x7C00
 # ids at the float16 path's borders: 0, the subnormals' last and the normals'
 # first (1023, 1024), float16's last exact integer and the next (2048, 2049),
@@ -405,6 +429,35 @@ def eq_identity(name: str, kernel, device: torch.device) -> int:
     return worst
 
 
+def eq_variant(name: str, tile_q: int):
+    """The equality kernel `name` (match_count or tanimoto_count) in the
+    block shape of `tile_q` query rows (128: Wide, 32: Narrow) whatever Q is,
+    through its C entry (the wrapper's pick_variant would clamp a small Q to
+    the Narrow shape)."""
+    from repro_torch.kernels import common
+
+    entry = name if tile_q == 128 else f"{name}_q{tile_q}"
+
+    def run(d: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        n, q, m = common.check_pair(name, d, s)
+        return common.launch_count(name, d, s, n, q, m, entry=entry, variant=f"tile_q={tile_q}")
+    return run
+
+
+def fused_variant(name: str, tile_n: int):
+    """The fused top-k kernel `name` (packed_cosine_topk or
+    packed_tanimoto_topk) in its tile of `tile_n` data rows whatever N is,
+    through its C entries; operands as the wrapper takes them."""
+    from repro_torch.kernels import common
+
+    entry = name if tile_n == 2048 else f"{name}_n{tile_n}"
+
+    def run(d: torch.Tensor, s: torch.Tensor, k: int):
+        return common.launch_fused_topk(name, d, s, d.device, d.shape[0], s.shape[0],
+                                        d.shape[1], k, tile_n, entry=entry)
+    return run
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: environment and build
 # ---------------------------------------------------------------------------
@@ -455,7 +508,16 @@ def phase_kernel_parity(device: torch.device) -> dict:
     worst["match_count"] = max(
         eq_parity("match_count", ops.match_count, match_count_plain,
                   MATCH_SHAPES + EQ_EXTRA_SHAPES, device, gen),
+        eq_parity("match_count[tile_q=128]", eq_variant("match_count", 128), match_count_plain,
+                  MATCH_SHAPES + EQ_EXTRA_SHAPES, device, gen),
         eq_identity("match_count", ops.match_count, device))
+    # the Narrow shape: through the wrapper (tile_q = 32) and its C entry
+    worst["match_count[tile_q=32]"] = max(
+        eq_parity("match_count[tile_q=32]", lambda d, s: ops.match_count(d, s, tile_q=32),
+                  match_count_plain, NARROW_EQ_SHAPES, device, gen),
+        eq_parity("match_count[tile_q=32]", eq_variant("match_count", 32), match_count_plain,
+                  MATCH_SHAPES + EQ_EXTRA_SHAPES, device, gen),
+        eq_identity("match_count[tile_q=32]", eq_variant("match_count", 32), device))
     for q, n, m in MATCH_SHAPES:
         for dtype in (torch.int32, torch.int16):
             d = torch.randint(0, 9, (n, m), generator=gen, dtype=dtype).to(device)
@@ -601,10 +663,11 @@ def cosine_parity(device: torch.device, gen: torch.Generator) -> dict:
     from repro_torch.core import packing
     from repro_torch.kernels import ops
     from repro_torch.kernels.cosine_count import cosine_count_plain
-    from repro_torch.kernels.packed_cosine import (TILE_N, packed_cosine_count_plain,
+    from repro_torch.kernels.packed_cosine import (packed_cosine_count_plain,
                                                    packed_cosine_topk_plain)
 
-    worst = {"cosine_count": 0, "packed_cosine_count": 0, "packed_cosine_topk": 0}
+    worst = {"cosine_count": 0, "packed_cosine_count": 0, "packed_cosine_topk": 0,
+             "packed_cosine_topk[tile_n=1024]": 0}
     for i, (q, n, v) in enumerate(COSINE_SHAPES):
         d, s = _signs(gen, n, v, device), _signs(gen, q, v, device)
         if i == 3:
@@ -656,25 +719,31 @@ def cosine_parity(device: torch.device, gen: torch.Generator) -> dict:
         else:
             dw = packing.pack_signs_data(_signs(gen, n, v, device))
             sw = packing.pack_signs_queries(_signs(gen, q, v, device))
-        ids, cnts = ops.packed_cosine_topk(dw, sw, k=k)
-        pids, pcnts = packed_cosine_topk_plain(dw, sw, k)
-        sync(device)
-        err = max(max_abs_err(ids, pids), max_abs_err(cnts, pcnts))
-        worst["packed_cosine_topk"] = max(worst["packed_cosine_topk"], err)
-        kc = min(k, TILE_N)
-        check(ids.shape == (q, -(-n // TILE_N) * kc) and torch.equal(ids, pids)
-              and torch.equal(cnts, pcnts),
-              f"packed_cosine_topk buffers differ from the plain version at "
-              f"(Q,N,V,k)=({q},{n},{v},{k}): max abs err {err}")
-        got_ids, got_cnts = fused_result(ids, cnts, k)
         want_ids, want_cnts = sort_oracle(packed_cosine_count_plain(dw, sw), k)
-        check(torch.equal(got_ids, want_ids) and torch.equal(got_cnts, want_cnts),
-              f"packed_cosine_topk after topk_from_candidates differs from a sort "
-              f"at (Q,N,V,k)=({q},{n},{v},{k})")
-        if all_equal:
-            check(got_ids.tolist() == [list(range(k))] * q, "all-equal rows: not the lowest ids")
-        log(f"  packed_cosine_topk (Q,N,V,k)=({q},{n},{v},{k}) W={dw.shape[1]} tile={TILE_N}"
-            f" {kind} rows: buffers equal, merged == sort")
+        for tile in FUSED_TILES:               # each tile through its C entries
+            key = "packed_cosine_topk" + ("" if tile == 2048 else f"[tile_n={tile}]")
+            ids, cnts = fused_variant("packed_cosine_topk", tile)(dw, sw, k)
+            pids, pcnts = packed_cosine_topk_plain(dw, sw, k, tile)
+            sync(device)
+            err = max(max_abs_err(ids, pids), max_abs_err(cnts, pcnts))
+            worst[key] = max(worst[key], err)
+            kc = min(k, tile)
+            check(ids.shape == (q, -(-n // tile) * kc) and torch.equal(ids, pids)
+                  and torch.equal(cnts, pcnts),
+                  f"packed_cosine_topk buffers differ from the plain version at "
+                  f"(Q,N,V,k)=({q},{n},{v},{k}) tile {tile}: max abs err {err}")
+            got_ids, got_cnts = fused_result(ids, cnts, k)
+            check(torch.equal(got_ids, want_ids) and torch.equal(got_cnts, want_cnts),
+                  f"packed_cosine_topk after topk_from_candidates differs from a sort "
+                  f"at (Q,N,V,k)=({q},{n},{v},{k}) tile {tile}")
+            if all_equal:
+                check(got_ids.tolist() == [list(range(k))] * q,
+                      "all-equal rows: not the lowest ids")
+        ids, cnts = ops.packed_cosine_topk(dw, sw, k=k)     # the wrapper's own pick
+        check(torch.equal(fused_result(ids, cnts, k)[0], want_ids),
+              f"packed_cosine_topk's wrapper at (Q,N,V,k)=({q},{n},{v},{k})")
+        log(f"  packed_cosine_topk (Q,N,V,k)=({q},{n},{v},{k}) W={dw.shape[1]} tiles "
+            f"{FUSED_TILES} {kind} rows: buffers equal, merged == sort")
     return worst
 
 
@@ -1602,13 +1671,14 @@ def tanimoto_parity(device: torch.device) -> dict:
     bit-exact; returns the worst absolute difference per kernel."""
     from repro_torch.core import packing
     from repro_torch.kernels import ops
-    from repro_torch.kernels.packed_tanimoto import (TILE_N, packed_tanimoto_count_plain,
+    from repro_torch.kernels.packed_tanimoto import (packed_tanimoto_count_plain,
                                                      packed_tanimoto_topk_plain)
     from repro_torch.kernels.tanimoto_count import tanimoto_count_plain
 
     log("== phase 2c: the TANIMOTO kernels against their plain PyTorch versions")
     gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
-    worst = {"tanimoto_count": 0, "packed_tanimoto_count": 0, "packed_tanimoto_topk": 0}
+    worst = {"tanimoto_count": 0, "packed_tanimoto_count": 0, "packed_tanimoto_topk": 0,
+             "packed_tanimoto_topk[tile_n=1024]": 0}
     for q, n, m in TANIMOTO_SHAPES:
         d, s = _buckets(gen, n, m, device, hi=64), _buckets(gen, q, m, device, hi=64)
         got = ops.tanimoto_count(d, s)
@@ -1624,7 +1694,16 @@ def tanimoto_parity(device: torch.device) -> dict:
         worst["tanimoto_count"],
         eq_parity("tanimoto_count", ops.tanimoto_count, tanimoto_count_plain,
                   TANIMOTO_SHAPES + EQ_EXTRA_SHAPES, device, gen),
+        eq_parity("tanimoto_count[tile_q=128]", eq_variant("tanimoto_count", 128),
+                  tanimoto_count_plain, TANIMOTO_SHAPES + EQ_EXTRA_SHAPES, device, gen),
         eq_identity("tanimoto_count", ops.tanimoto_count, device))
+    worst["tanimoto_count[tile_q=32]"] = max(
+        eq_parity("tanimoto_count[tile_q=32]",
+                  lambda d, s: ops.tanimoto_count(d, s, tile_q=32), tanimoto_count_plain,
+                  NARROW_EQ_SHAPES, device, gen),
+        eq_parity("tanimoto_count[tile_q=32]", eq_variant("tanimoto_count", 32),
+                  tanimoto_count_plain, TANIMOTO_SHAPES + EQ_EXTRA_SHAPES, device, gen),
+        eq_identity("tanimoto_count[tile_q=32]", eq_variant("tanimoto_count", 32), device))
     for q, n, m in PACKED_TANIMOTO_SHAPES:
         d, s = _buckets(gen, n, m, device), _buckets(gen, q, m, device)
         s[0] = d[min(1, n - 1)]                    # one full collision
@@ -1647,24 +1726,30 @@ def tanimoto_parity(device: torch.device) -> dict:
         else:                              # few buckets: many ties at the threshold
             du = packing.pack_buckets(_buckets(gen, n, m, device, hi=8))
             su = packing.pack_buckets(_buckets(gen, q, m, device, hi=8))
-        ids, cnts = ops.packed_tanimoto_topk(du, su, k=k)
-        pids, pcnts = packed_tanimoto_topk_plain(du, su, k)
-        sync(device)
-        err = max(max_abs_err(ids, pids), max_abs_err(cnts, pcnts))
-        worst["packed_tanimoto_topk"] = max(worst["packed_tanimoto_topk"], err)
-        kc = min(k, TILE_N)
-        check(ids.shape == (q, -(-n // TILE_N) * kc) and torch.equal(ids, pids)
-              and torch.equal(cnts, pcnts),
-              f"packed_tanimoto_topk buffers differ from the plain version at "
-              f"(Q,N,m,k)=({q},{n},{m},{k}): max abs err {err}")
-        got_ids, got_cnts = fused_result(ids, cnts, k)
         want_ids, want_cnts = sort_oracle(packed_tanimoto_count_plain(du, su), k)
-        check(torch.equal(got_ids, want_ids) and torch.equal(got_cnts, want_cnts),
-              f"packed_tanimoto_topk after topk_from_candidates differs from a sort "
-              f"at (Q,N,m,k)=({q},{n},{m},{k})")
-        if all_equal:
-            check(got_ids.tolist() == [list(range(k))] * q, "all-equal rows: not the lowest ids")
-        log(f"  packed_tanimoto_topk (Q,N,m,k)=({q},{n},{m},{k}) tile={TILE_N}"
+        for tile in FUSED_TILES:               # each tile through its C entries
+            key = "packed_tanimoto_topk" + ("" if tile == 2048 else f"[tile_n={tile}]")
+            ids, cnts = fused_variant("packed_tanimoto_topk", tile)(du, su, k)
+            pids, pcnts = packed_tanimoto_topk_plain(du, su, k, tile)
+            sync(device)
+            err = max(max_abs_err(ids, pids), max_abs_err(cnts, pcnts))
+            worst[key] = max(worst[key], err)
+            kc = min(k, tile)
+            check(ids.shape == (q, -(-n // tile) * kc) and torch.equal(ids, pids)
+                  and torch.equal(cnts, pcnts),
+                  f"packed_tanimoto_topk buffers differ from the plain version at "
+                  f"(Q,N,m,k)=({q},{n},{m},{k}) tile {tile}: max abs err {err}")
+            got_ids, got_cnts = fused_result(ids, cnts, k)
+            check(torch.equal(got_ids, want_ids) and torch.equal(got_cnts, want_cnts),
+                  f"packed_tanimoto_topk after topk_from_candidates differs from a sort "
+                  f"at (Q,N,m,k)=({q},{n},{m},{k}) tile {tile}")
+            if all_equal:
+                check(got_ids.tolist() == [list(range(k))] * q,
+                      "all-equal rows: not the lowest ids")
+        ids, cnts = ops.packed_tanimoto_topk(du, su, k=k)     # the wrapper's own pick
+        check(torch.equal(fused_result(ids, cnts, k)[0], want_ids),
+              f"packed_tanimoto_topk's wrapper at (Q,N,m,k)=({q},{n},{m},{k})")
+        log(f"  packed_tanimoto_topk (Q,N,m,k)=({q},{n},{m},{k}) tiles {FUSED_TILES}"
             f"{' all-equal rows' if all_equal else ''}: buffers equal, merged == sort")
     return worst
 
@@ -3127,6 +3212,12 @@ def phase_frontend(run: dict, device: torch.device, sizes=(1, 4, 16, 64), reps: 
                 f"{out['single'][q]['frontend_ms']:.2f} ms (medians of {reps}; {hw})")
     finally:
         fe.close(timeout=wait_s)
+    # the same single requests with the equality tile's default pick (32
+    # query rows a block up to Q = 32) and with its 128-row shape only
+    out["shapes"] = single_requests(svc, queries, device, sizes=sizes, reps=reps,
+                                    label="SIFT e2lsh", profile=(1, 4, 16))
+    check(out["shapes"]["shapes"].get("match_count[tile_q=32]", 0) > 0,
+          "the single requests never launched match_count's 32-row shape")
 
     fe = ServingFrontend(max_wait_us=2000, max_batch=1024, max_queue=1024)
     done, lock = [], threading.Lock()
@@ -3213,6 +3304,265 @@ def phase_frontend_range(run: dict, device: torch.device, wait_s: float = 300) -
         f"search; launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# The tile knobs: the kernels' block-shape variants and the autotuner
+# ---------------------------------------------------------------------------
+
+# Q at which phase 5 times match_count's two block shapes at the SIFT
+# segment shape, and the batch sizes of the single requests of 4i / 4j
+VARIANT_QS = (1, 16, 64, 1024)
+SINGLE_QS = (1, 4, 16, 64)
+
+
+class wide_eq_only:
+    """Within the block the equality kernels have their Wide shape only (128
+    query rows a block, as before the Narrow shape existed): the picks of
+    kernels/match_count.py and tanimoto_count.py see one tile_q variant."""
+
+    def __enter__(self):
+        from repro_torch.kernels import match_count, tanimoto_count
+
+        self.tables = (match_count.VARIANTS, tanimoto_count.VARIANTS)
+        self.saved = [t["tile_q"] for t in self.tables]
+        for t in self.tables:
+            t["tile_q"] = (128,)
+
+    def __exit__(self, *exc):
+        for t, v in zip(self.tables, self.saved):
+            t["tile_q"] = v
+
+
+def eq_variant_times(name: str, data: torch.Tensor, qsigs: torch.Tensor, launches: int,
+                     parity_err: dict, device: torch.device, qs=VARIANT_QS) -> dict:
+    """Phase 5 / 5c: the equality kernel `name` in both block shapes (tile_q
+    128 and 32, through their C entries) at the segment shape for each Q of
+    `qs`; the narrow shape's entry of the kernels line at Q = 1 (the
+    front-end's single request), with its plain version, the cdist yardstick
+    and its bound there, and `launches` (its launches on the main path)."""
+    from repro_torch.kernels.match_count import match_count_plain
+
+    n, m = data.shape
+    hw = gpu_name_and_power_limit()
+    log(f"  {name} by block shape at N={n}, m={m} ({hw}):")
+    times = {}
+    for q in qs:
+        s = qsigs[:q].contiguous()
+        row = {}
+        for tq in (128, 32):
+            ms, counts = timed_ms(lambda: eq_variant(name, tq)(data, s), device, reps=5,
+                                  warmup=1, hold=q < 64)
+            row[tq] = ms
+            if tq == 128:
+                wide = counts
+            else:
+                check(torch.equal(counts, wide), f"{name} shapes disagree at Q={q}")
+        bound = max((n * m + q * m + q * n) * 4 / PEAK_BYTES_PER_S,
+                    2 * q * n * m / PEAK_ALU_OPS_PER_S) * 1e3
+        times[q] = row
+        log(f"    Q = {q:4d}: tile_q=128 {row[128]:.4f} ms, tile_q=32 {row[32]:.4f} ms "
+            f"({row[128] / row[32]:.2f}x); bound {bound:.4f} ms")
+    s = qsigs[:1].contiguous()
+    counts = eq_variant(name, 32)(data, s)
+    plain, want = timed_ms(lambda: match_count_plain(data, s), device, reps=1, warmup=1)
+    err = max(parity_err[f"{name}[tile_q=32]"], max_abs_err(counts, want))
+    check(torch.equal(counts, want), f"{name}[tile_q=32] differs at Q=1")
+    lib = library_eq_count(data, s, counts, device)
+    log("  " + json.dumps({f"{name}_by_shape": {str(q): v for q, v in times.items()}}))
+    return kernel_entry(f"{name}[tile_q=32]", f"src/repro_torch/kernels/csrc/{name}.cu",
+                        f"src/repro/kernels/{name}.py:{59 if name == 'match_count' else 64}",
+                        launches, err, times[1][32], plain,
+                        (n * m + m + n) * 4 / PEAK_BYTES_PER_S * 1e3,
+                        2 * n * m / PEAK_ALU_OPS_PER_S * 1e3, lib)
+
+
+def single_requests(svc, queries: torch.Tensor, device: torch.device, sizes=SINGLE_QS,
+                    reps: int = 9, label: str = "", profile=()) -> dict:
+    """Single requests of Q = `sizes` through RetrievalService.search, median
+    ms of `reps`, with the equality tile's default pick (32 query rows a
+    block up to Q = 32) and, in turns, with its Wide shape only (the shape
+    every Q took before); the launches of each shape in the default runs;
+    one default search of each Q in `profile` under the profiler."""
+    from repro_torch.core import TopKMethod
+    from repro_torch.kernels import common
+
+    out, shapes = {}, {}
+    for q in sizes:
+        rows = queries[:q]
+        runs = {"default": [], "wide_only": []}
+        for i in range(reps + 1):
+            for mode in ("default", "wide_only"):
+                sync(device)
+                common.reset_launch_counts()
+                t0 = time.perf_counter()
+                if mode == "default":
+                    res, _ = svc.search(None, k=FULL_K, embeddings=rows, method=TopKMethod.CPQ)
+                else:
+                    with wide_eq_only():
+                        res2, _ = svc.search(None, k=FULL_K, embeddings=rows,
+                                             method=TopKMethod.CPQ)
+                sync(device)
+                runs[mode].append((time.perf_counter() - t0) * 1e3)
+                if mode == "default":
+                    for key, v in common.variant_launch_counts().items():
+                        shapes[key] = shapes.get(key, 0) + v
+            check(torch.equal(res.ids, res2.ids) and torch.equal(res.counts, res2.counts),
+                  f"{label} Q={q}: the two block shapes give different results")
+        out[q] = {mode: statistics.median(v[1:]) for mode, v in runs.items()}
+        log(f"  {label} Q = {q:2d}, k = {FULL_K}: RetrievalService.search {out[q]['default']:.2f} "
+            f"ms with the default pick, {out[q]['wide_only']:.2f} ms with 128 query rows a "
+            f"block only (medians of {reps}, in turns)")
+    log(f"  {label} block shapes launched by the default searches: {shapes}")
+    for q in profile:                       # where a single request's time goes
+        log(f"  {label} Q = {q}, default pick, under the profiler:")
+        profile_one_search(lambda: svc.search(None, k=FULL_K, embeddings=queries[:q]), device)
+    return dict(ms=out, shapes=shapes)
+
+
+def fused_tile_times(run: dict, name: str, kernel_times: dict, device: torch.device,
+                     parity_err: dict, k: int = FULL_K) -> dict:
+    """Phase 5b / 5c: the fused top-k kernel `name` of the PACKED service
+    `run` at its two tiles at the segment shape -- the kernel alone and with
+    `topk_from_candidates` -- and the whole PACKED search with an autotune
+    entry that picks the 1024-row tile, in turns with the default; the entry
+    of the kernels line for the 1024-row tile (its launches from that
+    search's run)."""
+    from repro_torch.core import autotune
+    from repro_torch.kernels import common
+    from repro_torch.kernels.packed_cosine import packed_cosine_topk_plain
+    from repro_torch.kernels.packed_tanimoto import packed_tanimoto_topk_plain
+
+    svc = run["service"]
+    model = svc._index.model
+    d = svc._index.segments[0].data
+    q_exec = model.prepare_queries_for(run["qsigs"], device, "packed")
+    n, width = d.shape
+    q = q_exec.shape[0]
+    cosine = name == "packed_cosine_topk"
+    words = width if cosine else -(-width // 4)
+    plain_fn = packed_cosine_topk_plain if cosine else packed_tanimoto_topk_plain
+    hw = gpu_name_and_power_limit()
+    rows = {}
+    for tile in FUSED_TILES:
+        ms, (ids, cnts) = timed_ms(lambda: fused_variant(name, tile)(d, q_exec, k), device,
+                                   reps=5, warmup=1)
+        merge, res = timed_ms(lambda: fused_result(ids, cnts, k), device, reps=3, warmup=1)
+        rows[tile] = dict(kernel_ms=ms, merge_ms=merge, slots=ids.shape[1],
+                          ids=res[0], counts=res[1])
+        log(f"  {name} tile {tile}: kernel {ms:.4f} ms, buffers [{q}, {ids.shape[1]}], "
+            f"topk_from_candidates {merge:.4f} ms, together {ms + merge:.4f} ms ({hw})")
+    check(torch.equal(rows[1024]["ids"], rows[2048]["ids"])
+          and torch.equal(rows[1024]["counts"], rows[2048]["counts"]),
+          f"{name}: the two tiles give different results after topk_from_candidates")
+    plain, (pids, pcnts) = timed_ms(lambda: plain_fn(d, q_exec, k, 1024), device, reps=1)
+    ids, cnts = fused_variant(name, 1024)(d, q_exec, k)
+    err = max(parity_err[f"{name}[tile_n=1024]"], max_abs_err(ids, pids), max_abs_err(cnts, pcnts))
+    check(err == 0, f"{name}[tile_n=1024] differs from its plain version at the segment shape")
+    del pids, pcnts, ids, cnts
+    # the whole search through RetrievalService.search with a tuned entry
+    cache = autotune.AutotuneCache(device=device)
+    cache.put(autotune.TunedEntry(
+        engine=model.engine.value, signature_layout="packed",
+        n_bucket=autotune.shape_bucket(svc._index.n_objects),
+        w_bucket=autotune.shape_bucket(width), tile_overrides=(("tile_n", 1024),)))
+    searches = {"default": [], "tile_n=1024": []}
+    results = {}
+    for i in range(4):
+        for mode in searches:
+            svc.autotune = cache if mode == "tile_n=1024" else None
+            sync(device)
+            if mode == "tile_n=1024" and i == 3:
+                common.reset_launch_counts()       # the tuned path starts here
+            t0 = time.perf_counter()
+            results[mode] = svc.search(None, k=k, embeddings=run["queries"])[0]
+            sync(device)
+            searches[mode].append((time.perf_counter() - t0) * 1e3)
+    launches = common.variant_launch_counts().get(f"{name}[tile_n=1024]", 0)
+    svc.autotune = None
+    check(launches == len(svc._index.segments),
+          f"the tuned search launched {name}[tile_n=1024] {launches} times")
+    check(torch.equal(results["default"].ids, results["tile_n=1024"].ids)
+          and torch.equal(results["default"].counts, results["tile_n=1024"].counts),
+          f"{name}: the tuned search differs from the default search")
+    med = {m: statistics.median(v[1:]) for m, v in searches.items()}
+    log(f"  PACKED search, {q} queries, k {k}: default (tile 2048) {med['default']:.2f} ms, "
+        f"tuned tile_n=1024 {med['tile_n=1024']:.2f} ms (medians of 3, in turns; {hw}); "
+        f"equal bit for bit")
+    kernel_times[name] = dict(rows={t: {kk: v for kk, v in r.items() if kk in
+                                         ("kernel_ms", "merge_ms", "slots")}
+                                    for t, r in rows.items()}, search_ms=med)
+    log("  " + json.dumps({f"{name}_by_tile": kernel_times[name]}))
+    slots = rows[1024]["slots"]
+    in_bytes = (n * width + q * width) * (4 if cosine else 1)
+    return kernel_entry(f"{name}[tile_n=1024]",
+                        f"src/repro_torch/kernels/csrc/{name.rsplit('_', 1)[0]}.cu",
+                        "src/repro/kernels/packed_cosine.py:151" if cosine
+                        else "src/repro/kernels/packed_tanimoto.py:120",
+                        launches, err, rows[1024]["kernel_ms"], plain,
+                        (in_bytes + 2 * q * slots * 4) / PEAK_BYTES_PER_S * 1e3,
+                        3 * q * n * words / PEAK_ALU_OPS_PER_S * 1e3, None)
+
+
+def phase_autotune(run: dict, label: str, device: torch.device, budget: int = 8,
+                   repeats: int = 2, singles: bool = False) -> dict:
+    """Phase 4j: RetrievalService.tune() on a full-width service (budget 8,
+    2 repeats): the entry, default_us against measured_us, the time tune()
+    takes; the tuned search equal to the untuned one bit for bit; the cache
+    saved to a file and reloaded (the same entry); a cache with a foreign
+    fingerprint keeps the defaults; with `singles`, the single requests of
+    4i again through the tuned service."""
+    import tempfile
+
+    from repro_torch.core import autotune
+
+    svc, queries = run["service"], run["queries"]
+    hw = gpu_name_and_power_limit()
+    log(f"== phase 4j: the autotuner on the {label} service ({hw})")
+    svc.autotune = None
+    before = svc.search(None, k=FULL_K, embeddings=queries)[0]
+    sync(device)
+    t0 = time.perf_counter()
+    entry = svc.tune(None, k=FULL_K, embeddings=queries, budget=budget, repeats=repeats,
+                     save=False)
+    sync(device)
+    tune_s = time.perf_counter() - t0
+    after = svc.search(None, k=FULL_K, embeddings=queries)[0]
+    sync(device)
+    check(isinstance(svc.autotune, autotune.AutotuneCache), "tune() installed no cache")
+    check(torch.equal(before.ids, after.ids) and torch.equal(before.counts, after.counts)
+          and torch.equal(before.threshold, after.threshold),
+          f"{label}: the tuned search differs from the untuned one")
+    log(f"  entry: {json.dumps(entry.to_dict())}")
+    log(f"  tune() {tune_s:.2f} s; default {entry.default_us / 1e3:.2f} ms, tuned "
+        f"{entry.measured_us / 1e3:.2f} ms, speedup {entry.speedup:.4f}; the tuned search "
+        f"equals the untuned one bit for bit")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune_torch.json")
+        saved = autotune.AutotuneCache(path, device=device)
+        saved.put(entry)
+        saved.save()
+        again = autotune.AutotuneCache(path, device=device)
+        check(again.entries == {entry.key(): entry} and again.compatible(),
+              "the reloaded cache differs from the saved one")
+        hit = again.lookup(entry.engine, entry.signature_layout, svc._index.n_objects,
+                           svc._index.segments[0].data.shape[1])
+        check(hit == entry, "the reloaded cache does not find the entry")
+    foreign = autotune.AutotuneCache(device=device,
+                                     fingerprint=dict(svc.autotune.fingerprint,
+                                                      device_kind="another card"))
+    foreign.put(entry)
+    check(foreign.lookup(entry.engine, entry.signature_layout, svc._index.n_objects) is None,
+          "a cache with a foreign fingerprint was consulted")
+    log("  saved to a file and reloaded: the same entry; a cache with another card's "
+        "fingerprint keeps the defaults")
+    out = dict(entry=entry.to_dict(), tune_s=tune_s, card=hw)
+    if singles:
+        out["single"] = single_requests(svc, queries, device, reps=5,
+                                        label=f"{label}, tuned service")["ms"]
+    log("  autotune: " + json.dumps(out))
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one "
@@ -3236,13 +3586,22 @@ def main() -> int:
                                  full["launches"], parity_err, device)
     phase_multiload_eq(full, device)
     phase_routing_full_width(full, device)
-    phase_frontend(full, device)
+    frontend = phase_frontend(full, device)
+    log("== phase 5 (block shapes): match_count's two shapes at the SIFT segment shape")
+    kernels.append(eq_variant_times(
+        "match_count", svc._index.segments[0].data, full["qsigs"],
+        frontend["shapes"]["shapes"]["match_count[tile_q=32]"], parity_err, device))
+    phase_autotune(full, "SIFT e2lsh", device, singles=True)
     del full, svc                          # free the EQ corpus before the simhash one
     torch.cuda.empty_cache()
     simhash = phase_full_width_simhash(device)
     count_launches = phase_multiload_packed(simhash["packed"], "simhash", "packed_cosine_count",
                                             device).get("packed_cosine_count", 0)
     kernels += phase_cosine_kernel_times(simhash, count_launches, parity_err, device)
+    tile_times = {}
+    kernels.append(fused_tile_times(simhash["packed"], "packed_cosine_topk", tile_times,
+                                    device, parity_err))
+    phase_autotune(simhash["packed"], "simhash PACKED", device)
     del simhash                            # free the simhash corpus before the minhash one
     torch.cuda.empty_cache()
     minhash = phase_full_width_minhash(device)
@@ -3250,6 +3609,17 @@ def main() -> int:
                                                "packed_tanimoto_count", device).get(
                                                    "packed_tanimoto_count", 0)
     kernels += phase_tanimoto_kernel_times(minhash, tanimoto_launches, parity_err, device)
+    kernels.append(fused_tile_times(minhash["packed"], "packed_tanimoto_topk", tile_times,
+                                    device, parity_err))
+    log("== phase 4c (single requests): the minhash WIDE service, Q = 1 and 16")
+    singles = single_requests(minhash["wide"]["service"], minhash["wide"]["queries"], device,
+                              sizes=(1, 16), reps=3, label="minhash WIDE")
+    check(singles["shapes"].get("tanimoto_count[tile_q=32]", 0) > 0,
+          "the single requests never launched tanimoto_count's 32-row shape")
+    kernels.append(eq_variant_times(
+        "tanimoto_count", minhash["wide"]["service"]._index.segments[0].data,
+        minhash["wide"]["qsigs"], singles["shapes"]["tanimoto_count[tile_q=32]"], parity_err,
+        device, qs=(1, 1024)))
     del minhash
     torch.cuda.empty_cache()
     phase_full_width_rbh(device)

@@ -19,8 +19,10 @@ GenieIndex, SegmentedIndex and the planner all resolve engines through
 All six engines of the JAX package's registry are here, in its order: EQ,
 RANGE, MINSUM, IP, TANIMOTO with its PACKED format (uint8 bucket ids,
 core/packing.py) and COSINE with its PACKED format (32 signs per int32
-word).  The kernel tile knobs of the JAX package's descriptor
-(`repro/core/engines.py`) come with the autotuner (ROADMAP queue 1 item 8).
+word).  Each descriptor also names the tile knobs its kernel path takes (the
+reference's sets, which the autotuner in core/autotune.py searches); the
+kernel wrappers map a knob's value onto the block shapes the kernel was
+compiled in (kernels/ops.py VARIANTS).
 """
 from __future__ import annotations
 
@@ -34,6 +36,42 @@ from repro_torch.core import match as _match
 from repro_torch.core import packing as _packing
 from repro_torch.core.types import Engine, IndexStats, SignatureLayout
 from repro_torch.device import tensor_from
+from repro_torch.kernels.common import TILE_ALIGN
+
+
+def canonical_tile_overrides(tile_overrides) -> tuple[tuple[str, int], ...]:
+    """Normalise a mapping / pair-sequence of tile knobs to the sorted tuple
+    form QueryPlan hashes on, validating names and alignment floors
+    (TILE_ALIGN, the reference's: tile_q 8, tile_n / tile_v / tile_m 128)."""
+    if tile_overrides is None:
+        return ()
+    items = (tile_overrides.items() if hasattr(tile_overrides, "items")
+             else tile_overrides)
+    out = []
+    for name, value in items:
+        name = str(name)
+        if name not in TILE_ALIGN:
+            raise ValueError(
+                f"unknown tile knob {name!r}; known knobs: "
+                f"{sorted(TILE_ALIGN)}"
+            )
+        value = int(value)
+        if value < TILE_ALIGN[name]:
+            raise ValueError(
+                f"{name}={value} is below the alignment floor "
+                f"{TILE_ALIGN[name]} (the reference's min-tile width); tuned "
+                f"tiles must be >= the floor"
+            )
+        out.append((name, value))
+    if len({n for n, _ in out}) != len(out):
+        raise ValueError(f"duplicate tile knob in {tile_overrides!r}")
+    return tuple(sorted(out))
+
+
+# Tile-bound match callables, memoised so two plans with equal (model, base,
+# overrides) share ONE callable identity: QueryPlan compares and hashes its
+# match / fused_match fields, so equal tuned plans stay equal.
+_TILED_FN_CACHE: dict = {}
 
 
 def _as_int32(x: Any, device: torch.device) -> torch.Tensor:
@@ -107,6 +145,14 @@ class MatchModel:
     # packed footprint in bytes, computed from the WIDE prepared tensor
     packed_bytes: Optional[Callable[[torch.Tensor], int]] = None
 
+    # -- tile knobs (core/autotune.py) --------------------------------------
+    # The tile kwargs each kernel wrapper accepts (kernels/ops.py): the
+    # autotuner's searchable axes for this engine.  Empty => the path takes
+    # no tile overrides (reference fns never do).
+    kernel_tile_knobs: frozenset = frozenset()
+    packed_tile_knobs: frozenset = frozenset()
+    packed_fused_tile_knobs: frozenset = frozenset()
+
     @property
     def supports_packed(self) -> bool:
         return self.pack_data is not None
@@ -125,22 +171,75 @@ class MatchModel:
             return self.packed_pad_value
         return self.pad_value
 
+    def tile_knobs(
+        self,
+        use_kernel: bool,
+        signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
+        fused: bool = False,
+    ) -> frozenset:
+        """The tile knob names this engine's dispatch path accepts."""
+        if not use_kernel:
+            return frozenset()
+        if self.require_layout(signature_layout) is SignatureLayout.PACKED:
+            return (self.packed_fused_tile_knobs if fused
+                    else self.packed_tile_knobs)
+        return self.kernel_tile_knobs
+
+    def _tiled(self, base: Callable, overrides: tuple, knobs: frozenset,
+               tag: str) -> Callable:
+        """Memoised wrapper binding the tile kwargs `base` accepts.  Knobs the
+        path does not take (e.g. tile_m on a fused kernel that streams the
+        signature axis itself) are dropped, so one tuned entry can drive both
+        the count and the fused dispatchers."""
+        kw = {n: v for n, v in overrides if n in knobs}
+        if not kw:
+            return base
+        key = (tag, self, base, tuple(sorted(kw.items())))
+        fn = _TILED_FN_CACHE.get(key)
+        if fn is None:
+            if tag == "fused":
+                def fn(data, queries, k, _base=base, _kw=kw):
+                    return _base(data, queries, k, **_kw)
+            else:
+                def fn(data, queries, _base=base, _kw=kw):
+                    return _base(data, queries, **_kw)
+            _TILED_FN_CACHE[key] = fn
+        return fn
+
     # -- dispatch -----------------------------------------------------------
     def match_fn(
         self,
         use_kernel: bool,
         signature_layout: SignatureLayout | str = SignatureLayout.WIDE,
+        tile_overrides: tuple = (),
     ) -> Callable[[torch.Tensor, Any], torch.Tensor]:
         """The canonical match callable for this engine (kernel or reference),
-        operating on tensors in the given signature layout."""
-        if self.require_layout(signature_layout) is SignatureLayout.PACKED:
-            return self.packed_kernel if use_kernel else self.packed_reference
-        return self.kernel if use_kernel else self.reference
+        operating on tensors in the given signature layout.  `tile_overrides`
+        (canonical ``((knob, value), ...)`` pairs, see
+        `canonical_tile_overrides`) bind kernel tile kwargs; the returned
+        callable is memoised per override set so equal plans share one
+        identity."""
+        layout = self.require_layout(signature_layout)
+        if layout is SignatureLayout.PACKED:
+            base = self.packed_kernel if use_kernel else self.packed_reference
+        else:
+            base = self.kernel if use_kernel else self.reference
+        if not tile_overrides or not use_kernel:
+            return base
+        return self._tiled(base, tile_overrides,
+                           self.tile_knobs(use_kernel, layout), "match")
 
-    def fused_topk_fn(self) -> Optional[Callable[[torch.Tensor, Any, int], tuple]]:
+    def fused_topk_fn(
+        self,
+        tile_overrides: tuple = (),
+    ) -> Optional[Callable[[torch.Tensor, Any, int], tuple]]:
         """The fused packed match->count->local-top-k callable (None when the
-        engine has none)."""
-        return self.packed_fused_topk
+        engine has none), with tile overrides bound (same memoisation
+        contract as match_fn)."""
+        if self.packed_fused_topk is None or not tile_overrides:
+            return self.packed_fused_topk
+        return self._tiled(self.packed_fused_topk, tile_overrides,
+                           self.packed_fused_tile_knobs, "fused")
 
     def prepare_queries_for(
         self, queries: Any, device: torch.device,
@@ -232,65 +331,65 @@ def available() -> tuple[Engine, ...]:
 # Built-in engines (paper sections IV-V)
 # ---------------------------------------------------------------------------
 
-def _kernel_eq(data, queries):
+def _kernel_eq(data, queries, **tiles):
     from repro_torch.kernels import ops as kops
 
-    return kops.match_count(data, queries)
+    return kops.match_count(data, queries, **tiles)
 
 
-def _kernel_range(data, queries):
+def _kernel_range(data, queries, **tiles):
     from repro_torch.kernels import ops as kops
 
     lo, hi = queries
-    return kops.range_count(data, lo, hi)
+    return kops.range_count(data, lo, hi, **tiles)
 
 
-def _kernel_minsum(data, queries):
+def _kernel_minsum(data, queries, **tiles):
     from repro_torch.kernels import ops as kops
 
-    return kops.minsum_count(data, queries)
+    return kops.minsum_count(data, queries, **tiles)
 
 
-def _kernel_ip(data, queries):
+def _kernel_ip(data, queries, **tiles):
     from repro_torch.kernels import ops as kops
 
-    return kops.ip_count(data, queries)
+    return kops.ip_count(data, queries, **tiles)
 
 
-def _kernel_tanimoto(data, queries):
+def _kernel_tanimoto(data, queries, **tiles):
     from repro_torch.kernels import ops as kops
 
-    return kops.tanimoto_count(data, queries)
+    return kops.tanimoto_count(data, queries, **tiles)
 
 
-def _kernel_packed_tanimoto(data, queries):
+def _kernel_packed_tanimoto(data, queries, **tiles):
     from repro_torch.kernels import ops as kops
 
-    return kops.packed_tanimoto_count(data, queries)
+    return kops.packed_tanimoto_count(data, queries, **tiles)
 
 
-def _kernel_packed_tanimoto_topk(data, queries, k):
+def _kernel_packed_tanimoto_topk(data, queries, k, **tiles):
     from repro_torch.kernels import ops as kops
 
-    return kops.packed_tanimoto_topk(data, queries, k=k)
+    return kops.packed_tanimoto_topk(data, queries, k=k, **tiles)
 
 
-def _kernel_cosine(data, queries):
+def _kernel_cosine(data, queries, **tiles):
     from repro_torch.kernels import ops as kops
 
-    return kops.cosine_count(data, queries)
+    return kops.cosine_count(data, queries, **tiles)
 
 
-def _kernel_packed_cosine(data, queries):
+def _kernel_packed_cosine(data, queries, **tiles):
     from repro_torch.kernels import ops as kops
 
-    return kops.packed_cosine_count(data, queries)
+    return kops.packed_cosine_count(data, queries, **tiles)
 
 
-def _kernel_packed_cosine_topk(data, queries, k):
+def _kernel_packed_cosine_topk(data, queries, k, **tiles):
     from repro_torch.kernels import ops as kops
 
-    return kops.packed_cosine_topk(data, queries, k=k)
+    return kops.packed_cosine_topk(data, queries, k=k, **tiles)
 
 
 def _int_total(a: torch.Tensor) -> int:
@@ -321,6 +420,7 @@ register(MatchModel(
     pad_value=-1,                                          # never equals a sig
     example=lambda rng, n, q: (rng.integers(0, 8, (n, 16)).astype(np.int32),
                                rng.integers(0, 8, (q, 16)).astype(np.int32), None),
+    kernel_tile_knobs=frozenset({"tile_q", "tile_n"}),
 ))
 
 register(MatchModel(
@@ -338,6 +438,7 @@ register(MatchModel(
         rng.integers(0, 10, (n, 6)).astype(np.int32),
         (lambda lo: (lo, lo + 3))(rng.integers(0, 6, (q, 6)).astype(np.int32)),
         None),
+    kernel_tile_knobs=frozenset({"tile_q", "tile_n"}),
 ))
 
 register(MatchModel(
@@ -352,6 +453,7 @@ register(MatchModel(
     pad_value=-1,                                          # min(-1, q) sums < 0
     example=lambda rng, n, q: (rng.integers(0, 4, (n, 24)).astype(np.int32),
                                rng.integers(0, 4, (q, 24)).astype(np.int32), 96),
+    kernel_tile_knobs=frozenset({"tile_q", "tile_n", "tile_v"}),
 ))
 
 register(MatchModel(
@@ -366,6 +468,7 @@ register(MatchModel(
     pad_value=0,                                           # zero dot product
     example=lambda rng, n, q: (rng.integers(0, 2, (n, 32)).astype(np.int32),
                                rng.integers(0, 2, (q, 32)).astype(np.int32), 32),
+    kernel_tile_knobs=frozenset({"tile_q", "tile_n", "tile_v"}),
 ))
 
 register(MatchModel(
@@ -388,6 +491,10 @@ register(MatchModel(
     packed_fused_topk=_kernel_packed_tanimoto_topk,
     packed_pad_value=_packing.PACKED_BUCKET_PAD_DATA,      # never collides
     packed_bytes=_packing.packed_bytes_tanimoto,
+    kernel_tile_knobs=frozenset({"tile_q", "tile_n", "tile_m"}),
+    packed_tile_knobs=frozenset({"tile_q", "tile_n", "tile_m"}),
+    # the fused kernel streams the signature axis itself: no tile_m
+    packed_fused_tile_knobs=frozenset({"tile_q", "tile_n"}),
 ))
 
 register(MatchModel(
@@ -411,4 +518,8 @@ register(MatchModel(
     packed_fused_topk=_kernel_packed_cosine_topk,
     packed_pad_value=0,                                    # all-zero words; id-masked
     packed_bytes=_packing.packed_bytes_cosine,
+    kernel_tile_knobs=frozenset({"tile_q", "tile_n", "tile_v"}),
+    # packed words are streamed by the kernels: only the [Q, N] tiles tune
+    packed_tile_knobs=frozenset({"tile_q", "tile_n"}),
+    packed_fused_tile_knobs=frozenset({"tile_q", "tile_n"}),
 ))

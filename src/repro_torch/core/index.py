@@ -24,9 +24,8 @@ dispatch, pad masking, top-k selection, and merging.
 `device="cpu"` runs the plain PyTorch path.  `build` also makes the segment's
 routing summary (`summary`, core/routing.py) from the prepared WIDE tensor,
 on its device, before any packing.  `search` and `search_multiload` take the
-reference's `tile_overrides` / `autotune` keywords at their defaults (None);
-anything else raises NotImplementedError, as the autotuner is ROADMAP queue
-1 item 8.
+reference's `tile_overrides` / `autotune` keywords (core/autotune.py), with
+the stored width as the cache's width hint.
 """
 from __future__ import annotations
 
@@ -36,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import autotune as _autotune
 from repro_torch.core import engines as _engines
 from repro_torch.core import plan as _plan
 from repro_torch.core import routing as _routing
@@ -182,7 +182,9 @@ class GenieIndex:
             part_rows=(self.stats.n_objects,), method=method,
             candidate_cap=candidate_cap, use_kernel=self.use_kernel,
             signature_layout=self.signature_layout,
-            tile_overrides=tile_overrides, autotune=autotune,
+            tile_overrides=tile_overrides,
+            autotune=_autotune.resolve_cache(autotune, self.data.device),
+            tune_width=int(self.data.shape[1]),
         )
         return _plan.execute(plan, self.data, self.prepare_queries(queries))
 
@@ -201,7 +203,9 @@ class GenieIndex:
             n_parts=n_parts, n_objects=self.stats.n_objects, method=method,
             candidate_cap=candidate_cap, use_kernel=self.use_kernel,
             signature_layout=self.signature_layout,
-            tile_overrides=tile_overrides, autotune=autotune,
+            tile_overrides=tile_overrides,
+            autotune=_autotune.resolve_cache(autotune, self.data.device),
+            tune_width=int(self.data.shape[1]),
         )
         chunks = _plan.pad_and_stack(plan, self.data)
         return _plan.execute(plan, chunks, self.prepare_queries(queries))

@@ -46,12 +46,16 @@ histogram kernel on every kernel-path layout, MULTILOAD included, because
 the port's plain histogram takes ~495 ms a SIFT segment on the card.  The
 histogram is exact, so results are the same bit for bit.
 
-Still to be ported, each refused with NotImplementedError naming its
-ROADMAP item: DISTRIBUTED (mesh shards, and with it `hierarchical=`,
-`mesh_axes=`, `execute(mesh=)`; queue 1 item 9) and the autotuner
-(`tile_overrides=`, `autotune=`, `tune_width=`; queue 1 item 8).  The
-keywords themselves are accepted at their defaults, as the reference
-accepts them.
+Tile knobs and the autotuner: `plan_search(tile_overrides=)` binds kernel
+tile sizes onto the kernel path (`QueryPlan.tile_overrides`, which the
+kernel wrappers map onto the block shapes they were compiled in), and
+`autotune=` / `tune_width=` consult the measured-knob cache of
+core/autotune.py, as in the reference.
+
+Still to be ported, refused with NotImplementedError naming its ROADMAP
+item: DISTRIBUTED (mesh shards, and with it `hierarchical=`, `mesh_axes=`,
+`execute(mesh=)`; queue 1 item 9).  The keywords themselves are accepted at
+their defaults, as the reference accepts them.
 
 PyTorch runs eagerly, so there is no compiled executable to cache: the JAX
 package's `_EXEC_CACHE`, `trace_count`, `plan_cache_size` and
@@ -131,6 +135,11 @@ class QueryPlan:
     routing: Routing = Routing.NONE
     # probe width for ROUTED/ROUTED_VERIFIED; None = Router's sqrt(S) default
     nprobe: Optional[int] = None
+    # tuned kernel tile sizes as canonical sorted ((knob, value), ...) pairs
+    # (core/autotune.py; engines.canonical_tile_overrides).  Part of the plan's
+    # equality and hash, and the memoised tile-bound match callables keep
+    # equal plans equal.
+    tile_overrides: tuple = ()
 
     # -- derived layout facts ----------------------------------------------
     @property
@@ -161,10 +170,9 @@ class QueryPlan:
 
     def describe(self) -> dict:
         """Host-side plan summary, with the keys of the JAX package's
-        `QueryPlan.describe()`.  `hierarchical`, `mesh_axes` and
-        `tile_overrides` belong to layouts and knobs not ported yet (ROADMAP
-        queue 1 items 8, 9), so a plan of the port always holds their
-        defaults."""
+        `QueryPlan.describe()`.  `hierarchical` and `mesh_axes` belong to the
+        distributed layout, not ported yet (ROADMAP queue 1 item 9), so a
+        plan of the port always holds their defaults."""
         rows = list(self.part_rows)
         # both per-part lists truncate identically: a "..." marker past 32
         # parts, never a silent cut (the lists must stay row-aligned)
@@ -190,7 +198,7 @@ class QueryPlan:
             fused_match=self.fused_match is not None,
             routing=self.routing.value,
             nprobe=self.nprobe,
-            tile_overrides={},
+            tile_overrides=dict(self.tile_overrides),
         )
 
 
@@ -234,10 +242,8 @@ def plan_search(
     (core/packing.py): PACKED plans dispatch the packed match fns and -- on
     the kernel path with nothing padded -- the fused
     match->count->local-top-k kernel, so the [Q, N] count matrix is never
-    written.  Engines without a packed format reject PACKED here.  The
-    reference also lets a measured autotune entry switch the fusion off;
-    the autotuner is not ported (ROADMAP queue 1 item 8), so that clause of
-    the gating is left out.
+    written.  Engines without a packed format reject PACKED here.  A
+    measured autotune entry may switch the fusion off (`fused_match=False`).
 
     `routing` plans coarse segment pruning (core/routing.py): ROUTED and
     ROUTED_VERIFIED plans execute against a Router built from segment
@@ -247,22 +253,74 @@ def plan_search(
     nothing to skip and reject it here.  `nprobe` (>= 1) is kept on routed
     plans only.
 
+    `tile_overrides` binds kernel tile sizes (tile_q / tile_n / tile_v /
+    tile_m, the knobs kernels/ops.py accepts) onto the kernel dispatch path;
+    it is rejected for use_kernel=False plans and raw callables.  `autotune`
+    consults a measured-knob cache (core/autotune.py: True for the default
+    cache, a path, or an AutotuneCache) and fills tile_overrides /
+    candidate_cap / nprobe / fused-match preference for whatever the caller
+    left unset -- explicit arguments always win, and a cache miss (including
+    a hardware-fingerprint mismatch) keeps the defaults.  A path or True is
+    resolved against the card (the device rule: `device=None`); the index
+    and service entry points resolve it against their own device first.
+    `tune_width` is the physical signature width hint for the cache's
+    bucketing.
+
     `hierarchical` / `mesh_axes` (the distributed layout, ROADMAP queue 1
-    item 9) and `tile_overrides` / `autotune` / `tune_width` (the autotuner,
-    item 8) are taken at their defaults only.
+    item 9) are taken at their defaults only.
     """
-    refuse_unported(hierarchical=hierarchical, mesh_axes=mesh_axes,
-                    tile_overrides=tile_overrides, autotune=autotune,
-                    tune_width=tune_width)
+    refuse_unported(hierarchical=hierarchical, mesh_axes=mesh_axes)
     sig_layout = SignatureLayout(signature_layout)
     model: Optional[_engines.MatchModel] = None
+    match: Any = None
     if callable(engine) and not isinstance(engine, (_engines.MatchModel, Engine, str)):
         # raw callables own the layout contract; the plan just records it
         match = engine
     else:
         model = _engines.get(engine)
         sig_layout = model.require_layout(sig_layout)
-        match = model.match_fn(use_kernel, sig_layout)
+
+    tiles = _engines.canonical_tile_overrides(tile_overrides)
+    tuned_fused: Optional[bool] = None
+    if autotune is not None and autotune is not False and model is not None:
+        # lazy import: the autotuner times candidate plans through this very
+        # module, so a top-level import would be circular
+        from repro_torch.core import autotune as _autotune
+
+        n_hint = n_objects
+        if n_hint is None and part_rows is not None:
+            n_hint = sum(int(r) for r in part_rows)
+        entry = _autotune.consult(
+            autotune, engine=model.engine, signature_layout=sig_layout,
+            n=n_hint, width=tune_width,
+        )
+        if entry is not None:
+            # tuned knobs fill only what the caller left unset: explicit
+            # arguments always win over the cache.  Tile sizes and the fused
+            # preference are kernel-path knobs; candidate_cap and nprobe
+            # shape selection on every dispatch path.
+            if use_kernel:
+                if not tiles and entry.tile_overrides:
+                    tiles = _engines.canonical_tile_overrides(entry.tile_overrides)
+                tuned_fused = entry.fused_match
+            if candidate_cap is None and entry.candidate_cap is not None:
+                candidate_cap = int(entry.candidate_cap)
+            if (nprobe is None and entry.nprobe is not None
+                    and Routing(routing) is not Routing.NONE):
+                nprobe = int(entry.nprobe)
+    if tiles:
+        if model is None:
+            raise ValueError(
+                "tile_overrides require a registered engine; a raw match "
+                "callable owns its own tiling"
+            )
+        if not use_kernel:
+            raise ValueError(
+                "tile_overrides only apply to kernel dispatch; "
+                "use_kernel=False plans take none"
+            )
+    if model is not None:
+        match = model.match_fn(use_kernel, sig_layout, tiles)
 
     layout = Layout(layout)
     if layout in _UNPORTED_LAYOUTS:
@@ -321,15 +379,16 @@ def plan_search(
     fused_topk = None
     if (model is not None and sig_layout is SignatureLayout.PACKED
             and use_kernel and n_objects is None
-            and layout in (Layout.MONOLITHIC, Layout.SEGMENTED)):
-        fused_topk = model.fused_topk_fn()
+            and layout in (Layout.MONOLITHIC, Layout.SEGMENTED)
+            and tuned_fused is not False):
+        fused_topk = model.fused_topk_fn(tiles)
     return QueryPlan(
         match=match, params=params, layout=layout, part_rows=rows,
         n_objects=n_objects, engine=model.engine if model else None,
         pad_value=model.pad_value_for(sig_layout) if model else None,
         fused_hist=fused, host_loop=host_looped,
         signature_layout=sig_layout, fused_match=fused_topk, routing=routing,
-        nprobe=nprobe,
+        nprobe=nprobe, tile_overrides=tiles,
     )
 
 
@@ -350,9 +409,6 @@ _UNPORTED_KEYWORDS = {
     "hierarchical": "item 9 (distributed layout)",
     "mesh_axes": "item 9 (distributed layout)",
     "mesh": "item 9 (distributed layout)",
-    "tile_overrides": "item 8 (autotuner)",
-    "autotune": "item 8 (autotuner)",
-    "tune_width": "item 8 (autotuner)",
 }
 
 

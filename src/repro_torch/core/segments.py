@@ -33,9 +33,9 @@ them row-wise (still valid packed rows), and `search` packs the queries.
 builds a Router over the segments' seal-time summaries, which compaction
 merges, and `routing="routed"` / `"routed_verified"` with `nprobe=` skip the
 segments it rules out.  They take the reference's `tile_overrides` /
-`autotune` keywords at their defaults only: the autotuner, and with it the
-autotuned switch from `search` to `search_multiload`, is ROADMAP queue 1
-item 8.
+`autotune` keywords (core/autotune.py); a tuned entry that prefers the
+MULTILOAD host loop switches `search` to `search_multiload`, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -46,6 +46,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import autotune as _autotune
 from repro_torch.core import engines as _engines
 from repro_torch.core import plan as _plan
 from repro_torch.core import routing as _routing
@@ -217,6 +218,10 @@ class SegmentedIndex:
     # ------------------------------------------------------------------
     # Search: per-segment match + select, exact cap-buffer merge
     # ------------------------------------------------------------------
+    def _tune_width(self) -> int:
+        """Physical stored width (words / bytes when PACKED) for cache lookup."""
+        return int(self.segments[0].data.shape[1])
+
     def search(self, queries, k: int, method: TopKMethod = TopKMethod.CPQ,
                candidate_cap: int | None = None,
                routing: _routing.Routing | str = _routing.Routing.NONE,
@@ -225,10 +230,28 @@ class SegmentedIndex:
                tile_overrides=None, autotune=None) -> TopKResult:
         """`router` lets a caller that caches the Router across searches
         (serve/retrieval.py keys it on the corpus fingerprint) skip the
-        per-search rebuild; ignored when routing is NONE."""
+        per-search rebuild; ignored when routing is NONE.
+
+        `autotune` consults the measured-knob cache (core/autotune.py); when
+        the tuned entry prefers the MULTILOAD host loop over the SEGMENTED
+        merge for this shape, the search delegates there -- both layouts
+        stream the same per-part tensors and merge bit for bit identically,
+        so the switch is orchestration cost only."""
         if not self.segments:
             raise ValueError("empty SegmentedIndex: add() first")
         routing = _routing.Routing(routing)
+        # the spec resolved against the index's device: the cache's
+        # fingerprint is checked against that device
+        autotune = _autotune.resolve_cache(autotune, self.device)
+        if autotune is not None:
+            entry = autotune.lookup(self.engine, self.signature_layout,
+                                    self.n_objects, self._tune_width())
+            if entry is not None and entry.layout == "multiload_host":
+                return self.search_multiload(
+                    queries, k, method=method, candidate_cap=candidate_cap,
+                    routing=routing, nprobe=nprobe, router=router,
+                    tile_overrides=tile_overrides, autotune=autotune,
+                )
         plan = _plan.plan_search(
             self.engine, k, self.max_count, layout=_plan.Layout.SEGMENTED,
             part_rows=tuple(self.segment_rows), method=method,
@@ -236,6 +259,7 @@ class SegmentedIndex:
             signature_layout=self.signature_layout,
             routing=routing, nprobe=nprobe,
             tile_overrides=tile_overrides, autotune=autotune,
+            tune_width=self._tune_width(),
         )
         return self._routed_execute(plan, queries, routing, router=router)
 
@@ -251,6 +275,7 @@ class SegmentedIndex:
         if not self.segments:
             raise ValueError("empty SegmentedIndex: add() first")
         routing = _routing.Routing(routing)
+        autotune = _autotune.resolve_cache(autotune, self.device)
         plan = _plan.plan_search(
             self.engine, k, self.max_count, layout=_plan.Layout.MULTILOAD,
             part_rows=tuple(self.segment_rows), n_objects=self.n_objects,
@@ -259,6 +284,7 @@ class SegmentedIndex:
             signature_layout=self.signature_layout,
             routing=routing, nprobe=nprobe,
             tile_overrides=tile_overrides, autotune=autotune,
+            tune_width=self._tune_width(),
         )
         return self._routed_execute(plan, queries, routing, router=router)
 

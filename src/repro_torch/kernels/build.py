@@ -158,9 +158,12 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # int repro_match_count(data, query, out, n_data, n_query, m, stream)
+        # int repro_match_count(data, query, out, n_data, n_query, m, stream),
+        # and repro_match_count_q32 (32 query rows a block) alike
         lib.repro_match_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_match_count.restype = i32
+        lib.repro_match_count_q32.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_match_count_q32.restype = i32
         # int repro_cpq_hist(counts, hist, n, n_query, nbins, stream)
         lib.repro_cpq_hist.argtypes = [ptr, ptr, i64, i32, i32, ptr]
         lib.repro_cpq_hist.restype = i32
@@ -182,9 +185,18 @@ def load() -> ctypes.CDLL:
         lib.repro_packed_cosine_topk.argtypes = [
             ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
         lib.repro_packed_cosine_topk.restype = i32
-        # int repro_tanimoto_count(data, query, out, n_data, n_query, m, stream)
+        # the same two for tiles of 1024 data rows
+        lib.repro_packed_cosine_topk_n1024_plan.argtypes = (
+            lib.repro_packed_cosine_topk_plan.argtypes)
+        lib.repro_packed_cosine_topk_n1024_plan.restype = i32
+        lib.repro_packed_cosine_topk_n1024.argtypes = lib.repro_packed_cosine_topk.argtypes
+        lib.repro_packed_cosine_topk_n1024.restype = i32
+        # int repro_tanimoto_count(data, query, out, n_data, n_query, m, stream),
+        # and repro_tanimoto_count_q32 (32 query rows a block) alike
         lib.repro_tanimoto_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_tanimoto_count.restype = i32
+        lib.repro_tanimoto_count_q32.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_tanimoto_count_q32.restype = i32
         # int repro_packed_tanimoto_count(data, query, out, n_data, n_query, m, stream)
         lib.repro_packed_tanimoto_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_packed_tanimoto_count.restype = i32
@@ -197,6 +209,12 @@ def load() -> ctypes.CDLL:
         lib.repro_packed_tanimoto_topk.argtypes = [
             ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
         lib.repro_packed_tanimoto_topk.restype = i32
+        # the same two for tiles of 1024 data rows
+        lib.repro_packed_tanimoto_topk_n1024_plan.argtypes = (
+            lib.repro_packed_tanimoto_topk_plan.argtypes)
+        lib.repro_packed_tanimoto_topk_n1024_plan.restype = i32
+        lib.repro_packed_tanimoto_topk_n1024.argtypes = lib.repro_packed_tanimoto_topk.argtypes
+        lib.repro_packed_tanimoto_topk_n1024.restype = i32
         # int repro_range_count(data, lo, hi, out, n_data, n_query, d, stream)
         lib.repro_range_count.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_range_count.restype = i32

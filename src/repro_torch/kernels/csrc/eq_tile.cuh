@@ -34,8 +34,12 @@
 // most half the columns it has seen, so the lanes are added into int32 every
 // 4096 columns (into the output tile, which each thread owns element by
 // element) and once at the end.  Nothing is read back to the host and no
-// second launch picks a path.  512 threads a block, an 8 x 4 micro-tile, at
-// most 64 registers so that two blocks share an SM.
+// second launch picks a path.  Two block shapes (eq::Shape), picked by the
+// wrapper's tile_q: Wide, [128, 128] output tiles, 512 threads with an 8 x 4
+// micro-tile, at most 64 registers so that two blocks share an SM; and
+// Narrow, [32, 128] tiles, 256 threads with a 4 x 4 micro-tile, four blocks
+// an SM, so that a small query batch does not count 128 query rows a block
+// of which only Q are real.
 //
 // count_tile<P> -- a template on a layout policy P, which says what a
 // shared-memory slot holds and how two slots count; only MINSUM's dense tile
@@ -195,13 +199,27 @@ __device__ __forceinline__ void count_tile(const typename P::Elem* __restrict__ 
 // ---- count_eq_tile: the equality tile ------------------------------------
 namespace eq {
 
-constexpr int TX = 32;                       // threads along N
-constexpr int TY = 16;                       // threads along Q
-constexpr int RQ = 8;                        // query rows per thread
-constexpr int RN = 4;                        // data rows per thread
-constexpr int TQ = TY * RQ;                  // query rows per block
-constexpr int TN = TX * RN;                  // data rows per block
-constexpr int THREADS = TX * TY;
+// The block shapes of the equality tile: a warp is 32 threads along N with
+// four data rows each (128 data rows a block), so that it stores runs of 32
+// consecutive counts (128 bytes) of a query row; TY warps along Q with RQ
+// query rows each.  Wide, 128 query rows, is the default; Narrow, 32 query
+// rows, is for small query batches (a front-end request of Q = 1 to 32
+// would otherwise count 128 rows a block, Q of them real).  Both stay within
+// 64 registers a thread (two and four blocks an SM).
+template <int TY_, int RQ_, int MIN_BLOCKS_>
+struct Shape {
+  static constexpr int TX = 32;              // threads along N
+  static constexpr int TY = TY_;             // threads along Q
+  static constexpr int RQ = RQ_;             // query rows per thread
+  static constexpr int RN = 4;               // data rows per thread
+  static constexpr int TQ = TY * RQ;         // query rows per block
+  static constexpr int TN = TX * RN;         // data rows per block
+  static constexpr int THREADS = TX * TY;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_;   // blocks an SM (__launch_bounds__)
+};
+using Wide = Shape<16, 8, 2>;                // 128 x 128, 512 threads
+using Narrow = Shape<8, 4, 4>;               // 32 x 128, 256 threads
+
 constexpr int KS = 32;                       // columns staged per step
 constexpr int KW = KS / 2;                   // words of two float16 lanes per step
 constexpr int LDI = KS + 1;                  // int32 rows (general path): conflict-free columns
@@ -211,7 +229,9 @@ constexpr unsigned LANE_END = 0x7C00u;       // ids below it are distinct finite
 constexpr int PAD = 0x7E00;                  // a quiet float16 NaN: equals nothing
 constexpr unsigned ONE_LO = 0x00003C00u;     // 1.0 in the lane of an even column
 constexpr unsigned ONE_HI = 0x3C000000u;     // 1.0 in the lane of an odd column
-static_assert(TQ * KW % THREADS == 0 && TN * KW % THREADS == 0,
+static_assert(Wide::TQ * KW % Wide::THREADS == 0 && Wide::TN * KW % Wide::THREADS == 0 &&
+                  Narrow::TQ * KW % Narrow::THREADS == 0 &&
+                  Narrow::TN * KW % Narrow::THREADS == 0,
               "the staging loop covers the chunk");
 static_assert(KW % 2 == 0 && LDW % 2 == 0, "8-byte shared loads stay aligned");
 
@@ -249,9 +269,9 @@ __device__ __forceinline__ int lane_sum(unsigned acc) {
 // ROWS): pair p is row threadIdx.x / KW + p * (THREADS / KW), columns s0 +
 // 2 w and s0 + 2 w + 1 with w = threadIdx.x % KW, so a warp reads two rows'
 // 128-byte segments.  Columns past m and rows past n_rows read as PAD.
-template <int ROWS>
+template <class S, int ROWS>
 struct Pairs {
-  static constexpr int P = ROWS * KW / THREADS;
+  static constexpr int P = ROWS * KW / S::THREADS;
   int lo[P], hi[P];
 
   // load; returns whether every id read lies in [0, LANE_END).  `pairs`:
@@ -262,7 +282,7 @@ struct Pairs {
     bool in_range = true;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const long long row = row0 + threadIdx.x / KW + p * (THREADS / KW);
+      const long long row = row0 + threadIdx.x / KW + p * (S::THREADS / KW);
       lo[p] = PAD;
       hi[p] = PAD;
       if (row < n_rows && c < m) {
@@ -287,7 +307,7 @@ struct Pairs {
     const int w = threadIdx.x % KW;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const int r = threadIdx.x / KW + p * (THREADS / KW);
+      const int r = threadIdx.x / KW + p * (S::THREADS / KW);
       if (lanes) {
         dst[r * LDW + w] = (unsigned)lo[p] | ((unsigned)hi[p] << 16);
       } else {
@@ -300,51 +320,54 @@ struct Pairs {
 
 // Fast path: words 2 g and 2 g + 1 of every row (4 columns), one 8-byte
 // shared load per query row and per data row.
-__device__ __forceinline__ void lanes_step(unsigned (&acc)[RQ][RN],
+template <class S>
+__device__ __forceinline__ void lanes_step(unsigned (&acc)[S::RQ][S::RN],
                                            const unsigned* __restrict__ q_s,
                                            const unsigned* __restrict__ d_s,
                                            int tx, int ty, int g) {
-  uint2 dv[RN];
+  uint2 dv[S::RN];
 #pragma unroll
-  for (int j = 0; j < RN; ++j)
-    dv[j] = *reinterpret_cast<const uint2*>(d_s + (tx + TX * j) * LDW + 2 * g);
+  for (int j = 0; j < S::RN; ++j)
+    dv[j] = *reinterpret_cast<const uint2*>(d_s + (tx + S::TX * j) * LDW + 2 * g);
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const uint2 qv = *reinterpret_cast<const uint2*>(q_s + (ty + TY * i) * LDW + 2 * g);
+  for (int i = 0; i < S::RQ; ++i) {
+    const uint2 qv = *reinterpret_cast<const uint2*>(q_s + (ty + S::TY * i) * LDW + 2 * g);
 #pragma unroll
-    for (int j = 0; j < RN; ++j)
+    for (int j = 0; j < S::RN; ++j)
       acc[i][j] = hadd2(hadd2(acc[i][j], heq2(qv.x, dv[j].x)), heq2(qv.y, dv[j].y));
   }
 }
 
 // General path: int32 column kk of every row, into the lane of its parity.
-__device__ __forceinline__ void ints_step(unsigned (&acc)[RQ][RN],
+template <class S>
+__device__ __forceinline__ void ints_step(unsigned (&acc)[S::RQ][S::RN],
                                           const unsigned* __restrict__ q_s,
                                           const unsigned* __restrict__ d_s,
                                           int tx, int ty, int kk) {
   const unsigned one = (kk & 1) ? ONE_HI : ONE_LO;
-  int qv[RQ], dv[RN];
+  int qv[S::RQ], dv[S::RN];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) qv[i] = (int)q_s[(ty + TY * i) * LDI + kk];
+  for (int i = 0; i < S::RQ; ++i) qv[i] = (int)q_s[(ty + S::TY * i) * LDI + kk];
 #pragma unroll
-  for (int j = 0; j < RN; ++j) dv[j] = (int)d_s[(tx + TX * j) * LDI + kk];
+  for (int j = 0; j < S::RN; ++j) dv[j] = (int)d_s[(tx + S::TX * j) * LDI + kk];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i)
+  for (int i = 0; i < S::RQ; ++i)
 #pragma unroll
-    for (int j = 0; j < RN; ++j) add_if_equal(acc[i][j], qv[i], dv[j], one);
+    for (int j = 0; j < S::RN; ++j) add_if_equal(acc[i][j], qv[i], dv[j], one);
 }
 
 // Add the lanes into the thread's output elements (written on the first
 // flush, added to after) and clear them.
-__device__ __forceinline__ void flush(unsigned (&acc)[RQ][RN], int* __restrict__ out,
+template <class S>
+__device__ __forceinline__ void flush(unsigned (&acc)[S::RQ][S::RN], int* __restrict__ out,
                                       long long n_data, int n_query, int q0, long long n0,
                                       int tx, int ty, bool add) {
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int q = q0 + ty + TY * i;
+  for (int i = 0; i < S::RQ; ++i) {
+    const int q = q0 + ty + S::TY * i;
 #pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const long long n = n0 + tx + TX * j;
+    for (int j = 0; j < S::RN; ++j) {
+      const long long n = n0 + tx + S::TX * j;
       if (q < n_query && n < n_data) {
         int* o = out + (long long)q * n_data + n;
         *o = (add ? *o : 0) + lane_sum(acc[i][j]);
@@ -354,26 +377,28 @@ __device__ __forceinline__ void flush(unsigned (&acc)[RQ][RN], int* __restrict__
   }
 }
 
-// The body of the EQ / TANIMOTO WIDE kernels, launched with THREADS
-// threads per block and one block per (query tile, data tile), query tiles
-// fastest (launch_eq).
-__device__ __forceinline__ void count_eq_tile(const int* __restrict__ data,
+// The body of the EQ / TANIMOTO WIDE kernels in block shape S (the first
+// argument, a tag: Wide or Narrow), launched with S::THREADS threads per
+// block and one block per (query tile, data tile), query tiles fastest
+// (launch_eq).
+template <class S>
+__device__ __forceinline__ void count_eq_tile(S, const int* __restrict__ data,
                                               const int* __restrict__ query,
                                               int* __restrict__ out, long long n_data,
                                               int n_query, int m, int n_qtiles) {
-  __shared__ __align__(16) unsigned q_s[TQ * LDI];
-  __shared__ __align__(16) unsigned d_s[TN * LDI];
+  __shared__ __align__(16) unsigned q_s[S::TQ * LDI];
+  __shared__ __align__(16) unsigned d_s[S::TN * LDI];
 
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int q0 = (int)(blockIdx.x % n_qtiles) * TQ;
-  const long long n0 = (long long)(blockIdx.x / n_qtiles) * TN;
+  const int tx = threadIdx.x % S::TX;
+  const int ty = threadIdx.x / S::TX;
+  const int q0 = (int)(blockIdx.x % n_qtiles) * S::TQ;
+  const long long n0 = (long long)(blockIdx.x / n_qtiles) * S::TN;
 
-  unsigned acc[RQ][RN];
+  unsigned acc[S::RQ][S::RN];
 #pragma unroll
-  for (int i = 0; i < RQ; ++i)
+  for (int i = 0; i < S::RQ; ++i)
 #pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0u;
+    for (int j = 0; j < S::RN; ++j) acc[i][j] = 0u;
 
   const bool q_pairs = m % 2 == 0 && reinterpret_cast<size_t>(query) % 8 == 0;
   const bool d_pairs = m % 2 == 0 && reinterpret_cast<size_t>(data) % 8 == 0;
@@ -381,8 +406,8 @@ __device__ __forceinline__ void count_eq_tile(const int* __restrict__ data,
   int chunk = 0;
   for (int s0 = 0; s0 < m; s0 += KS) {
     const int ks = min(KS, m - s0);
-    Pairs<TQ> qp;
-    Pairs<TN> dp;
+    Pairs<S, S::TQ> qp;
+    Pairs<S, S::TN> dp;
     const bool q_in = qp.load(query, q0, n_query, m, s0, q_pairs);
     const bool d_in = dp.load(data, n0, n_data, m, s0, d_pairs);
     // also the barrier after the previous chunk's reads of q_s / d_s
@@ -393,25 +418,25 @@ __device__ __forceinline__ void count_eq_tile(const int* __restrict__ data,
     if (lanes) {
       if (ks == KS) {
 #pragma unroll
-        for (int g = 0; g < KW / 2; ++g) lanes_step(acc, q_s, d_s, tx, ty, g);
+        for (int g = 0; g < KW / 2; ++g) lanes_step<S>(acc, q_s, d_s, tx, ty, g);
       } else {
-        for (int g = 0; g < (ks + 3) / 4; ++g) lanes_step(acc, q_s, d_s, tx, ty, g);
+        for (int g = 0; g < (ks + 3) / 4; ++g) lanes_step<S>(acc, q_s, d_s, tx, ty, g);
       }
     } else {
       if (ks == KS) {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) ints_step(acc, q_s, d_s, tx, ty, kk);
+        for (int kk = 0; kk < KS; ++kk) ints_step<S>(acc, q_s, d_s, tx, ty, kk);
       } else {
-        for (int kk = 0; kk < ks; ++kk) ints_step(acc, q_s, d_s, tx, ty, kk);
+        for (int kk = 0; kk < ks; ++kk) ints_step<S>(acc, q_s, d_s, tx, ty, kk);
       }
     }
     if (++chunk == FLUSH_CHUNKS && s0 + KS < m) {
-      flush(acc, out, n_data, n_query, q0, n0, tx, ty, flushed);
+      flush<S>(acc, out, n_data, n_query, q0, n0, tx, ty, flushed);
       flushed = true;
       chunk = 0;
     }
   }
-  flush(acc, out, n_data, n_query, q0, n0, tx, ty, flushed);
+  flush<S>(acc, out, n_data, n_query, q0, n0, tx, ty, flushed);
 }
 
 }  // namespace eq
@@ -445,12 +470,13 @@ inline int launch(void (*kernel)(const typename P::Elem*, const typename P::Elem
   return launch_tiles(kernel, TQ, TN, THREADS, data, query, out, n_data, n_query, m, stream);
 }
 
-// Launch a __global__ wrapper of count_eq_tile over its tile grid.
+// Launch a __global__ wrapper of count_eq_tile<S> over its tile grid.
+template <class S>
 inline int launch_eq(void (*kernel)(const int*, const int*, int*, long long, int, int, int),
                      const void* data, const void* query, void* out, long long n_data,
                      int n_query, int m, void* stream) {
-  return launch_tiles(kernel, eq::TQ, eq::TN, eq::THREADS, data, query, out, n_data, n_query,
-                      m, stream);
+  return launch_tiles(kernel, S::TQ, S::TN, S::THREADS, data, query, out, n_data, n_query, m,
+                      stream);
 }
 
 }  // namespace eq_tile

@@ -5,14 +5,20 @@
 //
 // Replaces `_topk_kernel` + `local_topk_tile` (src/repro/kernels/
 // packed_cosine.py, packed_tanimoto.py): match -> count -> the top kc of
-// every tile of K_TN data rows, so the [Q, N] count matrix is never written.
-// K_TN = 2048 is the port's tile (the TPU's is 256): only the result after
-// topk_from_candidates has to equal the reference, and the candidate buffers
-// ids / counts int32 [Q, ceil(N / K_TN) * kc] shrink with it.
+// every tile of TN data rows, so the [Q, N] count matrix is never written.
+// TN is a template parameter of the shape (Fused), one of two the wrappers'
+// tile_n picks: K_TN = 2048, the default, and K_TN_NARROW = 1024 (the TPU's
+// tile is 256).  Only the result after topk_from_candidates has to equal the
+// reference; the tile sets the kernel's parallelism (items of TQ rows x TN
+// rows) against the candidates topk_from_candidates sorts: the buffers ids /
+// counts int32 [Q, ceil(N / TN) * kc] shrink as TN grows.
 //
-// An item is TQ query rows against one tile.  Its [TQ, K_TN] counts live in
-// shared memory, 128 KB: one byte a count with TQ = 64, two bytes with TQ =
-// 32.  The tile is counted in sub-tiles of SN data rows: the words stream KW
+// An item is TQ query rows against one tile.  Its [TQ, TN] counts live in
+// shared memory, 128 KB at TN = 2048 (64 KB at 1024): one byte a count with
+// TQ = 64, two bytes with TQ = 32.  A tile of 4096 rows is not offered: at
+// 64 rows of one-byte counts it is 256 KB, above the 227 KB a block may have,
+// and pass 4 below holds a lane's share of a row (TN / 32 entries) as bits of
+// one 64-bit word.  The tile is counted in sub-tiles of SN data rows: the words stream KW
 // a step, the 512 threads stage the step's words of the sub-tile (and of the
 // TQ query rows, once per item where one step holds the whole width), and
 // each thread counts an 8 x 4 register micro-tile (8 query rows x 4 data
@@ -38,7 +44,7 @@
 // from device memory.  So the result is exact for every width.
 //
 // The selection, per row, replaces the reference's kc rounds of "max, then
-// the smallest id at the max, then knock it out" (kc * K_TN compares):
+// the smallest id at the max, then knock it out" (kc * TN compares):
 //
 //   (1. the histogram: built by the count write-back, above;)
 //   2. the threshold t, the largest count with #{count >= t} >= kc (0 when
@@ -79,33 +85,37 @@ namespace repro {
 namespace fused_topk {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int K_TN = 2048;                    // data rows per tile
+constexpr int K_TN = 2048;                    // data rows per tile: the default shape
+constexpr int K_TN_NARROW = 1024;             // data rows per tile: the narrow shape
 constexpr int K_THREADS = 512;
 constexpr int K_WARPS = K_THREADS / 32;
 constexpr int K_RQ = 8;                       // query rows per thread
 constexpr int K_RN = 4;                       // data rows per thread and sub-tile
 constexpr int MAX_SMEM = 232448;              // 227 KB: the most a block may ask
 
-// One shape of the fused kernel: the count type of its [TQ, K_TN] tile, TQ
-// query rows per item, KW words staged per step.  Shared memory: the count
-// tile, then the TQ rows' histograms (where they fit), then the staged data
-// and query words.
-template <typename CountT, int TQ, int KW>
+// One shape of the fused kernel: the count type of its [TQ, TN] tile, TQ
+// query rows per item, KW words staged per step, TN data rows per tile.
+// Shared memory: the count tile, then the TQ rows' histograms (where they
+// fit), then the staged data and query words.
+template <typename CountT, int TQ, int KW, int TN = K_TN>
 struct Fused {
   using Count = CountT;
   static constexpr int kTQ = TQ;
   static constexpr int kKW = KW;
+  static constexpr int kTN = TN;
   static constexpr int TYQ = TQ / K_RQ;                 // threads along the queries
   static constexpr int TXN = K_THREADS / TYQ;           // threads along the data rows
   static constexpr int SN = TXN * K_RN;                 // data rows per sub-tile
   static constexpr int LDD = KW + 1;                    // odd stride: conflict-free rows
-  static constexpr int CNT_BYTES = TQ * K_TN * (int)sizeof(CountT);
+  static constexpr int CNT_BYTES = TQ * TN * (int)sizeof(CountT);
   static constexpr int STAGE_BYTES = (SN * LDD + TQ * KW) * 4;
   static constexpr int PAST = (int)(CountT)~0u;         // marks a row past the corpus
   static constexpr int MAX_M = PAST - 1;                // the largest count stored as itself
   static constexpr int LIST_CAP = STAGE_BYTES / 8 / K_WARPS;   // pass 4's list, a warp
-  static_assert(K_TN % SN == 0 && TXN % 32 == 0 && KW % 4 == 0,
+  static_assert(TN % SN == 0 && TXN % 32 == 0 && KW % 4 == 0,
                 "sub-tiles cover the tile; a warp shares its query rows; 4-word loads");
+  static_assert(TN % 32 == 0 && TN / 32 <= 64 && TN / 32 * (int)sizeof(CountT) % 16 == 0,
+                "pass 4: a lane's share of a row is at most 64 entries, 16-byte loads");
 
   // L: counts at or below it are stored as 0 (none while nbins <= PAST)
   __host__ __device__ static int low(int nbins) { return nbins - 1 > MAX_M ? nbins - 1 - MAX_M : 0; }
@@ -133,13 +143,13 @@ __device__ __forceinline__ int warp_inclusive_scan(int x) {
 // entries a step in id order, an entry with count c >= t takes slot hist[c]
 // + its rank among the equal counts of lower lanes (a ballot per distinct
 // count taken), written while below kc.
-template <typename T, typename Decode>
+template <int TN, typename T, typename Decode>
 __device__ inline void ordered_steps(const T* __restrict__ row, long long gid0, int* hist,
                                      int t, int kc, int* __restrict__ out_ids,
                                      int* __restrict__ out_cnt, const Decode& decode) {
   const int lane = threadIdx.x & 31;
   const unsigned lower = (1u << lane) - 1u;
-  for (int base = 0; base < K_TN; base += 32) {
+  for (int base = 0; base < TN; base += 32) {
     const int i = base + lane;
     const int c = decode((int)row[i], i, t);
     const bool take = c >= t;
@@ -245,12 +255,12 @@ __device__ __forceinline__ void place_list(const int2* list, int n, long long gi
 
 // Passes 2 to 4 -- whole warp, converged: `hist` (nbins ints) holds the
 // histogram of the row's valid counts, and `list` (list_cap entries) is
-// scratch; only this warp touches them.  The row's K_TN entries have ids gid0
+// scratch; only this warp touches them.  The row's TN entries have ids gid0
 // + i and are stored as max(c - low, 0), PAST (the type's largest value) for
 // no entry; decode(stored, i, t) gives entry i's exact count (< nbins), or -1
 // where it cannot reach t (PAST, a collapsed count while t > low).  Writes kc
 // slots to out_ids / out_cnt and leaves `hist` zero.
-template <typename T, typename Decode>
+template <int TN, typename T, typename Decode>
 __device__ inline void warp_topk_from_histogram(const T* __restrict__ row, long long gid0,
                                                 int* hist, int nbins, int kc, int low,
                                                 int2* list, int list_cap,
@@ -297,7 +307,7 @@ __device__ inline void warp_topk_from_histogram(const T* __restrict__ row, long 
   // at t, a word at a time (Lanes); prefix sums over the lanes give every
   // entry at t its slot directly and list the entries above t in id order,
   // which then take their slots.
-  constexpr int SPAN = K_TN / 32;
+  constexpr int SPAN = TN / 32;
   constexpr int WORDS = SPAN * (int)sizeof(T) / 4;
   using L = Lanes<T>;
   unsigned v[WORDS];
@@ -319,7 +329,7 @@ __device__ inline void warp_topk_from_histogram(const T* __restrict__ row, long 
   const int incl_at = warp_inclusive_scan(n_at);
   const int total_above = __shfl_sync(kFullMask, incl_above, 31);   // #{count > t}
   if ((low > 0 && t <= low) || total_above > list_cap) {
-    ordered_steps(row, gid0, hist, t, kc, out_ids, out_cnt, decode);
+    ordered_steps<TN>(row, gid0, hist, t, kc, out_ids, out_cnt, decode);
   } else {
     list_and_ties(row, at_bits, above_bits, lane * SPAN, t, low, incl_above - n_above,
                   total_above + incl_at - n_at, kc, gid0, list, out_ids, out_cnt);
@@ -392,7 +402,8 @@ __device__ __forceinline__ void run(const M& match, const typename M::Elem* __re
   extern __shared__ __align__(16) unsigned char smem[];
   const int nbins = match.nbins();
   const int low = M::kCollapses ? F::low(nbins) : 0;
-  C* cnt_s = (C*)smem;                                  // [TQ][K_TN]
+  constexpr int TN = F::kTN;
+  C* cnt_s = (C*)smem;                                  // [TQ][TN]
   // [TQ][nbins]: which memory is known when compiled, so that the bins in
   // shared memory take shared-memory instructions (LDS, ATOMS)
   int* hist = SCRATCH ? hist_scratch + (long long)blockIdx.x * TQ * nbins
@@ -415,9 +426,9 @@ __device__ __forceinline__ void run(const M& match, const typename M::Elem* __re
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int q0 = (item % n_qtiles) * TQ;
     const int tile = item / n_qtiles;
-    const long long n0 = (long long)tile * K_TN;
+    const long long n0 = (long long)tile * TN;
 
-    for (int s0 = 0; s0 < K_TN; s0 += F::SN) {
+    for (int s0 = 0; s0 < TN; s0 += F::SN) {
       int acc[K_RQ][K_RN];
 #pragma unroll
       for (int i = 0; i < K_RQ; ++i)
@@ -461,7 +472,7 @@ __device__ __forceinline__ void run(const M& match, const typename M::Elem* __re
           const bool real = n0 + r < n_data;
           const int cnt = match.count(acc[i][j]);
           const int stored = M::kCollapses ? (cnt > low ? cnt - low : 0) : cnt;
-          cnt_s[qr * K_TN + r] = (C)(real ? stored : F::PAST);
+          cnt_s[qr * TN + r] = (C)(real ? stored : F::PAST);
           if (real && live) atomicAdd(hist + qr * nbins + cnt, 1);
         }
       }
@@ -474,8 +485,8 @@ __device__ __forceinline__ void run(const M& match, const typename M::Elem* __re
       const long long at = (long long)q * slots + (long long)tile * kc;
       const Decoder<M, F> decode{match, low, query + (long long)q * match.row_elems(),
                                  data + n0 * match.row_elems()};
-      warp_topk_from_histogram(cnt_s + r * K_TN, n0, hist + r * nbins, nbins, kc, low,
-                               list, F::LIST_CAP, ids + at, cnts + at, decode);
+      warp_topk_from_histogram<TN>(cnt_s + r * TN, n0, hist + r * nbins, nbins, kc, low,
+                                   list, F::LIST_CAP, ids + at, cnts + at, decode);
     }
   }
 }
@@ -500,7 +511,7 @@ int plan(Kernel kernel, long long n_data, int n_query, int nbins, int* grid,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const long long n_qtiles = (n_query + F::kTQ - 1) / F::kTQ;
-  const long long n_tiles = (n_data + K_TN - 1) / K_TN;
+  const long long n_tiles = (n_data + F::kTN - 1) / F::kTN;
   const long long items = n_qtiles * n_tiles;
   if (items > 2147483647LL || per_sm < 1) return (int)cudaErrorInvalidValue;
   const long long fit = (long long)sms * per_sm;
@@ -517,7 +528,7 @@ int launch(Kernel kernel, const Elem* data, const Elem* query, void* ids, void* 
            void* scratch, void* stream) {
   if (!F::bins_in_shared(nbins) && scratch == nullptr) return (int)cudaErrorInvalidValue;
   const long long n_qtiles = (n_query + F::kTQ - 1) / F::kTQ;
-  const long long n_tiles = (n_data + K_TN - 1) / K_TN;
+  const long long n_tiles = (n_data + F::kTN - 1) / F::kTN;
   if (n_qtiles * n_tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
   const int smem = F::smem(nbins);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

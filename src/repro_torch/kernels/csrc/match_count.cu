@@ -7,10 +7,12 @@
 // block and a [256, m] data block in VMEM and folds m eight columns at a time
 // on the vector unit; its wrapper pads Q and N up to the tile with -2 / -1
 // sentinels.  Here the equality tile of eq_tile.cuh (count_eq_tile) does the
-// work: a block of 512 threads owns one [128, 128] tile of the output and
-// walks m in chunks of 32 columns staged through shared memory.  Ragged edges
-// are masked in the kernel, so nothing is padded or copied and the output is
-// exactly [Q, N].
+// work: a block of 512 threads owns one [128, 128] tile of the output (256
+// threads and a [32, 128] tile in the Narrow shape that the wrapper picks for
+// small query batches, as the reference's pick_tile clamps its tile to Q)
+// and walks m in chunks of 32 columns staged through shared memory.  Ragged
+// edges are masked in the kernel, so nothing is padded or copied and the
+// output is exactly [Q, N].
 //
 // What bounds it on an H100: the instruction pipes (eq_tile.cuh counts them).
 // A compare-and-add on int32 takes three instructions of the 64-lane integer
@@ -27,13 +29,17 @@
 
 namespace {
 
-// two blocks per SM (at most 64 registers a thread): one block stages its
-// chunk while the other counts
-__global__ void __launch_bounds__(repro::eq_tile::eq::THREADS, 2)
+using repro::eq_tile::eq::Narrow;
+using repro::eq_tile::eq::Wide;
+
+// S::MIN_BLOCKS blocks per SM (at most 64 registers a thread): one block
+// stages its chunk while another counts
+template <class S>
+__global__ void __launch_bounds__(S::THREADS, S::MIN_BLOCKS)
 match_count_kernel(const int* __restrict__ data, const int* __restrict__ query,
                    int* __restrict__ out, long long n_data, int n_query, int m,
                    int n_qtiles) {
-  repro::eq_tile::count_eq_tile(data, query, out, n_data, n_query, m, n_qtiles);
+  repro::eq_tile::count_eq_tile(S(), data, query, out, n_data, n_query, m, n_qtiles);
 }
 
 }  // namespace
@@ -41,10 +47,16 @@ match_count_kernel(const int* __restrict__ data, const int* __restrict__ query,
 // data int32 [n_data, m], query int32 [n_query, m], out int32 [n_query, n_data],
 // all contiguous device pointers.  Launches on `stream`, does not synchronise.
 // Returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue when
-// the tile grid does not fit one grid dimension.
+// the tile grid does not fit one grid dimension.  repro_match_count: the Wide
+// shape, 128 query rows a block; repro_match_count_q32: the Narrow shape, 32.
 extern "C" int repro_match_count(const void* data, const void* query, void* out,
-                                 long long n_data, int n_query, int m,
-                                 void* stream) {
-  return repro::eq_tile::launch_eq(match_count_kernel, data, query, out, n_data, n_query, m,
-                                stream);
+                                 long long n_data, int n_query, int m, void* stream) {
+  return repro::eq_tile::launch_eq<Wide>(match_count_kernel<Wide>, data, query, out, n_data,
+                                         n_query, m, stream);
+}
+
+extern "C" int repro_match_count_q32(const void* data, const void* query, void* out,
+                                     long long n_data, int n_query, int m, void* stream) {
+  return repro::eq_tile::launch_eq<Narrow>(match_count_kernel<Narrow>, data, query, out, n_data,
+                                           n_query, m, stream);
 }

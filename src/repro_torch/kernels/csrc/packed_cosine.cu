@@ -165,6 +165,7 @@ packed_cosine_count_kernel(const unsigned* __restrict__ data,
 // ---- fused count -> per-tile top-k ---------------------------------------
 using repro::fused_topk::Fused;
 using repro::fused_topk::K_THREADS;
+using repro::fused_topk::K_TN_NARROW;
 
 // The sign-word match of the fused kernel: int32 words, 32 signs each (data
 // tail bits 0, query tail bits 1, so every tail bit is a disagreement); words
@@ -210,6 +211,9 @@ struct SignWords {
 constexpr int MAX_W_ONE_BYTE = 9;
 using CosU8 = Fused<uint8_t, 64, 16>;
 using CosU16 = Fused<uint16_t, 32, 16>;
+// the same two with tiles of 1024 data rows (tile_n = 1024)
+using CosU8Narrow = Fused<uint8_t, 64, 16, K_TN_NARROW>;
+using CosU16Narrow = Fused<uint16_t, 32, 16, K_TN_NARROW>;
 
 // one block of 16 warps an SM: at most 128 registers a thread; SCRATCH: the
 // histograms' bins live in device scratch
@@ -233,6 +237,35 @@ template <class F>
 auto cosine_kernel(int nbins) {
   return F::bins_in_shared(nbins) ? packed_cosine_topk_kernel<F, false>
                                   : packed_cosine_topk_kernel<F, true>;
+}
+
+// The launch shape (fused_topk::plan) and the launch of the fused kernel in
+// the tile of U8 / U16 (one-byte counts up to MAX_W_ONE_BYTE words, two above)
+template <class U8, class U16>
+int cosine_plan(long long n_data, int n_query, int w, int* grid, long long* scratch_ints) {
+  if (n_data <= 0 || n_query <= 0 || w <= 0 || w > (1 << 25)) return (int)cudaErrorInvalidValue;
+  const int nbins = 32 * w + 1;
+  return w <= MAX_W_ONE_BYTE
+      ? repro::fused_topk::plan<U8>(cosine_kernel<U8>(nbins), n_data, n_query, nbins, grid,
+                                    scratch_ints)
+      : repro::fused_topk::plan<U16>(cosine_kernel<U16>(nbins), n_data, n_query, nbins, grid,
+                                     scratch_ints);
+}
+
+template <class U8, class U16>
+int cosine_topk(const void* data, const void* query, void* ids, void* counts, long long n_data,
+                int n_query, int w, int kc, int grid, void* scratch, void* stream) {
+  if (n_data <= 0 || n_query <= 0 || w <= 0 || w > (1 << 25) || kc < 1 || kc > U8::kTN ||
+      grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const unsigned* d = (const unsigned*)data;
+  const unsigned* q = (const unsigned*)query;
+  const int nbins = 32 * w + 1;
+  return w <= MAX_W_ONE_BYTE
+      ? repro::fused_topk::launch<U8>(cosine_kernel<U8>(nbins), d, q, ids, counts, n_data,
+                                      n_query, w, nbins, kc, grid, scratch, stream)
+      : repro::fused_topk::launch<U16>(cosine_kernel<U16>(nbins), d, q, ids, counts, n_data,
+                                       n_query, w, nbins, kc, grid, scratch, stream);
 }
 
 }  // namespace
@@ -264,13 +297,14 @@ extern "C" int repro_packed_cosine_count(const void* data, const void* query,
 extern "C" int repro_packed_cosine_topk_plan(long long n_data, int n_query,
                                              int w, int* grid,
                                              long long* scratch_ints) {
-  if (n_data <= 0 || n_query <= 0 || w <= 0 || w > (1 << 25)) return (int)cudaErrorInvalidValue;
-  const int nbins = 32 * w + 1;
-  return w <= MAX_W_ONE_BYTE
-      ? repro::fused_topk::plan<CosU8>(cosine_kernel<CosU8>(nbins), n_data, n_query, nbins,
-                                       grid, scratch_ints)
-      : repro::fused_topk::plan<CosU16>(cosine_kernel<CosU16>(nbins), n_data, n_query, nbins,
-                                        grid, scratch_ints);
+  return cosine_plan<CosU8, CosU16>(n_data, n_query, w, grid, scratch_ints);
+}
+
+// The same for tiles of 1024 data rows (tile_n = 1024).
+extern "C" int repro_packed_cosine_topk_n1024_plan(long long n_data, int n_query,
+                                                   int w, int* grid,
+                                                   long long* scratch_ints) {
+  return cosine_plan<CosU8Narrow, CosU16Narrow>(n_data, n_query, w, grid, scratch_ints);
 }
 
 // data uint32 words [n_data, w], query [n_query, w]; ids and counts int32
@@ -284,15 +318,17 @@ extern "C" int repro_packed_cosine_topk(const void* data, const void* query,
                                         long long n_data, int n_query, int w,
                                         int kc, int grid, void* scratch,
                                         void* stream) {
-  if (n_data <= 0 || n_query <= 0 || w <= 0 || w > (1 << 25) || kc < 1 ||
-      kc > repro::fused_topk::K_TN || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  const unsigned* d = (const unsigned*)data;
-  const unsigned* q = (const unsigned*)query;
-  const int nbins = 32 * w + 1;
-  return w <= MAX_W_ONE_BYTE
-      ? repro::fused_topk::launch<CosU8>(cosine_kernel<CosU8>(nbins), d, q, ids, counts,
-                                         n_data, n_query, w, nbins, kc, grid, scratch, stream)
-      : repro::fused_topk::launch<CosU16>(cosine_kernel<CosU16>(nbins), d, q, ids, counts,
-                                          n_data, n_query, w, nbins, kc, grid, scratch, stream);
+  return cosine_topk<CosU8, CosU16>(data, query, ids, counts, n_data, n_query, w, kc, grid,
+                                    scratch, stream);
+}
+
+// The same for tiles of 1024 data rows: tile_n = 1024, 1 <= kc <= 1024; `grid`
+// and `scratch` from repro_packed_cosine_topk_n1024_plan.
+extern "C" int repro_packed_cosine_topk_n1024(const void* data, const void* query,
+                                              void* ids, void* counts,
+                                              long long n_data, int n_query, int w,
+                                              int kc, int grid, void* scratch,
+                                              void* stream) {
+  return cosine_topk<CosU8Narrow, CosU16Narrow>(data, query, ids, counts, n_data, n_query, w,
+                                                kc, grid, scratch, stream);
 }

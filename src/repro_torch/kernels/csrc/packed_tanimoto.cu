@@ -293,6 +293,7 @@ packed_tanimoto_count_kernel(const uint8_t* __restrict__ data, const uint8_t* __
 // ---- fused count -> per-tile top-k ---------------------------------------
 using repro::fused_topk::Fused;
 using repro::fused_topk::K_THREADS;
+using repro::fused_topk::K_TN_NARROW;
 
 // The byte-lane match of the fused kernel: rows of m bytes, four lanes a
 // staged word, lanes past m and rows past the end staged as the pads.
@@ -318,6 +319,9 @@ struct ByteLanes4 {
 
 using CountU8 = Fused<uint8_t, 64, 16>;       // m <= 254
 using CountU16 = Fused<uint16_t, 32, 16>;     // 254 < m <= 65534
+// the same two with tiles of 1024 data rows (tile_n = 1024)
+using CountU8Narrow = Fused<uint8_t, 64, 16, K_TN_NARROW>;
+using CountU16Narrow = Fused<uint16_t, 32, 16, K_TN_NARROW>;
 
 // one block of 16 warps an SM: at most 128 registers a thread; SCRATCH: the
 // histograms' bins live in device scratch
@@ -339,6 +343,34 @@ template <class F>
 auto tanimoto_kernel(int nbins) {
   return F::bins_in_shared(nbins) ? packed_tanimoto_topk_kernel<F, false>
                                   : packed_tanimoto_topk_kernel<F, true>;
+}
+
+// The launch shape (fused_topk::plan) and the launch of the fused kernel in
+// the tile of U8 / U16 (one-byte counts up to m = 254, two above)
+template <class U8, class U16>
+int tanimoto_plan(long long n_data, int n_query, int m, int* grid, long long* scratch_ints) {
+  if (n_data <= 0 || n_query <= 0 || m <= 0 || m > U16::MAX_M) return (int)cudaErrorInvalidValue;
+  return m <= U8::MAX_M
+      ? repro::fused_topk::plan<U8>(tanimoto_kernel<U8>(m + 1), n_data, n_query, m + 1, grid,
+                                    scratch_ints)
+      : repro::fused_topk::plan<U16>(tanimoto_kernel<U16>(m + 1), n_data, n_query, m + 1,
+                                     grid, scratch_ints);
+}
+
+template <class U8, class U16>
+int tanimoto_topk(const void* data, const void* query, void* ids, void* counts,
+                  long long n_data, int n_query, int m, int kc, int grid, void* scratch,
+                  void* stream) {
+  if (n_data <= 0 || n_query <= 0 || m <= 0 || m > U16::MAX_M || kc < 1 || kc > U8::kTN ||
+      grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const uint8_t* d = (const uint8_t*)data;
+  const uint8_t* q = (const uint8_t*)query;
+  return m <= U8::MAX_M
+      ? repro::fused_topk::launch<U8>(tanimoto_kernel<U8>(m + 1), d, q, ids, counts, n_data,
+                                      n_query, m, m + 1, kc, grid, scratch, stream)
+      : repro::fused_topk::launch<U16>(tanimoto_kernel<U16>(m + 1), d, q, ids, counts, n_data,
+                                       n_query, m, m + 1, kc, grid, scratch, stream);
 }
 
 }  // namespace
@@ -370,13 +402,14 @@ extern "C" int repro_packed_tanimoto_count(const void* data, const void* query,
 extern "C" int repro_packed_tanimoto_topk_plan(long long n_data, int n_query,
                                                int m, int* grid,
                                                long long* scratch_ints) {
-  if (n_data <= 0 || n_query <= 0 || m <= 0 || m > CountU16::MAX_M)
-    return (int)cudaErrorInvalidValue;
-  return m <= CountU8::MAX_M
-      ? repro::fused_topk::plan<CountU8>(tanimoto_kernel<CountU8>(m + 1), n_data, n_query,
-                                         m + 1, grid, scratch_ints)
-      : repro::fused_topk::plan<CountU16>(tanimoto_kernel<CountU16>(m + 1), n_data, n_query,
-                                          m + 1, grid, scratch_ints);
+  return tanimoto_plan<CountU8, CountU16>(n_data, n_query, m, grid, scratch_ints);
+}
+
+// The same for tiles of 1024 data rows (tile_n = 1024).
+extern "C" int repro_packed_tanimoto_topk_n1024_plan(long long n_data, int n_query,
+                                                     int m, int* grid,
+                                                     long long* scratch_ints) {
+  return tanimoto_plan<CountU8Narrow, CountU16Narrow>(n_data, n_query, m, grid, scratch_ints);
 }
 
 // data uint8 [n_data, m], query uint8 [n_query, m] (1 <= m <= 65534); ids and
@@ -390,15 +423,17 @@ extern "C" int repro_packed_tanimoto_topk(const void* data, const void* query,
                                           long long n_data, int n_query, int m,
                                           int kc, int grid, void* scratch,
                                           void* stream) {
-  if (n_data <= 0 || n_query <= 0 || m <= 0 || m > CountU16::MAX_M || kc < 1 ||
-      kc > repro::fused_topk::K_TN || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  const uint8_t* d = (const uint8_t*)data;
-  const uint8_t* q = (const uint8_t*)query;
-  return m <= CountU8::MAX_M
-      ? repro::fused_topk::launch<CountU8>(tanimoto_kernel<CountU8>(m + 1), d, q, ids, counts,
-                                           n_data, n_query, m, m + 1, kc, grid, scratch, stream)
-      : repro::fused_topk::launch<CountU16>(tanimoto_kernel<CountU16>(m + 1), d, q, ids,
-                                            counts, n_data, n_query, m, m + 1, kc, grid,
-                                            scratch, stream);
+  return tanimoto_topk<CountU8, CountU16>(data, query, ids, counts, n_data, n_query, m, kc,
+                                          grid, scratch, stream);
+}
+
+// The same for tiles of 1024 data rows: tile_n = 1024, 1 <= kc <= 1024; `grid`
+// and `scratch` from repro_packed_tanimoto_topk_n1024_plan.
+extern "C" int repro_packed_tanimoto_topk_n1024(const void* data, const void* query,
+                                                void* ids, void* counts,
+                                                long long n_data, int n_query, int m,
+                                                int kc, int grid, void* scratch,
+                                                void* stream) {
+  return tanimoto_topk<CountU8Narrow, CountU16Narrow>(data, query, ids, counts, n_data,
+                                                      n_query, m, kc, grid, scratch, stream);
 }

@@ -10,7 +10,8 @@
 // the equality tile of eq_tile.cuh (count_eq_tile) already streams m through
 // shared memory 32 columns at a time, so the same tile serves any m; this
 // file gives it its own kernel name, so that a profile and the launch counts
-// tell the two engines apart.  Edges are masked in the kernel: no sentinel
+// tell the two engines apart, in the same two block shapes (Wide, 128 query
+// rows a block; Narrow, 32).  Edges are masked in the kernel: no sentinel
 // reaches it.
 //
 // What bounds it on an H100: the float16 pipe, exactly as for the EQ kernel.
@@ -24,11 +25,17 @@
 
 namespace {
 
-__global__ void __launch_bounds__(repro::eq_tile::eq::THREADS, 2)
-tanimoto_count_kernel(const int* __restrict__ data,
-                      const int* __restrict__ query, int* __restrict__ out,
-                      long long n_data, int n_query, int m, int n_qtiles) {
-  repro::eq_tile::count_eq_tile(data, query, out, n_data, n_query, m, n_qtiles);
+using repro::eq_tile::eq::Narrow;
+using repro::eq_tile::eq::Wide;
+
+// S::MIN_BLOCKS blocks per SM (at most 64 registers a thread): one block
+// stages its chunk while another counts
+template <class S>
+__global__ void __launch_bounds__(S::THREADS, S::MIN_BLOCKS)
+tanimoto_count_kernel(const int* __restrict__ data, const int* __restrict__ query,
+                      int* __restrict__ out, long long n_data, int n_query, int m,
+                      int n_qtiles) {
+  repro::eq_tile::count_eq_tile(S(), data, query, out, n_data, n_query, m, n_qtiles);
 }
 
 }  // namespace
@@ -36,10 +43,16 @@ tanimoto_count_kernel(const int* __restrict__ data,
 // data int32 [n_data, m], query int32 [n_query, m], out int32 [n_query, n_data],
 // all contiguous device pointers.  Launches on `stream`, does not synchronise.
 // Returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue when
-// the tile grid does not fit one grid dimension.
-extern "C" int repro_tanimoto_count(const void* data, const void* query,
-                                    void* out, long long n_data, int n_query,
-                                    int m, void* stream) {
-  return repro::eq_tile::launch_eq(tanimoto_count_kernel, data, query, out, n_data, n_query,
-                                m, stream);
+// the tile grid does not fit one grid dimension.  repro_tanimoto_count: the Wide
+// shape, 128 query rows a block; repro_tanimoto_count_q32: the Narrow shape, 32.
+extern "C" int repro_tanimoto_count(const void* data, const void* query, void* out,
+                                    long long n_data, int n_query, int m, void* stream) {
+  return repro::eq_tile::launch_eq<Wide>(tanimoto_count_kernel<Wide>, data, query, out, n_data,
+                                         n_query, m, stream);
+}
+
+extern "C" int repro_tanimoto_count_q32(const void* data, const void* query, void* out,
+                                        long long n_data, int n_query, int m, void* stream) {
+  return repro::eq_tile::launch_eq<Narrow>(tanimoto_count_kernel<Narrow>, data, query, out, n_data,
+                                           n_query, m, stream);
 }

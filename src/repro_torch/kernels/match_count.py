@@ -20,6 +20,13 @@ int32 input; the kernel picks the path per chunk, with no read-back.
 
 `match_count` launches the kernel for CUDA tensors and raises when it cannot;
 it takes `match_count_plain` only for tensors that lie on the CPU.
+
+The kernel is compiled in two block shapes of the equality tile, which the
+knob tile_q picks (`common.pick_variant`): 128 query rows a block (the
+default) and 32, which a batch of at most 32 queries takes by default, as
+the reference's `pick_tile` clamps its tile to Q.  Both count 128 data rows
+a block (tile_n has one
+shape).
 """
 from __future__ import annotations
 
@@ -33,12 +40,28 @@ from repro_torch.kernels import common
 # is bound here under the kernel's name so the two stand side by side.
 match_count_plain = match_eq
 
+# the block shapes each knob selects (csrc/eq_tile.cuh: eq::Narrow, eq::Wide),
+# and the C entry of each query-row shape
+VARIANTS = {"tile_q": (32, 128), "tile_n": (128,)}
+_ENTRY = {32: "match_count_q32", 128: "match_count"}
 
-def match_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor) -> torch.Tensor:
+
+def match_count(data_sigs: torch.Tensor, query_sigs: torch.Tensor, *,
+                tile_q: int | None = None, tile_n: int | None = None) -> torch.Tensor:
     """counts int32 [Q, N] from data int32 [N, m] and queries int32 [Q, m],
-    both contiguous and on one device."""
+    both contiguous and on one device; the tile knobs pick the block shape
+    (VARIANTS)."""
+    tiles = common.pick_variants(VARIANTS, {"tile_q": len(query_sigs), "tile_n": len(data_sigs)},
+                                 {"tile_q": tile_q, "tile_n": tile_n})
     if data_sigs.device.type == "cpu" and query_sigs.device.type == "cpu":
         return match_count_plain(data_sigs, query_sigs)
     n, q, m = common.check_pair("match_count", data_sigs, query_sigs)
-    return common.launch_count("match_count", data_sigs, query_sigs, n, q, m)
+    return common.launch_count("match_count", data_sigs, query_sigs, n, q, m,
+                               entry=_ENTRY[tiles["tile_q"]],
+                               variant=f"tile_q={tiles['tile_q']}")
+
+
+def smem_bytes(tiles: dict, width: int) -> int:
+    """Shared memory a block of the shape `tiles` (from VARIANTS) takes."""
+    return common.eq_tile_smem(tiles["tile_q"])
 

@@ -40,8 +40,13 @@ product would move points across bucket boundaries or flip signs near 0.
 front of the exact match; the service keeps one Router and rebuilds it only
 when the corpus fingerprint changes (an add or a compaction).
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-sharded serving (`mesh=`) and the autotuner (`autotune=`, `tune()`).
+`autotune=` (True, a path, or an AutotuneCache; core/autotune.py) is
+consulted by every search plan, resolved against the service's device; a
+miss or a fingerprint mismatch keeps the defaults.  `tune()` measures the
+serving shape and installs the winner.
+
+Not ported yet (raises NotImplementedError naming its ROADMAP item):
+sharded serving (`mesh=`).
 """
 from __future__ import annotations
 
@@ -77,7 +82,13 @@ class RetrievalService:
     max_segments: int = 16                         # compaction trigger for add()
     mesh: None = None                              # sharded serving: not ported
     signature_layout: SignatureLayout | str = SignatureLayout.WIDE
-    autotune: None = None                          # measured-knob cache: not ported
+    # measured-knob cache (core/autotune.py): True = the default per-user
+    # cache file, a path = that file, an AutotuneCache = itself.  Consulted
+    # by every search plan; a miss or a hardware-fingerprint mismatch keeps
+    # the defaults.  Not part of batch_compat_key: the front-end coalesces
+    # per tenant and a tenant's autotune spec is fixed for the service's
+    # lifetime.
+    autotune: object = None
     use_kernel: bool = True                        # CUDA kernels vs plain PyTorch
     device: DeviceLike = None                      # None = the card
     # scheme parameters handed over from elsewhere (each scheme's
@@ -91,9 +102,6 @@ class RetrievalService:
             raise NotImplementedError(
                 "sharded serving (mesh=) is not ported yet: ROADMAP queue 1 "
                 "item 9 (distributed layout)")
-        if self.autotune is not None and self.autotune is not False:
-            raise NotImplementedError(
-                "autotune= is not ported yet: ROADMAP queue 1 item 8 (autotuner)")
         # full float32 for the LSH projection (see the module docstring)
         torch.backends.cuda.matmul.allow_tf32 = False
         self.m = self.m_override or tau_ann.required_m(self.eps, self.delta)
@@ -280,15 +288,68 @@ class RetrievalService:
         router = self._router() if routing is not routing_lib.Routing.NONE else None
         res = self._index.search(qsigs, k=k, method=method,
                                  candidate_cap=candidate_cap, routing=routing,
-                                 nprobe=nprobe, router=router)
+                                 nprobe=nprobe, router=router,
+                                 autotune=self._autotune_cache())
         # scheme-paired MLE: c/m for bucketed families (Eqn 7), the simhash
         # angle inversion for COSINE
         sims = self._scheme.mle(res.counts.cpu().numpy(), self.m)
         return res, sims
 
-    def tune(self, *args, **kwargs):
-        raise NotImplementedError(
-            "tune() is not ported yet: ROADMAP queue 1 item 8 (autotuner)")
+    def _autotune_cache(self):
+        """The service's autotune spec resolved against its device (None
+        when off)."""
+        from repro_torch.core import autotune as autotune_lib
+
+        return autotune_lib.resolve_cache(self.autotune, self.device)
+
+    def tune(self, queries, k: int = 10, *, embeddings=None,
+             method: TopKMethod = TopKMethod.CPQ,
+             routing: routing_lib.Routing | str = routing_lib.Routing.NONE,
+             budget: int = 32, repeats: int = 3,
+             cache=None, save: bool = True):
+        """Autotune this service's serving shape against a representative
+        query batch (core/autotune.py) and return the winning TunedEntry.
+
+        Measures the part-structured search that `search` runs -- block
+        shapes, fused preference, candidate_cap, SEGMENTED vs MULTILOAD host
+        loop, and (when `routing` is routed) nprobe.  The winner lands in
+        `cache` (defaulting to this service's `autotune` spec; an in-memory
+        cache on the service's device is created and installed when neither
+        is set), so every later `search` picks the tuned knobs up.
+        """
+        from repro_torch.core import autotune as autotune_lib
+
+        if self._index is None:
+            raise ValueError(
+                "RetrievalService index is empty (no items added yet): "
+                "call add() before tune()"
+            )
+        routing = routing_lib.Routing(routing)
+        emb = self.resolve_queries(queries, embeddings)
+        qsigs = self._hash(emb)
+        model = engines_lib.get(self._scheme.engine)
+        q_wide = model.prepare_queries(qsigs, self.device)
+        q_exec = q_wide
+        if SignatureLayout(self.signature_layout) is SignatureLayout.PACKED:
+            q_exec = model.pack_queries(q_wide)
+        stored = torch.cat([s.data for s in self._index.segments], dim=0)
+        resolved = autotune_lib.resolve_cache(
+            cache if cache is not None else self.autotune, self.device)
+        if resolved is None:
+            resolved = autotune_lib.AutotuneCache(device=self.device)
+        entry = autotune_lib.tune(
+            model, stored, q_exec, k, self._index.max_count,
+            signature_layout=self.signature_layout, method=method,
+            part_rows=tuple(self._index.segment_rows),
+            router=(self._router()
+                    if routing is not routing_lib.Routing.NONE else None),
+            routing=routing, budget=budget, repeats=repeats,
+            cache=resolved, save=save, prepared=True, route_queries=q_wide,
+        )
+        del stored
+        if self.autotune is None or self.autotune is False:
+            self.autotune = resolved
+        return entry
 
     def items_for(self, result_ids) -> list:
         """Resolve result ids to the stored items; -1 (empty top-k slots)

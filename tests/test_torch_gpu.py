@@ -746,3 +746,112 @@ def test_frontend_on_the_card_equals_serial_searches():
         want, _ = search(None, k=k, embeddings=queries[lo:hi])
         assert np.array_equal(got.ids, want.ids.cpu().numpy())
         assert np.array_equal(got.counts, want.counts.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_block_shape_variants_equal_plain_versions_at_ragged_shapes_on_the_card():
+    """Each block shape a tile knob selects -- the equality tile's 128- and
+    32-query-row shapes, the fused top-k kernels' 2048- and 1024-row tiles --
+    equals its plain version at ragged Q and N, through its own C entry and
+    through the wrapper's pick; the shape launched is counted apart."""
+    _need_card()
+    gen = torch.Generator().manual_seed(12)
+    common.reset_launch_counts()
+    for q, n, m in [(1, 1001, 63), (31, 257, 4097), (33, 1029, 33), (70, 3001, 238)]:
+        d = torch.randint(0, 30000, (n, m), generator=gen, dtype=torch.int32).cuda()
+        s = d[torch.randint(0, n, (q,), generator=gen)].clone()
+        s[:, ::3] = torch.randint(0, 30000, s[:, ::3].shape, generator=gen, dtype=torch.int32).cuda()
+        for name, plain in (("match_count", match_count_plain),
+                            ("tanimoto_count", tanimoto_count_plain)):
+            want = plain(d, s)
+            for tq, entry in ((128, name), (32, f"{name}_q32")):
+                got = common.launch_count(name, d, s, n, q, m, entry=entry, variant=f"tile_q={tq}")
+                assert torch.equal(got, want), (name, tq, q, n, m)
+            assert torch.equal(getattr(ops, name)(d, s, tile_q=8), want)
+    for q, n, v, k in [(3, 1025, 238, 5), (33, 5000, 288, 100), (65, 2047, 64, 1500)]:
+        dw = packing.pack_signs_data((torch.randint(0, 2, (n, v), generator=gen,
+                                                    dtype=torch.int8) * 2 - 1).cuda())
+        sw = packing.pack_signs_queries((torch.randint(0, 2, (q, v), generator=gen,
+                                                       dtype=torch.int8) * 2 - 1).cuda())
+        du = torch.randint(0, 6, (n, v), generator=gen, dtype=torch.uint8).cuda()
+        su = torch.randint(0, 6, (q, v), generator=gen, dtype=torch.uint8).cuda()
+        for name, data, query, plain in (
+                ("packed_cosine_topk", dw, sw, packed_cosine_topk_plain),
+                ("packed_tanimoto_topk", du, su, packed_tanimoto_topk_plain)):
+            for tn in (2048, 1024):
+                entry = name if tn == 2048 else f"{name}_n1024"
+                ids, cnts = common.launch_fused_topk(name, data, query, data.device, n, q,
+                                                     data.shape[1], k, tn, entry=entry)
+                pids, pcnts = plain(data, query, k, tn)
+                assert torch.equal(ids, pids) and torch.equal(cnts, pcnts), (name, tn, q, n)
+                ids, cnts = getattr(ops, name)(data, query, k=k, tile_n=tn)
+                want = tn if n > 1024 else 1024
+                assert ids.shape[1] == -(-n // want) * min(k, want)
+    torch.cuda.synchronize()
+    shapes = common.variant_launch_counts()
+    assert shapes["match_count[tile_q=32]"] == 4 + 4 and shapes["match_count[tile_q=128]"] == 4
+    assert shapes["packed_cosine_topk[tile_n=1024]"] == 3 + 3
+    assert shapes["packed_tanimoto_topk[tile_n=2048]"] == 3 + 3
+
+
+@pytest.mark.gpu
+def test_tuned_search_on_the_card_equals_the_default_search():
+    """A tuned entry (the 32-query-row shape, the 1024-row fused tile, the
+    host-loop layout) changes no bit of a search on the card; tune() itself
+    measures on the card and its entry keeps the results."""
+    _need_card()
+    from repro_torch.core import Engine, SegmentedIndex, autotune
+
+    rng = np.random.default_rng(13)
+    for engine, layout, data, tiles in (
+            (Engine.EQ, "wide", rng.integers(0, 50, (6000, 64)).astype(np.int32),
+             (("tile_n", 128), ("tile_q", 8))),
+            (Engine.COSINE, "packed", rng.standard_normal((6000, 96)).astype(np.float32),
+             (("tile_n", 1024), ("tile_q", 8)))):
+        seg = SegmentedIndex(engine=engine, signature_layout=layout)
+        for lo in range(0, 6000, 1500):
+            seg.add(data[lo:lo + 1500])
+        queries = data[::97] + (0.01 if engine is Engine.COSINE else 0)
+        base = seg.search(queries, k=20)
+        cache = autotune.AutotuneCache()
+        for mode in ("segmented", "multiload_host"):
+            cache.put(autotune.TunedEntry(
+                engine=engine.value, signature_layout=layout,
+                n_bucket=autotune.shape_bucket(6000),
+                w_bucket=autotune.shape_bucket(seg.segments[0].data.shape[1]),
+                tile_overrides=tiles, layout=mode, speedup=1.1))
+            common.reset_launch_counts()
+            got = seg.search(queries, k=20, autotune=cache)
+            torch.cuda.synchronize()
+            assert torch.equal(got.ids, base.ids) and torch.equal(got.counts, base.counts)
+            assert torch.equal(got.threshold, base.threshold)
+            if engine is Engine.EQ:
+                assert common.variant_launch_counts() == {"match_count[tile_q=32]": 4}
+            elif mode == "segmented":
+                assert common.variant_launch_counts() == {"packed_cosine_topk[tile_n=1024]": 4}
+    svc = RetrievalService(m_override=64)
+    emb = rng.standard_normal((4000, 16)).astype(np.float32)
+    svc.add(range(4000), embeddings=emb)
+    before, _ = svc.search(None, k=10, embeddings=emb[::40])
+    entry = svc.tune(None, k=10, embeddings=emb[::40], budget=4, repeats=2, save=False)
+    after, _ = svc.search(None, k=10, embeddings=emb[::40])
+    assert entry.speedup >= 1.0 and svc.autotune.fingerprint["platform"] == "cuda"
+    assert torch.equal(before.ids, after.ids) and torch.equal(before.counts, after.counts)
+
+
+@pytest.mark.gpu
+def test_a_shape_over_the_shared_memory_budget_is_never_a_candidate():
+    """The budget is the card's opt-in shared memory a block; a fused tile
+    whose block asks for more than a given budget is not among the
+    candidates (and the default one fits the card's)."""
+    _need_card()
+    from repro_torch.core import autotune
+
+    props = torch.cuda.get_device_properties(0)
+    assert autotune.smem_budget_bytes() == props.shared_memory_per_block_optin
+    wide = ops.variant_smem("packed_cosine_topk", {"tile_q": 64, "tile_n": 2048}, 8)
+    narrow = ops.variant_smem("packed_cosine_topk", {"tile_q": 64, "tile_n": 1024}, 8)
+    assert narrow < wide <= autotune.smem_budget_bytes()
+    assert autotune.tile_candidates("tile_n", 281250, "packed_cosine_topk", width=8) == [128, 2048]
+    assert autotune.tile_candidates("tile_n", 281250, "packed_cosine_topk", width=8,
+                                    smem_budget=wide - 1) == [128]

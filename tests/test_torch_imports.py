@@ -35,7 +35,8 @@ def test_module_list_covers_the_slice():
                  "repro_torch.core.sa.relational", "repro_torch.core.sa.verify",
                  "repro_torch.core.routing", "repro_torch.runtime",
                  "repro_torch.runtime.fault_tolerance", "repro_torch.serve.frontend",
-                 "repro_torch.serve.scheduler", "repro_torch.serve.metrics"):
+                 "repro_torch.serve.scheduler", "repro_torch.serve.metrics",
+                 "repro_torch.core.autotune"):
         assert name in _MODULES
 
 

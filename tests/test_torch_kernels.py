@@ -131,14 +131,19 @@ def test_every_c_entry_is_in_a_source_and_bound():
         entries += re.findall(r'extern "C" int (\w+)\(', p.read_text())
     assert sorted(entries) == ["repro_cosine_count", "repro_cosine_count_loader",
                                "repro_cpq_hist", "repro_ip_count", "repro_ip_count_loader",
-                               "repro_match_count", "repro_minsum_count",
+                               "repro_match_count", "repro_match_count_q32",
+                               "repro_minsum_count",
                                "repro_minsum_count_dense", "repro_minsum_csr",
                                "repro_minsum_nnz",
                                "repro_packed_cosine_count", "repro_packed_cosine_topk",
+                               "repro_packed_cosine_topk_n1024",
+                               "repro_packed_cosine_topk_n1024_plan",
                                "repro_packed_cosine_topk_plan",
                                "repro_packed_tanimoto_count", "repro_packed_tanimoto_topk",
+                               "repro_packed_tanimoto_topk_n1024",
+                               "repro_packed_tanimoto_topk_n1024_plan",
                                "repro_packed_tanimoto_topk_plan", "repro_range_count",
-                               "repro_tanimoto_count"]
+                               "repro_tanimoto_count", "repro_tanimoto_count_q32"]
     loader = open(build.__file__).read()
     for name in entries:
         assert f"lib.{name}.argtypes" in loader and f"lib.{name}.restype" in loader

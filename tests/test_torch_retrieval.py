@@ -172,18 +172,37 @@ def test_constructor_validation():
 
 UNPORTED = {
     "mesh": (lambda: RetrievalService(m_override=8, device="cpu", mesh=object()), "item 9"),
-    "autotune": (lambda: RetrievalService(m_override=8, device="cpu", autotune=True), "item 8"),
-    "tune": (lambda: _filled(RetrievalService, {"device": "cpu"}).tune(["q"]), "item 8"),
 }
-# routed search (ROADMAP queue 1 item 6) raised here until it was ported
-ROUTED = {"routing": dict(routing="routed"),
-          "nprobe": dict(routing="routed_verified", nprobe=2)}
+# routed search (ROADMAP queue 1 item 6) and the autotuner (item 8) raised
+# here until they were ported
+PORTED = {"routing": dict(routing="routed"),
+          "nprobe": dict(routing="routed_verified", nprobe=2),
+          "autotune": {}, "tune": {}}
+
+
+def _tuned_caches(n: int):
+    """An autotune entry for the corpus's shape -- floor tiles and the host
+    loop in place of the SEGMENTED merge -- in a cache of each package."""
+    from repro.core import autotune as jautotune
+    from repro_torch.core import autotune
+
+    caches = []
+    for lib, kw in ((autotune, {"device": "cpu"}), (jautotune, {})):
+        cache = lib.AutotuneCache(**kw)
+        cache.put(lib.TunedEntry(
+            engine="eq", signature_layout="wide", n_bucket=lib.shape_bucket(n),
+            w_bucket=lib.shape_bucket(M), tile_overrides=(("tile_n", 128), ("tile_q", 8)),
+            layout="multiload_host", speedup=1.5))
+        caches.append(cache)
+    return caches
 
 
 @pytest.mark.parametrize("case", ["mesh", "autotune", "tune", "routing", "nprobe"])
 def test_unported_parameters_raise_and_name_their_roadmap_item(case, rng):
     """What is not ported raises NotImplementedError naming its ROADMAP item;
-    the routing keywords, ported since, search as the reference does."""
+    the routing keywords and the autotuner (`autotune=` with a tuned entry
+    that switches the layout, `tune()`), ported since, search as the
+    reference does."""
     if case in UNPORTED:
         act, item = UNPORTED[case]
         with pytest.raises(NotImplementedError, match=item):
@@ -194,8 +213,13 @@ def test_unported_parameters_raise_and_name_their_roadmap_item(case, rng):
     _fill(svc, emb)
     _fill(jsvc, emb)
     queries = np.concatenate([emb[::29], emb[:3] + 1.0])
-    res, sims = svc.search(None, k=7, embeddings=queries, **ROUTED[case])
-    jres, jsims = jsvc.search(None, k=7, embeddings=queries, **ROUTED[case])
+    if case == "autotune":
+        svc.autotune, jsvc.autotune = _tuned_caches(sum(BATCHES))
+    if case == "tune":
+        entry = svc.tune(None, k=7, embeddings=queries, budget=2, repeats=1, save=False)
+        assert entry.speedup >= 1.0 and svc.autotune.lookup("eq", "wide", len(svc), M) == entry
+    res, sims = svc.search(None, k=7, embeddings=queries, **PORTED[case])
+    jres, jsims = jsvc.search(None, k=7, embeddings=queries, **PORTED[case])
     assert np.array_equal(res.ids.numpy(), np.asarray(jres.ids))
     assert np.array_equal(res.counts.numpy(), np.asarray(jres.counts))
     assert np.array_equal(res.threshold.numpy(), np.asarray(jres.threshold))

@@ -440,14 +440,18 @@ def test_service_router_cache_refreshes_exactly_on_corpus_change(rng):
 # The reference's keyword set, at its defaults, on every entry point
 # ---------------------------------------------------------------------------
 
-def test_entry_points_take_the_reference_keywords_at_their_defaults(rng):
+def test_entry_points_take_the_reference_keywords_at_their_defaults(rng, tmp_path, monkeypatch):
     """The smallest case of the fault: a 3 x 4 EQ index searched with
     `tile_overrides=None` gave [[0], [1], [2]] in the reference and a
     TypeError in the port.  Every search entry point now takes the
     reference's full keyword set at its defaults with the reference's
-    result; a value other than the default raises NotImplementedError naming
-    the ROADMAP item that ports it (8: the autotuner, 9: the distributed
-    layout)."""
+    result; the autotuner's keywords (ROADMAP queue 1 item 8, ported since)
+    search with other values as the reference does, and a value other than
+    the default of the distributed layout's raises NotImplementedError
+    naming item 9."""
+    # the default caches of both packages: files that do not exist
+    monkeypatch.setenv("GENIE_AUTOTUNE_CACHE", str(tmp_path / "jax.json"))
+    monkeypatch.setenv("GENIE_TORCH_AUTOTUNE_CACHE", str(tmp_path / "torch.json"))
     data = np.arange(12, dtype=np.int32).reshape(3, 4)
     idx = GenieIndex.build(Engine.EQ, data, device="cpu")
     jidx = JGenieIndex.build(JEngine.EQ, data)
@@ -473,14 +477,21 @@ def test_entry_points_take_the_reference_keywords_at_their_defaults(rng):
                         route_queries=None),
           jplan.execute(jp, [s.data for s in jseg.segments], jnp.asarray(data), mesh=None,
                         router=None, route_queries=None))
-    # anything but the default names its item
+    # the autotuner's keywords (item 8) with values: the reference's result
+    cache = str(tmp_path / "cache.json")
+    tuned = [
+        (lambda i, s: i.search(data, k=1, tile_overrides={"tile_n": 256})),
+        (lambda i, s: i.search(data, k=1, autotune=True)),
+        (lambda i, s: i.search_multiload(data, k=1, n_parts=2, autotune=cache)),
+        (lambda i, s: s.search(data, k=1, tile_overrides={"tile_q": 8})),
+        (lambda i, s: s.search_multiload(data, k=1, autotune=True)),
+    ]
+    for act in tuned:
+        _same(act(idx, seg), act(jidx, jseg))
+    assert (tplan.plan_search(Engine.EQ, 2, 4, tune_width=4).describe()
+            == jplan.plan_search(JEngine.EQ, 2, 4, tune_width=4).describe())
+    # anything but the default of the distributed layout names its item
     refused = [
-        (lambda: idx.search(data, k=1, tile_overrides={"tile_n": 256}), "item 8"),
-        (lambda: idx.search(data, k=1, autotune=True), "item 8"),
-        (lambda: idx.search_multiload(data, k=1, n_parts=2, autotune="cache.json"), "item 8"),
-        (lambda: seg.search(data, k=1, tile_overrides={"tile_q": 8}), "item 8"),
-        (lambda: seg.search_multiload(data, k=1, autotune=True), "item 8"),
-        (lambda: tplan.plan_search(Engine.EQ, 2, 4, tune_width=4), "item 8"),
         (lambda: tplan.plan_search(Engine.EQ, 2, 4, hierarchical=True), "item 9"),
         (lambda: tplan.plan_search(Engine.EQ, 2, 4, mesh_axes=("data",)), "item 9"),
         (lambda: tplan.execute(plan, [s.data for s in seg.segments], q, mesh=object()),
