@@ -6,7 +6,7 @@
 Builds the CUDA kernels from `src/repro_torch/kernels/csrc/` (first use
 builds them), then runs these phases -- 1 to 3d, 4g's padded round trips and
 3e in order, then each full-width phase followed by its multiple-loading
-case and its kernels' times (4, 5, 4g, 4h, 4i, 5's block shapes, 4j, 4b,
+case and its kernels' times (4, 5, 4g, 4h, 4i, 5's block shapes, 4j, 4k, 4b,
 4g, 5b, 4j, 4c, 4g, 5c, 4c', 4d, 4i, 5d, 4e, 5d, 4f, 5d), and last DBLP at
 its full size through multiple loading (4g) -- and fails (non-zero exit, no
 result line) as soon as a phase fails.  The kernels compiled in several
@@ -150,6 +150,24 @@ PACKED search with a tuned 1024-row tile in turns with the default):
      through the tuned e2lsh service; after 4d, the Adult RANGE index as an
      `IndexService` tenant (stacked (lo, hi) queries), so that range_count
      runs through the front-end;
+     4k. the distributed layout on one NCCL rank (`launch.mesh` starts its
+     own process group of world size 1 and it is destroyed after the
+     phase): (i) small round trips on a (1,) "data" mesh and a (1, 1, 1)
+     "pod" mesh, whose hierarchical plans run the two-level merge -- the six
+     engines WIDE and COSINE / TANIMOTO PACKED, CPQ / SPQ / SORT, kernel path
+     and plain path, data padded to a multiple of 8 with n_objects set --,
+     each DISTRIBUTED search equal to the SEGMENTED search of the same
+     segments bit for bit, and ROUTED_VERIFIED at nprobe 1 equal to NONE;
+     (ii) `RetrievalService(mesh=make_local_mesh())` at the SIFT shape of
+     phase 4 (e2lsh WIDE, then simhash PACKED on the same corpus), 256
+     queries a search (a shard is one part: its [Q, 4.5 M] count matrix and
+     the compaction's transient bound Q; PERF.md section 4), with its search
+     times, peak memory, launch counts (one launch of the count kernel and
+     of cpq_hist a search), idle share, the gather + merge timed apart,
+     each search equal to the SEGMENTED search of the service's own index
+     and ROUTED_VERIFIED at nprobe 4 equal to NONE, and the count kernel and
+     cpq_hist timed in one launch over the 4.5 M rows, equal to their 16
+     per-segment launches;
   5. each kernel's time at the full-width per-segment shape beside the plain
      version's, one PyTorch library call where one computes the same
      function, and the least time the card could take (bytes moved over the
@@ -968,9 +986,10 @@ def drive_full_width(device: torch.device, expect_launches: dict, sim_range: tup
         f"(WIDE {stats.bytes_signatures_wide / 1e9:.4f} GB, PACKED "
         f"{stats.bytes_signatures_packed / 1e9:.4f} GB)")
 
+    timing = {}
     res, sims = timed_searches(
         lambda: svc.search(None, k=k, embeddings=queries, method=TopKMethod.CPQ),
-        n_queries, n_searches, expect_launches, device)
+        n_queries, n_searches, expect_launches, device, record=timing)
     launches = common.launch_counts()
 
     check_result(res, n_queries, k, n_total)
@@ -984,6 +1003,7 @@ def drive_full_width(device: torch.device, expect_launches: dict, sim_range: tup
     qsigs = svc._hash(queries)
     check_sample_on_plain_path(svc._index, qsigs, res, k, device)
     return dict(launches=launches, service=svc, qsigs=qsigs, queries=queries, result=res,
+                timing=timing,
                 add_seconds=add_seconds)
 
 
@@ -1021,11 +1041,12 @@ def check_sample_on_plain_path(index, queries, res, k: int, device: torch.device
 
 
 def timed_searches(search, n_queries: int, n_searches: int, expect_launches: dict,
-                   device: torch.device):
+                   device: torch.device, record: dict | None = None):
     """Run `search()` n_searches times: log the first time and the median of
     the rest, queries/s and the peak device memory; check that the launch
     counts since the path's reset are `expect_launches` per search (and that
-    no other kernel launched).  Returns the last result."""
+    no other kernel launched).  Returns the last result; `record` receives
+    the times (`search_ms`) and the peak (`peak_bytes`)."""
     from repro_torch.kernels import common
 
     if device.type == "cuda":
@@ -1043,6 +1064,8 @@ def timed_searches(search, n_queries: int, n_searches: int, expect_launches: dic
         f"{n_queries / (median_ms / 1e3):.1f} queries/s; "
         f"peak device memory {peak / 1e9:.3f} GB")
     log(f"  kernel launches on this path: {launches}")
+    if record is not None:
+        record.update(search_ms=search_ms, peak_bytes=peak)
     want = {name: per * n_searches for name, per in expect_launches.items()}
     check(launches == want, f"launches {launches}, expected {want} "
           f"({expect_launches} per search x {n_searches} searches)")
@@ -3562,6 +3585,190 @@ def phase_autotune(run: dict, label: str, device: torch.device, budget: int = 8,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4k: the distributed layout on one NCCL rank
+# ---------------------------------------------------------------------------
+
+DIST_SEGMENTS = [2000, 701, 1500, 299, 1503]      # 6003 rows: 5 pad rows to a multiple of 8
+DIST_Q = 256                                      # full width: PERF.md section 4
+
+
+def phase_distributed_small(device: torch.device, k: int = 20, n_queries: int = 33) -> None:
+    """Phase 4k (i): DISTRIBUTED = SEGMENTED on every engine and layout, both
+    paths, CPQ / SPQ / SORT, on a flat and a pod mesh of one rank; the kernel
+    path launches the engine's count kernel once a search, the plain path
+    nothing; ROUTED_VERIFIED at nprobe 1 = NONE.  SPQ is held to the host
+    loop over the same padded data as one part instead: its range narrowing
+    starts from the row's least count, which a pad row's -1 lowers, so over
+    padded data it may end below the k-th count and lose candidates to the
+    cap -- in the JAX package too (ROADMAP, reference quirks)."""
+    import numpy as np
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.core import Engine, SegmentedIndex, TopKMethod, distributed, engines, plan
+    from repro_torch.launch import mesh as mesh_lib
+
+    log(f"== phase 4k (i): the distributed layout, small, all six engines, one NCCL rank "
+        f"({gpu_name_and_power_limit()})")
+    meshes = {"flat": mesh_lib.make_mesh((1,), ("data",), device),
+              "pod": mesh_lib.make_mesh((1, 1, 1), ("pod", "data", "model"), device)}
+    for name, layout, count_kernel in PAD_CASES:
+        model = engines.get(name)
+        raw, queries, mc = model.example(np.random.default_rng(SEED + 17), sum(DIST_SEGMENTS),
+                                         n_queries)
+        q_wide = model.prepare_queries(queries, device)
+        q_exec = model.pack_queries(q_wide) if layout == "packed" else q_wide
+        for use_kernel in (True, False):
+            index = SegmentedIndex(Engine(name), max_count=mc, use_kernel=use_kernel,
+                                   device=device, signature_layout=layout)
+            lo = 0
+            for rows in DIST_SEGMENTS:
+                index.add(raw[lo:lo + rows])
+                lo += rows
+            data, n = index.concat_data(pad_multiple=8)
+            check(n == sum(DIST_SEGMENTS) and data.shape[0] == n + 5, "the padded corpus")
+            router = index.router()
+            for method in TopKMethod:
+                want = index.search(queries, k=k, method=method)
+                if method is TopKMethod.SPQ:
+                    one = plan.plan_search(name, k, index.max_count, layout="multiload",
+                                           part_rows=(int(data.shape[0]),), n_objects=n,
+                                           host_loop=True, method=method, use_kernel=use_kernel,
+                                           signature_layout=layout)
+                    want = plan.execute(one, [data], q_exec)
+                for merge, mesh in meshes.items():
+                    placed = distribute_tensor(data, mesh, distributed.data_sharding(mesh),
+                                               src_data_rank=None)
+                    kw = dict(layout="distributed", n_objects=n, method=method,
+                              use_kernel=use_kernel, hierarchical=merge == "pod",
+                              mesh_axes=mesh.mesh_dim_names, signature_layout=layout)
+                    p = plan.plan_search(name, k, index.max_count, **kw)
+                    what = f"{name} {layout} {method.value} kernel={use_kernel} {merge} mesh"
+                    got, launches = launches_of(lambda: plan.execute(p, placed, q_exec, mesh=mesh),
+                                                device)
+                    same_result(got, want, f"{what}: DISTRIBUTED vs SEGMENTED (SPQ: one padded part)")
+                    check(launches.get(count_kernel) == 1 if use_kernel else launches == {},
+                          f"{what}: launches {launches}")
+                    p = plan.plan_search(name, k, index.max_count, routing="routed_verified",
+                                         nprobe=1, **kw)
+                    same_result(plan.execute(p, placed, q_exec, mesh=mesh, router=router,
+                                             route_queries=q_wide), got,
+                                f"{what}: ROUTED_VERIFIED vs NONE")
+        log(f"  {name} {layout}: DISTRIBUTED = SEGMENTED (SPQ: = the padded data as one "
+            f"part), ROUTED_VERIFIED (nprobe 1) = NONE; CPQ / SPQ / SORT, kernel and plain "
+            f"path, flat and pod mesh; {count_kernel} once a search on the kernel path")
+
+
+def one_launch_times(svc, q_exec, count_name: str, device: torch.device) -> dict:
+    """The count kernel and cpq_hist in one launch over the whole placed
+    shard, each equal to its per-segment launches put together; ms by CUDA
+    events and the least time the card could take."""
+    from repro_torch.kernels import ops
+
+    data = svc._sharded_corpus()[0].to_local()
+    count = getattr(ops, count_name)
+    n, w = data.shape
+    q, bins = q_exec.shape[0], svc._index.max_count + 1
+    ms_count, counts = timed_ms(lambda: count(data, q_exec), device, reps=3, warmup=1)
+    ms_hist, hist = timed_ms(lambda: ops.cpq_hist(counts, svc._index.max_count), device,
+                             reps=3, warmup=1)
+    parts = [count(seg.data, q_exec) for seg in svc._index.segments]
+    check(torch.equal(counts, torch.cat(parts, dim=1)),
+          f"{count_name} over {n} rows differs from its per-segment launches")
+    check(torch.equal(hist, sum(ops.cpq_hist(c, svc._index.max_count) for c in parts)),
+          f"cpq_hist over {n} rows differs from its per-segment launches")
+    del parts, counts
+    if count_name == "match_count":                 # Q.N.m compares and adds
+        ops_count, bytes_count = 2 * q * n * w, (n * w + q * w + q * n) * 4
+    else:                                           # xor, popcount, add a word pair
+        ops_count, bytes_count = 3 * q * n * w, (n * w + q * w + q * n) * 4
+    bound = {count_name: max(bytes_count / PEAK_BYTES_PER_S, ops_count / PEAK_ALU_OPS_PER_S) * 1e3,
+             "cpq_hist": max((q * n + q * bins) * 4 / PEAK_BYTES_PER_S,
+                             q * n / PEAK_ALU_OPS_PER_S) * 1e3}
+    out = {count_name: ms_count, "cpq_hist": ms_hist}
+    for name, ms in out.items():
+        log(f"  {name} in one launch over N = {n} rows, Q = {q}: {ms:.4f} ms, bound "
+            f"{bound[name]:.4f} ms ({100 * bound[name] / ms:.1f}% of it); equal to its "
+            f"{len(svc._index.segments)} per-segment launches")
+    return dict(ms=out, bound_ms=bound)
+
+
+def phase_distributed_full_width(device: torch.device, n_queries: int = DIST_Q,
+                                 **sizes) -> dict:
+    """Phase 4k (ii): RetrievalService(mesh=make_local_mesh()) at the SIFT
+    shape, e2lsh WIDE then simhash PACKED on the same corpus: the search on
+    its main path (one launch of the count kernel and of cpq_hist a search),
+    equal to the SEGMENTED search of the service's index and ROUTED_VERIFIED
+    (nprobe 4) equal to NONE; the gather + merge timed apart; one profiled
+    search; the two kernels in one launch over the whole shard."""
+    from repro_torch.core import engines
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.launch import mesh as mesh_lib
+
+    hw = gpu_name_and_power_limit()
+    mesh = mesh_lib.make_local_mesh(device=device)
+    k = sizes.get("k", FULL_K)
+    report = {"card": hw, "mesh": list(mesh.shape), "n_queries": n_queries}
+    for scheme, layout, count_name, sim_range in (
+            ("e2lsh", "wide", "match_count", (0.0, 1.0)),
+            ("simhash", "packed", "packed_cosine_count", (-1.0, 1.0))):
+        log(f"== phase 4k (ii): RetrievalService(scheme={scheme!r}, {layout}, "
+            f"mesh={tuple(mesh.shape)}) at full width, {n_queries} queries ({hw})")
+        per_search = {count_name: 1, "cpq_hist": 1}
+        run = drive_full_width(device, per_search, sim_range, n_queries=n_queries, mesh=mesh,
+                               scheme=scheme, signature_layout=layout, **sizes)
+        svc, res = run["service"], run["result"]
+        # the same queries through the service's own SEGMENTED index, hashed
+        # as the service hashes them: the unmeshed search at the same Q
+        seg_ms = []
+        for _ in range(4):
+            ms, seg = timed_ms(lambda: svc._index.search(svc._hash(run["queries"]), k=k), device)
+            seg_ms.append(ms)
+        same_result(seg, res, f"{scheme} {layout}: DISTRIBUTED vs the SEGMENTED search of its index")
+        log(f"  the SEGMENTED search of the same index and queries: first {seg_ms[0]:.2f} ms, "
+            f"median of the rest {statistics.median(seg_ms[1:]):.2f} ms ({hw})")
+        ver = svc.search(None, k=k, embeddings=run["queries"], routing="routed_verified",
+                         nprobe=4)[0]
+        same_result(ver, res, f"{scheme} {layout}: ROUTED_VERIFIED (nprobe 4) vs NONE")
+        log(f"  = the SEGMENTED search of the service's index on all {n_queries} rows; "
+            f"ROUTED_VERIFIED (nprobe 4) = NONE")
+        profile_one_search(service_search(run, k), device)
+        # the collective merge alone, on this search's own buffers
+        data, n = svc._sharded_corpus()
+        model = engines.get(svc._scheme.engine)
+        q_wide = model.prepare_queries(run["qsigs"], device)
+        q_exec = model.pack_queries(q_wide) if layout == "packed" else q_wide
+        p = plan_lib.plan_search(svc._scheme.engine, k, svc._index.max_count,
+                                 layout="distributed", n_objects=n,
+                                 mesh_axes=mesh.mesh_dim_names, signature_layout=layout)
+        gids, gcnt = plan_lib._part_topk(p, data.to_local(), q_exec, 0)
+        merge_ms, merged = timed_ms(lambda: plan_lib._collective_merge(p, mesh, gids, gcnt),
+                                    device, reps=20, warmup=3)
+        same_result(merged, res, f"{scheme} {layout}: the timed merge")
+        log(f"  gather + merge_topk alone: {merge_ms:.4f} ms (buffers [{n_queries}, {k}], "
+            f"one rank; {hw})")
+        times = one_launch_times(svc, q_exec, count_name, device)
+        report[f"{scheme} {layout}"] = dict(
+            search_ms=run["timing"]["search_ms"], segmented_ms=seg_ms,
+            peak_gb=run["timing"]["peak_bytes"] / 1e9,
+            launches=run["launches"], merge_ms=merge_ms, **times)
+        del run, svc, res, seg, ver, data, gids, gcnt, merged
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    log("  distributed: " + json.dumps(report))
+    return report
+
+
+def phase_distributed(device: torch.device) -> dict:
+    """Phase 4k, (i) then (ii), in the one-rank process group that
+    `launch.mesh` starts; the group is destroyed after it."""
+    import torch.distributed as dist
+
+    phase_distributed_small(device)
+    report = phase_distributed_full_width(device)
+    dist.destroy_process_group()
+    return report
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3592,7 +3799,9 @@ def main() -> int:
         "match_count", svc._index.segments[0].data, full["qsigs"],
         frontend["shapes"]["shapes"]["match_count[tile_q=32]"], parity_err, device))
     phase_autotune(full, "SIFT e2lsh", device, singles=True)
-    del full, svc                          # free the EQ corpus before the simhash one
+    del full, svc                          # free the EQ corpus before the distributed phase
+    torch.cuda.empty_cache()
+    phase_distributed(device)
     torch.cuda.empty_cache()
     simhash = phase_full_width_simhash(device)
     count_launches = phase_multiload_packed(simhash["packed"], "simhash", "packed_cosine_count",

@@ -1,11 +1,13 @@
 # The paper's primary contribution: GENIE generic inverted-index similarity
-# search (match-count model, c-PQ selection, LSH transforms, segment merge).
+# search (match-count model, c-PQ selection, LSH transforms, segment and
+# distributed merge).
 # Engine dispatch lives in the MatchModel registry (core/engines.py); query
 # execution is the unified plan->execute pipeline (core/plan.py): every
 # search path builds a QueryPlan and delegates to the one executor that calls
 # match kernels, pad masks, select_topk, and the merge buffers.
 from repro_torch.core import (  # noqa: F401
-    autotune, cpq, engines, index, match, merge, multiload, plan, routing, segments, select, spq,
+    autotune, cpq, distributed, engines, index, match, merge, multiload, plan, routing, segments,
+    select, spq,
 )
 from repro_torch.core.engines import MatchModel  # noqa: F401
 from repro_torch.core.index import GenieIndex  # noqa: F401

@@ -9,7 +9,7 @@ GENIE search path.
     Every index and serving entry point is a thin adapter that builds a plan
     and delegates here.
 
-Layouts ported so far, and their merge strategies:
+The four layouts and their merge strategies:
 
   MONOLITHIC   one device-resident part; selection IS the merge.
   SEGMENTED    host loop over immutable per-segment parts (heterogeneous
@@ -23,28 +23,36 @@ Layouts ported so far, and their merge strategies:
                from pinned memory on a side stream into two reused device
                buffers, so that part i + 1 is in flight while part i is
                matched -- and merged like SEGMENTED parts.
+  DISTRIBUTED  object shards across a `DeviceMesh` (torch.distributed, one
+               process per rank); each rank matches its own rows and the
+               per-shard buffers are all-gathered and merged collectively
+               (`hierarchical=True` on a mesh whose first axis is "pod":
+               within the pod first, then across pods).
 
 PACKED signatures are planned like WIDE ones; on the kernel path of
 MONOLITHIC and SEGMENTED with nothing padded, a PACKED plan carries the
 engine's fused match->count->local-top-k kernel (`fused_match`), which
 replaces the count matrix, the pad mask and `select_topk` (and so ignores
-`method` and `candidate_cap`, as the reference does).  MULTILOAD plans never
-carry it: every one sets `n_objects`, so they run the count kernel and the
-pad mask.
+`method` and `candidate_cap`, as the reference does).  MULTILOAD and
+DISTRIBUTED plans never carry it, as in the reference: their data may hold
+engine-fill pad rows, so they run the count kernel and the pad mask.
 
 Coarse routing (core/routing.py) applies to the host-loop layouts, SEGMENTED
-and MULTILOAD with `host_loop=True`: ROUTED plans match only the parts a
-`Router` selects, and ROUTED_VERIFIED plans fall back to the full scan when
-a skipped part's upper bound reaches the routed threshold.  A skipped part
-is never matched, and in the host loop never copied to the card.  The
-router runs on the host, on the route queries copied there once a search.
+and MULTILOAD with `host_loop=True`, and to DISTRIBUTED: ROUTED plans match
+only the parts a `Router` selects, and ROUTED_VERIFIED plans fall back to
+the full scan when a skipped part's upper bound reaches the routed
+threshold.  A skipped part is never matched, and in the host loop never
+copied to the card; a DISTRIBUTED shard that no routed segment overlaps
+blanks its buffer before the gather (every rank still matches, as every
+shard does under the reference's shard_map).  The router runs on the host,
+on the route queries copied there once a search.
 
 One difference from the reference, in `describe()["fused_hist"]`: the JAX
-package keeps the plain histogram on its MULTILOAD layout (`fused_hist =
-False`: its TPU scan kept the jnp histogram), while the port runs the
-histogram kernel on every kernel-path layout, MULTILOAD included, because
-the port's plain histogram takes ~495 ms a SIFT segment on the card.  The
-histogram is exact, so results are the same bit for bit.
+package keeps the plain histogram on its MULTILOAD and DISTRIBUTED layouts
+(`fused_hist = False`: its TPU scan and shard_map bodies kept the jnp
+histogram), while the port runs the histogram kernel on every kernel-path
+layout, because the port's plain histogram takes ~495 ms a SIFT segment on
+the card.  The histogram is exact, so results are the same bit for bit.
 
 Tile knobs and the autotuner: `plan_search(tile_overrides=)` binds kernel
 tile sizes onto the kernel path (`QueryPlan.tile_overrides`, which the
@@ -52,10 +60,14 @@ kernel wrappers map onto the block shapes they were compiled in), and
 `autotune=` / `tune_width=` consult the measured-knob cache of
 core/autotune.py, as in the reference.
 
-Still to be ported, refused with NotImplementedError naming its ROADMAP
-item: DISTRIBUTED (mesh shards, and with it `hierarchical=`, `mesh_axes=`,
-`execute(mesh=)`; queue 1 item 9).  The keywords themselves are accepted at
-their defaults, as the reference accepts them.
+The DISTRIBUTED layout maps the reference's single-controller program
+onto SPMD ranks: its `Mesh` is a `DeviceMesh` (launch/mesh.py), its sharded
+array a DTensor with `Shard(0)` on every mesh dimension (or the whole data,
+held by every rank, of which each takes its row block), the `shard_map`
+body each rank's own `_part_topk` on its local rows, and `all_gather` over
+mesh axes `torch.distributed.all_gather` over the groups of those axes,
+stacked in the shard order of the reference.  `execute` unwraps a DTensor
+once and runs on plain tensors; the result is the same on every rank.
 
 PyTorch runs eagerly, so there is no compiled executable to cache: the JAX
 package's `_EXEC_CACHE`, `trace_count`, `plan_cache_size` and
@@ -76,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import weakref
 from typing import Any, Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -100,12 +113,7 @@ class Layout(str, enum.Enum):
     MONOLITHIC = "monolithic"      # one device-resident data matrix
     SEGMENTED = "segmented"        # host loop over sealed per-batch segments
     MULTILOAD = "multiload"        # streamed index parts (scan or host loop)
-    DISTRIBUTED = "distributed"    # object shards across devices (not ported yet)
-
-
-_UNPORTED_LAYOUTS = {
-    Layout.DISTRIBUTED: "ROADMAP queue 1 item 9 (distributed layout)",
-}
+    DISTRIBUTED = "distributed"    # object shards across a device mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +133,8 @@ class QueryPlan:
     pad_value: Any = None              # engine fill for padded rows
     fused_hist: bool = False           # histogram from the CUDA kernel
     host_loop: bool = False            # MULTILOAD: host streaming vs scanned stack
+    hierarchical: bool = False         # DISTRIBUTED: pod-local merge first
+    mesh_axes: tuple[str, ...] = ()    # DISTRIBUTED: mesh axis names
     # signature storage format the match fn expects
     signature_layout: SignatureLayout = SignatureLayout.WIDE
     # fused match->count->local-top-k kernel fn(data, queries, k) ->
@@ -164,15 +174,16 @@ class QueryPlan:
     def merge_strategy(self) -> str:
         if self.layout == Layout.MONOLITHIC:
             return "none"
+        if self.layout == Layout.DISTRIBUTED:
+            return "collective-hierarchical" if self.hierarchical else "collective"
         if self.layout == Layout.MULTILOAD and not self.host_loop:
             return "incremental-pairwise"
         return "ragged-buffer"
 
     def describe(self) -> dict:
-        """Host-side plan summary, with the keys of the JAX package's
-        `QueryPlan.describe()`.  `hierarchical` and `mesh_axes` belong to the
-        distributed layout, not ported yet (ROADMAP queue 1 item 9), so a
-        plan of the port always holds their defaults."""
+        """Host-side plan summary, with the keys and values of the JAX
+        package's `QueryPlan.describe()` (but `fused_hist`: the module
+        docstring says why)."""
         rows = list(self.part_rows)
         # both per-part lists truncate identically: a "..." marker past 32
         # parts, never a silent cut (the lists must stay row-aligned)
@@ -191,8 +202,8 @@ class QueryPlan:
             pad_rows=self.pad_rows,
             merge=self.merge_strategy(),
             host_loop=self.host_loop,
-            hierarchical=False,
-            mesh_axes=[],
+            hierarchical=self.hierarchical,
+            mesh_axes=list(self.mesh_axes),
             fused_hist=self.fused_hist,
             signature_layout=self.signature_layout.value,
             fused_match=self.fused_match is not None,
@@ -236,7 +247,10 @@ def plan_search(
     when the data carries engine-fill pad rows past it; those can then never
     reach a result.  A MULTILOAD plan streams host parts with
     `host_loop=True` (ragged parts allowed) or walks a stacked [C, Nc, ...]
-    tensor (uniform parts).
+    tensor (uniform parts).  DISTRIBUTED plans take their shape from the data
+    that arrives (each rank matches its own rows); `hierarchical` merges
+    pod-locally first when the mesh's first axis is "pod", and `mesh_axes`
+    records the mesh's axis names.
 
     `signature_layout` selects the storage format the data/queries arrive in
     (core/packing.py): PACKED plans dispatch the packed match fns and -- on
@@ -248,10 +262,10 @@ def plan_search(
     `routing` plans coarse segment pruning (core/routing.py): ROUTED and
     ROUTED_VERIFIED plans execute against a Router built from segment
     summaries (`execute(..., router=...)`) and skip the parts the router
-    rules out.  Routing prunes host-looped parts, so it requires SEGMENTED
-    or MULTILOAD with host_loop=True; MONOLITHIC and scanned MULTILOAD have
-    nothing to skip and reject it here.  `nprobe` (>= 1) is kept on routed
-    plans only.
+    rules out.  Routing prunes host-streamed parts or mesh shards, so it
+    requires SEGMENTED, MULTILOAD with host_loop=True, or DISTRIBUTED;
+    MONOLITHIC and scanned MULTILOAD are one pass with nothing to skip and
+    reject it here.  `nprobe` (>= 1) is kept on routed plans only.
 
     `tile_overrides` binds kernel tile sizes (tile_q / tile_n / tile_v /
     tile_m, the knobs kernels/ops.py accepts) onto the kernel dispatch path;
@@ -265,11 +279,7 @@ def plan_search(
     and service entry points resolve it against their own device first.
     `tune_width` is the physical signature width hint for the cache's
     bucketing.
-
-    `hierarchical` / `mesh_axes` (the distributed layout, ROADMAP queue 1
-    item 9) are taken at their defaults only.
     """
-    refuse_unported(hierarchical=hierarchical, mesh_axes=mesh_axes)
     sig_layout = SignatureLayout(signature_layout)
     model: Optional[_engines.MatchModel] = None
     match: Any = None
@@ -323,10 +333,6 @@ def plan_search(
         match = model.match_fn(use_kernel, sig_layout, tiles)
 
     layout = Layout(layout)
-    if layout in _UNPORTED_LAYOUTS:
-        raise NotImplementedError(
-            f"the {layout.value} layout is not ported yet: {_UNPORTED_LAYOUTS[layout]}"
-        )
     if part_rows is None and n_parts is not None:
         if n_parts < 1:
             raise ValueError(f"n_parts must be >= 1, got {n_parts}")
@@ -352,13 +358,16 @@ def plan_search(
     routing = Routing(routing)
     host_looped = bool(host_loop) and layout == Layout.MULTILOAD
     if routing is not Routing.NONE:
-        if not (layout == Layout.SEGMENTED or host_looped):
+        routable = (layout == Layout.SEGMENTED or host_looped
+                    or layout == Layout.DISTRIBUTED)
+        if not routable:
             raise ValueError(
-                f"routing={routing.value!r} prunes host-looped parts; a "
-                f"{layout.value} plan"
+                f"routing={routing.value!r} prunes host-streamed parts or "
+                f"mesh shards; a {layout.value} plan"
                 f"{'' if host_loop or layout != Layout.MULTILOAD else ' (scanned)'}"
-                f" is one pass over one tensor with nothing to skip -- use "
-                f"routing='none', or a SEGMENTED / MULTILOAD host_loop layout"
+                f" is one device program with nothing to skip -- use "
+                f"routing='none', or a SEGMENTED / MULTILOAD host_loop / "
+                f"DISTRIBUTED layout"
             )
         if nprobe is not None and int(nprobe) < 1:
             raise ValueError(f"nprobe must be >= 1, got {nprobe}")
@@ -367,15 +376,16 @@ def plan_search(
         nprobe = None  # full-scan plans stay equal whatever nprobe was passed
     params = SearchParams(k=k, max_count=max_count, method=method,
                           candidate_cap=candidate_cap, use_kernel=use_kernel)
-    # The histogram kernel runs on the kernel path of every ported layout,
-    # MULTILOAD included, where the JAX package keeps its plain histogram
-    # (the module docstring says why).
+    # The histogram kernel runs on the kernel path of every layout, MULTILOAD
+    # and DISTRIBUTED included, where the JAX package keeps its plain
+    # histogram (the module docstring says why).
     fused = use_kernel
     # The fused match->count->local-top-k kernel replaces the whole
     # count+select pipeline.  Single-device MONOLITHIC / SEGMENTED only, plus
     # n_objects None: the kernel masks rows by *physical* row id, so
-    # engine-filled pad rows (multiload stacks) must not be present -- padded
-    # data keeps the packed count kernel + the structural _mask_pad_counts.
+    # engine-filled pad rows (multiload stacks, mesh divisibility) must not be
+    # present -- those layouts keep the packed count kernel + the structural
+    # _mask_pad_counts.
     fused_topk = None
     if (model is not None and sig_layout is SignatureLayout.PACKED
             and use_kernel and n_objects is None
@@ -387,29 +397,10 @@ def plan_search(
         n_objects=n_objects, engine=model.engine if model else None,
         pad_value=model.pad_value_for(sig_layout) if model else None,
         fused_hist=fused, host_loop=host_looped,
+        hierarchical=bool(hierarchical), mesh_axes=tuple(mesh_axes),
         signature_layout=sig_layout, fused_match=fused_topk, routing=routing,
         nprobe=nprobe, tile_overrides=tiles,
     )
-
-
-def refuse_unported(**keywords) -> None:
-    """Raise NotImplementedError, naming its ROADMAP item, for a keyword of
-    the reference whose machinery is not ported, unless it holds its
-    default (None, False or empty)."""
-    for name, value in keywords.items():
-        if value is None or value is False or (hasattr(value, "__len__") and not len(value)):
-            continue
-        item = _UNPORTED_KEYWORDS[name]
-        raise NotImplementedError(
-            f"{name}={value!r} is not ported yet: ROADMAP queue 1 {item}; "
-            f"leave it at its default")
-
-
-_UNPORTED_KEYWORDS = {
-    "hierarchical": "item 9 (distributed layout)",
-    "mesh_axes": "item 9 (distributed layout)",
-    "mesh": "item 9 (distributed layout)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -750,7 +741,7 @@ def _route(plan: QueryPlan, router: Optional["_routing.Router"],
             f"a routing={plan.routing.value!r} plan needs router= (built "
             f"from segment summaries, e.g. SegmentedIndex.router())"
         )
-    if tuple(router.part_rows) != plan.part_rows:
+    if plan.layout != Layout.DISTRIBUTED and tuple(router.part_rows) != plan.part_rows:
         raise ValueError(
             f"router summarises parts {tuple(router.part_rows)} but the plan "
             f"lays out {plan.part_rows}; rebuild the router from the current "
@@ -795,6 +786,168 @@ def _run_host_parts(plan: QueryPlan, parts, queries, router=None,
     return _scan_host_parts(plan, parts, queries)
 
 
+# ---------------------------------------------------------------------------
+# The distributed executor: SPMD ranks over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def _mesh_axes(mesh) -> tuple[str, ...]:
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def _shard_linear_index(mesh) -> int:
+    """This rank's linearised shard index over the mesh axes (row-major), the
+    position of its row block in the data and of its buffer in a gather."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank {torch.distributed.get_rank()} is not on the mesh")
+    idx = 0
+    for c, size in zip(coord, mesh.shape):
+        idx = idx * int(size) + int(c)
+    return idx
+
+
+def _local(x):
+    """A DTensor's local tensor (a tuple of them: RANGE's (lo, hi)); a plain
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, (tuple, list)):
+        return tuple(_local(v) for v in x)
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _shard_rows(data, mesh, shard: int) -> torch.Tensor:
+    """This rank's rows: the local shard of a DTensor placed with `Shard(0)`
+    on every mesh dimension (core/distributed.data_sharding), or the row
+    block `shard` of a whole tensor that every rank holds.  The rows must
+    split evenly, as under the reference's shard_map."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    n, n_shards = int(data.shape[0]), mesh.size()
+    if n % n_shards:
+        raise ValueError(
+            f"the data's {n} rows do not split evenly over the mesh's {n_shards} "
+            f"shards; pad them (SegmentedIndex.concat_data(pad_multiple=mesh.size()))")
+    if isinstance(data, DTensor):
+        if tuple(data.placements) != (Shard(0),) * mesh.ndim:
+            raise ValueError(f"sharded data must be placed with Shard(0) on every mesh "
+                             f"dimension (distributed.data_sharding), got {data.placements}")
+        return data.to_local()
+    per = n // n_shards
+    return data[shard * per:(shard + 1) * per]
+
+
+class _MergeGroups:
+    """The process groups of one mesh's collective merge, each with its
+    ranks in shard order: the whole mesh; and, on a mesh whose first axis is
+    "pod", this rank's pod (built for every pod at once with
+    `new_subgroups_by_enumeration`) and the pod axis through this rank."""
+
+    def __init__(self, mesh):
+        dist = torch.distributed
+        layout = mesh.mesh
+        ranks = layout.flatten().tolist()
+        world = dist.get_world_size()
+        whole = dist.group.WORLD if sorted(ranks) == list(range(world)) \
+            else dist.new_group(sorted(ranks))
+        self.flat = (whole, ranks)
+        self.pod_local = self.across_pods = None
+        if _mesh_axes(mesh)[:1] == ("pod",):
+            coord = mesh.get_coordinate()
+            pods = [layout[p].flatten().tolist() for p in range(layout.shape[0])]
+            mine, _ = dist.new_subgroups_by_enumeration(pods)
+            self.pod_local = (mine, pods[coord[0]])
+            self.across_pods = (mesh.get_group("pod"),
+                                layout[(slice(None),) + tuple(coord[1:])].tolist())
+
+
+# one _MergeGroups per live mesh: groups are made collectively, once
+_GROUPS: dict = {}
+
+
+def _merge_groups(mesh) -> _MergeGroups:
+    hit = _GROUPS.get(id(mesh))
+    if hit is None or hit[0]() is not mesh:
+        hit = _GROUPS[id(mesh)] = (weakref.ref(mesh), _MergeGroups(mesh))
+    return hit[1]
+
+
+def _gather(ids: torch.Tensor, counts: torch.Tensor, group, ranks) -> tuple:
+    """All-gather the [Q, k] buffers over `group` into [S, Q, k] stacks in the
+    order of `ranks` -- the shard order of the reference's all_gather over
+    mesh axes.  (A group lists its members by global rank, which need not be
+    that order, and the merge's tie-break is positional.)"""
+    pair = torch.stack([ids, counts])
+    out = [torch.empty_like(pair) for _ in ranks]
+    torch.distributed.all_gather(out, pair, group=group)
+    at = {r: i for i, r in enumerate(torch.distributed.get_process_group_ranks(group))}
+    stacked = torch.stack([out[at[r]] for r in ranks])
+    return stacked[:, 0], stacked[:, 1]
+
+
+def _collective_merge(plan: QueryPlan, mesh, gids: torch.Tensor,
+                      gcnt: torch.Tensor) -> TopKResult:
+    """Merge every shard's buffer into the global top-k, the same on every
+    rank: one gather over the mesh, or (hierarchical plans on a mesh whose
+    first axis is "pod") a merge within the pod, then one across pods."""
+    groups = _merge_groups(mesh)
+    k = plan.params.k
+    if not (plan.hierarchical and groups.pod_local is not None):
+        # genielint: ignore[executor-sovereignty] -- the port's own executor
+        return _merge.merge_topk(*_gather(gids, gcnt, *groups.flat), k)
+    # genielint: ignore[executor-sovereignty] -- the port's own executor
+    pod = _merge.merge_topk(*_gather(gids, gcnt, *groups.pod_local), k)
+    # genielint: ignore[executor-sovereignty] -- the port's own executor
+    return _merge.merge_topk(*_gather(pod.ids, pod.counts, *groups.across_pods), k)
+
+
+def _run_sharded(plan: QueryPlan, data, queries, mesh,
+                 shard_active: Optional[np.ndarray] = None) -> TopKResult:
+    """The counterpart of the reference's shard_map body: this rank matches
+    its own rows through the shared part kernel, with ids globalised by its
+    shard's row offset, then the buffers merge collectively.  Under routing,
+    a shard that `shard_active` leaves out blanks its buffer to -1 before
+    the gather, so it contributes nothing to the merge."""
+    shard = _shard_linear_index(mesh)
+    local = _shard_rows(data, mesh, shard)
+    gids, gcnt = _part_topk(plan, local, _local(queries), shard * int(local.shape[0]))
+    if shard_active is not None and not shard_active[shard]:
+        gids, gcnt = torch.full_like(gids, -1), torch.full_like(gcnt, -1)
+    return _collective_merge(plan, mesh, gids, gcnt)
+
+
+def _run_routed_sharded(plan: QueryPlan, data, queries, mesh,
+                        router: Optional["_routing.Router"],
+                        route_queries) -> TopKResult:
+    """Routed DISTRIBUTED execution: segments map onto the shards whose row
+    ranges they overlap, unrouted shards blank their candidate buffers, and
+    ROUTED_VERIFIED re-runs the full scan when a segment with any inactive
+    shard could still reach the routed threshold.  Every rank routes the
+    same queries on the host and reads the same replicated threshold, so all
+    of them take the same branch."""
+    mask, ubs = _route(plan, router, _local(queries),
+                       None if route_queries is None else _local(route_queries))
+    n_total = int(data.shape[0])
+    n_shards = mesh.size()
+    n_local = max(n_total // n_shards, 1)
+    if sum(router.part_rows) > n_total:
+        raise ValueError(
+            f"router summarises {sum(router.part_rows)} rows but the sharded "
+            f"data holds {n_total}; rebuild the router from the current "
+            f"segments"
+        )
+    active = _routing.shard_mask(router.part_rows, mask, n_local, n_shards)
+    res = _run_sharded(plan, data, queries, mesh, shard_active=active)
+    if plan.routing is Routing.ROUTED:
+        return res
+    # a segment fully covered by active shards was scanned (possibly as a
+    # bonus rider on a routed neighbour's shard) -- verify only the rest
+    verify = _routing.segments_needing_verify(router.part_rows, active, n_local)
+    if not _skipped_could_contribute(res, ubs, verify):
+        return res
+    return _run_sharded(plan, data, queries, mesh)
+
+
 def execute(plan: QueryPlan, data, queries, mesh=None,
             router: Optional["_routing.Router"] = None,
             route_queries=None) -> TopKResult:
@@ -802,18 +955,28 @@ def execute(plan: QueryPlan, data, queries, mesh=None,
     machinery -- every index/serving entry point delegates here.
 
     `data` follows the layout: one tensor (MONOLITHIC), a list of per-part
-    tensors (SEGMENTED), a stacked [C, Nc, ...] tensor (scanned MULTILOAD) or
-    a list of per-part tensors or numpy arrays, on the device or in host
-    memory (MULTILOAD host loop).
+    tensors (SEGMENTED), a stacked [C, Nc, ...] tensor (scanned MULTILOAD), a
+    list of per-part tensors or numpy arrays, on the device or in host
+    memory (MULTILOAD host loop), or -- on every rank of `mesh=`, a
+    `DeviceMesh` (launch/mesh.py) -- a DTensor placed with
+    `distributed.data_sharding(mesh)` or the whole tensor (DISTRIBUTED; the
+    queries as a DTensor replicated on the mesh or a plain tensor).  A
+    DISTRIBUTED plan returns the same result on every rank; other layouts
+    ignore `mesh=`, as in the reference.
 
     Routed plans (`plan.routing` != NONE) need `router=` -- a
     `routing.Router` over the current segments' summaries
     (`SegmentedIndex.router()`).  `route_queries=` supplies the canonical
     WIDE queries the summaries score against; it defaults to `queries` and
     must be passed whenever `queries` are PACKED (the router cannot read
-    packed words).  `mesh=` belongs to the distributed layout (ROADMAP
-    queue 1 item 9) and is taken at its default, None, only."""
-    refuse_unported(mesh=mesh)
+    packed words)."""
+    if plan.layout == Layout.DISTRIBUTED:
+        if mesh is None:
+            raise ValueError("a DISTRIBUTED plan executes on a mesh; pass mesh=")
+        if plan.routing is not Routing.NONE:
+            return _run_routed_sharded(plan, data, queries, mesh, router,
+                                       route_queries)
+        return _run_sharded(plan, data, queries, mesh)
     if plan.layout == Layout.SEGMENTED or (plan.layout == Layout.MULTILOAD and plan.host_loop):
         return _run_host_parts(plan, data, queries, router=router,
                                route_queries=route_queries)

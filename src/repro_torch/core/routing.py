@@ -297,8 +297,7 @@ class Router:
 
 
 # ---------------------------------------------------------------------------
-# Shard-mask helpers for the DISTRIBUTED layout (segments -> mesh shards);
-# the layout itself is ROADMAP queue 1 item 9
+# Shard-mask helpers for the DISTRIBUTED layout (segments -> mesh shards)
 # ---------------------------------------------------------------------------
 
 def shard_mask(part_rows: Sequence[int], segment_mask: np.ndarray,

@@ -38,8 +38,12 @@ wait (`max_wait_us` / `max_batch`), and tenant lifecycle uses the
 fault-tolerance heartbeats (runtime/fault_tolerance.py): every submit/add
 beats the tenant's slot, `idle_tenants()` lists tenants whose heartbeat
 expired, and `drain(tenant)` stops admission, waits for in-flight work and
-releases the tenant.  A shared device mesh (`mesh=`) is ROADMAP queue 1
-item 9 and raises NotImplementedError.
+releases the tenant.  `mesh=` (a `DeviceMesh`, launch/mesh.py) is the
+shared mesh every tenant that `create_tenant` builds serves sharded on
+(`RetrievalService(mesh=)`).  The dispatch thread runs each search's
+collectives; on a mesh of several ranks every rank must then dispatch the
+same batches in the same order, which coalescing by arrival time does not
+promise (ROADMAP: open for a run on several cards).
 """
 from __future__ import annotations
 
@@ -176,15 +180,11 @@ class ServingFrontend:
                  max_batch: int = 1024, max_wait_us: int = 2000,
                  heartbeat_timeout_s: float = 60.0, max_tenants: int = 64,
                  metrics_window: int = 2048, start: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a shared device mesh (mesh=) is not ported yet: ROADMAP "
-                "queue 1 item 9 (distributed layout)")
         if max_tenants < 1:
             raise ValueError(f"max_tenants must be >= 1, got {max_tenants}")
         if max_wait_us < 0:
             raise ValueError(f"max_wait_us must be >= 0, got {max_wait_us}")
-        self.mesh = None
+        self.mesh = mesh
         self._queue = RequestQueue(max_queue=max_queue, max_batch=max_batch,
                                    max_wait_s=max_wait_us * 1e-6)
         self._metrics = FrontendMetrics(window=metrics_window)
@@ -257,9 +257,10 @@ class ServingFrontend:
         return service
 
     def create_tenant(self, name: str, **retrieval_kwargs) -> RetrievalService:
-        """Build and register a `RetrievalService` tenant (keyword args go
-        to the RetrievalService constructor; `device=None` is the card)."""
-        return self.register(name, RetrievalService(**retrieval_kwargs))
+        """Build and register a `RetrievalService` tenant on the shared mesh
+        (keyword args go to the RetrievalService constructor; `device=None`
+        is the mesh's device type, or the card without a mesh)."""
+        return self.register(name, RetrievalService(mesh=self.mesh, **retrieval_kwargs))
 
     def _tenant(self, name: str, *, for_submit: bool = False) -> _Tenant:
         with self._reg:

@@ -45,8 +45,19 @@ consulted by every search plan, resolved against the service's device; a
 miss or a fingerprint mismatch keeps the defaults.  `tune()` measures the
 serving shape and installs the winner.
 
-Not ported yet (raises NotImplementedError naming its ROADMAP item):
-sharded serving (`mesh=`).
+Sharded serving: pass `mesh=` (a `DeviceMesh`, launch/mesh.py) and `search`
+plans the segmented corpus across the mesh via the DISTRIBUTED layout --
+segments are concatenated in global-id order, padded up to mesh
+divisibility, sharded over every mesh axis (a DTensor placed with
+`distributed.data_sharding`), and served through the same unified executor
+(core/plan.py) as single-device search, so results are identical.  The
+sharded placement is cached between searches and refreshed only when the
+corpus changes (an `add` or a compaction).  The mesh fixes the device type:
+`device` defaults to it.  Like the reference's single controller, which
+holds its segments on its default device beside the sharded copy, every
+rank of an SPMD program holds the whole segmented index (every rank calls
+`add` and `search` with the same arguments), and the placement is a second
+copy of the corpus (ROADMAP: open for a run on several cards).
 """
 from __future__ import annotations
 
@@ -56,7 +67,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import SegmentedIndex, TopKMethod
+from repro_torch.core import SegmentedIndex, TopKMethod, distributed
 from repro_torch.core import engines as engines_lib
 from repro_torch.core import lsh as lsh_lib
 from repro_torch.core import plan as plan_lib
@@ -80,7 +91,7 @@ class RetrievalService:
     seed: int = 0
     m_override: Optional[int] = None
     max_segments: int = 16                         # compaction trigger for add()
-    mesh: None = None                              # sharded serving: not ported
+    mesh: Optional[object] = None                  # a DeviceMesh: serve sharded
     signature_layout: SignatureLayout | str = SignatureLayout.WIDE
     # measured-knob cache (core/autotune.py): True = the default per-user
     # cache file, a path = that file, an AutotuneCache = itself.  Consulted
@@ -97,11 +108,18 @@ class RetrievalService:
     params: Optional[object] = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
         if self.mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh=) is not ported yet: ROADMAP queue 1 "
-                "item 9 (distributed layout)")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(self.mesh, DeviceMesh):
+                raise TypeError(f"mesh= takes a DeviceMesh (launch/mesh.py), got "
+                                f"{type(self.mesh).__name__}")
+            if self.device is None:
+                self.device = self.mesh.device_type
+        self.device = resolve_device(self.device)
+        if self.mesh is not None and self.device.type != self.mesh.device_type:
+            raise ValueError(f"the service runs on {self.device} and its mesh on "
+                             f"{self.mesh.device_type} devices")
         # full float32 for the LSH projection (see the module docstring)
         torch.backends.cuda.matmul.allow_tf32 = False
         self.m = self.m_override or tau_ann.required_m(self.eps, self.delta)
@@ -118,7 +136,10 @@ class RetrievalService:
             self.load_params(self.params)
         self._index: Optional[SegmentedIndex] = None
         self._items: list = []
-        # (corpus fingerprint, Router) of the last routed search
+        # sharded-serving placement cache: (corpus fingerprint, data, n)
+        self._placed: Optional[tuple] = None
+        # router cache: (corpus fingerprint, Router) -- invalidated by the
+        # same fingerprint that refreshes the sharded placement
         self._routed: Optional[tuple] = None
 
     def load_params(self, params) -> None:
@@ -216,9 +237,23 @@ class RetrievalService:
         idx = self._index
         return (len(idx.segments), idx.n_objects, idx.compaction_count)
 
+    def _sharded_corpus(self) -> tuple:
+        """(sharded data, n_objects), cached until the corpus changes."""
+        from torch.distributed.tensor import distribute_tensor
+
+        fp = self._corpus_fingerprint()
+        if self._placed is None or self._placed[0] != fp:
+            self._placed = None                # the old placement goes first
+            data, n = self._index.concat_data(pad_multiple=self.mesh.size())
+            # every rank holds the same corpus: each takes its own rows
+            data = distribute_tensor(data, self.mesh, distributed.data_sharding(self.mesh),
+                                     src_data_rank=None)
+            self._placed = (fp, data, n)
+        return self._placed[1], self._placed[2]
+
     def _router(self) -> routing_lib.Router:
         """Router over the current segments' summaries, cached until the
-        corpus changes."""
+        corpus changes (same fingerprint as the sharded placement)."""
         fp = self._corpus_fingerprint()
         if self._routed is None or self._routed[0] != fp:
             self._routed = (fp, self._index.router())
@@ -254,10 +289,13 @@ class RetrievalService:
                          candidate_cap: Optional[int] = None) -> tuple:
         """The coalescing key of a search against this service (core/plan.py
         `batch_compat_key`): two submissions with equal keys can stack into
-        one device dispatch."""
+        one device dispatch.  The layout axis is resolved the way `search`
+        will execute -- DISTRIBUTED on a mesh-backed service, SEGMENTED
+        otherwise."""
+        layout = (plan_lib.Layout.DISTRIBUTED if self.mesh is not None
+                  else plan_lib.Layout.SEGMENTED)
         return plan_lib.batch_compat_key(
-            self._scheme.engine, plan_lib.Layout.SEGMENTED,
-            self.signature_layout, routing,
+            self._scheme.engine, layout, self.signature_layout, routing,
             method, k, nprobe=nprobe, candidate_cap=candidate_cap)
 
     def search(self, queries, k: int = 10, *, embeddings=None,
@@ -283,13 +321,40 @@ class RetrievalService:
         routing = routing_lib.Routing(routing)
         emb = self.resolve_queries(queries, embeddings)
         qsigs = self._hash(emb)
-        # the cached router rides into the segment search, so interleaved
-        # add / search rebuild routing state only when the corpus changed
+        # the cached router rides into the search, so interleaved add /
+        # search rebuild routing state only when the corpus changed
         router = self._router() if routing is not routing_lib.Routing.NONE else None
-        res = self._index.search(qsigs, k=k, method=method,
-                                 candidate_cap=candidate_cap, routing=routing,
-                                 nprobe=nprobe, router=router,
-                                 autotune=self._autotune_cache())
+        if self.mesh is None:
+            res = self._index.search(qsigs, k=k, method=method,
+                                     candidate_cap=candidate_cap, routing=routing,
+                                     nprobe=nprobe, router=router,
+                                     autotune=self._autotune_cache())
+        else:
+            # sharded serving: the segmented corpus planned across the mesh
+            # via the DISTRIBUTED layout, served by the same executor --
+            # results are identical to the single-device segment merge
+            data, n = self._sharded_corpus()
+            plan = plan_lib.plan_search(
+                self._scheme.engine, k, self._index.max_count,
+                layout=plan_lib.Layout.DISTRIBUTED, n_objects=n, method=method,
+                candidate_cap=candidate_cap,
+                use_kernel=self._index.use_kernel,
+                mesh_axes=plan_lib._mesh_axes(self.mesh),
+                signature_layout=self.signature_layout,
+                routing=routing, nprobe=nprobe,
+                autotune=self._autotune_cache(),
+                tune_width=int(data.shape[1]),
+            )
+            model = engines_lib.get(self._scheme.engine)
+            # the router scores canonical WIDE queries; the executor gets
+            # them packed when the corpus is PACKED.  Every rank holds the
+            # same queries: they are replicated as they stand.
+            q_wide = model.prepare_queries(qsigs, self.device)
+            canonical = q_wide
+            if SignatureLayout(self.signature_layout) is SignatureLayout.PACKED:
+                canonical = model.pack_queries(q_wide)
+            res = plan_lib.execute(plan, data, canonical, mesh=self.mesh,
+                                   router=router, route_queries=q_wide)
         # scheme-paired MLE: c/m for bucketed families (Eqn 7), the simhash
         # angle inversion for COSINE
         sims = self._scheme.mle(res.counts.cpu().numpy(), self.m)

@@ -1,5 +1,6 @@
 """The port's serving front-end (`repro_torch.serve.frontend`, `scheduler`,
-`metrics`): tests/test_frontend.py without its mesh case.
+`metrics`): tests/test_frontend.py (its mesh case on a one-rank gloo mesh
+here, and with the placement cache in tests/test_torch_distributed.py).
 
 The load-bearing invariant: a coalesced dispatch stacks the query rows of
 several requests and runs at the shared bucketed k; each request's result is
@@ -43,6 +44,15 @@ from repro_torch.serve.scheduler import Request, RequestQueue, coalesce
 ENGINES = ["eq", "range", "minsum", "ip", "tanimoto", "cosine"]
 SEG_ROWS = (40, 25, 17)
 WAIT = 30                      # seconds: every wait in this file is bounded
+
+
+def _jax_e2lsh(a, b, seeds):
+    import jax.numpy as jnp
+
+    from repro.core.lsh.e2lsh import E2LSHParams
+
+    return E2LSHParams(a=jnp.asarray(a), b=jnp.asarray(b), seeds=jnp.asarray(seeds), w=4.0, p=2,
+                       n_buckets=8192)
 
 
 def _example(engine: str, n: int, q: int, seed: int = 0):
@@ -396,8 +406,35 @@ def test_draining_tenant_rejects_submit_and_add():
 
 
 def test_registration_rules_and_the_unported_mesh():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServingFrontend(mesh=object())
+    """Registration rules, and the shared mesh (once refused as unported): a
+    tenant `create_tenant` builds serves sharded on it, as the reference's
+    does on its one-device mesh."""
+    from repro.launch import mesh as jmesh
+    from repro.serve import ServingFrontend as JServingFrontend
+    from repro_torch.launch import mesh as tmesh
+
+    pts = np.random.default_rng(5).integers(-6, 7, size=(48, 6)).astype(np.float32)
+    a = (np.arange(48, dtype=np.float32).reshape(8, 6) % 7 - 3) / 4
+    b, seeds = np.arange(8, dtype=np.float32) / 4, np.arange(1, 9, dtype=np.uint32) * 977
+    fe = ServingFrontend(mesh=tmesh.make_mesh((1,), ("data",), device="cpu"), max_wait_us=0)
+    jfe = JServingFrontend(mesh=jmesh.make_mesh((1,), ("data",)), max_wait_us=0)
+    try:
+        svc = fe.create_tenant("t", embed_fn=np.asarray, m_override=8,
+                               params=e2lsh.params_from_numpy(a, b, seeds, 4.0, 2, 8192,
+                                                              device="cpu"))
+        jsvc = jfe.create_tenant("t", embed_fn=np.asarray, m_override=8)
+        jsvc._params, jsvc._dim = _jax_e2lsh(a, b, seeds), 6   # test code only
+        assert svc.mesh is fe.mesh and svc.device.type == "cpu"
+        for f, start, stop in ((fe, 0, 20), (fe, 20, 48), (jfe, 0, 20), (jfe, 20, 48)):
+            f.add("t", list(range(start, stop)), embeddings=pts[start:stop])
+        q = pts[::7] + 0.25
+        res, sims = fe.search("t", None, k=4, embeddings=q, timeout=WAIT)
+        jres, jsims = jfe.search("t", None, k=4, embeddings=q)
+        _assert_result_equal(jres, jsims, res, sims)
+        assert svc._placed is not None and svc._placed[2] == 48
+    finally:
+        fe.close(timeout=WAIT)
+        jfe.close()
     fe = ServingFrontend(max_tenants=1, start=False)
     try:
         with pytest.raises(TypeError, match="must provide add"):

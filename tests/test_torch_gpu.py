@@ -855,3 +855,84 @@ def test_a_shape_over_the_shared_memory_budget_is_never_a_candidate():
     assert autotune.tile_candidates("tile_n", 281250, "packed_cosine_topk", width=8) == [128, 2048]
     assert autotune.tile_candidates("tile_n", 281250, "packed_cosine_topk", width=8,
                                     smem_budget=wide - 1) == [128]
+
+
+DIST_CASES = [("eq", "wide", "match_count"), ("range", "wide", "range_count"),
+              ("minsum", "wide", "minsum_count"), ("ip", "wide", "ip_count"),
+              ("cosine", "wide", "cosine_count"), ("cosine", "packed", "packed_cosine_count"),
+              ("tanimoto", "wide", "tanimoto_count"),
+              ("tanimoto", "packed", "packed_tanimoto_count")]
+
+
+@pytest.mark.gpu
+def test_distributed_layout_on_one_nccl_rank_equals_the_segmented_search():
+    """chip_smoke.py's phase 4k (i) at a smaller size: on a one-rank NCCL
+    mesh, flat and pod (whose hierarchical plans run the two-level merge),
+    every engine and layout, both paths and CPQ / SPQ / SORT over data
+    padded to a multiple of 8, the DISTRIBUTED search equals the SEGMENTED
+    one (SPQ: the padded data as one host-loop part, whose pad rows its
+    range narrowing sees, as in the JAX package), launches the engine's count
+    kernel once on the kernel path, and ROUTED_VERIFIED at nprobe 1 equals
+    NONE."""
+    _need_card()
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.core import Engine, SegmentedIndex, distributed, engines, plan
+    from repro_torch.launch import mesh as mesh_lib
+
+    if dist.is_initialized() and "nccl" not in str(dist.get_backend()):
+        dist.destroy_process_group()        # a CPU test's gloo group: a CUDA mesh needs NCCL
+    started = not dist.is_initialized()
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    rows = [200, 71, 150, 29, 153]           # 603: five pad rows to 608
+    try:
+        meshes = {"flat": mesh_lib.make_mesh((1,), ("data",)),
+                  "pod": mesh_lib.make_mesh((1, 1, 1), ("pod", "data", "model"))}
+        for name, layout, kernel in DIST_CASES:
+            model = engines.get(name)
+            raw, queries, mc = model.example(np.random.default_rng(17), sum(rows), 9)
+            q_wide = model.prepare_queries(queries, cuda)
+            q_exec = model.pack_queries(q_wide) if layout == "packed" else q_wide
+            for use_kernel in (True, False):
+                index = SegmentedIndex(Engine(name), max_count=mc, use_kernel=use_kernel,
+                                       device=cuda, signature_layout=layout)
+                lo = 0
+                for r in rows:
+                    index.add(raw[lo:lo + r])
+                    lo += r
+                data, n = index.concat_data(pad_multiple=8)
+                assert data.shape[0] == 608 and n == 603
+                for method in TopKMethod:
+                    want = index.search(queries, k=12, method=method)
+                    if method is TopKMethod.SPQ:
+                        one = plan.plan_search(name, 12, index.max_count, layout="multiload",
+                                               part_rows=(608,), n_objects=n, host_loop=True,
+                                               method=method, use_kernel=use_kernel,
+                                               signature_layout=layout)
+                        want = plan.execute(one, [data], q_exec)
+                    for merge, mesh in meshes.items():
+                        placed = distribute_tensor(data, mesh, distributed.data_sharding(mesh),
+                                                   src_data_rank=None)
+                        kw = dict(layout="distributed", n_objects=n, method=method,
+                                  use_kernel=use_kernel, hierarchical=merge == "pod",
+                                  mesh_axes=mesh.mesh_dim_names, signature_layout=layout)
+                        p = plan.plan_search(name, 12, index.max_count, **kw)
+                        common.reset_launch_counts()
+                        got = plan.execute(p, placed, q_exec, mesh=mesh)
+                        torch.cuda.synchronize()
+                        launches = common.launch_counts()
+                        what = (name, layout, use_kernel, method, merge)
+                        assert torch.equal(got.ids, want.ids), what
+                        assert torch.equal(got.counts, want.counts), what
+                        assert torch.equal(got.threshold, want.threshold), what
+                        assert (launches.get(kernel) == 1) if use_kernel else launches == {}, \
+                            (what, launches)
+                        p = plan.plan_search(name, 12, index.max_count, routing="routed_verified",
+                                             nprobe=1, **kw)
+                        ver = plan.execute(p, placed, q_exec, mesh=mesh, router=index.router(),
+                                           route_queries=q_wide)
+                        assert torch.equal(ver.ids, got.ids) and torch.equal(ver.counts, got.counts)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

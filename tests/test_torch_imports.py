@@ -36,7 +36,8 @@ def test_module_list_covers_the_slice():
                  "repro_torch.core.routing", "repro_torch.runtime",
                  "repro_torch.runtime.fault_tolerance", "repro_torch.serve.frontend",
                  "repro_torch.serve.scheduler", "repro_torch.serve.metrics",
-                 "repro_torch.core.autotune"):
+                 "repro_torch.core.autotune", "repro_torch.core.distributed",
+                 "repro_torch.launch", "repro_torch.launch.mesh"):
         assert name in _MODULES
 
 

@@ -195,9 +195,23 @@ def test_describe_equals_reference_where_ported(layout, rows, n_objects, use_ker
     want = jplan.plan_search("eq", 12, 24, **{**kw, "method": JMethod.SPQ}).describe()
     assert set(got) <= set(want)
     assert got == {key: want[key] for key in got}
-    # every key of the reference is there (the unported machinery at its
-    # defaults)
+    # every key of the reference is there
     assert set(want) - set(got) == set()
+
+
+@pytest.mark.parametrize("hierarchical,axes", [(False, ("data", "model")),
+                                               (True, ("pod", "data", "model"))])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_describe_of_a_distributed_plan_equals_reference(hierarchical, axes, use_kernel):
+    """Every key of the reference's DISTRIBUTED plan, but `fused_hist`: the
+    port keeps the histogram kernel on its kernel path (core/plan.py)."""
+    kw = dict(layout="distributed", n_objects=130, candidate_cap=21, use_kernel=use_kernel,
+              hierarchical=hierarchical, mesh_axes=axes)
+    got = plan_search("eq", 12, 24, **kw).describe()
+    want = jplan.plan_search("eq", 12, 24, **kw).describe()
+    assert got["merge"] == ("collective-hierarchical" if hierarchical else "collective")
+    assert got["fused_hist"] is use_kernel and want["fused_hist"] is False
+    assert {**got, "fused_hist": False} == want
 
 
 def test_plan_is_hashable_and_validates():
@@ -214,16 +228,20 @@ def test_plan_is_hashable_and_validates():
         plan_search(Engine.EQ, 5, 24, layout=Layout.SEGMENTED, part_rows=(3, 0))
     with pytest.raises(ValueError, match="no packed signature format"):
         plan_search(Engine.EQ, 5, 24, signature_layout=SignatureLayout.PACKED)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        plan_search(Engine.EQ, 5, 24, layout=Layout.DISTRIBUTED, part_rows=(3,))
-    # routing is ported: a routed SEGMENTED plan keeps its nprobe, and a
-    # routed DISTRIBUTED one still names the distributed layout's item
+    # the distributed layout plans as the reference plans it, routed or not,
+    # and executes only on a mesh, with the reference's error
+    dist = plan_search(Engine.EQ, 5, 24, layout=Layout.DISTRIBUTED, part_rows=(3,))
+    assert dist.layout is Layout.DISTRIBUTED and dist.merge_strategy() == "collective"
     routed = plan_search(Engine.EQ, 5, 24, layout=Layout.SEGMENTED, part_rows=(3,),
                          routing=Routing.ROUTED_VERIFIED, nprobe=2)
     assert routed.routing is Routing.ROUTED_VERIFIED and routed.nprobe == 2
-    with pytest.raises(NotImplementedError, match="item 9"):
-        plan_search(Engine.EQ, 5, 24, layout=Layout.DISTRIBUTED, part_rows=(3,),
-                    routing=Routing.ROUTED_VERIFIED)
+    routed = plan_search(Engine.EQ, 5, 24, layout=Layout.DISTRIBUTED, part_rows=(3,),
+                         routing=Routing.ROUTED_VERIFIED)
+    assert routed.routing is Routing.ROUTED_VERIFIED and routed.nprobe is None
+    for plan in (dist, routed):
+        with pytest.raises(ValueError, match="a DISTRIBUTED plan executes on a mesh; pass mesh="):
+            execute(plan, torch.zeros((4, 24), dtype=torch.int32),
+                    torch.zeros((1, 24), dtype=torch.int32))
     with pytest.raises(ValueError, match="plan lays out 2 parts"):
         execute(a, [torch.zeros((4, 24), dtype=torch.int32)], torch.zeros((1, 24), dtype=torch.int32))
     with pytest.raises(ValueError, match="plan says 9"):

@@ -39,16 +39,16 @@ def _fill(svc, emb):
         start += rows
 
 
-def _dyadic_pair(rng):
+def _dyadic_pair(rng, mesh=None, jmesh=None):
     a = rng.integers(-128, 129, size=(M, DIM)).astype(np.float32) / 64.0
     b = rng.integers(0, 256, size=(M,)).astype(np.float32) / 64.0
     seeds = rng.integers(0, 2**31 - 1, size=M).astype(np.uint32)
     jparams = je2lsh.E2LSHParams(a=jnp.asarray(a), b=jnp.asarray(b), seeds=jnp.asarray(seeds),
                                  w=4.0, p=2, n_buckets=8192)
-    jsvc = JRetrievalService(embed_fn=np.asarray, m_override=M, max_segments=4)
+    jsvc = JRetrievalService(embed_fn=np.asarray, m_override=M, max_segments=4, mesh=jmesh)
     # test code only: install the parameters before the first add()
     jsvc._params, jsvc._dim = jparams, DIM
-    return _carry(jparams), jsvc
+    return _carry(jparams, mesh=mesh), jsvc
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
@@ -168,16 +168,15 @@ def test_constructor_validation():
         RetrievalService(m_override=8, scheme="no-such-scheme", device="cpu")
     with pytest.raises(ValueError, match="no embed_fn"):
         RetrievalService(m_override=8, device="cpu").add(["a"])
+    with pytest.raises(TypeError, match="mesh= takes a DeviceMesh"):
+        RetrievalService(m_override=8, device="cpu", mesh=object())
 
 
-UNPORTED = {
-    "mesh": (lambda: RetrievalService(m_override=8, device="cpu", mesh=object()), "item 9"),
-}
-# routed search (ROADMAP queue 1 item 6) and the autotuner (item 8) raised
-# here until they were ported
+# routed search (ROADMAP queue 1 item 6), the autotuner (item 8) and sharded
+# serving (item 9) raised here until they were ported
 PORTED = {"routing": dict(routing="routed"),
           "nprobe": dict(routing="routed_verified", nprobe=2),
-          "autotune": {}, "tune": {}}
+          "autotune": {}, "tune": {}, "mesh": {}}
 
 
 def _tuned_caches(n: int):
@@ -199,16 +198,19 @@ def _tuned_caches(n: int):
 
 @pytest.mark.parametrize("case", ["mesh", "autotune", "tune", "routing", "nprobe"])
 def test_unported_parameters_raise_and_name_their_roadmap_item(case, rng):
-    """What is not ported raises NotImplementedError naming its ROADMAP item;
-    the routing keywords and the autotuner (`autotune=` with a tuned entry
-    that switches the layout, `tune()`), ported since, search as the
-    reference does."""
-    if case in UNPORTED:
-        act, item = UNPORTED[case]
-        with pytest.raises(NotImplementedError, match=item):
-            act()
-        return
-    svc, jsvc = _dyadic_pair(rng)
+    """Parameters that once raised NotImplementedError naming their ROADMAP
+    item search as the reference does now: the routing keywords, the
+    autotuner (`autotune=` with a tuned entry that switches the layout,
+    `tune()`) and sharded serving (`mesh=`: a one-rank gloo mesh against
+    the reference's one-device mesh, through two compactions)."""
+    mesh = {}
+    if case == "mesh":
+        from repro.launch import mesh as jmesh
+        from repro_torch.launch import mesh as tmesh
+
+        mesh = dict(mesh=tmesh.make_mesh((1,), ("data",), device="cpu"),
+                    jmesh=jmesh.make_mesh((1,), ("data",)))
+    svc, jsvc = _dyadic_pair(rng, **mesh)
     emb = rng.integers(-6, 7, size=(sum(BATCHES), DIM)).astype(np.float32)
     _fill(svc, emb)
     _fill(jsvc, emb)
@@ -224,6 +226,11 @@ def test_unported_parameters_raise_and_name_their_roadmap_item(case, rng):
     assert np.array_equal(res.counts.numpy(), np.asarray(jres.counts))
     assert np.array_equal(res.threshold.numpy(), np.asarray(jres.threshold))
     assert np.array_equal(sims, jsims)
+    if case == "mesh":                         # served from the sharded placement
+        assert svc._placed is not None and svc._placed[2] == len(svc) == len(jsvc)
+        key, jkey = svc.batch_compat_key(7, "cpq", "none"), jsvc.batch_compat_key(7, "cpq", "none")
+        assert [getattr(x, "value", x) for x in key] == [getattr(x, "value", x) for x in jkey]
+        assert key[1].value == "distributed"
 
 
 def test_load_params_rules(rng):

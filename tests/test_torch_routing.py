@@ -445,10 +445,9 @@ def test_entry_points_take_the_reference_keywords_at_their_defaults(rng, tmp_pat
     `tile_overrides=None` gave [[0], [1], [2]] in the reference and a
     TypeError in the port.  Every search entry point now takes the
     reference's full keyword set at its defaults with the reference's
-    result; the autotuner's keywords (ROADMAP queue 1 item 8, ported since)
-    search with other values as the reference does, and a value other than
-    the default of the distributed layout's raises NotImplementedError
-    naming item 9."""
+    result; the autotuner's keywords (ROADMAP queue 1 item 8) and the
+    distributed layout's (item 9), ported since, plan and search with other
+    values as the reference does."""
     # the default caches of both packages: files that do not exist
     monkeypatch.setenv("GENIE_AUTOTUNE_CACHE", str(tmp_path / "jax.json"))
     monkeypatch.setenv("GENIE_TORCH_AUTOTUNE_CACHE", str(tmp_path / "torch.json"))
@@ -490,13 +489,20 @@ def test_entry_points_take_the_reference_keywords_at_their_defaults(rng, tmp_pat
         _same(act(idx, seg), act(jidx, jseg))
     assert (tplan.plan_search(Engine.EQ, 2, 4, tune_width=4).describe()
             == jplan.plan_search(JEngine.EQ, 2, 4, tune_width=4).describe())
-    # anything but the default of the distributed layout names its item
-    refused = [
-        (lambda: tplan.plan_search(Engine.EQ, 2, 4, hierarchical=True), "item 9"),
-        (lambda: tplan.plan_search(Engine.EQ, 2, 4, mesh_axes=("data",)), "item 9"),
-        (lambda: tplan.execute(plan, [s.data for s in seg.segments], q, mesh=object()),
-         "item 9"),
-    ]
-    for act, item in refused:
-        with pytest.raises(NotImplementedError, match=item):
-            act()
+    # the distributed layout's keywords (item 9, ported since) with values:
+    # the reference's plans and results, on a one-rank gloo mesh against its
+    # one-device mesh
+    from repro.launch import mesh as jmesh
+    from repro_torch.launch import mesh as tmesh
+
+    mesh, jm = tmesh.make_mesh((1,), ("data",), device="cpu"), jmesh.make_mesh((1,), ("data",))
+    for kw in (dict(hierarchical=True), dict(mesh_axes=("data",))):
+        assert (tplan.plan_search(Engine.EQ, 2, 4, **kw).describe()
+                == jplan.plan_search(JEngine.EQ, 2, 4, **kw).describe())
+    # a SEGMENTED plan ignores mesh=, in both packages
+    _same(tplan.execute(plan, [s.data for s in seg.segments], q, mesh=mesh),
+          jplan.execute(jp, [s.data for s in jseg.segments], jnp.asarray(data), mesh=jm))
+    dist_kw = dict(layout="distributed", mesh_axes=("data",), hierarchical=True)
+    _same(tplan.execute(tplan.plan_search(Engine.EQ, 2, 4, **dist_kw), q, q, mesh=mesh),
+          jplan.execute(jplan.plan_search(JEngine.EQ, 2, 4, **dist_kw), jnp.asarray(data),
+                        jnp.asarray(data), mesh=jm))
