@@ -7,9 +7,9 @@ Builds the CUDA kernels from `src/repro_torch/kernels/csrc/` (first use
 builds them), then runs these phases -- 1 to 3d, 4g's padded round trips and
 3e in order, then each full-width phase followed by its multiple-loading
 case and its kernels' times (4, 5, 4g, 4h, 4i, 5's block shapes, 4j, 4k, 4b,
-4g, 5b, 4j, 4c, 4g, 5c, 4c', 4d, 4i, 5d, 4e, 5d, 4f, 5d), and last DBLP at
-its full size through multiple loading (4g) -- and fails (non-zero exit, no
-result line) as soon as a phase fails.  The kernels compiled in several
+4g, 5b, 4j, 4c, 4g, 5c, 4c', 4d, 4i, 5d, 4e, 5d, 4f, 5d), then DBLP at
+its full size through multiple loading (4g), and last 6a to 6e -- and fails
+(non-zero exit, no result line) as soon as a phase fails.  The kernels compiled in several
 block shapes, which the tile knobs select (`kernels/ops.py` VARIANTS), are
 held and timed in each: match_count and tanimoto_count with 128 and 32
 query rows a block (phases 2, 2c: each shape through its C entry at every
@@ -196,6 +196,27 @@ PACKED search with a tuned 1024-row tile in turns with the default):
      Adult, DBLP and Tweets segments.  5b and 5d log the loader that
      cosine_count and ip_count take at their per-segment shapes.
 
+  6. the slice's modules and entry points: 6a. the CSR postings engine
+     (core/postings.py) over the e2lsh signatures of one SIFT segment (N =
+     281,250, m = 238, D = 67; keywords i * 67 + sig[:, i]): the host build,
+     scan_counts_tiled on the card at split limits max_list_len, 4096 and
+     1024, each equal to match_count on the same signatures bit for bit, and
+     CPU-Idx (numpy) equal to both on 4 queries; 6b. the paper's
+     load-balance study (Fig 12) with benchmarks/fig12_load_balance.py's
+     keyword law at Adult's N = 980,000, Q = 16, the tiled scans equal to
+     CPU-Idx on the queries' distinct keywords; 6c. the dry-run's cells
+     (launch/dryrun.py) for the six datasets on 1 and 4 cards, and its memory
+     model against phase 4k's measured peak (fails beyond 25 %); 6d. LM
+     serving: ServeEngine.generate on smollm-360m at full size and on
+     qwen2-moe-a2.7b at full width cut to 4 of 24 layers, 8 prompts of 128
+     tokens, greedy twice (the same tokens), one decode step against a
+     teacher-forced forward (5e-2; the MoE at capacity factor 64 and float32
+     compute), one decode step profiled, the MoE's slots dropped at its
+     shipped capacity factor; 6e. `launch/serve` over 200,000 documents
+     embedded through smollm-360m's table (4 batches of 1024 queries) and
+     the four examples at the reference's sizes, each search launching its
+     count kernel and cpq_hist (quickstart's self-retrieval 1.000).
+
 It needs one CUDA device and no network, and imports neither jax nor the JAX
 package.  The last line of its output is one JSON object
 `{"ok": true, "device": {...}}`; the line before it lists the kernels.
@@ -214,6 +235,7 @@ import warnings
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate, and
@@ -1144,7 +1166,7 @@ def search_split(svc, queries: torch.Tensor, k: int, device: torch.device) -> No
     log(f"    {'sum':17s} {total:9.2f}")
 
 
-def profile_one_search(search, device: torch.device) -> None:
+def profile_one_search(search, device: torch.device, what: str = "search") -> None:
     """One search (`search()`) under torch.profiler: the share of the
     search's wall time in which the device was busy (kernels on one stream do
     not overlap, so their times add up), and the kernels that took most of
@@ -1170,7 +1192,7 @@ def profile_one_search(search, device: torch.device) -> None:
     if busy_ms == 0:
         log("  profiler: no device time recorded; device busy share not measured")
         return
-    log(f"  profiler: one search {wall_ms:.1f} ms wall under the profiler, device busy "
+    log(f"  profiler: one {what} {wall_ms:.1f} ms wall under the profiler, device busy "
         f"{busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% (idle {100 - 100 * busy_ms / wall_ms:.1f}%); "
         f"device time by kernel:")
     for ms, count, key in rows[:10]:
@@ -3770,6 +3792,399 @@ def phase_distributed(device: torch.device) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phases 6a-6e: the postings engine and its load balance, the dry-run's memory
+# model, LM serving at full width, and the entry points
+# ---------------------------------------------------------------------------
+
+POSTINGS_N, POSTINGS_M, POSTINGS_D = FULL_N // FULL_SEGMENTS, 238, 67   # a SIFT segment
+POSTINGS_Q, CPU_IDX_Q = 64, 4
+BALANCE_M, BALANCE_SPACE, BALANCE_Q = 8, 256, 16      # fig12_load_balance.py's law
+
+
+def tiled_scans(pidx, qkw: np.ndarray, want: torch.Tensor, device: torch.device,
+                hw: str) -> dict:
+    """`scan_counts_tiled` at split limits max_list_len, 4096 and 1024 on the
+    card, each equal to `want` bit for bit; returns {limit: (tiles, pad
+    ratio, ms a query)}."""
+    out = {}
+    q_dev = torch.from_numpy(qkw).to(device)
+    for limit in (pidx.stats.max_list_len, 4096, 1024):
+        t0 = time.perf_counter()
+        tiles, tile_kw = pidx.split_tiles(limit)
+        split_s = time.perf_counter() - t0
+        pad_ratio = tiles.size / max(pidx.stats.total_postings, 1)
+        t_dev, kw_dev = torch.from_numpy(tiles).to(device), torch.from_numpy(tile_kw).to(device)
+        del tiles
+        ms, counts = timed_ms(lambda: pidx.scan_counts_tiled(t_dev, kw_dev, q_dev), device,
+                              reps=3, warmup=1)
+        check(torch.equal(counts, want), f"postings: the tiled scan at limit {limit} differs")
+        per_q = ms / qkw.shape[0]
+        log(f"  limit {limit}: {t_dev.shape[0]} tiles of {limit}, pad ratio {pad_ratio:.4f}, "
+            f"split on the host {split_s:.3f} s; scan_counts_tiled {ms:.3f} ms for Q = "
+            f"{qkw.shape[0]}, {per_q:.4f} ms a query ({hw}); = the reference counts")
+        out[limit] = (int(t_dev.shape[0]), pad_ratio, per_q)
+        del t_dev, kw_dev, counts
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def cpu_idx(pidx, qkw: np.ndarray) -> tuple:
+    """(counts, ms a query) of the numpy CPU-Idx baseline."""
+    t0 = time.perf_counter()
+    counts = pidx.scan_counts_numpy(qkw)
+    return counts, (time.perf_counter() - t0) * 1e3 / qkw.shape[0]
+
+
+def phase_postings_sift(device: torch.device, n: int = POSTINGS_N, m: int = POSTINGS_M,
+                        n_buckets: int = POSTINGS_D, dim: int = FULL_DIM,
+                        n_queries: int = POSTINGS_Q) -> dict:
+    """Phase 6a: the CSR postings engine over the e2lsh signatures of one
+    SIFT segment (keywords i * D + sig[:, i]): the host build, the tiled scan
+    on the card at three split limits, equal bit for bit to match_count on
+    the same signatures, and CPU-Idx (numpy) equal to both on 4 queries."""
+    from repro_torch.core.lsh import e2lsh
+    from repro_torch.core.postings import PostingsIndex
+    from repro_torch.kernels import common, ops
+
+    hw = gpu_name_and_power_limit()
+    log(f"== phase 6a: postings (CSR build, tiled scan, CPU-Idx) at one SIFT segment: N = "
+        f"{n}, m = {m}, D = {n_buckets}, Q = {n_queries} ({hw})")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    pts = torch.randn((n, dim), generator=gen, device=device)
+    params = e2lsh.make(torch.Generator().manual_seed(SEED), d=dim, m=m, w=4.0,
+                        n_buckets=n_buckets, device=device)
+    sigs = e2lsh.hash_points(params, pts)
+    qsigs = e2lsh.hash_points(params, pts[:n_queries] + 0.01)
+    offsets = torch.arange(m, dtype=torch.int32, device=device) * n_buckets
+    keywords, qkw = (sigs + offsets).cpu().numpy(), (qsigs + offsets).cpu().numpy()
+    t0 = time.perf_counter()
+    pidx = PostingsIndex.build(keywords, m * n_buckets)
+    build_s = time.perf_counter() - t0
+    st = pidx.stats
+    log(f"  build on the host (stable argsort of {keywords.size} keywords): {build_s:.3f} s; "
+        f"{st.n_lists} lists, {st.total_postings} postings, longest {st.max_list_len}, "
+        f"{st.bytes_device / 1e9:.4f} GB")
+    check(st.n_lists <= m * n_buckets and st.total_postings == n * m, "postings: bad stats")
+    want, launches = common.launches_during(lambda: ops.match_count(sigs, qsigs))
+    check(device.type != "cuda" or launches.get("match_count") == 1,
+          f"match_count did not launch: {launches}")
+    scans = tiled_scans(pidx, qkw, want, device, hw)
+    counts, cpu_ms = cpu_idx(pidx, qkw[:CPU_IDX_Q])
+    check(np.array_equal(counts, want[:CPU_IDX_Q].cpu().numpy()),
+          "postings: CPU-Idx differs from match_count")
+    log(f"  CPU-Idx (numpy) {cpu_ms:.3f} ms a query over {CPU_IDX_Q} queries, = match_count "
+        f"= the tiled scans bit for bit")
+    return dict(build_s=build_s, scans=scans, cpu_idx_ms=cpu_ms)
+
+
+def phase_postings_balance(device: torch.device, n: int = ADULT_N, m: int = BALANCE_M,
+                           space: int = BALANCE_SPACE, n_queries: int = BALANCE_Q) -> dict:
+    """Phase 6b: the paper's load-balance study (Fig 12) with
+    benchmarks/fig12_load_balance.py's keyword law (Zipf 1.2 over 256
+    keywords, m = 8, its first rows as queries) at Adult's N.  A list a query
+    names twice is scanned once by the tiled scan and twice by CPU-Idx, so
+    CPU-Idx runs on each query's distinct keywords."""
+    from repro_torch.core.postings import PostingsIndex
+
+    hw = gpu_name_and_power_limit()
+    log(f"== phase 6b: postings load balance (Fig 12), Zipf 1.2 over {space} keywords, m = "
+        f"{m}, N = {n}, Q = {n_queries} ({hw})")
+    rng = np.random.default_rng(5)
+    probs = 1.0 / np.arange(1, space + 1) ** 1.2
+    keywords = rng.choice(space, size=(n, m), p=probs / probs.sum()).astype(np.int32)
+    t0 = time.perf_counter()
+    pidx = PostingsIndex.build(keywords, space)
+    log(f"  build {time.perf_counter() - t0:.3f} s; longest list {pidx.stats.max_list_len} of "
+        f"{pidx.stats.total_postings} postings")
+    qkw = keywords[:n_queries]
+    want, cpu_ms = [], 0.0
+    for row in qkw[:CPU_IDX_Q]:
+        counts, ms = cpu_idx(pidx, np.unique(row)[None])
+        want.append(counts[0])
+        cpu_ms += ms / CPU_IDX_Q
+    log(f"  CPU-Idx (numpy) {cpu_ms:.3f} ms a query over {CPU_IDX_Q} queries (distinct "
+        f"keywords)")
+    tiles, tile_kw = pidx.split_tiles(1024)
+    first = pidx.scan_counts_tiled(torch.from_numpy(tiles).to(device),
+                                   torch.from_numpy(tile_kw).to(device),
+                                   torch.from_numpy(qkw).to(device))
+    check(np.array_equal(first[:CPU_IDX_Q].cpu().numpy(), np.stack(want)),
+          "postings: the tiled scan differs from CPU-Idx on distinct keywords")
+    del tiles, tile_kw
+    return dict(scans=tiled_scans(pidx, qkw, first, device, hw), cpu_idx_ms=cpu_ms)
+
+
+def phase_dryrun_memory(device: torch.device, distributed_report: dict) -> dict:
+    """Phase 6c: the dry-run's cells for the six datasets on 1 and 4 cards,
+    and its memory model against phase 4k's measured peak (e2lsh,
+    DISTRIBUTED on one rank, Q = 256, N = 4.5 M); fails beyond 25 %."""
+    from repro_torch.core.lsh import tau_ann
+    from repro_torch.core.types import SearchParams
+    from repro_torch.launch import dryrun
+
+    hw = gpu_name_and_power_limit()
+    log(f"== phase 6c: the dry-run's memory model ({hw})")
+    for name in dryrun.DATASETS:
+        for world in (1, 4):
+            rep = dryrun.run_genie_cell(name, world)
+            mem = rep["memory"]
+            terms = ", ".join(f"{k} {v / 1e9:.3f}" for k, v in mem["per_rank"].items())
+            log(f"  {name}, world {world}, {rep['layout']}, Q = {rep['n_queries']}: fits="
+                f"{mem['fits']} of {mem['card_bytes'] / 1e9:.3f} GB "
+                f"({mem['card_bytes_source']}); GB a rank: {terms}")
+    m = tau_ann.required_m(0.06, 0.06)
+    model = dryrun.memory_model(
+        n_objects=FULL_N, row_bytes=m * 4, n_queries=DIST_Q, part_rows=FULL_N,
+        placed_rows=FULL_N, query_bytes=m * 4, max_count=m,
+        cap=SearchParams(k=FULL_K, max_count=m).cap())["peak"]
+    measured = distributed_report["e2lsh wide"]["peak_gb"] * 1e9
+    ratio = model / measured
+    log(f"  phase 4k's cell (e2lsh, DISTRIBUTED, one rank, Q = {DIST_Q}, N = {FULL_N}, m = "
+        f"{m}): model {model / 1e9:.3f} GB, measured max_memory_allocated "
+        f"{measured / 1e9:.3f} GB, model / measured {ratio:.4f} ({hw})")
+    check(abs(ratio - 1.0) <= 0.25, f"the memory model is off by more than 25 %: {ratio:.4f}")
+    return dict(model_gb=model / 1e9, measured_gb=measured / 1e9, ratio=ratio)
+
+
+LM_CASES = (("smollm-360m", None, 32), ("qwen2-moe-a2.7b", 4, 16))   # arch, layers, new tokens
+LM_BATCH, LM_PROMPT, LM_CAP = 8, 128, 256
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tree_leaves(v)]
+    return [tree]
+
+
+def decode_vs_forward(api, cfg, params, tokens: torch.Tensor, cache_cap: int) -> dict:
+    """One decode step after prefill against a teacher-forced forward at that
+    position: by row, the max |diff| of the logits ("err").  For the MoE (at
+    capacity factor 64: dropping depends on the population) also, by row,
+    the (layer, position) places where the forward's top-k experts differ
+    from prefill's on the prompt ("prompt_flips") and the layers where they
+    differ from the decode step's on the new token ("new_flips")."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    record = cfg.family == "moe"
+    if record:
+        cfg = dataclasses.replace(cfg, capacity_factor=64.0)
+
+    def recorded(fn):
+        if record:
+            moe.start_routing_record()
+        out = fn()
+        return out, moe.stop_routing_record() if record else []
+
+    (last, cache, pos), r_prefill = recorded(
+        lambda: api.prefill(cfg, params, {"tokens": tokens}, cache_cap=cache_cap))
+    nt = torch.argmax(last, -1)[:, None].to(torch.int32)
+    (step, _), r_decode = recorded(lambda: api.decode_step(cfg, params, nt, cache, pos))
+    (full, _, _), r_forward = recorded(
+        lambda: api.train_logits(cfg, params, {"tokens": torch.cat([tokens, nt], 1)}))
+    out = dict(err=[float(x) for x in (step - full[:, pos]).abs().amax(dim=-1)])
+    b = tokens.shape[0]
+    prompt = torch.zeros(b, dtype=torch.int64, device=tokens.device)
+    new = torch.zeros(b, dtype=torch.int64, device=tokens.device)
+    for pre, dec, fwd in zip(r_prefill, r_decode, r_forward, strict=True):
+        fwd = fwd.sort(dim=-1).values.reshape(b, pos + 1, -1)
+        pre = pre.sort(dim=-1).values.reshape(b, pos, -1)
+        prompt += (pre != fwd[:, :pos]).any(dim=-1).sum(dim=-1)
+        new += (dec.sort(dim=-1).values != fwd[:, pos]).any(dim=-1)
+    out["prompt_flips"], out["new_flips"] = prompt.tolist(), new.tolist()
+    return out
+
+
+def check_decode_vs_forward(arch: str, label: str, res: dict, limit: float = 5e-2) -> float:
+    """Every row whose routing agrees on both paths (all rows of a dense
+    model) within `limit`; a row above it must show a recorded routing
+    difference, and at least half the rows must be held.  Returns the
+    largest held difference."""
+    flips = [p + n for p, n in zip(res["prompt_flips"], res["new_flips"], strict=True)]
+    held = [e for e, f in zip(res["err"], flips, strict=True) if f == 0]
+    log(f"  decode step vs teacher-forced forward, {label}: max |diff| by row "
+        f"{[round(e, 6) for e in res['err']]}; routing places that differ by row, prompt "
+        f"{res['prompt_flips']}, new token {res['new_flips']}; {len(held)} of "
+        f"{len(flips)} rows agree, their max |diff| {max(held, default=float('nan')):.6f}")
+    check(2 * len(held) >= len(flips),
+          f"{arch} ({label}): routing differs on {len(flips) - len(held)} of {len(flips)} rows")
+    for e, f in zip(res["err"], flips, strict=True):
+        check(e < limit or f > 0, f"{arch} ({label}): decode logits differ from the forward's "
+              f"by {e} on a row whose routing agrees")
+    return max(held)
+
+
+def moe_dropped(record: list, cfg) -> tuple:
+    """(slots dropped, slots) over a routing record at `cfg`'s capacity: a
+    slot drops where its expert already holds `capacity` earlier slots."""
+    from repro_torch.models import moe
+
+    dropped = 0
+    for top_e in record:
+        per_expert = torch.bincount(top_e.reshape(-1), minlength=cfg.n_experts)
+        dropped += int((per_expert - moe.capacity(top_e.shape[0], cfg)).clamp(min=0).sum())
+    return dropped, sum(t.numel() for t in record)
+
+
+def phase_lm_serving(device: torch.device, cases=LM_CASES, batch_size: int = LM_BATCH,
+                     prompt: int = LM_PROMPT, cache_cap: int = LM_CAP) -> dict:
+    """Phase 6d: ServeEngine.generate (greedy) on smollm-360m at full size
+    and qwen2-moe-a2.7b at full width cut to 4 layers, 8 prompts of 128
+    SyntheticTokens tokens; prefill + one decode step against a
+    teacher-forced forward at that position (5e-2, at the shipped compute
+    dtype, and for the MoE at float32 compute too, each row whose routing
+    agrees: `check_decode_vs_forward`); one decode step profiled; for the
+    MoE the slots dropped at its shipped capacity factor."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.serve import ServeEngine
+
+    hw = gpu_name_and_power_limit()
+    report = {}
+    for arch, layers, new_tokens in cases:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        api = get_api(cfg)
+        log(f"== phase 6d: LM serving, {arch} (d_model {cfg.d_model}, vocab {cfg.vocab}, "
+            f"{cfg.n_layers} of {get_config(arch).n_layers} layers), {batch_size} prompts of "
+            f"{prompt} tokens, {new_tokens} new, cache_cap {cache_cap}, greedy, compute "
+            f"{cfg.compute_dtype} ({hw})")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)       # the context exists before the reset
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        params = api.init_params(cfg, SEED, device=device)
+        n_params = sum(t.numel() for t in _tree_leaves(params))
+        log(f"  {n_params} parameters ({n_params * 4 / 1e9:.3f} GB float32; the config's "
+            f"count {cfg.param_count()})")
+        batch = SyntheticTokens(cfg, DataConfig(seed=SEED, global_batch=batch_size,
+                                                seq_len=prompt)).batch(0)
+        eng = ServeEngine(cfg, api, params, cache_cap=cache_cap)
+        toks, stats = eng.generate(batch, max_new_tokens=new_tokens)
+        check(toks.shape == (batch_size, new_tokens) and toks.min() >= 0
+              and toks.max() < cfg.vocab, f"{arch}: bad tokens")
+        toks2, stats2 = eng.generate(batch, max_new_tokens=new_tokens)
+        check(np.array_equal(toks, toks2), f"{arch}: greedy decoding is not deterministic")
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        log(f"  prefill {stats.prefill_seconds:.4f} s / {stats2.prefill_seconds:.4f} s; decode "
+            f"{stats.decode_tokens_per_s:.1f} / {stats2.decode_tokens_per_s:.1f} tokens/s "
+            f"({stats2.decode_seconds:.4f} s for {stats2.tokens_generated}); peak memory "
+            f"{peak / 1e9:.3f} GB ({hw})")
+        tokens = torch.from_numpy(batch["tokens"]).to(device)
+        entry = dict(prefill_s=stats2.prefill_seconds, decode_tok_s=stats2.decode_tokens_per_s,
+                     peak_gb=peak / 1e9)
+        computes = [cfg] + ([dataclasses.replace(cfg, compute_dtype="float32")]
+                            if cfg.family == "moe" else [])
+        for c in computes:
+            res = decode_vs_forward(api, c, params, tokens, cache_cap)
+            entry[f"decode_vs_forward_{c.compute_dtype}"] = check_decode_vs_forward(
+                arch, f"compute {c.compute_dtype}", res)
+        record = cfg.family == "moe"
+        if record:
+            moe.start_routing_record()
+        last, cache, pos = api.prefill(cfg, params, {"tokens": tokens}, cache_cap=cache_cap)
+        r_prefill = moe.stop_routing_record() if record else []
+        nt = torch.argmax(last, -1)[:, None].to(torch.int32)
+        profile_one_search(lambda: api.decode_step(cfg, params, nt, cache, pos), device,
+                           what="decode step")
+        if record:
+            moe.start_routing_record()
+            api.decode_step(cfg, params, nt, cache, pos)
+            entry["dropped"] = {"prefill": moe_dropped(r_prefill, cfg),
+                                "decode step": moe_dropped(moe.stop_routing_record(), cfg)}
+            log(f"  slots dropped at capacity factor {cfg.capacity_factor}: prefill "
+                f"{entry['dropped']['prefill'][0]} of {entry['dropped']['prefill'][1]}, one "
+                f"decode step {entry['dropped']['decode step'][0]} of "
+                f"{entry['dropped']['decode step'][1]}")
+        del last, cache
+        report[arch] = entry
+        del params, eng
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return report
+
+
+ENTRY_DOCS, ENTRY_Q, ENTRY_BATCHES = 200_000, 1024, 4
+SEARCH_KERNELS = {"eq": "match_count", "multiload": "match_count", "segmented": "match_count",
+                  "compacted": "match_count", "cosine": "cosine_count",
+                  "tanimoto": "tanimoto_count", 0.1: "minsum_count", 0.3: "minsum_count",
+                  "rbh": "match_count", "search": "match_count"}
+
+
+def check_search_launches(label: str, launches: dict, device: torch.device) -> None:
+    for search, counts in launches.items():
+        log(f"  {label} search {search!r}: launches {counts}")
+        if device.type == "cuda":
+            check(counts.get(SEARCH_KERNELS[search], 0) >= 1 and counts.get("cpq_hist", 0) >= 1,
+                  f"{label} search {search!r} did not launch "
+                  f"{SEARCH_KERNELS[search]} and cpq_hist: {counts}")
+
+
+def phase_entry_points(device: torch.device, n_docs: int = ENTRY_DOCS,
+                       n_queries: int = ENTRY_Q, batches: int = ENTRY_BATCHES,
+                       examples: dict | None = None) -> dict:
+    """Phase 6e: `launch/serve.main` with smollm-360m's full embedding table
+    over 200,000 synthetic documents, then each example at the reference's
+    sizes; each search must have launched its count kernel and cpq_hist."""
+    from repro_torch.examples import ann_kernel_space, quickstart, sequence_search, serve_batch
+    from repro_torch.kernels import common
+    from repro_torch.launch import serve as serve_lib
+
+    hw = gpu_name_and_power_limit()
+    dev_arg = str(device)
+    log(f"== phase 6e: python -m repro_torch.launch.serve --arch smollm-360m --n-docs "
+        f"{n_docs} --n-queries {n_queries} --batches {batches} --k 10 --device {dev_arg} ({hw})")
+    common.reset_launch_counts()
+    out = serve_lib.main(["--arch", "smollm-360m", "--n-docs", str(n_docs), "--n-queries",
+                          str(n_queries), "--batches", str(batches), "--k", "10",
+                          "--device", dev_arg])
+    launches = common.launch_counts()
+    for counts in out["launches"]:
+        check_search_launches("launch/serve", {"search": counts}, device)
+    log(f"  launch/serve: {out['qps']:.1f} queries/s, top-1 self-retrieval "
+        f"{out['self_retrieval']:.4f}, indexed in {out['index_seconds']:.3f} s; launches "
+        f"{launches} ({hw})")
+    check(out["self_retrieval"] >= 0.9, f"launch/serve self-retrieval {out['self_retrieval']}")
+    report = {"launch/serve": dict(qps=out["qps"], self_retrieval=out["self_retrieval"],
+                                   launches=launches)}
+    del out
+    examples = examples or {}
+    for name, module in (("quickstart", quickstart), ("sequence_search", sequence_search),
+                         ("ann_kernel_space", ann_kernel_space),
+                         ("serve_batch", serve_batch)):
+        log(f"== phase 6e: python -m repro_torch.examples.{name} --device {dev_arg} ({hw})")
+        common.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = module.main(device, **examples.get(name, {}))
+        sync(device)
+        seconds = time.perf_counter() - t0
+        check_search_launches(name, res["launches"], device)
+        log(f"  {name}: {seconds:.2f} s, launches {common.launch_counts()}")
+        report[name] = dict(seconds=seconds, launches=common.launch_counts(),
+                            **{k: v for k, v in res.items()
+                               if k in ("self_retrieval", "accuracy", "best", "qps")
+                               or k.endswith("_same")})
+    check(report["quickstart"]["self_retrieval"] == 1.0,
+          f"quickstart self-retrieval {report['quickstart']['self_retrieval']} != 1.000")
+    same = {k: report["quickstart"].get(k) for k in
+            ("multiload_same", "segmented_same", "compacted_same")}
+    check(all(v is True for v in same.values()),
+          f"quickstart: a multiload, segmented or compacted search differs: {same}")
+    target = examples.get("sequence_search", {}).get("target", 1234)
+    check(report["sequence_search"]["best"] == {0.1: target, 0.3: target},
+          f"sequence_search did not find its target: {report['sequence_search']['best']}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one "
@@ -3801,7 +4216,7 @@ def main() -> int:
     phase_autotune(full, "SIFT e2lsh", device, singles=True)
     del full, svc                          # free the EQ corpus before the distributed phase
     torch.cuda.empty_cache()
-    phase_distributed(device)
+    distributed_report = phase_distributed(device)
     torch.cuda.empty_cache()
     simhash = phase_full_width_simhash(device)
     count_launches = phase_multiload_packed(simhash["packed"], "simhash", "packed_cosine_count",
@@ -3846,6 +4261,12 @@ def main() -> int:
         del run                            # free the corpus before the next one
         torch.cuda.empty_cache()
     phase_multiload_dblp(device)
+    torch.cuda.empty_cache()
+    phase_postings_sift(device)
+    phase_postings_balance(device)
+    phase_dryrun_memory(device, distributed_report)
+    phase_lm_serving(device)
+    phase_entry_points(device)
     torch.cuda.synchronize()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power_limit())

@@ -6,8 +6,8 @@
 # search path builds a QueryPlan and delegates to the one executor that calls
 # match kernels, pad masks, select_topk, and the merge buffers.
 from repro_torch.core import (  # noqa: F401
-    autotune, cpq, distributed, engines, index, match, merge, multiload, plan, routing, segments,
-    select, spq,
+    autotune, cpq, distributed, engines, index, match, merge, multiload, plan, postings, routing,
+    segments, select, spq,
 )
 from repro_torch.core.engines import MatchModel  # noqa: F401
 from repro_torch.core.index import GenieIndex  # noqa: F401

@@ -109,6 +109,15 @@ def variant_launch_counts() -> dict[str, int]:
     return dict(_VARIANT_LAUNCHES)
 
 
+def launches_during(fn):
+    """(fn(), kernel name -> launches it made): the counts' difference around
+    the call, so nothing is reset."""
+    before = launch_counts()
+    out = fn()
+    after = launch_counts()
+    return out, {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
 def reset_launch_counts() -> None:
     _LAUNCHES.clear()
     _VARIANT_LAUNCHES.clear()

@@ -1,4 +1,5 @@
-# Launch layer: device meshes on torch.distributed (the counterpart of the
-# reference's launch/mesh.py; the rest of that package is ROADMAP queue 1
-# items 10 and 11).
+# Launch layer: device meshes on torch.distributed (launch/mesh.py), the GENIE
+# dry-run (launch/dryrun.py) and the serving launcher (launch/serve.py), the
+# counterparts of the reference's modules of those names; its sharding,
+# shapes and training launchers are ROADMAP queue 1 item 11c.
 from repro_torch.launch import mesh  # noqa: F401

@@ -1,5 +1,6 @@
-# Serving: the GENIE retrieval service and the multi-tenant front-end (the LM
-# serving engine of the JAX package is still to be ported).
+# Serving: the LM serving engine, the GENIE retrieval service and the
+# multi-tenant front-end.
+from repro_torch.serve.engine import ServeEngine, ServeStats  # noqa: F401
 from repro_torch.serve.frontend import IndexService, ServingFrontend  # noqa: F401
 from repro_torch.serve.metrics import FrontendMetrics  # noqa: F401
 from repro_torch.serve.retrieval import RetrievalService  # noqa: F401

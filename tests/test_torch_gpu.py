@@ -936,3 +936,43 @@ def test_distributed_layout_on_one_nccl_rank_equals_the_segmented_search():
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-360m-smoke", "qwen2-moe-a2.7b-smoke"])
+def test_decode_step_equals_teacher_forced_forward_on_the_card(arch):
+    """chip_smoke.py phase 6d at smoke size: prefill + one decode step on the
+    card equal a teacher-forced forward at that position (the reference's
+    5e-2), and the decode logits equal the same run on the CPU."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_api, get_config
+
+    _need_card()
+    cfg = get_config(arch)
+    if cfg.family == "moe":  # capacity dropping is population-dependent
+        cfg = dataclasses.replace(cfg, capacity_factor=64.0)
+    api = get_api(cfg)
+    batch = SyntheticTokens(cfg, DataConfig(global_batch=2, seq_len=16)).batch(0)
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        params = transformer.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        params = _tree_to(params, dev)
+        toks = torch.from_numpy(batch["tokens"]).to(dev)
+        last, cache, pos = api.prefill(cfg, params, {"tokens": toks}, cache_cap=32)
+        nt = torch.argmax(last, -1)[:, None].to(torch.int32)
+        step, _ = api.decode_step(cfg, params, nt, cache, pos)
+        full, _, _ = api.train_logits(cfg, params, {"tokens": torch.cat([toks, nt], 1)})
+        assert float((step - full[:, pos]).abs().max()) < 5e-2, dev
+        steps[dev] = step.cpu()
+    assert float((steps["cuda"] - steps["cpu"]).abs().max()) < 5e-2

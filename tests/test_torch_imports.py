@@ -37,7 +37,18 @@ def test_module_list_covers_the_slice():
                  "repro_torch.runtime.fault_tolerance", "repro_torch.serve.frontend",
                  "repro_torch.serve.scheduler", "repro_torch.serve.metrics",
                  "repro_torch.core.autotune", "repro_torch.core.distributed",
-                 "repro_torch.launch", "repro_torch.launch.mesh"):
+                 "repro_torch.launch", "repro_torch.launch.mesh",
+                 "repro_torch.core.postings", "repro_torch.data.pipeline",
+                 "repro_torch.configs", "repro_torch.configs.genie_datasets",
+                 "repro_torch.configs.smollm_360m", "repro_torch.configs.qwen2_moe_a2_7b",
+                 "repro_torch.configs.internvl2_76b", "repro_torch.models.config",
+                 "repro_torch.models.layers", "repro_torch.models.moe",
+                 "repro_torch.models.transformer", "repro_torch.models.registry",
+                 "repro_torch.serve.engine", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.serve", "repro_torch.examples.quickstart",
+                 "repro_torch.examples.sequence_search",
+                 "repro_torch.examples.ann_kernel_space",
+                 "repro_torch.examples.serve_batch"):
         assert name in _MODULES
 
 
