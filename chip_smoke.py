@@ -8,7 +8,7 @@ builds them), then runs these phases -- 1 to 3d, 4g's padded round trips and
 3e in order, then each full-width phase followed by its multiple-loading
 case and its kernels' times (4, 5, 4g, 4h, 4i, 5's block shapes, 4j, 4k, 4b,
 4g, 5b, 4j, 4c, 4g, 5c, 4c', 4d, 4i, 5d, 4e, 5d, 4f, 5d), then DBLP at
-its full size through multiple loading (4g), and last 6a to 6e -- and fails
+its full size through multiple loading (4g), and last 6a to 6f -- and fails
 (non-zero exit, no result line) as soon as a phase fails.  The kernels compiled in several
 block shapes, which the tile knobs select (`kernels/ops.py` VARIANTS), are
 held and timed in each: match_count and tanimoto_count with 128 and 32
@@ -215,7 +215,15 @@ PACKED search with a tuned 1024-row tile in turns with the default):
      shipped capacity factor; 6e. `launch/serve` over 200,000 documents
      embedded through smollm-360m's table (4 batches of 1024 queries) and
      the four examples at the reference's sizes, each search launching its
-     count kernel and cpq_hist (quickstart's self-retrieval 1.000).
+     count kernel and cpq_hist (quickstart's self-retrieval 1.000); 6f. the
+     ssm, hybrid and encoder-decoder families at full size: ServeEngine.generate
+     on mamba2-1.3b, zamba2-2.7b and seamless-m4t-large-v2 (256 frames a
+     prompt), 8 prompts of 256 tokens (the FULL configs' SSD chunk),
+     cache_cap 512, greedy twice (the same tokens), one decode step against
+     a teacher-forced forward padded to a whole SSD chunk (5e-2), one decode
+     step profiled; then `launch/serve` over 200,000 documents embedded
+     through mamba2-1.3b's table, each search launching match_count and
+     cpq_hist, self-retrieval >= 0.99.
 
 It needs one CUDA device and no network, and imports neither jax nor the JAX
 package.  The last line of its output is one JSON object
@@ -3948,7 +3956,13 @@ def phase_dryrun_memory(device: torch.device, distributed_report: dict) -> dict:
     return dict(model_gb=model / 1e9, measured_gb=measured / 1e9, ratio=ratio)
 
 
-LM_CASES = (("smollm-360m", None, 32), ("qwen2-moe-a2.7b", 4, 16))   # arch, layers, new tokens
+# The compute dtypes at which a case's decode step is held within 5e-2 of
+# the teacher-forced forward.  "float32 KV" keeps the hybrid's
+# shared-attention K/V in float32 (`prefill_float32_kv`) where prefill
+# rounds them to bfloat16, as the reference's does.
+AT_BF16 = ("bfloat16",)
+LM_CASES = (("smollm-360m", None, 32, AT_BF16),                 # arch, layers, new tokens
+            ("qwen2-moe-a2.7b", 4, 16, ("bfloat16", "float32")))
 LM_BATCH, LM_PROMPT, LM_CAP = 8, 128, 256
 
 
@@ -3960,9 +3974,53 @@ def _tree_leaves(tree):
     return [tree]
 
 
-def decode_vs_forward(api, cfg, params, tokens: torch.Tensor, cache_cap: int) -> dict:
+def prefill_float32_kv(cfg, params, batch: dict, cache_cap: int) -> tuple:
+    """hybrid.prefill with the shared block's K/V kept in the compute dtype
+    (the shipped prefill rounds them to bfloat16)."""
+    from repro_torch.models import hybrid
+
+    logits, _, ((ks, vs), (conv, ssm)) = hybrid.forward(cfg, params, batch["tokens"],
+                                                        emit_state=True)
+    s = ks.shape[2]
+    cache = hybrid.init_cache(cfg, ks.shape[1], max(cache_cap, s), dtype=ks.dtype,
+                              device=ks.device)
+    cache["attn_k"][:, :, :s], cache["attn_v"][:, :, :s] = ks, vs
+    cache["conv"], cache["ssm"] = conv, ssm
+    return logits[:, -1, :], cache, s
+
+
+def check_float32_kv_prefill(cfg, params, batch: dict, cache_cap: int, got: tuple) -> None:
+    """`got`, what `prefill_float32_kv` returned, against the shipped
+    `hybrid.prefill` on the same inputs: the same last logits, position,
+    conv tails and SSM states bit for bit, and K/V equal to the shipped
+    bfloat16 cache once rounded to bfloat16.  So a step held on the float32
+    K/V holds on the shipped prefill but for the cache's rounding."""
+    from repro_torch.models import hybrid
+
+    last, cache, pos = hybrid.prefill(cfg, params, batch["tokens"], cache_cap=cache_cap)
+    g_last, g_cache, g_pos = got
+    check(pos == g_pos and torch.equal(last, g_last),
+          f"{cfg.arch_id}: prefill_float32_kv's logits or position differ from hybrid.prefill's")
+    for name in ("conv", "ssm"):
+        check(cache[name].dtype == g_cache[name].dtype and torch.equal(cache[name], g_cache[name]),
+              f"{cfg.arch_id}: prefill_float32_kv's {name} differs from hybrid.prefill's")
+    for name in ("attn_k", "attn_v"):
+        check(cache[name].dtype == torch.bfloat16
+              and torch.equal(cache[name], g_cache[name].to(torch.bfloat16)),
+              f"{cfg.arch_id}: prefill_float32_kv's {name}, rounded to bfloat16, differs from "
+              f"hybrid.prefill's")
+    log(f"  {cfg.arch_id}: prefill with float32 K/V = hybrid.prefill bit for bit (logits, pos "
+        f"{pos}, conv, ssm; attn_k / attn_v once rounded to bfloat16)")
+
+
+def decode_vs_forward(api, cfg, params, tokens: torch.Tensor, cache_cap: int,
+                      frames: torch.Tensor | None = None, float32_kv: bool = False) -> dict:
     """One decode step after prefill against a teacher-forced forward at that
-    position: by row, the max |diff| of the logits ("err").  For the MoE (at
+    position: by row, the max |diff| of the logits ("err").  The forward's
+    tokens are padded to a whole SSD chunk for the ssm and hybrid families,
+    and the encoder-decoder's `frames` go to both paths; `float32_kv`: the
+    hybrid's prefill through `prefill_float32_kv`, held to the shipped
+    prefill by `check_float32_kv_prefill`.  For the MoE (at
     capacity factor 64: dropping depends on the population) also, by row,
     the (layer, position) places where the forward's top-k experts differ
     from prefill's on the prompt ("prompt_flips") and the layers where they
@@ -3981,12 +4039,19 @@ def decode_vs_forward(api, cfg, params, tokens: torch.Tensor, cache_cap: int) ->
         out = fn()
         return out, moe.stop_routing_record() if record else []
 
+    extra = {} if frames is None else {"frames": frames}
+    prefill = prefill_float32_kv if float32_kv else api.prefill
     (last, cache, pos), r_prefill = recorded(
-        lambda: api.prefill(cfg, params, {"tokens": tokens}, cache_cap=cache_cap))
+        lambda: prefill(cfg, params, {"tokens": tokens, **extra}, cache_cap=cache_cap))
+    if float32_kv:
+        check_float32_kv_prefill(cfg, params, {"tokens": tokens}, cache_cap, (last, cache, pos))
     nt = torch.argmax(last, -1)[:, None].to(torch.int32)
     (step, _), r_decode = recorded(lambda: api.decode_step(cfg, params, nt, cache, pos))
+    n_pad = -(pos + 1) % cfg.ssd_chunk if cfg.family in ("ssm", "hybrid") else 0
+    pad = torch.zeros((tokens.shape[0], n_pad), dtype=nt.dtype, device=tokens.device)
+    forward_tokens = torch.cat([tokens.to(nt.dtype), nt, pad], 1)
     (full, _, _), r_forward = recorded(
-        lambda: api.train_logits(cfg, params, {"tokens": torch.cat([tokens, nt], 1)}))
+        lambda: api.train_logits(cfg, params, {"tokens": forward_tokens, **extra}))
     out = dict(err=[float(x) for x in (step - full[:, pos]).abs().amax(dim=-1)])
     b = tokens.shape[0]
     prompt = torch.zeros(b, dtype=torch.int64, device=tokens.device)
@@ -4007,9 +4072,9 @@ def check_decode_vs_forward(arch: str, label: str, res: dict, limit: float = 5e-
     largest held difference."""
     flips = [p + n for p, n in zip(res["prompt_flips"], res["new_flips"], strict=True)]
     held = [e for e, f in zip(res["err"], flips, strict=True) if f == 0]
-    log(f"  decode step vs teacher-forced forward, {label}: max |diff| by row "
-        f"{[round(e, 6) for e in res['err']]}; routing places that differ by row, prompt "
-        f"{res['prompt_flips']}, new token {res['new_flips']}; {len(held)} of "
+    log(f"  decode step vs teacher-forced forward, {label}: "
+        f"max |diff| by row {[round(e, 6) for e in res['err']]}; routing places that differ "
+        f"by row, prompt {res['prompt_flips']}, new token {res['new_flips']}; {len(held)} of "
         f"{len(flips)} rows agree, their max |diff| {max(held, default=float('nan')):.6f}")
     check(2 * len(held) >= len(flips),
           f"{arch} ({label}): routing differs on {len(flips) - len(held)} of {len(flips)} rows")
@@ -4031,15 +4096,16 @@ def moe_dropped(record: list, cfg) -> tuple:
     return dropped, sum(t.numel() for t in record)
 
 
-def phase_lm_serving(device: torch.device, cases=LM_CASES, batch_size: int = LM_BATCH,
-                     prompt: int = LM_PROMPT, cache_cap: int = LM_CAP) -> dict:
-    """Phase 6d: ServeEngine.generate (greedy) on smollm-360m at full size
-    and qwen2-moe-a2.7b at full width cut to 4 layers, 8 prompts of 128
-    SyntheticTokens tokens; prefill + one decode step against a
-    teacher-forced forward at that position (5e-2, at the shipped compute
-    dtype, and for the MoE at float32 compute too, each row whose routing
-    agrees: `check_decode_vs_forward`); one decode step profiled; for the
-    MoE the slots dropped at its shipped capacity factor."""
+def serve_arch(device: torch.device, phase: str, arch: str, layers: int | None,
+               new_tokens: int, steps: tuple, batch_size: int, prompt: int,
+               cache_cap: int) -> dict:
+    """ServeEngine.generate (greedy, twice: the same tokens) on `arch` (cut to
+    `layers` if given) with `batch_size` SyntheticTokens prompts of `prompt`
+    tokens (and frames for the encoder-decoder); prefill + one decode step
+    against a teacher-forced forward at that position at each compute of
+    `steps`, held within 5e-2 (`check_decode_vs_forward`);
+    one decode step profiled; for the MoE the slots dropped at its shipped
+    capacity factor."""
     import dataclasses
 
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
@@ -4048,69 +4114,76 @@ def phase_lm_serving(device: torch.device, cases=LM_CASES, batch_size: int = LM_
     from repro_torch.serve import ServeEngine
 
     hw = gpu_name_and_power_limit()
-    report = {}
-    for arch, layers, new_tokens in cases:
-        cfg = get_config(arch)
-        if layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
-        api = get_api(cfg)
-        log(f"== phase 6d: LM serving, {arch} (d_model {cfg.d_model}, vocab {cfg.vocab}, "
-            f"{cfg.n_layers} of {get_config(arch).n_layers} layers), {batch_size} prompts of "
-            f"{prompt} tokens, {new_tokens} new, cache_cap {cache_cap}, greedy, compute "
-            f"{cfg.compute_dtype} ({hw})")
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)       # the context exists before the reset
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(device)
-        params = api.init_params(cfg, SEED, device=device)
-        n_params = sum(t.numel() for t in _tree_leaves(params))
-        log(f"  {n_params} parameters ({n_params * 4 / 1e9:.3f} GB float32; the config's "
-            f"count {cfg.param_count()})")
-        batch = SyntheticTokens(cfg, DataConfig(seed=SEED, global_batch=batch_size,
-                                                seq_len=prompt)).batch(0)
-        eng = ServeEngine(cfg, api, params, cache_cap=cache_cap)
-        toks, stats = eng.generate(batch, max_new_tokens=new_tokens)
-        check(toks.shape == (batch_size, new_tokens) and toks.min() >= 0
-              and toks.max() < cfg.vocab, f"{arch}: bad tokens")
-        toks2, stats2 = eng.generate(batch, max_new_tokens=new_tokens)
-        check(np.array_equal(toks, toks2), f"{arch}: greedy decoding is not deterministic")
-        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-        log(f"  prefill {stats.prefill_seconds:.4f} s / {stats2.prefill_seconds:.4f} s; decode "
-            f"{stats.decode_tokens_per_s:.1f} / {stats2.decode_tokens_per_s:.1f} tokens/s "
-            f"({stats2.decode_seconds:.4f} s for {stats2.tokens_generated}); peak memory "
-            f"{peak / 1e9:.3f} GB ({hw})")
-        tokens = torch.from_numpy(batch["tokens"]).to(device)
-        entry = dict(prefill_s=stats2.prefill_seconds, decode_tok_s=stats2.decode_tokens_per_s,
-                     peak_gb=peak / 1e9)
-        computes = [cfg] + ([dataclasses.replace(cfg, compute_dtype="float32")]
-                            if cfg.family == "moe" else [])
-        for c in computes:
-            res = decode_vs_forward(api, c, params, tokens, cache_cap)
-            entry[f"decode_vs_forward_{c.compute_dtype}"] = check_decode_vs_forward(
-                arch, f"compute {c.compute_dtype}", res)
-        record = cfg.family == "moe"
-        if record:
-            moe.start_routing_record()
-        last, cache, pos = api.prefill(cfg, params, {"tokens": tokens}, cache_cap=cache_cap)
-        r_prefill = moe.stop_routing_record() if record else []
-        nt = torch.argmax(last, -1)[:, None].to(torch.int32)
-        profile_one_search(lambda: api.decode_step(cfg, params, nt, cache, pos), device,
-                           what="decode step")
-        if record:
-            moe.start_routing_record()
-            api.decode_step(cfg, params, nt, cache, pos)
-            entry["dropped"] = {"prefill": moe_dropped(r_prefill, cfg),
-                                "decode step": moe_dropped(moe.stop_routing_record(), cfg)}
-            log(f"  slots dropped at capacity factor {cfg.capacity_factor}: prefill "
-                f"{entry['dropped']['prefill'][0]} of {entry['dropped']['prefill'][1]}, one "
-                f"decode step {entry['dropped']['decode step'][0]} of "
-                f"{entry['dropped']['decode step'][1]}")
-        del last, cache
-        report[arch] = entry
-        del params, eng
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-    return report
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    api = get_api(cfg)
+    log(f"== phase {phase}: LM serving, {arch} ({cfg.family}, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {cfg.n_layers} of {get_config(arch).n_layers} layers), {batch_size} "
+        f"prompts of {prompt} tokens, {new_tokens} new, cache_cap {cache_cap}, greedy, compute "
+        f"{cfg.compute_dtype} ({hw})")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)       # the context exists before the reset
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    params = api.init_params(cfg, SEED, device=device)
+    n_params = sum(t.numel() for t in _tree_leaves(params))
+    log(f"  {n_params} parameters ({n_params * 4 / 1e9:.3f} GB float32; the config's "
+        f"count {cfg.param_count()})")
+    batch = SyntheticTokens(cfg, DataConfig(seed=SEED, global_batch=batch_size,
+                                            seq_len=prompt)).batch(0)
+    eng = ServeEngine(cfg, api, params, cache_cap=cache_cap)
+    toks, stats = eng.generate(batch, max_new_tokens=new_tokens)
+    check(toks.shape == (batch_size, new_tokens) and toks.min() >= 0
+          and toks.max() < cfg.vocab, f"{arch}: bad tokens")
+    toks2, stats2 = eng.generate(batch, max_new_tokens=new_tokens)
+    check(np.array_equal(toks, toks2), f"{arch}: greedy decoding is not deterministic")
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    log(f"  prefill {stats.prefill_seconds:.4f} s / {stats2.prefill_seconds:.4f} s; decode "
+        f"{stats.decode_tokens_per_s:.1f} / {stats2.decode_tokens_per_s:.1f} tokens/s "
+        f"({stats2.decode_seconds:.4f} s for {stats2.tokens_generated}); peak memory "
+        f"{peak / 1e9:.3f} GB ({hw})")
+    on_device = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    tokens, frames = on_device["tokens"], on_device.get("frames")
+    entry = dict(prefill_s=stats2.prefill_seconds, decode_tok_s=stats2.decode_tokens_per_s,
+                 peak_gb=peak / 1e9)
+    for compute in steps:
+        c = dataclasses.replace(cfg, compute_dtype=compute.split()[0])
+        res = decode_vs_forward(api, c, params, tokens, cache_cap, frames=frames,
+                                float32_kv=compute.endswith("KV"))
+        entry[f"decode_vs_forward {compute}"] = check_decode_vs_forward(
+            arch, f"compute {compute}", res)
+    record = cfg.family == "moe"
+    if record:
+        moe.start_routing_record()
+    last, cache, pos = api.prefill(cfg, params, on_device, cache_cap=cache_cap)
+    r_prefill = moe.stop_routing_record() if record else []
+    nt = torch.argmax(last, -1)[:, None].to(torch.int32)
+    profile_one_search(lambda: api.decode_step(cfg, params, nt, cache, pos), device,
+                       what="decode step")
+    if record:
+        moe.start_routing_record()
+        api.decode_step(cfg, params, nt, cache, pos)
+        entry["dropped"] = {"prefill": moe_dropped(r_prefill, cfg),
+                            "decode step": moe_dropped(moe.stop_routing_record(), cfg)}
+        log(f"  slots dropped at capacity factor {cfg.capacity_factor}: prefill "
+            f"{entry['dropped']['prefill'][0]} of {entry['dropped']['prefill'][1]}, one "
+            f"decode step {entry['dropped']['decode step'][0]} of "
+            f"{entry['dropped']['decode step'][1]}")
+    del last, cache, params, eng
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return entry
+
+
+def phase_lm_serving(device: torch.device, cases=LM_CASES, batch_size: int = LM_BATCH,
+                     prompt: int = LM_PROMPT, cache_cap: int = LM_CAP) -> dict:
+    """Phase 6d: `serve_arch` on smollm-360m at full size and qwen2-moe-a2.7b
+    at full width cut to 4 layers, 8 prompts of 128 SyntheticTokens tokens
+    (the MoE's decode step also held at float32 compute)."""
+    return {arch: serve_arch(device, "6d", arch, layers, new_tokens, steps, batch_size,
+                             prompt, cache_cap)
+            for arch, layers, new_tokens, steps in cases}
 
 
 ENTRY_DOCS, ENTRY_Q, ENTRY_BATCHES = 200_000, 1024, 4
@@ -4182,6 +4255,54 @@ def phase_entry_points(device: torch.device, n_docs: int = ENTRY_DOCS,
     target = examples.get("sequence_search", {}).get("target", 1234)
     check(report["sequence_search"]["best"] == {0.1: target, 0.3: target},
           f"sequence_search did not find its target: {report['sequence_search']['best']}")
+    return report
+
+
+# arch, new tokens, decode-step checks: every family of the slice at its
+# full published size.  At bfloat16 the SSM's decode step parts from the
+# forward by 0.27 at the logits (PERF.md section 6; by block and beside the
+# reference: tools/lm_decode_gap.py), so it is held at float32 compute; the
+# hybrid's also needs its K/V cache in float32.
+FAMILY_CASES = (
+    ("mamba2-1.3b", 32, ("float32",)),
+    ("zamba2-2.7b", 16, ("float32 KV",)),
+    ("seamless-m4t-large-v2", 32, AT_BF16),
+)
+FAMILY_PROMPT, FAMILY_CAP = 256, 512          # the FULL configs' ssd_chunk; cap two prompts
+
+
+def phase_lm_families(device: torch.device, cases=FAMILY_CASES, batch_size: int = LM_BATCH,
+                      prompt: int = FAMILY_PROMPT, cache_cap: int = FAMILY_CAP,
+                      n_docs: int = ENTRY_DOCS, n_queries: int = ENTRY_Q,
+                      batches: int = ENTRY_BATCHES, table: str = "mamba2-1.3b") -> dict:
+    """Phase 6f: `serve_arch` on mamba2-1.3b (ssm), zamba2-2.7b (hybrid) and
+    seamless-m4t-large-v2 (audio, 256 frames a prompt) at full size, 8
+    prompts of 256 SyntheticTokens tokens; then `launch/serve.run` over
+    `n_docs` documents embedded through mamba2-1.3b's table, each search
+    launching match_count and cpq_hist, self-retrieval >= 0.99 (`table`:
+    the arch whose table embeds them)."""
+    from repro_torch.launch import serve as serve_lib
+
+    report = {arch: serve_arch(device, "6f", arch, None, new_tokens, steps, batch_size,
+                               prompt, cache_cap)
+              for arch, new_tokens, steps in cases}
+    hw = gpu_name_and_power_limit()
+    log(f"== phase 6f: launch/serve.run(arch={table!r}, n_docs={n_docs}, "
+        f"n_queries={n_queries}, batches={batches}) ({hw})")
+    out = serve_lib.run(arch=table, n_docs=n_docs, n_queries=n_queries, batches=batches,
+                        device=device)
+    for counts in out["launches"]:
+        check_search_launches(f"launch/serve {table}", {"search": counts}, device)
+    log(f"  launch/serve {table}: {out['qps']:.1f} queries/s, top-1 self-retrieval "
+        f"{out['self_retrieval']:.4f}, indexed in {out['index_seconds']:.3f} s ({hw})")
+    check(out["self_retrieval"] >= 0.99,
+          f"launch/serve over {table}: self-retrieval {out['self_retrieval']}")
+    queries = [out["docs"][i] for i in (np.arange(n_queries) * 7) % n_docs]
+    profile_one_search(lambda: out["service"].search(queries, k=10), device)
+    report["launch/serve"] = dict(qps=out["qps"], self_retrieval=out["self_retrieval"])
+    del out
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
     return report
 
 
@@ -4267,6 +4388,7 @@ def main() -> int:
     phase_dryrun_memory(device, distributed_report)
     phase_lm_serving(device)
     phase_entry_points(device)
+    phase_lm_families(device)
     torch.cuda.synchronize()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power_limit())

@@ -6,7 +6,7 @@ through an LM's embedding table.
 
 The counterpart of `repro/launch/serve.py`, with its arguments and `--device`
 (default: the card).  It prints what the reference prints; `run` returns it,
-with the kernel launches of each search.
+with the kernel launches of each search, the service and its documents.
 """
 from __future__ import annotations
 
@@ -67,7 +67,8 @@ def run(arch: str = "smollm-360m-smoke", n_docs: int = 20_000, n_queries: int = 
     print(f"{total} queries in {dt:.2f}s -> {total/dt:.0f} qps; "
           f"top-1 self-retrieval {hits/total:.3f}")
     return dict(index_seconds=index_seconds, queries=total, seconds=dt, qps=total / dt,
-                self_retrieval=hits / total, launches=launches, embed=embed)
+                self_retrieval=hits / total, launches=launches, embed=embed, service=svc,
+                docs=docs)
 
 
 def main(argv=None) -> dict:

@@ -1,4 +1,5 @@
-# LM scaffolding, the serving path of the dense, moe and vlm families (the
-# ssm, hybrid and audio families are still to be ported).
-from repro_torch.models import config, layers, moe, registry, transformer  # noqa: F401
+# LM scaffolding: the serving path of the six architecture families.
+from repro_torch.models import (  # noqa: F401
+    config, encdec, hybrid, layers, moe, registry, ssm, transformer,
+)
 from repro_torch.models.config import ModelConfig  # noqa: F401

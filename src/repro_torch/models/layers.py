@@ -37,6 +37,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu`'s operations, x * (1 / (1 + exp(-x))), each rounded to
+    x's dtype (`F.silu` rounds once: in bfloat16 the two differ by an ulp on
+    ~40 % of the values)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -149,14 +156,14 @@ def attention_block(
     cfg: ModelConfig,
     positions: torch.Tensor,
     *,
+    causal: bool = True,
     cache: Optional[dict] = None,
     cache_pos: Optional[int] = None,
+    use_rope: bool = True,
     kv_override: Optional[tuple] = None,
+    long_chunked: bool = True,
 ):
-    """Causal GQA self-attention with rotary positions and an optional KV
-    cache, or cross-attention over `kv_override`.  The reference's `causal`
-    and `use_rope` switches serve only the encoder-decoder family, which is
-    not ported.
+    """GQA attention with optional KV cache.
 
     cache: {"k": [B, cap, KV, D], "v": ...} -- when given with cache_pos, the
     new K/V rows are written at cache_pos IN PLACE (the reference updates it
@@ -164,7 +171,9 @@ def attention_block(
     `dynamic_update_slice` clamps); attention runs over the cache prefix.
     Returns (out [B, S, Dm], the cache or the emitted (k, v)).
     kv_override: (k, v) cross-attention memory (encoder output), bypasses
-    K/V projection caching.
+    K/V projection caching.  causal=False: bidirectional (the encoder);
+    use_rope=False: no rotary positions; long_chunked=False: full attention
+    at any length (no caller sets it, here or in the reference).
     """
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -176,8 +185,9 @@ def attention_block(
             q = q + p["bq"].reshape(h, hd).to(x.dtype)
             k = k + p["bk"].reshape(kvh, hd).to(x.dtype)
             v = v + p["bv"].reshape(kvh, hd).to(x.dtype)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     else:
         k, v = kv_override
         if cfg.qkv_bias:
@@ -194,16 +204,16 @@ def attention_block(
         emitted = cache
     elif kv_override is not None:
         # cross-attention: chunk long sequences too
-        if s >= 2048 and k.shape[1] >= 2048:
+        if long_chunked and s >= 2048 and k.shape[1] >= 2048:
             out = chunked_attention(q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
         else:
             out = full_attention(q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
         emitted = None
     else:
-        if s >= 2048:
-            out = chunked_attention(q, k, v, causal=True, softcap=cfg.attn_logit_softcap)
+        if long_chunked and s >= 2048:
+            out = chunked_attention(q, k, v, causal=causal, softcap=cfg.attn_logit_softcap)
         else:
-            out = full_attention(q, k, v, causal=True, softcap=cfg.attn_logit_softcap)
+            out = full_attention(q, k, v, causal=causal, softcap=cfg.attn_logit_softcap)
         emitted = (k, v)
     out = out.reshape(b, s, h * hd)
     return torch.einsum("bsk,kd->bsd", out, p["wo"].to(x.dtype)), emitted
@@ -217,7 +227,7 @@ def mlp_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     if cfg.mlp_type == "swiglu":
         gate = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
         up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
-        return torch.einsum("bsf,fd->bsd", F.silu(gate) * up, p["w_down"].to(x.dtype))
+        return torch.einsum("bsf,fd->bsd", silu(gate) * up, p["w_down"].to(x.dtype))
     up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
     # jax.nn.gelu approximates with tanh by default
     return torch.einsum("bsf,fd->bsd", F.gelu(up, approximate="tanh"),

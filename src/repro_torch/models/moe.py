@@ -107,7 +107,7 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, t
     # --- expert computation (dense per-expert SwiGLU) ---
     gate = torch.einsum("ecd,edf->ecf", x_buf, p["w_gate"].to(x_buf.dtype))
     up = torch.einsum("ecd,edf->ecf", x_buf, p["w_up"].to(x_buf.dtype))
-    y_buf = torch.einsum("ecf,efd->ecd", F.silu(gate) * up, p["w_down"].to(x_buf.dtype))
+    y_buf = torch.einsum("ecf,efd->ecd", L.silu(gate) * up, p["w_down"].to(x_buf.dtype))
 
     # --- combine: weight in buffer space, then each token sums its own k
     # slots in slot order (the reference scatter-adds the buffers back; an

@@ -1,22 +1,23 @@
-"""Uniform model API over the ported architecture families.
+"""Uniform model API over the six architecture families.
 
-The counterpart of `repro/models/registry.py` for the families that
-`models/transformer.py` carries: dense, moe and vlm.  Every family exposes:
+The counterpart of `repro/models/registry.py`.  Every family exposes:
 
     init_params(cfg, key, device)                  -> params
     train_logits(cfg, params, batch)               -> (logits, aux, labels)
     prefill(cfg, params, batch, cache_cap)         -> (last_logits, cache, pos)
     decode_step(cfg, params, token, cache, pos)    -> (logits, cache)
+    params_from_numpy(cfg, tree, device)           -> params (the reference's
+                                                      weights carried across)
 
 `batch` is a dict of tensors:
-    dense / moe : {"tokens": [B, S]}
-    vlm         : {"patch_embeds": [B, P, D], "tokens": [B, S-P]}  (frontend stub)
+    dense / ssm / hybrid / moe : {"tokens": [B, S]}
+    vlm   : {"patch_embeds": [B, P, D], "tokens": [B, S-P]}   (frontend stub)
+    audio : {"frames": [B, S, D], "tokens": [B, S]}           (frontend stub)
 
 Labels are next-token shifts of the text tokens (modality prefixes excluded
 from the loss); `train_logits` is forward only -- the loss and its backward,
-and the reference's `remat` switch, come with training.  configs/ registers one ModelConfig per --arch id.  The
-ssm, hybrid and audio families are not ported yet: their arch ids raise
-`KeyError` naming the ROADMAP item that ports them.
+and the reference's `remat` switch, come with training.  configs/ registers
+one ModelConfig per --arch id.
 """
 from __future__ import annotations
 
@@ -25,16 +26,10 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.config import ModelConfig
 
 IGNORE = -100  # label id excluded from the loss
-
-# arch ids of the reference whose family is not ported yet
-_UNPORTED = {
-    "mamba2-1.3b": "ssm", "zamba2-2.7b": "hybrid", "seamless-m4t-large-v2": "audio",
-}
-_UNPORTED_ITEM = "ROADMAP.md queue 1 item 11b"
 
 
 def _shift_labels(tokens: torch.Tensor) -> torch.Tensor:
@@ -49,6 +44,7 @@ class ModelApi:
     train_logits: Callable      # (cfg, params, batch) -> (logits, aux, labels)
     prefill: Callable           # (cfg, params, batch, cache_cap) -> (logits, cache, pos)
     decode_step: Callable       # (cfg, params, token, cache, pos) -> (logits, cache)
+    params_from_numpy: Callable  # (cfg, numpy tree, device) -> params
     supports_decode: bool = True
     sub_quadratic: bool = False
 
@@ -65,8 +61,38 @@ def _lm_prefill(cfg, params, batch, cache_cap=None):
 
 
 _DENSE = ModelApi("dense", transformer.init_params, _lm_train, _lm_prefill,
-                  transformer.decode_step)
+                  transformer.decode_step, transformer.params_from_numpy)
 _MOE = dataclasses.replace(_DENSE, family="moe")
+
+
+# --- ssm -------------------------------------------------------------------
+
+def _ssm_train(cfg, params, batch):
+    logits, aux, _ = ssm.forward(cfg, params, batch["tokens"])
+    return logits, aux, _shift_labels(batch["tokens"])
+
+
+def _ssm_prefill(cfg, params, batch, cache_cap=None):
+    return ssm.prefill(cfg, params, batch["tokens"])
+
+
+_SSM = ModelApi("ssm", ssm.init_params, _ssm_train, _ssm_prefill, ssm.decode_step,
+                ssm.params_from_numpy, sub_quadratic=True)
+
+
+# --- hybrid ----------------------------------------------------------------
+
+def _hyb_train(cfg, params, batch):
+    logits, aux, _ = hybrid.forward(cfg, params, batch["tokens"])
+    return logits, aux, _shift_labels(batch["tokens"])
+
+
+def _hyb_prefill(cfg, params, batch, cache_cap=None):
+    return hybrid.prefill(cfg, params, batch["tokens"], cache_cap=cache_cap)
+
+
+_HYBRID = ModelApi("hybrid", hybrid.init_params, _hyb_train, _hyb_prefill,
+                   hybrid.decode_step, hybrid.params_from_numpy, sub_quadratic=True)
 
 
 # --- vlm (internvl2: patch-embedding prefix + dense LLM backbone) ----------
@@ -87,22 +113,37 @@ def _vlm_prefill(cfg, params, batch, cache_cap=None):
 
 
 _VLM = ModelApi("vlm", transformer.init_params, _vlm_train, _vlm_prefill,
-                transformer.decode_step)
+                transformer.decode_step, transformer.params_from_numpy)
+
+
+# --- audio (seamless enc-dec) ----------------------------------------------
+
+def _audio_train(cfg, params, batch):
+    logits, aux, _ = encdec.forward(cfg, params, batch["frames"], batch["tokens"])
+    return logits, aux, _shift_labels(batch["tokens"])
+
+
+def _audio_prefill(cfg, params, batch, cache_cap=None):
+    return encdec.prefill(cfg, params, batch["frames"], batch["tokens"], cache_cap=cache_cap)
+
+
+_AUDIO = ModelApi("audio", encdec.init_params, _audio_train, _audio_prefill,
+                  encdec.decode_step, encdec.params_from_numpy)
 
 
 _FAMILIES = {
     "dense": _DENSE,
     "moe": _MOE,
+    "ssm": _SSM,
+    "hybrid": _HYBRID,
     "vlm": _VLM,
+    "audio": _AUDIO,
 }
 
 _CONFIGS: dict[str, ModelConfig] = {}
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
-    if cfg.family not in _FAMILIES:
-        raise ValueError(f"family {cfg.family!r} of {cfg.arch_id!r} is not ported "
-                         f"({_UNPORTED_ITEM})")
     _CONFIGS[cfg.arch_id] = cfg
     return cfg
 
@@ -113,10 +154,6 @@ def get_config(arch_id: str) -> ModelConfig:
     try:
         return _CONFIGS[arch_id]
     except KeyError:
-        base = arch_id.removesuffix("-smoke")
-        if base in _UNPORTED:
-            raise KeyError(f"{arch_id!r} is of the {_UNPORTED[base]} family, which is not "
-                           f"ported yet ({_UNPORTED_ITEM})") from None
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_CONFIGS)}") from None
 
 

@@ -67,21 +67,23 @@ def init_params(cfg: ModelConfig, key: Any = 0, device: DeviceLike = None) -> di
     return params
 
 
+def tensors_from_numpy(node, device: torch.device, index: tuple = ()):
+    """A nested dict of numpy arrays -> the same dict of tensors on
+    `device`, each leaf indexed by `index` first (one layer of a stacked
+    layer axis)."""
+    if isinstance(node, dict):
+        return {k: tensors_from_numpy(v, device, index) for k, v in node.items()}
+    arr = np.asarray(node)[index]
+    return torch.from_numpy(np.array(arr, copy=True, order="C")).to(device)
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device: DeviceLike = None) -> dict:
     """The reference's `init_params` pytree (leaves as numpy arrays) -> the
     port's parameters on `device`, the stacked block axis unstacked."""
     dev = resolve_device(device)
-
-    def convert(node, layer=None):
-        if isinstance(node, dict):
-            return {k: convert(v, layer) for k, v in node.items()}
-        arr = np.asarray(node)
-        if layer is not None:
-            arr = arr[layer]
-        return torch.from_numpy(np.array(arr, copy=True, order="C")).to(dev)
-
-    params = {k: convert(v) for k, v in tree.items() if k != "blocks"}
-    params["blocks"] = [convert(tree["blocks"], i) for i in range(cfg.n_layers)]
+    params = {k: tensors_from_numpy(v, dev) for k, v in tree.items() if k != "blocks"}
+    params["blocks"] = [tensors_from_numpy(tree["blocks"], dev, (i,))
+                        for i in range(cfg.n_layers)]
     return params
 
 

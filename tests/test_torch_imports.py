@@ -48,7 +48,10 @@ def test_module_list_covers_the_slice():
                  "repro_torch.launch.serve", "repro_torch.examples.quickstart",
                  "repro_torch.examples.sequence_search",
                  "repro_torch.examples.ann_kernel_space",
-                 "repro_torch.examples.serve_batch"):
+                 "repro_torch.examples.serve_batch", "repro_torch.models.ssm",
+                 "repro_torch.models.hybrid", "repro_torch.models.encdec",
+                 "repro_torch.configs.mamba2_1_3b", "repro_torch.configs.zamba2_2_7b",
+                 "repro_torch.configs.seamless_m4t_large_v2"):
         assert name in _MODULES
 
 
@@ -85,6 +88,13 @@ def test_no_source_line_imports_jax_or_the_jax_package():
     assert offenders == []
 
 
+def _init_arch(arch):
+    from repro_torch.models.registry import get_api, get_config
+
+    cfg = get_config(arch)
+    return get_api(cfg).init_params(cfg, 0)
+
+
 def _needs_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists here")
@@ -107,11 +117,14 @@ def _needs_no_cuda():
     lambda: GenieIndex.build_minsum([[1, 2], [3, 4]], max_count=4),
     lambda: GenieIndex.build_ip([[1, 0], [0, 1]], max_count=2),
     lambda: SegmentedIndex(Engine.RANGE),
+    lambda: _init_arch("mamba2-1.3b-smoke"),
+    lambda: _init_arch("zamba2-2.7b-smoke"),
+    lambda: _init_arch("seamless-m4t-large-v2-smoke"),
 ], ids=["service", "service-device-none", "segmented", "index-build",
         "index-build-lsh", "resolve-none", "resolve-cuda", "service-simhash-packed",
         "index-build-cosine", "service-minhash-packed", "service-rbh",
         "index-build-tanimoto", "index-build-relational", "index-build-minsum",
-        "index-build-ip", "segmented-range"])
+        "index-build-ip", "segmented-range", "init-ssm", "init-hybrid", "init-audio"])
 def test_default_device_raises_without_cuda(build):
     """No silent run on the CPU: the default device is the card."""
     _needs_no_cuda()

@@ -1,6 +1,6 @@
-"""The port's LM serving path (`repro_torch.models.*`, the dense, moe and vlm
-families) against the JAX package's on the reference's own weights, carried
-across with `transformer.params_from_numpy`.
+"""The port's LM serving path (`repro_torch.models.*`, all six families)
+against the JAX package's on the reference's own weights, carried across
+with each family's `params_from_numpy`.
 
 Tolerances: logits within atol 1e-4 at float32 compute and 5e-2 at the
 shipped bfloat16 (the reference's own decode-vs-forward bound).  The KV cache
@@ -14,8 +14,15 @@ the reference's own op-by-op evaluation does).  With it on, XLA's CPU
 program keeps bfloat16 intermediates in float32 inside its fusions, and on
 grok-1-314b-smoke that moves the reference's own train logits by 1.35 from
 its op-by-op evaluation (two tokens' routing changes), where the port stays
-within 0.033 of the latter."""
+within 0.033 of the latter.
+
+The reference initialises some leaves to constants that make a block inert
+or symmetric (zero LoRA `b_q`, conv and qkv biases; unit norms and
+`D_skip`; fixed `A_log` and `dt_bias`): with them, a port that dropped the
+LoRA, the conv bias or the D skip would still agree.  `reference_tree`
+replaces those leaves with seeded noise before both packages see them."""
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -37,9 +44,10 @@ from repro_torch.models import registry, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import get_api, get_config
 
+NEW_FAMILIES = ["mamba2-1.3b-smoke", "zamba2-2.7b-smoke", "seamless-m4t-large-v2-smoke"]
 PORTED = ["phi3-mini-3.8b-smoke", "mistral-large-123b-smoke", "qwen2.5-14b-smoke",
           "smollm-360m-smoke", "qwen2-moe-a2.7b-smoke", "grok-1-314b-smoke",
-          "internvl2-76b-smoke"]
+          "internvl2-76b-smoke"] + NEW_FAMILIES
 ATOL = {"float32": 1e-4, "bfloat16": 5e-2}
 BF16_STEP = 2.0 ** -7
 
@@ -63,10 +71,36 @@ def _batch_tensors(batch):
     return {k: _t(v) for k, v in batch.items()}
 
 
+# leaf name -> (scale of the seeded noise added to it); the norms' names
+# start with "ln" or end in "_ln" / "norm"
+_INERT = {"b_q": 0.06, "conv_b": 0.1, "bq": 0.1, "bk": 0.1, "bv": 0.1, "D_skip": 0.5,
+          "A_log": 0.3, "dt_bias": 0.3}
+_NORM_NOISE = 0.2
+
+
+def perturb_inert(tree, seed: int = 11):
+    """The numpy tree with every inert leaf (`_INERT`, the norms) moved by
+    seeded noise, in the order of a sorted walk."""
+    rng = np.random.default_rng(seed)
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(node[k], k) for k in sorted(node)}
+        scale = _INERT.get(name)
+        if scale is None and (name.startswith("ln") or name.endswith(("_ln", "norm"))):
+            scale = _NORM_NOISE
+        if scale is None:
+            return node
+        noise = rng.standard_normal(node.shape) * scale
+        return (np.asarray(node, np.float32) + noise).astype(node.dtype)
+
+    return walk(tree)
+
+
 def reference_tree(arch):
     cfg = jget_config(arch)
     init = jax.jit(jget_api(cfg).init_params, static_argnums=0)
-    return jax.tree_util.tree_map(np.asarray, init(cfg, jax.random.PRNGKey(0)))
+    return perturb_inert(jax.tree_util.tree_map(np.asarray, init(cfg, jax.random.PRNGKey(0))))
 
 
 def _strict(fn, *args):
@@ -80,13 +114,25 @@ def test_logits_prefill_and_decode_equal_reference(arch):
     hold_arch(arch, "float32")
 
 
+def _close_cache(cache, jcache, atol, what):
+    """Every cache entry of the reference at its dtype (the KV caches are
+    bfloat16, the SSM state float32, conv tails and encoder memory the
+    compute dtype): one bfloat16 step above atol where it is bfloat16."""
+    assert sorted(cache) == sorted(jcache), (what, sorted(cache))
+    for name, want in jcache.items():
+        got = cache[name]
+        assert str(got.dtype).removeprefix("torch.") == str(want.dtype), (what, name)
+        rtol = BF16_STEP if got.dtype == torch.bfloat16 else 0.0
+        _close(got, want, atol, rtol, what=f"{what} {name}")
+
+
 def hold_arch(arch, dtype):
     tree = reference_tree(arch)
     jcfg = dataclasses.replace(jget_config(arch), compute_dtype=dtype)
     cfg = dataclasses.replace(get_config(arch), compute_dtype=dtype)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     japi, api = jget_api(jcfg), get_api(cfg)
-    params = transformer.params_from_numpy(cfg, tree, device="cpu")
+    params = api.params_from_numpy(cfg, tree, device="cpu")
     batch = SyntheticTokens(jcfg, DataConfig(global_batch=2, seq_len=16)).batch(0)
     tbatch = _batch_tensors(batch)
     atol = ATOL[dtype]
@@ -104,9 +150,7 @@ def hold_arch(arch, dtype):
     last, cache, pos = api.prefill(cfg, params, tbatch, cache_cap=24)
     assert pos == int(jpos)
     _close(last, jlast, atol, what="prefill logits")
-    for name in ("k", "v"):
-        assert cache[name].dtype == torch.bfloat16
-        _close(cache[name], jcache[name], atol, BF16_STEP, what=f"cache {name}")
+    _close_cache(cache, jcache, atol, "cache")
 
     token = np.asarray(jnp.argmax(jlast, -1)[:, None].astype(jnp.int32))
     jstep, jcache2 = _strict(lambda w, t, c, p: japi.decode_step(jcfg, w, t, c, p),
@@ -114,8 +158,7 @@ def hold_arch(arch, dtype):
     step, cache2 = api.decode_step(cfg, params, _t(token), cache, pos)
     assert cache2 is cache                                  # written in place
     _close(step, jstep, atol, what="decode logits")
-    for name in ("k", "v"):
-        _close(cache2[name], jcache2[name], atol, BF16_STEP, what=f"decoded cache {name}")
+    _close_cache(cache2, jcache2, atol, "decoded cache")
 
 
 def _moe_cfg(**kw):
@@ -198,36 +241,42 @@ def test_param_counts_equal_reference_for_every_full_config():
 
 
 def test_registry_holds_the_ported_archs_and_names_the_rest():
-    assert ALL_ARCHS == [a for a in J_ALL_ARCHS
-                         if jget_config(a).family in ("dense", "moe", "vlm")]
+    """Every arch id of the reference, with its family and flags; an unknown
+    id raises `KeyError` naming the known ones."""
+    assert ALL_ARCHS == J_ALL_ARCHS
+    assert registry.list_archs() == jlist_archs()
+    assert len(registry.list_archs()) == 20
     assert registry.list_archs() == sorted(ALL_ARCHS + [a + "-smoke" for a in ALL_ARCHS])
-    for arch in ("mamba2-1.3b", "zamba2-2.7b-smoke", "seamless-m4t-large-v2"):
-        with pytest.raises(KeyError, match="item 11b"):
-            get_config(arch)
+    for arch in registry.list_archs():
+        cfg, jcfg = get_config(arch), jget_config(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg), arch
+        api, japi = get_api(cfg), jget_api(jcfg)
+        assert api.family == japi.family == cfg.family, arch
+        assert (api.sub_quadratic, api.supports_decode) == \
+            (japi.sub_quadratic, japi.supports_decode), arch
+    assert {get_api(get_config(a)).family for a in ALL_ARCHS} == \
+        {"dense", "moe", "ssm", "hybrid", "vlm", "audio"}
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    with pytest.raises(ValueError, match="not ported"):
-        registry.register(ModelConfig(arch_id="x", family="ssm", n_layers=1, d_model=8,
-                                      n_heads=0, n_kv_heads=0, d_ff=0, vocab=8))
-    for arch in ALL_ARCHS:
-        assert get_api(get_config(arch)).family == get_config(arch).family
 
 
 def test_port_init_has_the_reference_shapes():
     """The port draws its own weights (torch.Generator); shapes, dtypes and
     the unstacked layer axis follow the reference's."""
-    for arch in ("qwen2-moe-a2.7b-smoke", "internvl2-76b-smoke", "smollm-360m-smoke"):
+    for arch in ("qwen2-moe-a2.7b-smoke", "internvl2-76b-smoke", "smollm-360m-smoke",
+                 *NEW_FAMILIES):
         cfg, jcfg = get_config(arch), jget_config(arch)
-        params = transformer.init_params(cfg, 0, device="cpu")
+        api = get_api(cfg)
+        params = api.init_params(cfg, 0, device="cpu")
         shapes = jax.eval_shape(lambda: jget_api(jcfg).init_params(jcfg, jax.random.PRNGKey(0)))
-        want = transformer.params_from_numpy(
+        want = api.params_from_numpy(
             cfg, jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes), "cpu")
         got_leaves = jax.tree_util.tree_leaves_with_path(params)
         want_leaves = jax.tree_util.tree_leaves_with_path(want)
         assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
         for (path, g), (_, w) in zip(got_leaves, want_leaves):
             assert g.shape == w.shape and g.dtype == w.dtype, path
-        again = transformer.init_params(cfg, 0, device="cpu")
+        again = api.init_params(cfg, 0, device="cpu")
         assert torch.equal(again["embed"], params["embed"])
 
 
@@ -277,3 +326,96 @@ def test_cross_attention_over_kv_override_equals_reference():
                                      _t(positions), kv_override=(_t(k), _t(v)))
     assert emitted is None
     _close(got, want, 1e-5, what="cross-attention")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("use_rope", [True, False])
+@pytest.mark.parametrize("long_chunked,s", [(True, 16), (True, 2048), (False, 2048)])
+def test_attention_block_keywords_equal_reference(causal, use_rope, long_chunked, s):
+    """attention_block takes the reference's keyword set, and its self-attention
+    path at each `causal` / `use_rope` / `long_chunked` equals the reference's
+    (chunked from 2048 positions unless long_chunked is off)."""
+    assert list(inspect.signature(L.attention_block).parameters) == \
+        list(inspect.signature(JL.attention_block).parameters)
+    kw = dict(arch_id="t", family="dense", n_layers=1, d_model=16, n_heads=4, n_kv_heads=2,
+              d_ff=32, vocab=32, compute_dtype="float32")
+    jcfg, cfg = JModelConfig(**kw), ModelConfig(**kw)
+    p = jax.tree_util.tree_map(np.asarray, JL.init_attention(
+        jax.random.PRNGKey(2), jcfg, jnp.float32, 0.5))
+    x = np.random.default_rng(3).standard_normal((1, s, 16)).astype(np.float32)
+    positions = np.broadcast_to(np.arange(s, dtype=np.int32), (1, s))
+    flags = dict(causal=causal, use_rope=use_rope, long_chunked=long_chunked)
+    want, (jk, jv) = JL.attention_block(jnp.asarray(x), p, jcfg, jnp.asarray(positions),
+                                        **flags)
+    got, (k, v) = L.attention_block(_t(x), jax.tree_util.tree_map(_t, p), cfg,
+                                    _t(positions), **flags)
+    _close(got, want, 1e-5, what="attention")
+    _close(k, jk, 1e-5, what="emitted k")
+    _close(v, jv, 1e-6, what="emitted v")
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_decode_matches_forward(arch):
+    """The port's counterpart of tests/test_models.py's check, at the shipped
+    bfloat16 compute on the port's own weights: prefill + one decode step ==
+    a teacher-forced forward at that position (padded to a whole SSD chunk;
+    the encoder-decoder sees the same frames)."""
+    from repro_torch.data.pipeline import DataConfig as TDataConfig
+    from repro_torch.data.pipeline import SyntheticTokens as TSyntheticTokens
+
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    params = api.init_params(cfg, 0, device="cpu")
+    batch = _batch_tensors(TSyntheticTokens(cfg, TDataConfig(global_batch=2, seq_len=16))
+                           .batch(0))
+    last, cache, pos = api.prefill(cfg, params, batch, cache_cap=32)
+    nt = torch.argmax(last, -1)[:, None].to(torch.int32)
+    step, _ = api.decode_step(cfg, params, nt, cache, pos)
+    pad = torch.zeros((2, 7), dtype=torch.int32)          # pad to an SSD-chunk multiple
+    full, _, _ = api.train_logits(cfg, params,
+                                  dict(batch, tokens=torch.cat([batch["tokens"], nt, pad], 1)))
+    err = float((step - full[:, pos]).abs().max())
+    assert err < 5e-2, (arch, err)
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_chip_smoke_decode_vs_forward_pads_and_passes_frames(arch):
+    """chip_smoke.py's decode_vs_forward (phase 6f) on the SSM, hybrid and
+    encoder-decoder families: the forward is padded to a whole SSD chunk and
+    the encoder-decoder's frames are passed on."""
+    import chip_smoke
+
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    params = api.init_params(cfg, 0, device="cpu")
+    batch = SyntheticTokens(jget_config(arch), DataConfig(global_batch=2, seq_len=16)).batch(0)
+    res = chip_smoke.decode_vs_forward(api, cfg, params, _t(batch["tokens"]), cache_cap=24,
+                                       frames=_t(batch["frames"]) if "frames" in batch else None)
+    assert len(res["err"]) == 2 and max(res["err"]) < 5e-2
+    assert res["prompt_flips"] == [0, 0] and res["new_flips"] == [0, 0]
+
+
+def test_chip_smoke_float32_kv_prefill_is_tied_to_the_shipped_prefill():
+    """chip_smoke.py holds zamba2's decode step on a prefill that keeps the
+    shared-attention K/V in float32 (`prefill_float32_kv`); the phase holds
+    that prefill to the shipped `hybrid.prefill` bit for bit (K/V once
+    rounded to bfloat16), and a cache that differs is refused."""
+    import chip_smoke
+
+    arch = "zamba2-2.7b-smoke"
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    api = get_api(cfg)
+    params = api.init_params(cfg, 0, device="cpu")
+    tokens = _t(SyntheticTokens(jget_config(arch), DataConfig(global_batch=2, seq_len=16))
+                .batch(0)["tokens"])
+    got = chip_smoke.prefill_float32_kv(cfg, params, {"tokens": tokens}, cache_cap=24)
+    assert got[1]["attn_k"].dtype == torch.float32
+    chip_smoke.check_float32_kv_prefill(cfg, params, {"tokens": tokens}, 24, got)
+    res = chip_smoke.decode_vs_forward(api, cfg, params, tokens, cache_cap=24, float32_kv=True)
+    assert max(res["err"]) < 5e-2
+    for name in ("attn_v", "ssm"):
+        last, cache, pos = chip_smoke.prefill_float32_kv(cfg, params, {"tokens": tokens}, 24)
+        cache[name].view(-1)[7] += 0.5
+        with pytest.raises(RuntimeError, match=name):
+            chip_smoke.check_float32_kv_prefill(cfg, params, {"tokens": tokens}, 24,
+                                                (last, cache, pos))
