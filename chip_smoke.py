@@ -225,6 +225,19 @@ PACKED search with a tuned 1024-row tile in turns with the default):
      through mamba2-1.3b's table, each search launching match_count and
      cpq_hist, self-retrieval >= 0.99.
 
+  7. training (train/, optim/, checkpoint/; no kernel of its own): the
+     Trainer on smollm-360m at full size (float32 parameters and moments,
+     bfloat16 compute, 8 x 1024 tokens a step, remat "nothing"), 20 steps:
+     step times, tokens/s, peak memory, model FLOPs a step and their share
+     of the dense bfloat16 peak; the loss must fall by 0.5 or more.  Then 3
+     steps with remat "none" and 3 with "dots" (peak memory, step time); the
+     embedding gradient's deterministic scatter against the default one
+     (time, and whether the default repeats its bits); 4 straight steps
+     against 2 steps, an asynchronous checkpoint to a temporary directory, a
+     fresh Trainer and 2 more, every parameter, moment and the step equal
+     bit for bit; last, 6d's and 6f's peak memories beside the last
+     release's (serving builds no autograd graph).
+
 It needs one CUDA device and no network, and imports neither jax nor the JAX
 package.  The last line of its output is one JSON object
 `{"ok": true, "device": {...}}`; the line before it lists the kernels.
@@ -4306,6 +4319,205 @@ def phase_lm_families(device: torch.device, cases=FAMILY_CASES, batch_size: int 
     return report
 
 
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "smollm-360m", 8, 1024, 20
+TRAIN_LR = 1e-3
+PEAK_BF16_FLOP_PER_S = 989e12          # dense bfloat16 tensor-core rate (data sheet)
+# 6d's and 6f's peak memories on the last release (PERF.md section 2; GB)
+SERVING_PEAK_GB = {"smollm-360m": 1.91, "qwen2-moe-a2.7b": 13.3, "mamba2-1.3b": 9.373,
+                   "zamba2-2.7b": 12.046, "seamless-m4t-large-v2": 10.168}
+
+
+def train_flops(cfg, tokens: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 x the parameters the tokens pass
+    through (the head's d x vocab included, the embedding gather not) x the
+    tokens, plus the attention's two [S, S] products, forward and backward
+    (the port computes every score of the causal mask); recomputation is not
+    counted."""
+    n = cfg.param_count()
+    attn = 12 * cfg.n_layers * batch * seq * seq * cfg.n_heads * cfg.head_dim
+    return 6.0 * n * tokens + attn
+
+
+def _trainer(cfg, device, *, steps: int, remat, batch: int, seq: int, ckpt_dir=None,
+             total_steps: int | None = None):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.registry import get_api
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, TrainHParams
+
+    hp = TrainHParams(optimizer=AdamWConfig(lr=TRAIN_LR), total_steps=total_steps or steps,
+                      warmup_steps=2, remat=remat)
+    tc = TrainerConfig(total_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=10 ** 9, log_every=1,
+                       seed=SEED)
+    return Trainer(cfg, get_api(cfg), hp, tc, DataConfig(seed=SEED, global_batch=batch,
+                                                         seq_len=seq), device=device)
+
+
+def _train_run(cfg, device, *, steps: int, remat, batch: int, seq: int, **kw) -> dict:
+    """A fresh Trainer for `steps` steps: its history, final state, and the
+    peak memory of the run."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    tr = _trainer(cfg, device, steps=steps, remat=remat, batch=batch, seq=seq, **kw)
+    hist = tr.run()
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    return dict(history=hist, state=tr.final_state, peak_gb=peak / 1e9, trainer=tr,
+                seconds=[r["seconds"] for r in hist], loss=[r["loss"] for r in hist])
+
+
+def profile_train_step(run: dict, remat, device: torch.device) -> None:
+    """One more step of a finished run under the profiler (the state is
+    updated in place): the device's busy share and its kernels."""
+    tr = run["trainer"]
+    batch = tr.pipeline.batch(len(run["history"]))
+    profile_one_search(lambda: tr.step_fn(run["state"], batch), device,
+                       what=f"training step (remat {remat!r})")
+
+
+def _state_leaves(state) -> list:
+    from repro_torch.tree import leaves
+
+    return (leaves(state.params) + leaves(state.opt.m) + leaves(state.opt.v)
+            + [state.opt.step])
+
+
+def determinism_cost(cfg, device, batch: int, seq: int, reps: int = 5) -> dict:
+    """The embedding gradient at the training shape: `layers.gather_rows`
+    (a deterministic scatter) against the default backward of
+    `table[tokens]`, `reps` runs of each (the median of all but the first);
+    whether each repeats its bits, and how far the two are apart."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.device import synchronize
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    table = (torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=device) * 0.02
+             ).requires_grad_(True)
+    tokens = torch.from_numpy(SyntheticTokens(cfg, DataConfig(
+        seed=SEED, global_batch=batch, seq_len=seq)).batch(0)["tokens"]).to(device).long()
+    upstream = torch.randn((batch, seq, cfg.d_model), generator=gen, device=device)
+    out, first = {}, {}
+    for name, gather in (("gather_rows", lambda: L.gather_rows(table, tokens)),
+                         ("default", lambda: table[tokens])):
+        grads, times = [], []
+        for _ in range(reps):
+            rows = gather()
+            synchronize(device)
+            t0 = time.perf_counter()
+            (g,) = torch.autograd.grad(rows, table, upstream)
+            synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+            grads.append(g)
+        out[name] = dict(ms=statistics.median(times[1:] or times),
+                         repeats=all(torch.equal(grads[0], x) for x in grads[1:]))
+        first[name] = grads[0]
+    out["max_abs_diff"] = float((first["gather_rows"] - first["default"]).abs().max())
+    return out
+
+
+def phase_training(device: torch.device, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
+                   seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS, remat_steps: int = 3,
+                   serving: dict | None = None, min_fall: float = 0.5) -> dict:
+    """Phase 7: training on the card (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.models.registry import get_config
+
+    hw = gpu_name_and_power_limit()
+    cfg = get_config(arch)
+    tokens = batch * seq
+    log(f"== phase 7: training {arch} (d_model {cfg.d_model}, {cfg.n_layers} layers, vocab "
+        f"{cfg.vocab}, {cfg.param_count()} parameters), float32 parameters and moments, "
+        f"{cfg.compute_dtype} compute, {batch} x {seq} tokens a step, lr {TRAIN_LR} ({hw})")
+    report = {}
+    run = _train_run(cfg, device, steps=steps, remat="nothing", batch=batch, seq=seq)
+    secs, loss = run["seconds"], run["loss"]
+    median = statistics.median(secs[1:])
+    flops = train_flops(cfg, tokens, batch, seq)
+    log(f"  remat 'nothing', {steps} steps: first step {secs[0]:.4f} s, median of the rest "
+        f"{median:.4f} s (min {min(secs[1:]):.4f}, max {max(secs[1:]):.4f}), "
+        f"{tokens / median:.1f} tokens/s, peak memory {run['peak_gb']:.3f} GB ({hw})")
+    log(f"  model FLOPs a step {flops / 1e12:.3f} TFLOP (6 x {cfg.param_count()} x {tokens} "
+        f"+ attention), {flops / median / 1e12:.2f} TFLOP/s, "
+        f"{100 * flops / median / PEAK_BF16_FLOP_PER_S:.2f} % of the dense bfloat16 peak "
+        f"({PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s at 700 W) ({hw})")
+    log(f"  loss: step 1 {loss[0]:.4f}, step {steps} {loss[-1]:.4f} (fell by "
+        f"{loss[0] - loss[-1]:.4f}); every step: {[round(x, 4) for x in loss]}")
+    check(all(np.isfinite(loss)), f"{arch}: a loss is not finite: {loss}")
+    check(loss[0] - loss[-1] >= min_fall,
+          f"{arch}: the loss fell by {loss[0] - loss[-1]:.4f} in {steps} steps, below {min_fall}")
+    report["nothing"] = dict(first_s=secs[0], median_s=median, tokens_per_s=tokens / median,
+                             peak_gb=run["peak_gb"], loss_first=loss[0], loss_last=loss[-1],
+                             flops=flops, peak_share=flops / median / PEAK_BF16_FLOP_PER_S)
+    profile_train_step(run, "nothing", device)
+    del run
+    for remat in ("none", "dots"):
+        r = _train_run(cfg, device, steps=remat_steps, remat=remat, batch=batch, seq=seq)
+        med = statistics.median(r["seconds"][1:])
+        log(f"  remat {remat!r}, {remat_steps} steps: step times "
+            f"{[round(x, 4) for x in r['seconds']]} s, median of the last "
+            f"{remat_steps - 1} {med:.4f} s, {tokens / med:.1f} tokens/s, peak memory "
+            f"{r['peak_gb']:.3f} GB ({hw})")
+        check(all(np.isfinite(r["loss"])), f"remat {remat}: a loss is not finite")
+        report[remat] = dict(median_s=med, peak_gb=r["peak_gb"], tokens_per_s=tokens / med)
+        if remat == "dots":
+            profile_train_step(r, remat, device)
+        del r
+    cost = determinism_cost(cfg, device, batch, seq)
+    log(f"  embedding gradient [{cfg.vocab}, {cfg.d_model}] from {batch} x {seq} tokens: "
+        f"gather_rows (deterministic) {cost['gather_rows']['ms']:.4f} ms, repeats its bits "
+        f"{cost['gather_rows']['repeats']}; default backward {cost['default']['ms']:.4f} ms, "
+        f"repeats its bits {cost['default']['repeats']}; max |difference| "
+        f"{cost['max_abs_diff']:.3g} ({hw})")
+    check(cost["gather_rows"]["repeats"], "gather_rows' gradient changed between runs")
+    report["determinism"] = cost
+
+    # bit-exact resume: 4 straight steps == 2 steps + checkpoint + 2 steps
+    straight = _train_run(cfg, device, steps=4, remat="nothing", batch=batch, seq=seq)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t0 = time.perf_counter()
+        first = _train_run(cfg, device, steps=2, remat="nothing", batch=batch, seq=seq,
+                           ckpt_dir=ckpt_dir, total_steps=4)
+        mid = time.perf_counter()
+        resumed = _train_run(cfg, device, steps=4, remat="nothing", batch=batch, seq=seq,
+                             ckpt_dir=ckpt_dir)
+        end = time.perf_counter()
+        size = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(ckpt_dir)
+                   for f in fs)
+        check(checkpointer.latest_step(ckpt_dir) == 4, "the resumed run saved no step 4")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    got, want = _state_leaves(resumed["state"]), _state_leaves(straight["state"])
+    same = [torch.equal(a, b) for a, b in zip(got, want, strict=True)]
+    log(f"  resume: 2 steps + checkpoint ({first['history'][-1]['step']} steps, "
+        f"{mid - t0:.2f} s with the save) + a fresh Trainer to step 4 ({end - mid:.2f} s with "
+        f"the restore); the directory held {size / 1e9:.3f} GB at the end (two checkpoints); "
+        f"{sum(same)} of {len(same)} leaves (parameters, m, v, step) equal bit for bit to 4 "
+        f"straight steps; losses {[round(x, 4) for x in straight['loss']]} straight, "
+        f"{[round(x, 4) for x in first['loss'] + resumed['loss']]} resumed ({hw})")
+    check(all(same), f"the resumed state differs from the straight one in "
+                     f"{len(same) - sum(same)} of {len(same)} leaves")
+    check(int(resumed["state"].opt.step) == 4, "the resumed run did not reach step 4")
+    report["resume"] = dict(leaves=len(same), equal=sum(same), checkpoint_gb=size / 2e9)
+    del straight, first, resumed
+
+    if serving:
+        for name, peak in serving.items():
+            was = SERVING_PEAK_GB.get(name)
+            log(f"  serving peak memory {name}: {peak:.3f} GB (last release {was} GB) ({hw})")
+            check(was is None or peak <= was * 1.05,
+                  f"{name}: serving peak memory {peak:.3f} GB above the last release's {was}")
+        report["serving_peak_gb"] = dict(serving)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs one "
@@ -4386,9 +4598,12 @@ def main() -> int:
     phase_postings_sift(device)
     phase_postings_balance(device)
     phase_dryrun_memory(device, distributed_report)
-    phase_lm_serving(device)
+    lm = phase_lm_serving(device)
     phase_entry_points(device)
-    phase_lm_families(device)
+    families = phase_lm_families(device)
+    serving_peaks = {arch: r["peak_gb"] for arch, r in {**lm, **families}.items()
+                     if isinstance(r, dict) and "peak_gb" in r}
+    phase_training(device, serving=serving_peaks)
     torch.cuda.synchronize()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power_limit())

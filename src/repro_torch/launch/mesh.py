@@ -23,11 +23,9 @@ its own rank.
 FUNCTIONS, not module-level constants: importing this module starts no
 process group.
 
-The rest of the reference's launch package is not ported here: the
-parameter sharding policy (`sharding.py`), the input shapes (`shapes.py`)
-and the train / serve drivers (`train.py`, `serve.py`) belong to the LM
-scaffolding (ROADMAP queue 1 item 11), and the dry-run (`dryrun.py`) to
-queue 1 items 10 and 11.
+The parameter sharding policy (`sharding.py`) and the input shapes
+(`shapes.py`) of the reference's launch package are ROADMAP queue 1 item
+11c-ii.
 """
 from __future__ import annotations
 

@@ -71,19 +71,23 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device: DeviceLike = None) -
     return params
 
 
-def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+def _enc_block(cfg, lp, h, positions):
+    a, _ = L.attention_block(L.rms_norm(h, lp["ln1"], cfg.rms_eps), lp["attn"], cfg,
+                             positions, causal=False)
+    h = h + a
+    return h + L.mlp_block(L.rms_norm(h, lp["ln2"], cfg.rms_eps), lp["mlp"], cfg)
+
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, *, remat=True) -> torch.Tensor:
     """frames [B, S_src, D] (stub embeddings) -> encoder memory [B, S_src, D]
-    in the compute dtype."""
-    with torch.no_grad():
-        h = frames.to(L.cdtype(cfg))
-        b, s, _ = h.shape
-        positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
-        for lp in params["enc_blocks"]:
-            a, _ = L.attention_block(L.rms_norm(h, lp["ln1"], cfg.rms_eps), lp["attn"], cfg,
-                                     positions, causal=False)
-            h = h + a
-            h = h + L.mlp_block(L.rms_norm(h, lp["ln2"], cfg.rms_eps), lp["mlp"], cfg)
-        return L.rms_norm(h, params["enc_ln"], cfg.rms_eps)
+    in the compute dtype.  Each block is checkpointed as `remat` says."""
+    h = frames.to(L.cdtype(cfg))
+    b, s, _ = h.shape
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
+    block = L.remat_wrap(lambda h, lp: _enc_block(cfg, lp, h, positions), remat)
+    for lp in params["enc_blocks"]:
+        h = block(h, lp)
+    return L.rms_norm(h, params["enc_ln"], cfg.rms_eps)
 
 
 def _cross_kv(cfg, lp, memory):
@@ -109,30 +113,33 @@ def _dec_block(cfg, lp, h, positions, memory, cache=None, cache_pos=None):
 
 
 def forward(cfg: ModelConfig, params, frames: torch.Tensor, tgt_tokens: torch.Tensor, *,
-            emit_kv: bool = False):
+            remat=True, emit_kv: bool = False):
     """Teacher-forced seq2seq forward -> (logits [B, S_tgt, V] float32, aux 0,
     (kv, memory)): kv is (k, v) each [L, B, S_tgt, KV, hd] with `emit_kv`,
-    else None."""
-    with torch.no_grad():
-        memory = encode(cfg, params, frames)
-        h = T._embed(cfg, params, tgt_tokens)
-        b, s, _ = h.shape
-        positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
-        ks, vs = [], []
-        for lp in params["dec_blocks"]:
-            h, (k, v) = _dec_block(cfg, lp, h, positions, memory)
-            if emit_kv:
-                ks.append(k)
-                vs.append(v)
-        kv = (torch.stack(ks), torch.stack(vs)) if emit_kv else None
-        return T._head(cfg, params, h), torch.zeros((), device=h.device), (kv, memory)
+    else None.  Encoder and decoder blocks are checkpointed as `remat`
+    says."""
+    memory = encode(cfg, params, frames, remat=remat)
+    h = T._embed(cfg, params, tgt_tokens)
+    b, s, _ = h.shape
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
+    block = L.remat_wrap(lambda h, lp: _dec_block(cfg, lp, h, positions, memory), remat)
+    ks, vs = [], []
+    for lp in params["dec_blocks"]:
+        h, (k, v) = block(h, lp)
+        if emit_kv:
+            ks.append(k)
+            vs.append(v)
+    kv = (torch.stack(ks), torch.stack(vs)) if emit_kv else None
+    return T._head(cfg, params, h), torch.zeros((), device=h.device), (kv, memory)
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params, frames: torch.Tensor, tgt_prefix: torch.Tensor, *,
             cache_cap: Optional[int] = None):
     """Returns (last_logits [B, V], cache {"k", "v", "memory"}, pos): k / v
     bfloat16 [L, B, cap, KV, hd], the memory in the compute dtype."""
-    logits, _, ((ks, vs), memory) = forward(cfg, params, frames, tgt_prefix, emit_kv=True)
+    logits, _, ((ks, vs), memory) = forward(cfg, params, frames, tgt_prefix, remat=False,
+                                            emit_kv=True)
     s = ks.shape[2]
     cache = T.init_cache(cfg, ks.shape[1], max(cache_cap or s, s), device=ks.device)
     cache["k"][:, :, :s] = ks.to(torch.bfloat16)
@@ -141,15 +148,14 @@ def prefill(cfg: ModelConfig, params, frames: torch.Tensor, tgt_prefix: torch.Te
     return logits[:, -1, :], cache, s
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: dict, pos: int):
     """One decode step.  token [B, 1] int.  Returns (logits [B, V], cache),
     the self-attention K/V written in place."""
-    with torch.no_grad():
-        h = T._embed(cfg, params, token)
-        b = h.shape[0]
-        positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=h.device)
-        for i, lp in enumerate(params["dec_blocks"]):
-            h, _ = _dec_block(cfg, lp, h, positions, cache["memory"],
-                              cache={"k": cache["k"][i], "v": cache["v"][i]},
-                              cache_pos=int(pos))
-        return T._head(cfg, params, h)[:, 0, :], cache
+    h = T._embed(cfg, params, token)
+    b = h.shape[0]
+    positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=h.device)
+    for i, lp in enumerate(params["dec_blocks"]):
+        h, _ = _dec_block(cfg, lp, h, positions, cache["memory"],
+                          cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=int(pos))
+    return T._head(cfg, params, h)[:, 0, :], cache

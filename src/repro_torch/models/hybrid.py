@@ -99,32 +99,42 @@ def _shared_attn(cfg, shared, lora_inv, h, positions, cache=None, cache_pos=None
     return h, emitted
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, emit_state: bool = False):
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat=True,
+            emit_state: bool = False):
     """tokens [B, S] -> (logits [B, S, V] float32, aux 0, emitted): with
     `emit_state`, ((k, v) each [n_inv, B, S, KV, hd], (conv tails, SSM
-    states) each [n_inv, period, B, ...]), else None."""
-    with torch.no_grad():
-        h = T._embed(cfg, params, tokens)
-        b, s, _ = h.shape
-        positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
-        ks, vs, tails, states = [], [], [], []
-        for lora_inv, group in zip(params["lora"], params["mamba"], strict=True):
-            h, (k, v) = _shared_attn(cfg, params["shared"], lora_inv, h, positions)
-            group_states = []
-            for lp in group:
-                h, state = S.mamba_block(h, lp, cfg)
-                if emit_state:
-                    group_states.append(state)
-            if emit_state:
-                ks.append(k)
-                vs.append(v)
-                tails.append(torch.stack([t for t, _ in group_states]))
-                states.append(torch.stack([st for _, st in group_states]))
-        emitted = None
+    states) each [n_inv, period, B, ...]), else None.  Each mamba block is
+    checkpointed as `remat` says and, without `emit_state`, each group
+    (shared attention and its mamba blocks) too, as the reference does: the
+    shared block's intermediates are otherwise kept per group."""
+    h = T._embed(cfg, params, tokens)
+    b, s, _ = h.shape
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
+    mamba = L.remat_wrap(lambda h, lp: S.mamba_block(h, lp, cfg), remat)
+
+    def group_body(h, lora_inv, group):
+        h, kv = _shared_attn(cfg, params["shared"], lora_inv, h, positions)
+        states = []
+        for lp in group:
+            h, state = mamba(h, lp)
+            states.append(state)
+        return h, kv, states
+
+    if not emit_state:
+        group_body = L.remat_wrap(group_body, remat)
+    ks, vs, tails, states = [], [], [], []
+    for lora_inv, group in zip(params["lora"], params["mamba"], strict=True):
+        h, (k, v), group_states = group_body(h, lora_inv, group)
         if emit_state:
-            emitted = ((torch.stack(ks), torch.stack(vs)),
-                       (torch.stack(tails), torch.stack(states)))
-        return T._head(cfg, params, h), torch.zeros((), device=h.device), emitted
+            ks.append(k)
+            vs.append(v)
+            tails.append(torch.stack([t for t, _ in group_states]))
+            states.append(torch.stack([st for _, st in group_states]))
+    emitted = None
+    if emit_state:
+        emitted = ((torch.stack(ks), torch.stack(vs)),
+                   (torch.stack(tails), torch.stack(states)))
+    return T._head(cfg, params, h), torch.zeros((), device=h.device), emitted
 
 
 def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16,
@@ -141,13 +151,14 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16,
     }
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *,
             cache_cap: Optional[int] = None):
     """Returns (last_logits [B, V], cache, pos): attn_k / attn_v bfloat16
     [n_inv, B, cap, KV, hd], conv tails in the compute dtype and float32
     SSM states, each [n_inv, period, B, ...]."""
     logits, _, ((ks, vs), (conv_tails, ssm_states)) = forward(cfg, params, tokens,
-                                                               emit_state=True)
+                                                               remat=False, emit_state=True)
     s = ks.shape[2]
     cap = max(cache_cap or s, s)
     shape = ks.shape[:2] + (cap,) + ks.shape[3:]
@@ -159,21 +170,20 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     return logits[:, -1, :], cache, s
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: dict, pos: int):
     """One decode step.  token [B, 1] int.  Returns (logits [B, V], cache),
     every cache entry written in place through views of its invocation."""
-    with torch.no_grad():
-        h = T._embed(cfg, params, token)
-        b = h.shape[0]
-        positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=h.device)
-        for i, (lora_inv, group) in enumerate(zip(params["lora"], params["mamba"],
-                                                  strict=True)):
-            h, _ = _shared_attn(cfg, params["shared"], lora_inv, h, positions,
-                                cache={"k": cache["attn_k"][i], "v": cache["attn_v"][i]},
-                                cache_pos=int(pos))
-            conv_g, ssm_g = cache["conv"][i], cache["ssm"][i]
-            for j, lp in enumerate(group):
-                h, conv, state = S.mamba_block_decode(h, lp, cfg, conv_g[j], ssm_g[j])
-                conv_g[j] = conv
-                ssm_g[j] = state
-        return T._head(cfg, params, h)[:, 0, :], cache
+    h = T._embed(cfg, params, token)
+    b = h.shape[0]
+    positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=h.device)
+    for i, (lora_inv, group) in enumerate(zip(params["lora"], params["mamba"], strict=True)):
+        h, _ = _shared_attn(cfg, params["shared"], lora_inv, h, positions,
+                            cache={"k": cache["attn_k"][i], "v": cache["attn_v"][i]},
+                            cache_pos=int(pos))
+        conv_g, ssm_g = cache["conv"][i], cache["ssm"][i]
+        for j, lp in enumerate(group):
+            h, conv, state = S.mamba_block_decode(h, lp, cfg, conv_g[j], ssm_g[j])
+            conv_g[j] = conv
+            ssm_g[j] = state
+    return T._head(cfg, params, h)[:, 0, :], cache

@@ -8,14 +8,20 @@ serves a full sequence (train logits, prefill with cache emit) and decode
 computes it -- its einsums, a float32 softmax, chunked where it chunks --
 and not by `scaled_dot_product_attention`.  The reference's sharding hints
 (`models/partition.py`) are no-ops without a mesh and are left out.
+
+Training: `remat_wrap` is the reference's activation checkpointing on
+`torch.utils.checkpoint`, and `gather_rows` is an indexed gather whose
+gradient adds its duplicate rows in a fixed order.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.models.config import ModelConfig
 
@@ -29,6 +35,88 @@ def dtype_of(name: str) -> torch.dtype:
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
     return dtype_of(cfg.compute_dtype)
+
+
+# "dots": the matmul outputs a selective checkpoint saves (the reference's
+# `dots_with_no_batch_dims_saveable`); everything else is recomputed
+_DOT_OPS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default]
+
+
+def remat_wrap(body: Callable, remat) -> Callable:
+    """Activation checkpointing of a block, as the reference's `remat_wrap`.
+
+    remat: False / None / "none" -> no checkpointing; "dots" -> save the
+    matmul outputs, recompute the rest; True / "nothing" -> save nothing,
+    recompute the block in the backward.  Recomputation runs the same
+    operations on the same inputs, so it changes no value.  Where autograd
+    is off (serving) the body runs as it is.
+    """
+    if remat in (False, None, "none"):
+        return body
+    if remat not in (True, "nothing", "dots"):
+        raise ValueError(f"remat must be True, False, 'nothing', 'dots' or 'none', got "
+                         f"{remat!r}")
+    kw = {"use_reentrant": False}
+    if remat == "dots":
+        kw["context_fn"] = lambda: _ckpt.create_selective_checkpoint_contexts(_DOT_OPS)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return _ckpt.checkpoint(body, *args, **kw)
+
+    return wrapped
+
+
+@contextlib.contextmanager
+def _deterministic_algorithms():
+    """`torch.use_deterministic_algorithms(True)` for the block, the previous
+    setting restored after it."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn)
+
+
+class _GatherRows(torch.autograd.Function):
+    """table[index...] whose backward adds the rows of repeated indices in a
+    fixed order: `index_put_(accumulate=True)` under deterministic
+    algorithms, for that call only (PyTorch promises a fixed order only
+    there; a switch for the whole step would refuse the SSM's float cumsum
+    on the card)."""
+
+    @staticmethod
+    def forward(ctx, table, *index):
+        ctx.save_for_backward(*index)
+        ctx.table_shape = table.shape
+        return table[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        index = ctx.saved_tensors
+        out = torch.zeros(ctx.table_shape, dtype=grad.dtype, device=grad.device)
+        with _deterministic_algorithms():
+            out.index_put_(index, grad, accumulate=True)
+        return (out,) + (None,) * len(index)
+
+
+def gather_rows(table: torch.Tensor, *index: torch.Tensor) -> torch.Tensor:
+    """`table[index]` (int64 index tensors) with a deterministic gradient."""
+    return _GatherRows.apply(table, *index)
+
+
+def repeat_groups(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """`x.repeat_interleave(n, dim)` as a broadcast and a reshape: the same
+    values, and a backward that sums the copies (repeat_interleave's adds
+    them with atomics on the card)."""
+    dim = dim % x.dim()
+    shape = tuple(x.shape)
+    y = x.unsqueeze(dim + 1).expand(shape[:dim + 1] + (n,) + shape[dim + 1:])
+    return y.reshape(shape[:dim] + (shape[dim] * n,) + shape[dim + 1:])
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -111,7 +199,9 @@ def chunked_attention(
 
     The reference's two nested scans (query chunks, then kv chunks carrying
     the running max, denominator and accumulator) as two Python loops.
-    Exact (tested against full_attention).
+    Exact (tested against full_attention).  Each query chunk is
+    checkpointed, as the reference's `@jax.checkpoint q_step`: without it the
+    backward keeps every float32 score tile, the whole S^2 matrix.
     """
     b, s, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
@@ -126,9 +216,9 @@ def chunked_attention(
     q_iota = torch.arange(q_chunk, device=q.device)
     k_iota = torch.arange(k_chunk, device=q.device)
     neg = -1e30
-    outs = []
-    for qi in range(s // q_chunk):
-        qc = qg[:, qi]                                       # [b, Cq, kv, g, d]
+
+    def q_step(qc, ks, vs, qi: int):
+        """One query chunk [b, Cq, kv, g, d] against every kv chunk."""
         m = torch.full((b, kv, g, q_chunk), neg, dtype=torch.float32, device=q.device)
         l = torch.zeros((b, kv, g, q_chunk), dtype=torch.float32, device=q.device)
         acc = torch.zeros((b, kv, g, q_chunk, d), dtype=torch.float32, device=q.device)
@@ -146,7 +236,10 @@ def chunked_attention(
             acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vs[:, kj])
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)      # [b, kv, g, Cq, d]
-        outs.append(out.permute(0, 3, 1, 2, 4))               # [b, Cq, kv, g, d]
+        return out.permute(0, 3, 1, 2, 4)                     # [b, Cq, kv, g, d]
+
+    step = remat_wrap(q_step, True)
+    outs = [step(qg[:, qi], ks, vs, qi) for qi in range(s // q_chunk)]
     return torch.cat(outs, dim=1).reshape(b, s, h, d).to(q.dtype)
 
 

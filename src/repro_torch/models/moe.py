@@ -11,7 +11,9 @@ behaviour); the router carries the Switch load-balance auxiliary loss.
 
 The reference drops out-of-capacity slots through scatters with
 `mode="drop"`; PyTorch raises on an out-of-range index, so the slots that
-fit are selected by an explicit mask first.
+fit are selected by an explicit mask first.  The two gathers (tokens into
+the buffers, buffers back to the tokens' slots) are `layers.gather_rows`,
+whose gradient adds repeated rows in a fixed order.
 """
 from __future__ import annotations
 
@@ -101,7 +103,7 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, t
     buf_w = torch.zeros((e, c), dtype=torch.float32, device=x.device)
     buf_w[fe, fp] = top_p.reshape(-1)[fits]
 
-    x_buf = xf[buf_tok]                                              # [E, C, D]
+    x_buf = L.gather_rows(xf, buf_tok)                               # [E, C, D]
     x_buf = x_buf * buf_used[..., None].to(x_buf.dtype)
 
     # --- expert computation (dense per-expert SwiGLU) ---
@@ -114,7 +116,8 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, t
     # index_add_ on the card adds in no fixed order, so greedy decoding
     # would not repeat itself) ---
     y_buf = y_buf * (buf_w * buf_used.float()).to(y_buf.dtype)[..., None]
-    slot = y_buf[flat_e, pos_in_e.clamp(max=c - 1)] * fits[:, None].to(y_buf.dtype)
+    slot = L.gather_rows(y_buf, flat_e, pos_in_e.clamp(max=c - 1)) \
+        * fits[:, None].to(y_buf.dtype)
     y = slot.reshape(t, k, d).sum(dim=1)
 
     if "shared" in p:

@@ -3,11 +3,12 @@
 The counterpart of `repro/models/registry.py`.  Every family exposes:
 
     init_params(cfg, key, device)                  -> params
-    train_logits(cfg, params, batch)               -> (logits, aux, labels)
+    train_logits(cfg, params, batch, remat=True)   -> (logits, aux, labels)
     prefill(cfg, params, batch, cache_cap)         -> (last_logits, cache, pos)
     decode_step(cfg, params, token, cache, pos)    -> (logits, cache)
     params_from_numpy(cfg, tree, device)           -> params (the reference's
                                                       weights carried across)
+    params_to_numpy(cfg, params)                   -> the reference's tree
 
 `batch` is a dict of tensors:
     dense / ssm / hybrid / moe : {"tokens": [B, S]}
@@ -15,9 +16,10 @@ The counterpart of `repro/models/registry.py`.  Every family exposes:
     audio : {"frames": [B, S, D], "tokens": [B, S]}           (frontend stub)
 
 Labels are next-token shifts of the text tokens (modality prefixes excluded
-from the loss); `train_logits` is forward only -- the loss and its backward,
-and the reference's `remat` switch, come with training.  configs/ registers
-one ModelConfig per --arch id.
+from the loss).  `train_logits` builds an autograd graph when the params
+require grad, each block checkpointed as `remat` says (`layers.remat_wrap`);
+`prefill` and `decode_step` run under `torch.no_grad()`.  configs/
+registers one ModelConfig per --arch id.
 """
 from __future__ import annotations
 
@@ -41,18 +43,19 @@ def _shift_labels(tokens: torch.Tensor) -> torch.Tensor:
 class ModelApi:
     family: str
     init_params: Callable
-    train_logits: Callable      # (cfg, params, batch) -> (logits, aux, labels)
+    train_logits: Callable      # (cfg, params, batch, remat) -> (logits, aux, labels)
     prefill: Callable           # (cfg, params, batch, cache_cap) -> (logits, cache, pos)
     decode_step: Callable       # (cfg, params, token, cache, pos) -> (logits, cache)
     params_from_numpy: Callable  # (cfg, numpy tree, device) -> params
+    params_to_numpy: Callable    # (cfg, params) -> numpy tree (layers stacked)
     supports_decode: bool = True
     sub_quadratic: bool = False
 
 
 # --- dense / moe -----------------------------------------------------------
 
-def _lm_train(cfg, params, batch):
-    logits, aux, _ = transformer.forward(cfg, params, batch["tokens"])
+def _lm_train(cfg, params, batch, remat=True):
+    logits, aux, _ = transformer.forward(cfg, params, batch["tokens"], remat=remat)
     return logits, aux, _shift_labels(batch["tokens"])
 
 
@@ -61,14 +64,15 @@ def _lm_prefill(cfg, params, batch, cache_cap=None):
 
 
 _DENSE = ModelApi("dense", transformer.init_params, _lm_train, _lm_prefill,
-                  transformer.decode_step, transformer.params_from_numpy)
+                  transformer.decode_step, transformer.params_from_numpy,
+                  transformer.params_to_numpy)
 _MOE = dataclasses.replace(_DENSE, family="moe")
 
 
 # --- ssm -------------------------------------------------------------------
 
-def _ssm_train(cfg, params, batch):
-    logits, aux, _ = ssm.forward(cfg, params, batch["tokens"])
+def _ssm_train(cfg, params, batch, remat=True):
+    logits, aux, _ = ssm.forward(cfg, params, batch["tokens"], remat=remat)
     return logits, aux, _shift_labels(batch["tokens"])
 
 
@@ -77,13 +81,13 @@ def _ssm_prefill(cfg, params, batch, cache_cap=None):
 
 
 _SSM = ModelApi("ssm", ssm.init_params, _ssm_train, _ssm_prefill, ssm.decode_step,
-                ssm.params_from_numpy, sub_quadratic=True)
+                ssm.params_from_numpy, transformer.params_to_numpy, sub_quadratic=True)
 
 
 # --- hybrid ----------------------------------------------------------------
 
-def _hyb_train(cfg, params, batch):
-    logits, aux, _ = hybrid.forward(cfg, params, batch["tokens"])
+def _hyb_train(cfg, params, batch, remat=True):
+    logits, aux, _ = hybrid.forward(cfg, params, batch["tokens"], remat=remat)
     return logits, aux, _shift_labels(batch["tokens"])
 
 
@@ -92,14 +96,15 @@ def _hyb_prefill(cfg, params, batch, cache_cap=None):
 
 
 _HYBRID = ModelApi("hybrid", hybrid.init_params, _hyb_train, _hyb_prefill,
-                   hybrid.decode_step, hybrid.params_from_numpy, sub_quadratic=True)
+                   hybrid.decode_step, hybrid.params_from_numpy, transformer.params_to_numpy,
+                   sub_quadratic=True)
 
 
 # --- vlm (internvl2: patch-embedding prefix + dense LLM backbone) ----------
 
-def _vlm_train(cfg, params, batch):
+def _vlm_train(cfg, params, batch, remat=True):
     logits, aux, _ = transformer.forward(
-        cfg, params, batch["tokens"], embeds_prefix=batch["patch_embeds"])
+        cfg, params, batch["tokens"], embeds_prefix=batch["patch_embeds"], remat=remat)
     p = batch["patch_embeds"].shape[1]
     text_labels = _shift_labels(batch["tokens"])
     prefix = torch.full((text_labels.shape[0], p), IGNORE, dtype=text_labels.dtype,
@@ -113,13 +118,15 @@ def _vlm_prefill(cfg, params, batch, cache_cap=None):
 
 
 _VLM = ModelApi("vlm", transformer.init_params, _vlm_train, _vlm_prefill,
-                transformer.decode_step, transformer.params_from_numpy)
+                transformer.decode_step, transformer.params_from_numpy,
+                transformer.params_to_numpy)
 
 
 # --- audio (seamless enc-dec) ----------------------------------------------
 
-def _audio_train(cfg, params, batch):
-    logits, aux, _ = encdec.forward(cfg, params, batch["frames"], batch["tokens"])
+def _audio_train(cfg, params, batch, remat=True):
+    logits, aux, _ = encdec.forward(cfg, params, batch["frames"], batch["tokens"],
+                                    remat=remat)
     return logits, aux, _shift_labels(batch["tokens"])
 
 
@@ -128,7 +135,7 @@ def _audio_prefill(cfg, params, batch, cache_cap=None):
 
 
 _AUDIO = ModelApi("audio", encdec.init_params, _audio_train, _audio_prefill,
-                  encdec.decode_step, encdec.params_from_numpy)
+                  encdec.decode_step, encdec.params_from_numpy, transformer.params_to_numpy)
 
 
 _FAMILIES = {

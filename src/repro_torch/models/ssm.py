@@ -120,7 +120,7 @@ def ssd_chunked(
 
     # intra-chunk: y_i += sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) xd_j
     CB = torch.einsum("bcign,bcjgn->bcgij", C_c, B_c)                   # [b,c,g,l,l]
-    CB = CB.repeat_interleave(hg, dim=2)                                # [b,c,h,l,l]
+    CB = L.repeat_groups(CB, hg, dim=2)                                 # [b,c,h,l,l]
     diff = cum[..., :, None] - cum[..., None, :]                        # [b,c,h,i,j]
     tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
     # mask BEFORE exp: the upper triangle has positive exponents that
@@ -130,7 +130,7 @@ def ssd_chunked(
 
     # per-chunk state contribution: S_c = sum_j B_j (x)_j exp(cum_end - cum_j)
     w_end = torch.exp(cum[..., -1:] - cum)                              # [b,c,h,l]
-    B_h = B_c.repeat_interleave(hg, dim=3)                              # [b,c,l,h,n]
+    B_h = L.repeat_groups(B_c, hg, dim=3)                               # [b,c,l,h,n]
     S_c = torch.einsum("bclhn,bclhp->bchnp", B_h * w_end.permute(0, 1, 3, 2)[..., None],
                        x_c)                                             # [b,c,h,n,p]
 
@@ -144,7 +144,7 @@ def ssd_chunked(
     S_in = torch.stack(S_in, dim=1)                                     # [b,c,h,n,p]
 
     # inter-chunk: y_l += C_l . (S_in decayed to l) = C_l.S_in * exp(cum_l)
-    C_h = C_c.repeat_interleave(hg, dim=3)                              # [b,c,l,h,n]
+    C_h = L.repeat_groups(C_c, hg, dim=3)                               # [b,c,l,h,n]
     y_inter = torch.einsum("bclhn,bchnp->bclhp", C_h, S_in) \
         * torch.exp(cum).permute(0, 1, 3, 2)[..., None]
     y = (y_intra + y_inter).reshape(b, s, h, p)
@@ -257,20 +257,22 @@ def mamba_block_decode(h: torch.Tensor, lp: dict, cfg: ModelConfig,
 # Model-level API (matches transformer.py's surface)
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, emit_state: bool = False):
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat=True,
+            emit_state: bool = False):
     """tokens [B, S] -> (logits [B, S, V] float32, aux 0, states): states
     are (conv tails [L, B, W-1, ch], SSM states [L, B, h, n, p]) with
-    `emit_state`, else None.  S must be a multiple of `cfg.ssd_chunk`."""
-    with torch.no_grad():
-        h = T._embed(cfg, params, tokens)
-        tails, states = [], []
-        for lp in params["blocks"]:
-            h, (tail, state) = mamba_block(h, lp, cfg)
-            if emit_state:
-                tails.append(tail)
-                states.append(state)
-        emitted = (torch.stack(tails), torch.stack(states)) if emit_state else None
-        return T._head(cfg, params, h), torch.zeros((), device=h.device), emitted
+    `emit_state`, else None.  Each block is checkpointed as `remat` says.
+    S must be a multiple of `cfg.ssd_chunk`."""
+    h = T._embed(cfg, params, tokens)
+    block = L.remat_wrap(lambda h, lp: mamba_block(h, lp, cfg), remat)
+    tails, states = [], []
+    for lp in params["blocks"]:
+        h, (tail, state) = block(h, lp)
+        if emit_state:
+            tails.append(tail)
+            states.append(state)
+    emitted = (torch.stack(tails), torch.stack(states)) if emit_state else None
+    return T._head(cfg, params, h), torch.zeros((), device=h.device), emitted
 
 
 def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -284,21 +286,23 @@ def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
     }
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor):
     """Returns (last_logits [B, V], cache {"conv", "ssm"}, pos).  The conv
     tails are the last W-1 pre-conv inputs in the compute dtype; the SSM
     states are float32."""
-    logits, _, (conv_tails, ssm_states) = forward(cfg, params, tokens, emit_state=True)
+    logits, _, (conv_tails, ssm_states) = forward(cfg, params, tokens, remat=False,
+                                                  emit_state=True)
     return logits[:, -1, :], {"conv": conv_tails, "ssm": ssm_states}, tokens.shape[1]
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: dict, pos: int):
     """One decode step.  token [B, 1] int.  Returns (logits [B, V], cache),
     the cache's states written in place."""
-    with torch.no_grad():
-        h = T._embed(cfg, params, token)
-        for i, lp in enumerate(params["blocks"]):
-            h, conv, state = mamba_block_decode(h, lp, cfg, cache["conv"][i], cache["ssm"][i])
-            cache["conv"][i] = conv
-            cache["ssm"][i] = state
-        return T._head(cfg, params, h)[:, 0, :], cache
+    h = T._embed(cfg, params, token)
+    for i, lp in enumerate(params["blocks"]):
+        h, conv, state = mamba_block_decode(h, lp, cfg, cache["conv"][i], cache["ssm"][i])
+        cache["conv"][i] = conv
+        cache["ssm"][i] = state
+    return T._head(cfg, params, h)[:, 0, :], cache

@@ -9,7 +9,10 @@ emitting the KV cache) and decode (cache read/write at a position).
 
 Parameters are a dict: {"embed", "blocks": [per-block dict], "final_ln",
 "lm_head" (untied heads only)}.  `params_from_numpy` carries the
-reference's parameter pytree across, unstacking its layer axis.
+reference's parameter pytree across, unstacking its layer axis;
+`params_to_numpy` stacks it back.  `forward` builds an autograd graph when
+the parameters require grad (training); `prefill` and `decode_step` run
+under `torch.no_grad()`.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import stacked_numpy
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +81,16 @@ def tensors_from_numpy(node, device: torch.device, index: tuple = ()):
     return torch.from_numpy(np.array(arr, copy=True, order="C")).to(device)
 
 
+def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
+    """The port's parameters -> the reference's `init_params` pytree (numpy
+    leaves, each list of layers stacked on a leading axis): the inverse of
+    every family's `params_from_numpy` (`blocks` [L, ...], the hybrid's
+    `mamba` [n_inv, period, ...] and `lora` [n_inv, ...], `enc_blocks` and
+    `dec_blocks` [L, ...]).  bfloat16 leaves come out as float32 (numpy has
+    no bfloat16)."""
+    return stacked_numpy(params)
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device: DeviceLike = None) -> dict:
     """The reference's `init_params` pytree (leaves as numpy arrays) -> the
     port's parameters on `device`, the stacked block axis unstacked."""
@@ -109,7 +123,7 @@ def _block_apply(h, lp, cfg: ModelConfig, positions, *, cache_slice=None, cache_
 
 def _embed(cfg: ModelConfig, params, tokens, embeds_prefix=None):
     cd = L.cdtype(cfg)
-    h = params["embed"][tokens.long()].to(cd)
+    h = L.gather_rows(params["embed"], tokens.long()).to(cd)
     if embeds_prefix is not None:
         h = torch.cat([embeds_prefix.to(cd), h], dim=1)
     return h
@@ -127,28 +141,29 @@ def _head(cfg: ModelConfig, params, h):
 
 def forward(
     cfg: ModelConfig, params, tokens: torch.Tensor, *,
-    embeds_prefix: Optional[torch.Tensor] = None, emit_kv: bool = False,
+    embeds_prefix: Optional[torch.Tensor] = None, remat=True, emit_kv: bool = False,
 ):
     """tokens [B, S] (+ optional prefix embeddings, e.g. image patches) ->
     (logits [B, S_total, V] float32, aux_loss, emitted kv or None).
 
-    The emitted kv is (k, v), each stacked [L, B, S, KV, hd] as the
-    reference's scan stacks them.  The reference's `remat` and `use_tp`
-    switches belong to training and sharding, which are not ported."""
-    with torch.no_grad():
-        h = _embed(cfg, params, tokens, embeds_prefix)
-        b, s, _ = h.shape
-        positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
-        aux = torch.zeros((), device=h.device)
-        ks, vs = [], []
-        for lp in params["blocks"]:
-            h, emitted, aux_l = _block_apply(h, lp, cfg, positions)
-            aux = aux + aux_l
-            if emit_kv:
-                ks.append(emitted[0])
-                vs.append(emitted[1])
-        kv = (torch.stack(ks), torch.stack(vs)) if emit_kv else None
-        return _head(cfg, params, h), aux, kv
+    Each block is checkpointed as `remat` says (`layers.remat_wrap`).  The
+    emitted kv is (k, v), each stacked [L, B, S, KV, hd] as the reference's
+    scan stacks them.  The reference's `use_tp` switch belongs to sharding
+    (ROADMAP queue 1 item 11c-ii)."""
+    h = _embed(cfg, params, tokens, embeds_prefix)
+    b, s, _ = h.shape
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
+    block = L.remat_wrap(lambda h, lp: _block_apply(h, lp, cfg, positions), remat)
+    aux = torch.zeros((), device=h.device)
+    ks, vs = [], []
+    for lp in params["blocks"]:
+        h, emitted, aux_l = block(h, lp)
+        aux = aux + aux_l
+        if emit_kv:
+            ks.append(emitted[0])
+            vs.append(emitted[1])
+    kv = (torch.stack(ks), torch.stack(vs)) if emit_kv else None
+    return _head(cfg, params, h), aux, kv
 
 
 # ---------------------------------------------------------------------------
@@ -164,13 +179,14 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens, *, cache_cap: Optional[int] = None,
             embeds_prefix: Optional[torch.Tensor] = None):
     """Full-sequence forward emitting the KV cache.  Returns (last_logits
     [B, V], cache, pos): the cache is bfloat16 whatever the compute dtype,
     as the reference casts it."""
     logits, _, (ks, vs) = forward(cfg, params, tokens, embeds_prefix=embeds_prefix,
-                                  emit_kv=True)
+                                  remat=False, emit_kv=True)
     s = ks.shape[2]
     cap = cache_cap or s
     cache = init_cache(cfg, ks.shape[1], max(cap, s), device=ks.device)
@@ -179,17 +195,17 @@ def prefill(cfg: ModelConfig, params, tokens, *, cache_cap: Optional[int] = None
     return logits[:, -1, :], cache, s
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: dict, pos: int):
     """One decode step.  token [B, 1] int; pos: the current length.
 
     Returns (logits [B, V], cache).  The cache is written in place (the
     reference updates it functionally and donates it under jit)."""
-    with torch.no_grad():
-        h = _embed(cfg, params, token)
-        b = h.shape[0]
-        positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=h.device)
-        for i, lp in enumerate(params["blocks"]):
-            h, _, _ = _block_apply(
-                h, lp, cfg, positions,
-                cache_slice={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=int(pos))
-        return _head(cfg, params, h)[:, 0, :], cache
+    h = _embed(cfg, params, token)
+    b = h.shape[0]
+    positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=h.device)
+    for i, lp in enumerate(params["blocks"]):
+        h, _, _ = _block_apply(
+            h, lp, cfg, positions,
+            cache_slice={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=int(pos))
+    return _head(cfg, params, h)[:, 0, :], cache

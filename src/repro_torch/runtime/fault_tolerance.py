@@ -11,8 +11,8 @@ mitigation is to checkpoint and evict).
 
 These classes carry the *policy* logic, deterministic and unit-tested.  In
 the port the serving front-end (serve/frontend.py) uses `HeartbeatMonitor`
-for tenant liveness; the trainer that wires the rest to real steps is
-ROADMAP queue 1 item 11.
+for tenant liveness, and the trainer (train/trainer.py) wires
+`StragglerDetector` and `RestartPolicy` to real steps.
 """
 from __future__ import annotations
 

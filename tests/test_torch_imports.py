@@ -51,8 +51,20 @@ def test_module_list_covers_the_slice():
                  "repro_torch.examples.serve_batch", "repro_torch.models.ssm",
                  "repro_torch.models.hybrid", "repro_torch.models.encdec",
                  "repro_torch.configs.mamba2_1_3b", "repro_torch.configs.zamba2_2_7b",
-                 "repro_torch.configs.seamless_m4t_large_v2"):
+                 "repro_torch.configs.seamless_m4t_large_v2", "repro_torch.optim",
+                 "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+                 "repro_torch.optim.compress", "repro_torch.train", "repro_torch.train.step",
+                 "repro_torch.train.trainer", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
+                 "repro_torch.examples.train_lm", "repro_torch.tree"):
         assert name in _MODULES
+
+
+def test_registry_says_training_is_ported():
+    from repro_torch.models import registry
+
+    assert "forward only" not in registry.__doc__
+    assert "remat" in registry.__doc__
 
 
 def test_imports_pull_in_neither_jax_nor_the_jax_package():
@@ -95,6 +107,35 @@ def _init_arch(arch):
     return get_api(cfg).init_params(cfg, 0)
 
 
+def _init_state(arch):
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.train import TrainHParams, init_state
+
+    cfg = get_config(arch)
+    return init_state(cfg, get_api(cfg), 0, TrainHParams())
+
+
+def _trainer(arch):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.train import Trainer, TrainerConfig, TrainHParams
+
+    cfg = get_config(arch)
+    return Trainer(cfg, get_api(cfg), TrainHParams(), TrainerConfig(), DataConfig())
+
+
+def _launch_train():
+    from repro_torch.launch import train
+
+    return train.main(["--arch", "smollm-360m-smoke", "--steps", "1"])
+
+
+def _train_lm():
+    from repro_torch.examples import train_lm
+
+    return train_lm.main(["--steps", "1"])
+
+
 def _needs_no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists here")
@@ -120,11 +161,16 @@ def _needs_no_cuda():
     lambda: _init_arch("mamba2-1.3b-smoke"),
     lambda: _init_arch("zamba2-2.7b-smoke"),
     lambda: _init_arch("seamless-m4t-large-v2-smoke"),
+    lambda: _init_state("smollm-360m-smoke"),
+    lambda: _trainer("smollm-360m-smoke"),
+    lambda: _launch_train(),
+    lambda: _train_lm(),
 ], ids=["service", "service-device-none", "segmented", "index-build",
         "index-build-lsh", "resolve-none", "resolve-cuda", "service-simhash-packed",
         "index-build-cosine", "service-minhash-packed", "service-rbh",
         "index-build-tanimoto", "index-build-relational", "index-build-minsum",
-        "index-build-ip", "segmented-range", "init-ssm", "init-hybrid", "init-audio"])
+        "index-build-ip", "segmented-range", "init-ssm", "init-hybrid", "init-audio",
+        "train-init-state", "trainer", "launch-train", "examples-train-lm"])
 def test_default_device_raises_without_cuda(build):
     """No silent run on the CPU: the default device is the card."""
     _needs_no_cuda()

@@ -24,6 +24,16 @@ the port's own `init_params` from --seed):
   PYTHONPATH=src python tools/lm_decode_gap.py --device cuda --port-only --batch 8 \
       --arch zamba2-2.7b --compute bfloat16 float32
 Each depth ends with one JSON line.
+
+--forward-blocks compares the two packages' teacher-forced forwards block by
+block instead (ssm family, both packages, on the CPU): the reference's
+hidden state enters block i of both packages, and the port's output is
+held to the reference's ("alone": one block's own difference, its max and
+the share of values that differ), beside the difference of the two
+packages' chained hidden states ("chained"); "alone / step" is the max in
+units of the bfloat16 step at the block's largest |h|:
+  PYTHONPATH=src JAX_PLATFORMS=cpu python tools/lm_decode_gap.py --forward-blocks \
+      --depths 4 8 16 --compute bfloat16 float32
 """
 from __future__ import annotations
 
@@ -147,6 +157,81 @@ def reference_gap(arch: str, depth: int, compute: str, tree: dict, prompt: np.nd
     return dict(api=api_gap, loop=loop_gap, blocks=blocks, token=ref_token)
 
 
+def bf16_step(x: float) -> float:
+    """The spacing of bfloat16 values at magnitude x (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(x, 2.0 ** -126))) - 7)
+
+
+def forward_blocks(arch: str, depth: int, compute: str, tree: dict,
+                   tokens: np.ndarray) -> dict:
+    """By block: the port's `mamba_block` on the reference's input against the
+    reference's `mamba_block` (alone), and the two packages' chained hidden
+    states (chained), each as (max |diff|, max |h|)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import layers as JL
+    from repro.models import ssm as JS
+    from repro.models.registry import get_config as jget_config
+
+    jcfg = dataclasses.replace(jget_config(arch), n_layers=depth, compute_dtype=compute)
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth, compute_dtype=compute)
+    params = get_api(cfg).params_from_numpy(cfg, tree, device="cpu")
+    w = jax.tree_util.tree_map(jnp.asarray, tree)
+    block = jax.jit(lambda h, lp: JS.mamba_block(h, lp, jcfg)[0]).lower(
+        jnp.take(w["embed"], jnp.asarray(tokens), axis=0).astype(JL.cdtype(jcfg)),
+        jax.tree_util.tree_map(lambda x: x[0], w["blocks"])).compile(
+            {"xla_allow_excess_precision": False})
+    h_ref = jnp.take(w["embed"], jnp.asarray(tokens), axis=0).astype(JL.cdtype(jcfg))
+    h_port = T._embed(cfg, params, torch.from_numpy(tokens))
+    rows = []
+    with torch.no_grad():
+        for i, lp in enumerate(params["blocks"]):
+            want = block(h_ref, jax.tree_util.tree_map(lambda x, i=i: x[i], w["blocks"]))
+            want_t = torch.from_numpy(np.array(want.astype(jnp.float32)))
+            h_in = torch.from_numpy(np.array(h_ref.astype(jnp.float32))).to(h_port.dtype)
+            alone, _ = S.mamba_block(h_in, lp, cfg)
+            h_port, _ = S.mamba_block(h_port, lp, cfg)
+            top = float(want_t.abs().max())
+            rows.append(dict(alone=float((alone.float() - want_t).abs().max()),
+                             alone_share=float((alone.float() != want_t).float().mean()),
+                             chained=float((h_port.float() - want_t).abs().max()),
+                             max_h=top, step=bf16_step(top)))
+            h_ref = want
+    return dict(blocks=rows)
+
+
+def run_forward_blocks(arch: str, depth: int | None, computes: list, batch: int,
+                       prompt_len: int, seed: int) -> list:
+    cfg = get_config(arch)
+    depth = depth or cfg.n_layers
+    if cfg.family != "ssm":
+        raise SystemExit("--forward-blocks covers the ssm family")
+    tree = reference_tree(arch, depth, seed)
+    tokens = _tokens(cfg, batch, prompt_len, seed)
+    outs = []
+    for compute in computes:
+        t0 = time.perf_counter()
+        rows = forward_blocks(arch, depth, compute, tree, tokens)["blocks"]
+        print(f"{arch}, {depth} blocks, batch {batch}, prompt {prompt_len}, {compute} "
+              "compute, cpu: the forward by block, port against reference")
+        print("  block  alone max|diff|  share differing  chained max|diff|  max|h|  "
+              "bfloat16 step  alone / step")
+        for i, r in enumerate(rows):
+            print(f"  {i:5d}  {r['alone']:15.6g}  {r['alone_share']:15.6f}  "
+                  f"{r['chained']:17.6g}  {r['max_h']:6.4g}  {r['step']:13.6g}  "
+                  f"{r['alone'] / r['step']:12.3f}")
+        out = dict(arch=arch, depth=depth, compute=compute, batch=batch, prompt=prompt_len,
+                   mode="forward-blocks", alone=[r["alone"] for r in rows],
+                   alone_share=[r["alone_share"] for r in rows],
+                   chained=[r["chained"] for r in rows], max_h=[r["max_h"] for r in rows],
+                   alone_in_steps=max(r["alone"] / r["step"] for r in rows),
+                   seconds=time.perf_counter() - t0)
+        print(json.dumps(out), flush=True)
+        outs.append(out)
+    return outs
+
+
 def reference_tree(arch: str, depth: int, seed: int) -> dict:
     import jax
 
@@ -222,7 +307,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--port-only", action="store_true", help="skip the reference (no JAX)")
+    ap.add_argument("--forward-blocks", action="store_true",
+                    help="the two packages' forwards by block (CPU, ssm family)")
     args = ap.parse_args(argv)
+    if args.forward_blocks:
+        for depth in args.depths:
+            run_forward_blocks(args.arch, depth, args.compute, args.batch, args.prompt,
+                               args.seed)
+        return 0
     device = torch.device(args.device)
     reference = not args.port_only
     if reference and device.type != "cpu":
