@@ -8,7 +8,7 @@ builds them), then runs these phases -- 1 to 3d, 4g's padded round trips and
 3e in order, then each full-width phase followed by its multiple-loading
 case and its kernels' times (4, 5, 4g, 4h, 4i, 5's block shapes, 4j, 4k, 4b,
 4g, 5b, 4j, 4c, 4g, 5c, 4c', 4d, 4i, 5d, 4e, 5d, 4f, 5d), then DBLP at
-its full size through multiple loading (4g), and last 6a to 6f -- and fails
+its full size through multiple loading (4g), then 6a to 6f, 7, and last 8 -- and fails
 (non-zero exit, no result line) as soon as a phase fails.  The kernels compiled in several
 block shapes, which the tile knobs select (`kernels/ops.py` VARIANTS), are
 held and timed in each: match_count and tanimoto_count with 128 and 32
@@ -237,6 +237,24 @@ PACKED search with a tuned 1024-row tile in turns with the default):
      fresh Trainer and 2 more, every parameter, moment and the step equal
      bit for bit; last, 6d's and 6f's peak memories beside the last
      release's (serving builds no autograd graph).
+
+  8. sharding on a one-rank NCCL mesh (launch/sharding.py, launch/shapes.py,
+     models/partition.py; no kernel of its own): every Shard sits on an axis
+     of size 1, but every parameter, gradient and batch is a DTensor and
+     every hint and redistribution is dispatched.  8a: `launch/train.main`
+     for 3 steps as the entry point, then phase 7's 20-step run again through
+     the state shardings -- every state leaf a DTensor on its spec's
+     placements, the losses within 1e-4 of phase 7's (how many bit for bit),
+     the median step time against phase 7's, tokens/s and peak memory.  8b:
+     2 sharded steps + a checkpoint + a fresh sharded Trainer to step 4 equal
+     4 straight sharded steps bit for bit, leaf for leaf, and that checkpoint
+     restored with shardings onto a new one-rank mesh equals the saved
+     leaves.  8c: smollm-360m's prefill and 32 greedy decode steps through
+     `ServeEngine` with `params_shardings(..., use_tp_serve)` and the caches
+     placed by `cache_shardings`: the tokens equal 6d's.  8d: the LM dry-run,
+     all 160 cells (one line each: fits and GB a rank by term), and its
+     memory model of 8a's run against 8a's measured peak (within 25 %).  The
+     process group is destroyed after the phase.
 
 It needs one CUDA device and no network, and imports neither jax nor the JAX
 package.  The last line of its output is one JSON object
@@ -4158,7 +4176,8 @@ def serve_arch(device: torch.device, phase: str, arch: str, layers: int | None,
         f"{peak / 1e9:.3f} GB ({hw})")
     on_device = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     tokens, frames = on_device["tokens"], on_device.get("frames")
-    entry = dict(prefill_s=stats2.prefill_seconds, decode_tok_s=stats2.decode_tokens_per_s,
+    entry = dict(tokens=toks, prefill_s=stats2.prefill_seconds,
+                 decode_tok_s=stats2.decode_tokens_per_s,
                  peak_gb=peak / 1e9)
     for compute in steps:
         c = dataclasses.replace(cfg, compute_dtype=compute.split()[0])
@@ -4339,7 +4358,7 @@ def train_flops(cfg, tokens: int, batch: int, seq: int) -> float:
 
 
 def _trainer(cfg, device, *, steps: int, remat, batch: int, seq: int, ckpt_dir=None,
-             total_steps: int | None = None):
+             total_steps: int | None = None, shardings=None):
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models.registry import get_api
     from repro_torch.optim import AdamWConfig
@@ -4350,7 +4369,8 @@ def _trainer(cfg, device, *, steps: int, remat, batch: int, seq: int, ckpt_dir=N
     tc = TrainerConfig(total_steps=steps, ckpt_dir=ckpt_dir, ckpt_every=10 ** 9, log_every=1,
                        seed=SEED)
     return Trainer(cfg, get_api(cfg), hp, tc, DataConfig(seed=SEED, global_batch=batch,
-                                                         seq_len=seq), device=device)
+                                                         seq_len=seq),
+                   shardings=shardings, device=device)
 
 
 def _train_run(cfg, device, *, steps: int, remat, batch: int, seq: int, **kw) -> dict:
@@ -4452,7 +4472,8 @@ def phase_training(device: torch.device, arch: str = TRAIN_ARCH, batch: int = TR
           f"{arch}: the loss fell by {loss[0] - loss[-1]:.4f} in {steps} steps, below {min_fall}")
     report["nothing"] = dict(first_s=secs[0], median_s=median, tokens_per_s=tokens / median,
                              peak_gb=run["peak_gb"], loss_first=loss[0], loss_last=loss[-1],
-                             flops=flops, peak_share=flops / median / PEAK_BF16_FLOP_PER_S)
+                             flops=flops, peak_share=flops / median / PEAK_BF16_FLOP_PER_S,
+                             losses=list(loss))
     profile_train_step(run, "nothing", device)
     del run
     for remat in ("none", "dots"):
@@ -4515,6 +4536,223 @@ def phase_training(device: torch.device, arch: str = TRAIN_ARCH, batch: int = TR
         report["serving_peak_gb"] = dict(serving)
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: sharding on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+TRAIN_LAUNCH_STEPS = 3
+DRYRUN_MODEL_TOLERANCE = 0.25
+
+
+def _whole(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _state_shardings(cfg, mesh):
+    from repro_torch.launch import shapes, sharding
+    from repro_torch.models.registry import get_api
+    from repro_torch.train import step as tsl
+
+    pshapes = shapes.param_specs(cfg, get_api(cfg))
+    psh = sharding.params_shardings(pshapes, mesh, cfg.use_tp)
+    return sharding.state_shardings(tsl.TrainState(pshapes, None, None), psh, mesh)
+
+
+def phase_sharded_training(device: torch.device, phase7: dict, arch: str = TRAIN_ARCH,
+                           batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                           steps: int = TRAIN_STEPS) -> dict:
+    """8a and 8b (see the module docstring); `phase7` is phase 7's report."""
+    import shutil
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import get_config
+
+    hw = gpu_name_and_power_limit()
+    cfg = get_config(arch)
+    tokens = batch * seq
+    log(f"== phase 8a: launch/train.main on {arch}, {TRAIN_LAUNCH_STEPS} steps of {batch} x "
+        f"{seq} tokens, through the shardings of a one-rank mesh ({hw})")
+    t0 = time.perf_counter()
+    hist = launch_train.main(["--arch", arch, "--steps", str(TRAIN_LAUNCH_STEPS),
+                              "--global-batch", str(batch), "--seq", str(seq),
+                              "--lr", str(TRAIN_LR)] +
+                             (["--device", device.type] if device.type != "cuda" else []))
+    log(f"  launch/train: {len(hist)} logged steps in {time.perf_counter() - t0:.2f} s, "
+        f"losses {[round(r['loss'], 4) for r in hist]} ({hw})")
+    check(len(hist) >= 1 and all(np.isfinite(r["loss"]) for r in hist),
+          "launch/train: a loss is not finite")
+    mesh = mesh_lib.make_local_mesh(1, device)
+    ssh = _state_shardings(cfg, mesh)
+    run = _train_run(cfg, device, steps=steps, remat="nothing", batch=batch, seq=seq,
+                     shardings=ssh)
+    state_leaves, specs = _state_leaves(run["state"]), sharding.leaves_of(ssh)
+    placed = [isinstance(x, DTensor) and tuple(x.placements) == sh.placements
+              and x.device.type == device.type for x, sh in zip(state_leaves, specs, strict=True)]
+    check(all(placed), f"{len(placed) - sum(placed)} of {len(placed)} state leaves are not "
+                       f"DTensors on their spec's placements")
+    loss, want = run["loss"], phase7["nothing"]["losses"]
+    diff = [abs(a - b) for a, b in zip(loss, want, strict=True)]
+    bits = sum(a == b for a, b in zip(loss, want))
+    median = statistics.median(run["seconds"][1:])
+    base = phase7["nothing"]["median_s"]
+    log(f"  sharded Trainer, remat 'nothing', {steps} steps: {len(placed)} state leaves, every "
+        f"one a DTensor on its spec's placements; losses within {max(diff):.3g} of phase 7's "
+        f"(bound 1e-4), {bits} of {len(loss)} equal bit for bit")
+    log(f"  step time median {median:.4f} s against phase 7's {base:.4f} s "
+        f"({100 * (median / base - 1):+.2f} %: DTensor's dispatch on one rank), "
+        f"{tokens / median:.1f} tokens/s, peak memory {run['peak_gb']:.3f} GB (phase 7: "
+        f"{phase7['nothing']['peak_gb']:.3f} GB) ({hw})")
+    check(max(diff) <= 1e-4, f"sharded losses differ from phase 7's by {max(diff):.3g}")
+    report = {"8a": dict(median_s=median, phase7_median_s=base, tokens_per_s=tokens / median,
+                         peak_gb=run["peak_gb"], loss_max_diff=max(diff), bit_equal=bits,
+                         steps=len(loss), leaves=len(placed))}
+    del run
+
+    log(f"== phase 8b: sharded resume and restore onto a new one-rank mesh ({hw})")
+    straight = _train_run(cfg, device, steps=4, remat="nothing", batch=batch, seq=seq,
+                          shardings=ssh)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        first = _train_run(cfg, device, steps=2, remat="nothing", batch=batch, seq=seq,
+                           ckpt_dir=ckpt_dir, total_steps=4, shardings=ssh)
+        resumed = _train_run(cfg, device, steps=4, remat="nothing", batch=batch, seq=seq,
+                             ckpt_dir=ckpt_dir, shardings=ssh)
+        got = [_whole(x) for x in _state_leaves(resumed["state"])]
+        want = [_whole(x) for x in _state_leaves(straight["state"])]
+        same = [torch.equal(a, b) for a, b in zip(got, want, strict=True)]
+        new_mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device)
+        new_ssh = _state_shardings(cfg, new_mesh)
+        t0 = time.perf_counter()
+        restored, _ = checkpointer.restore(ckpt_dir, 4, resumed["state"], new_ssh)
+        restore_s = time.perf_counter() - t0
+        back = [_whole(x) for x in _state_leaves(restored)]
+        on_new = all(x.device_mesh is new_mesh for x in _state_leaves(restored))
+        equal = [torch.equal(a, b) for a, b in zip(back, got, strict=True)]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"  2 steps + checkpoint + a fresh sharded Trainer to step 4: {sum(same)} of "
+        f"{len(same)} leaves equal bit for bit to 4 straight sharded steps; losses "
+        f"{[round(x, 4) for x in straight['loss']]} straight, "
+        f"{[round(x, 4) for x in first['loss'] + resumed['loss']]} resumed")
+    log(f"  restored with shardings onto a new one-rank mesh in {restore_s:.2f} s: {sum(equal)} "
+        f"of {len(equal)} leaves equal the saved ones, every leaf on the new mesh {on_new} "
+        f"({hw})")
+    check(all(same), f"the sharded resume differs in {len(same) - sum(same)} leaves")
+    check(all(equal) and on_new, "the restore onto the new mesh differs from the saved leaves")
+    report["8b"] = dict(leaves=len(same), resume_equal=sum(same), restore_equal=sum(equal),
+                        restore_s=restore_s)
+    del straight, first, resumed, restored, got, want, back
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_sharded_serving(device: torch.device, unsharded: dict, arch: str = "smollm-360m",
+                          new_tokens: int = 32, batch_size: int = LM_BATCH,
+                          prompt: int = LM_PROMPT, cache_cap: int = LM_CAP) -> dict:
+    """8c: `ServeEngine` on parameters placed by `params_shardings(...,
+    use_tp_serve)`, the caches by `cache_shardings`; the tokens equal 6d's
+    (`unsharded`: 6d's entry for `arch`)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.models import partition
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.serve import ServeEngine
+
+    hw = gpu_name_and_power_limit()
+    cfg = get_config(arch)
+    api = get_api(cfg)
+    log(f"== phase 8c: sharded serving, {arch}, {batch_size} prompts of {prompt} tokens, "
+        f"{new_tokens} greedy steps, cache_cap {cache_cap} ({hw})")
+    mesh = mesh_lib.make_local_mesh(1, device)
+    params = api.init_params(cfg, SEED, device=device)
+    placed = sharding.place_tree(params, sharding.params_shardings(params, mesh,
+                                                                   cfg.use_tp_serve))
+    del params
+    batch = SyntheticTokens(cfg, DataConfig(seed=SEED, global_batch=batch_size,
+                                            seq_len=prompt)).batch(0)
+    eng = ServeEngine(cfg, api, placed, cache_cap=cache_cap)
+    toks, stats = eng.generate(batch, max_new_tokens=new_tokens)
+    on_device = eng._on_device(batch)
+    with partition.sharded_scope(mesh):
+        _, cache, _ = api.prefill(cfg, placed, on_device, cache_cap=cache_cap)
+        csh = sharding.cache_shardings(cfg, cache, mesh)
+        cache = sharding.place_tree(cache, csh)
+    cache_ok = all(isinstance(cache[k], DTensor) and tuple(cache[k].placements)
+                   == csh[k].placements for k in csh)
+    want = unsharded["tokens"]
+    same = int((toks == want).all(axis=1).sum())
+    log(f"  cache specs {({k: v.spec for k, v in csh.items()})}, every entry a DTensor on "
+        f"its placements {cache_ok}; {same} of {batch_size} rows equal 6d's tokens; prefill "
+        f"{stats.prefill_seconds:.4f} s, decode {stats.decode_tokens_per_s:.1f} tokens/s "
+        f"(6d: {unsharded['decode_tok_s']:.1f}) ({hw})")
+    check(cache_ok, "a cache entry is not on its cache_shardings placements")
+    check(np.array_equal(toks, want), f"sharded serving's tokens differ from 6d's in "
+                                      f"{batch_size - same} rows")
+    del placed, eng, cache
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(rows_equal=same, decode_tok_s=stats.decode_tokens_per_s,
+                prefill_s=stats.prefill_seconds)
+
+
+def phase_lm_dryrun(device: torch.device, measured_peak_gb: float, arch: str = TRAIN_ARCH,
+                    batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
+    """8d: every LM cell of the dry-run, and its memory model of 8a's run
+    against 8a's measured peak."""
+    from repro_torch.configs import ALL_ARCHS
+    from repro_torch.launch import dryrun, shapes
+
+    hw = gpu_name_and_power_limit()
+    log(f"== phase 8d: the LM dry-run, {len(ALL_ARCHS)} archs x {len(shapes.SHAPES)} shapes x "
+        f"{len(dryrun.LM_MESHES)} meshes ({hw})")
+    t0 = time.perf_counter()
+    n = fits = 0
+    for a in ALL_ARCHS:
+        for shape in shapes.SHAPES:
+            for mk in dryrun.LM_MESHES:
+                rep = dryrun.run_and_save_lm(a, shape, mk, force=True)
+                n += 1
+                fits += int(rep.get("skipped") or rep["memory"]["fits"])
+    log(f"  {n} cells in {time.perf_counter() - t0:.2f} s; {fits} fit or are skipped")
+    check(n == 160, f"the dry-run wrote {n} LM cells, not 160")
+    rep = dryrun.lm_cell(arch, shapes.ShapeSpec("phase8a", "train", seq, batch),
+                         {"data": 1, "model": 1})
+    model = rep["memory"]["per_rank"]["peak"] / 1e9
+    ratio = model / measured_peak_gb if measured_peak_gb else float("nan")
+    log(f"  model of {arch} training at {batch} x {seq} on world1: "
+        + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in rep["memory"]["per_rank"].items())
+        + f" GB; measured peak (8a) {measured_peak_gb:.3f} GB; model / measured {ratio:.3f} "
+          f"({hw})")
+    if device.type == "cuda":
+        check(abs(ratio - 1) <= DRYRUN_MODEL_TOLERANCE,
+              f"the dry-run's model {model:.3f} GB is not within 25 % of the measured "
+              f"{measured_peak_gb:.3f} GB")
+    return dict(cells=n, model_gb=model, measured_gb=measured_peak_gb, ratio=ratio)
+
+
+def phase_sharding(device: torch.device, phase7: dict, serving: dict) -> dict:
+    """Phase 8 (8a to 8d) in the one-rank process group `launch.mesh`
+    starts; the group is destroyed after it."""
+    import torch.distributed as dist
+
+    report = phase_sharded_training(device, phase7)
+    report["8c"] = phase_sharded_serving(device, serving["smollm-360m"])
+    report["8d"] = phase_lm_dryrun(device, report["8a"]["peak_gb"])
+    dist.destroy_process_group()
+    log("  sharding: " + json.dumps(report))
     return report
 
 
@@ -4603,7 +4841,8 @@ def main() -> int:
     families = phase_lm_families(device)
     serving_peaks = {arch: r["peak_gb"] for arch, r in {**lm, **families}.items()
                      if isinstance(r, dict) and "peak_gb" in r}
-    phase_training(device, serving=serving_peaks)
+    phase7 = phase_training(device, serving=serving_peaks)
+    phase_sharding(device, phase7, lm)
     torch.cuda.synchronize()
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(gpu_name_and_power_limit())

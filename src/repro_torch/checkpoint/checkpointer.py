@@ -18,8 +18,17 @@ and restored by reinterpreting those bytes as bfloat16; the reference's own
 Writes go to step_<N>.tmp and are os.rename'd -- a preempted save never
 corrupts the latest checkpoint.  `save` copies every leaf to the host
 before it returns or starts its thread (a consistent cut: the trainer
-updates the state in place right after).  Restoring onto another mesh
-(`shardings`) is ROADMAP queue 1 item 11c-ii.
+updates the state in place right after).
+
+Sharded state (DTensor leaves): `save` gathers each leaf whole with
+`full_tensor()` on every rank (a collective, so every rank calls `save`),
+rank 0 alone writes, and on a world of several ranks the write is
+synchronous and followed by a barrier, so no rank goes on (to `prune`,
+`latest_step` or a restore) before the rename has committed the step.
+`restore(..., shardings)` reads the whole arrays on every rank and places
+each leaf with the *target* sharding (`launch/sharding.place`), so a
+checkpoint written on any mesh shape -- or by the reference -- restores
+onto any other (elastic shrink / grow).
 """
 from __future__ import annotations
 
@@ -32,15 +41,20 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from repro_torch.tree import stacked_numpy
+from repro_torch.tree import leaves, stacked_numpy
 
 _BF16_BYTES = np.dtype("V2")      # what np.savez writes for an ml_dtypes bfloat16 array
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A host copy of `t`; bfloat16 as its raw two-byte items."""
+    """A host copy of `t` (a DTensor's whole value); bfloat16 as its raw
+    two-byte items."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).to("cpu", copy=True).numpy().view(_BF16_BYTES)
     return t.to("cpu", copy=True).numpy()
@@ -73,8 +87,12 @@ def save(
     ckpt_dir: str, step: int, state: Any, *, extra: Optional[dict] = None,
     async_: bool = False,
 ) -> threading.Thread | None:
-    """Write checkpoint atomically; optionally in a background thread."""
+    """Write checkpoint atomically; optionally in a background thread (on
+    one rank only: a sharded save over several ranks writes synchronously
+    and ends at a barrier)."""
     arrays = _flatten(state)           # host copies happen synchronously (consistent cut)
+    many = _sharded(state) and dist.is_initialized() and dist.get_world_size() > 1
+    writer = not many or dist.get_rank() == 0
 
     def _write():
         final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -88,12 +106,29 @@ def save(
             shutil.rmtree(final)
         os.rename(tmp, final)
 
+    if many:
+        if writer:
+            _write()
+        dist.barrier()
+        return None
     if async_:
         t = threading.Thread(target=_write, daemon=True)
         t.start()
         return t
     _write()
     return None
+
+
+def _sharded(state) -> bool:
+    return any(isinstance(x, DTensor) for x in _tensor_leaves(state))
+
+
+def _tensor_leaves(node) -> list:
+    if node is None:
+        return []
+    if dataclasses.is_dataclass(node):
+        return [x for f in dataclasses.fields(node) for x in _tensor_leaves(getattr(node, f.name))]
+    return leaves(node)
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -118,42 +153,53 @@ def _tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return t.requires_grad_(like.requires_grad) if t.is_floating_point() else t
 
 
-def _restore(node, path: tuple, arrays: dict, index: tuple = (), dims: tuple = ()):
+def _restore(node, path: tuple, arrays: dict, index: tuple = (), dims: tuple = (),
+             sh=None):
     if node is None:
         return None
     if dataclasses.is_dataclass(node):
         return type(node)(**{f.name: _restore(getattr(node, f.name), path + (f.name,),
-                                              arrays, index, dims)
+                                              arrays, index, dims,
+                                              None if sh is None else getattr(sh, f.name))
                              for f in dataclasses.fields(node)})
     if isinstance(node, dict):
-        return {k: _restore(v, path + (str(k),), arrays, index, dims) for k, v in node.items()}
+        return {k: _restore(v, path + (str(k),), arrays, index, dims,
+                            None if sh is None else sh[k]) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return type(node)(_restore(x, path, arrays, index + (i,), dims + (len(node),))
+        return type(node)(_restore(x, path, arrays, index + (i,), dims + (len(node),),
+                                   None if sh is None else sh[i])
                           for i, x in enumerate(node))
     key = "/".join(path)
     arr = arrays[key]
     assert arr.shape == dims + tuple(node.shape), (key, arr.shape, dims + tuple(node.shape))
-    return _tensor(arr[index], node)
+    t = _tensor(arr[index], node)
+    if sh is None:
+        return t
+    from repro_torch.launch.sharding import place
+
+    return place(t, sh)
 
 
 def restore(ckpt_dir: str, step: int, template: Any, shardings: Any | None = None
             ) -> tuple[Any, dict]:
     """Restore into the structure of `template` (new tensors of each
-    template leaf's dtype, device and requires_grad).  Returns (state,
-    manifest)."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto a mesh's shardings is ROADMAP queue 1 "
-                                  "item 11c-ii")
+    template leaf's dtype, device and requires_grad), each leaf placed with
+    `shardings` (the same structure, `launch/sharding.Sharding` leaves: a
+    DTensor of the target mesh's layout) or, with None, a plain tensor.
+    Returns (state, manifest)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as z:
         arrays = {k: z[k] for k in z.files}
-    return _restore(template, (), arrays), manifest
+    return _restore(template, (), arrays, sh=shardings), manifest
 
 
 def prune(ckpt_dir: str, keep: int = 3) -> None:
-    """Keep the newest `keep` checkpoints."""
+    """Keep the newest `keep` checkpoints (rank 0's work on a world of
+    several ranks)."""
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return
     if not os.path.isdir(ckpt_dir):
         return
     steps = sorted(

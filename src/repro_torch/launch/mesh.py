@@ -23,14 +23,16 @@ its own rank.
 FUNCTIONS, not module-level constants: importing this module starts no
 process group.
 
-The parameter sharding policy (`sharding.py`) and the input shapes
-(`shapes.py`) of the reference's launch package are ROADMAP queue 1 item
-11c-ii.
+`use_mesh` makes a mesh ambient, as the reference's `jax.sharding.set_mesh`:
+`current_mesh()` reads it, and `models/partition.hint` resolves its roles
+against it.  The parameter, batch and cache placements over a mesh are
+`sharding.py`'s; the cells' input shapes are `shapes.py`'s.
 """
 from __future__ import annotations
 
 import atexit
 import contextlib
+import contextvars
 import math
 import os
 import shutil
@@ -95,12 +97,29 @@ def make_mesh(shape, axes, device: DeviceLike = None):
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+
+
 @contextlib.contextmanager
 def use_mesh(mesh):
-    """The ambient mesh for DTensor operations, as the reference's
-    `jax.sharding.set_mesh`."""
-    with mesh:
-        yield mesh
+    """The ambient mesh for DTensor operations and `partition.hint`, as the
+    reference's `jax.sharding.set_mesh`."""
+    tok = _AMBIENT.set(mesh)
+    try:
+        with mesh:
+            yield mesh
+    finally:
+        _AMBIENT.reset(tok)
+
+
+def current_mesh():
+    """The mesh `use_mesh` made ambient, or None."""
+    return _AMBIENT.get()
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """{axis name: size} of `mesh`, in the mesh's order."""
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = None):
@@ -126,9 +145,9 @@ def dp_axes(mesh) -> tuple[str, ...]:
 
 
 def dp_size(mesh) -> int:
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    sizes = axis_sizes(mesh)
     return int(math.prod(sizes[a] for a in dp_axes(mesh)))
 
 
 def tp_size(mesh) -> int:
-    return int(dict(zip(mesh.mesh_dim_names, mesh.shape))["model"])
+    return axis_sizes(mesh)["model"]

@@ -4,11 +4,15 @@
         --steps 300 --global-batch 64 --seq 1024 --ckpt-dir /tmp/ck [--device cpu]
 
 The counterpart of `repro/launch/train.py`, with its arguments and `--device`
-(default: the card).  It runs on one rank: the mesh is
-`mesh.make_local_mesh` over the ranks that exist (one, started here, when
-no process group exists).  `--model-parallel` above 1 needs the parameter
-shardings of `launch/sharding.py`, ROADMAP queue 1 item 11c-ii, and raises.
-`main` returns the history.
+(default: the card).  As the reference does, it always trains through the
+shardings, on one rank too: the mesh is `mesh.make_local_mesh(
+--model-parallel)` over the ranks that exist (one, started here, when no
+process group exists; several when a launcher started them, each calling
+`torch.distributed.init_process_group` first), the parameters are placed by
+`sharding.params_shardings(..., cfg.use_tp)` and the state by
+`state_shardings`, and the Trainer runs inside `use_mesh`.  A
+`--model-parallel` that does not divide the ranks raises.  `main` returns
+the history.
 """
 from __future__ import annotations
 
@@ -17,9 +21,12 @@ import argparse
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import shapes as shapes_lib
+from repro_torch.launch import sharding as sh_lib
 from repro_torch.models.registry import get_api, get_config, list_archs
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import Trainer, TrainerConfig, TrainHParams
+from repro_torch.train import step as tsl
 
 
 def main(argv=None) -> list[dict]:
@@ -38,16 +45,11 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: sharding the parameters over a mesh's "
-            "model axis is ROADMAP queue 1 item 11c-ii; this launcher trains on one rank")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     api = get_api(cfg)
     mesh = mesh_lib.make_local_mesh(args.model_parallel, device)
-    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    print(f"mesh: {shape} over {mesh.size()} devices")
+    print(f"mesh: {mesh_lib.axis_sizes(mesh)} over {mesh.size()} devices")
 
     hp = TrainHParams(
         optimizer=AdamWConfig(lr=args.lr), accum=args.accum,
@@ -58,8 +60,15 @@ def main(argv=None) -> list[dict]:
                        ckpt_every=args.ckpt_every, log_every=10)
     data = DataConfig(global_batch=args.global_batch, seq_len=args.seq)
 
-    trainer = Trainer(cfg, api, hp, tc, data, device=device)
-    history = trainer.run()
+    with mesh_lib.use_mesh(mesh):
+        pshapes = shapes_lib.param_specs(cfg, api)
+        psh = sh_lib.params_shardings(pshapes, mesh, cfg.use_tp)
+        ssh = sh_lib.state_shardings(
+            tsl.TrainState(params=pshapes, opt=None,
+                           compress_error=pshapes if hp.grad_compression else None),
+            psh, mesh)
+        trainer = Trainer(cfg, api, hp, tc, data, shardings=ssh, device=device)
+        history = trainer.run()
     for rec in history:
         print(f"step {rec['step']:6d}  loss {rec['loss']:.4f}  "
               f"lr {rec['lr']:.2e}  {rec['seconds']*1e3:.0f} ms")

@@ -20,6 +20,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models import partition
+from repro_torch.models.partition import hint
 
 
 def init_dec_block(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
@@ -72,6 +74,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device: DeviceLike = None) -
 
 
 def _enc_block(cfg, lp, h, positions):
+    h = hint(h, "dp", "tp", None)   # sequence-parallel residual
     a, _ = L.attention_block(L.rms_norm(h, lp["ln1"], cfg.rms_eps), lp["attn"], cfg,
                              positions, causal=False)
     h = h + a
@@ -91,14 +94,16 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor, *, remat=True) -> tor
 
 
 def _cross_kv(cfg, lp, memory):
-    b, s, _ = memory.shape
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    memory = partition.gather_sequence(memory)
     k = torch.einsum("bsd,dk->bsk", memory, lp["xattn"]["wk"].to(memory.dtype))
     v = torch.einsum("bsd,dk->bsk", memory, lp["xattn"]["wv"].to(memory.dtype))
-    return k.reshape(b, s, kvh, hd), v.reshape(b, s, kvh, hd)
+    return L.split_heads(k, kvh, hd), L.split_heads(v, kvh, hd)
 
 
 def _dec_block(cfg, lp, h, positions, memory, cache=None, cache_pos=None):
+    if cache is None:
+        h = hint(h, "dp", "tp", None)   # sequence-parallel residual
     a, emitted = L.attention_block(
         L.rms_norm(h, lp["ln1"], cfg.rms_eps), lp["attn"], cfg, positions,
         causal=True, cache=cache, cache_pos=cache_pos)
@@ -119,7 +124,7 @@ def forward(cfg: ModelConfig, params, frames: torch.Tensor, tgt_tokens: torch.Te
     else None.  Encoder and decoder blocks are checkpointed as `remat`
     says."""
     memory = encode(cfg, params, frames, remat=remat)
-    h = T._embed(cfg, params, tgt_tokens)
+    h = T._embed(cfg, params, tgt_tokens, hinted=False)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
     block = L.remat_wrap(lambda h, lp: _dec_block(cfg, lp, h, positions, memory), remat)
@@ -130,7 +135,7 @@ def forward(cfg: ModelConfig, params, frames: torch.Tensor, tgt_tokens: torch.Te
             ks.append(k)
             vs.append(v)
     kv = (torch.stack(ks), torch.stack(vs)) if emit_kv else None
-    return T._head(cfg, params, h), torch.zeros((), device=h.device), (kv, memory)
+    return T._head(cfg, params, h, hinted=False), torch.zeros((), device=h.device), (kv, memory)
 
 
 @torch.no_grad()
@@ -141,9 +146,7 @@ def prefill(cfg: ModelConfig, params, frames: torch.Tensor, tgt_prefix: torch.Te
     logits, _, ((ks, vs), memory) = forward(cfg, params, frames, tgt_prefix, remat=False,
                                             emit_kv=True)
     s = ks.shape[2]
-    cache = T.init_cache(cfg, ks.shape[1], max(cache_cap or s, s), device=ks.device)
-    cache["k"][:, :, :s] = ks.to(torch.bfloat16)
-    cache["v"][:, :, :s] = vs.to(torch.bfloat16)
+    cache = T.pad_cache(ks, vs, max(cache_cap or s, s))
     cache["memory"] = memory
     return logits[:, -1, :], cache, s
 
@@ -152,10 +155,10 @@ def prefill(cfg: ModelConfig, params, frames: torch.Tensor, tgt_prefix: torch.Te
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: dict, pos: int):
     """One decode step.  token [B, 1] int.  Returns (logits [B, V], cache),
     the self-attention K/V written in place."""
-    h = T._embed(cfg, params, token)
+    h = T._embed(cfg, params, token, hinted=False)
     b = h.shape[0]
     positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=h.device)
     for i, lp in enumerate(params["dec_blocks"]):
         h, _ = _dec_block(cfg, lp, h, positions, cache["memory"],
                           cache={"k": cache["k"][i], "v": cache["v"][i]}, cache_pos=int(pos))
-    return T._head(cfg, params, h)[:, 0, :], cache
+    return T._head(cfg, params, h, hinted=False)[:, 0, :], cache

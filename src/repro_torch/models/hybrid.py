@@ -27,6 +27,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.partition import tp_policy
 
 LORA_RANK = 64
 
@@ -100,14 +101,20 @@ def _shared_attn(cfg, shared, lora_inv, h, positions, cache=None, cache_pos=None
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat=True,
-            emit_state: bool = False):
+            emit_state: bool = False, use_tp=None):
     """tokens [B, S] -> (logits [B, S, V] float32, aux 0, emitted): with
     `emit_state`, ((k, v) each [n_inv, B, S, KV, hd], (conv tails, SSM
     states) each [n_inv, period, B, ...]), else None.  Each mamba block is
     checkpointed as `remat` says and, without `emit_state`, each group
     (shared attention and its mamba blocks) too, as the reference does: the
-    shared block's intermediates are otherwise kept per group."""
-    h = T._embed(cfg, params, tokens)
+    shared block's intermediates are otherwise kept per group.  `use_tp` (None:
+    `cfg.use_tp`): the hints' policy."""
+    with tp_policy(cfg.use_tp if use_tp is None else use_tp):
+        return _forward_inner(cfg, params, tokens, remat, emit_state)
+
+
+def _forward_inner(cfg, params, tokens, remat, emit_state):
+    h = T._embed(cfg, params, tokens, hinted=False)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
     mamba = L.remat_wrap(lambda h, lp: S.mamba_block(h, lp, cfg), remat)
@@ -134,7 +141,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat=True,
     if emit_state:
         emitted = ((torch.stack(ks), torch.stack(vs)),
                    (torch.stack(tails), torch.stack(states)))
-    return T._head(cfg, params, h), torch.zeros((), device=h.device), emitted
+    return T._head(cfg, params, h, hinted=False), torch.zeros((), device=h.device), emitted
 
 
 def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16,
@@ -157,16 +164,11 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *,
     """Returns (last_logits [B, V], cache, pos): attn_k / attn_v bfloat16
     [n_inv, B, cap, KV, hd], conv tails in the compute dtype and float32
     SSM states, each [n_inv, period, B, ...]."""
-    logits, _, ((ks, vs), (conv_tails, ssm_states)) = forward(cfg, params, tokens,
-                                                               remat=False, emit_state=True)
+    logits, _, ((ks, vs), (conv_tails, ssm_states)) = forward(
+        cfg, params, tokens, remat=False, emit_state=True, use_tp=cfg.use_tp_serve)
     s = ks.shape[2]
-    cap = max(cache_cap or s, s)
-    shape = ks.shape[:2] + (cap,) + ks.shape[3:]
-    cache = {"attn_k": torch.zeros(shape, dtype=torch.bfloat16, device=ks.device),
-             "attn_v": torch.zeros(shape, dtype=torch.bfloat16, device=ks.device),
-             "conv": conv_tails, "ssm": ssm_states}
-    cache["attn_k"][:, :, :s] = ks.to(torch.bfloat16)
-    cache["attn_v"][:, :, :s] = vs.to(torch.bfloat16)
+    kv = T.pad_cache(ks, vs, max(cache_cap or s, s))
+    cache = {"attn_k": kv["k"], "attn_v": kv["v"], "conv": conv_tails, "ssm": ssm_states}
     return logits[:, -1, :], cache, s
 
 
@@ -174,7 +176,12 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, *,
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: dict, pos: int):
     """One decode step.  token [B, 1] int.  Returns (logits [B, V], cache),
     every cache entry written in place through views of its invocation."""
-    h = T._embed(cfg, params, token)
+    with tp_policy(cfg.use_tp_serve):
+        return _decode_inner(cfg, params, token, cache, pos)
+
+
+def _decode_inner(cfg, params, token, cache, pos):
+    h = T._embed(cfg, params, token, hinted=False)
     b = h.shape[0]
     positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=h.device)
     for i, (lora_inv, group) in enumerate(zip(params["lora"], params["mamba"], strict=True)):
@@ -186,4 +193,4 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: dict, pos:
             h, conv, state = S.mamba_block_decode(h, lp, cfg, conv_g[j], ssm_g[j])
             conv_g[j] = conv
             ssm_g[j] = state
-    return T._head(cfg, params, h)[:, 0, :], cache
+    return T._head(cfg, params, h, hinted=False)[:, 0, :], cache

@@ -7,7 +7,8 @@ serves a full sequence (train logits, prefill with cache emit) and decode
 (one position, cache read/write).  Attention is computed as the reference
 computes it -- its einsums, a float32 softmax, chunked where it chunks --
 and not by `scaled_dot_product_attention`.  The reference's sharding hints
-(`models/partition.py`) are no-ops without a mesh and are left out.
+(`models/partition.hint`) stand where it puts them; without an ambient mesh
+each returns its input itself.
 
 Training: `remat_wrap` is the reference's activation checkpointing on
 `torch.utils.checkpoint`, and `gather_rows` is an indexed gather whose
@@ -23,7 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.models import partition
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.partition import hint, per_head_shards
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -64,7 +67,13 @@ def remat_wrap(body: Callable, remat) -> Callable:
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return body(*args)
-        return _ckpt.checkpoint(body, *args, **kw)
+        again = partition.snapshot()      # the recompute resolves hints as the forward did
+
+        def rerun(*a):
+            with again():
+                return body(*a)
+
+        return _ckpt.checkpoint(rerun, *args, **kw)
 
     return wrapped
 
@@ -87,7 +96,9 @@ class _GatherRows(torch.autograd.Function):
     fixed order: `index_put_(accumulate=True)` under deterministic
     algorithms, for that call only (PyTorch promises a fixed order only
     there; a switch for the whole step would refuse the SSM's float cumsum
-    on the card)."""
+    on the card).  A (replicated) DTensor table gets its gradient added on
+    every replica in the same order (`partition.on_replicas`: DTensor has no
+    `index_put_` rule in every release)."""
 
     @staticmethod
     def forward(ctx, table, *index):
@@ -97,16 +108,25 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        index = ctx.saved_tensors
-        out = torch.zeros(ctx.table_shape, dtype=grad.dtype, device=grad.device)
-        with _deterministic_algorithms():
-            out.index_put_(index, grad, accumulate=True)
-        return (out,) + (None,) * len(index)
+        shape, index = ctx.table_shape, ctx.saved_tensors
+
+        def add_rows(grad, *index):
+            out = torch.zeros(shape, dtype=grad.dtype, device=grad.device)
+            with _deterministic_algorithms():
+                out.index_put_(index, grad, accumulate=True)
+            return out
+
+        return (partition.on_replicas(add_rows, grad, *index),) + (None,) * len(index)
 
 
 def gather_rows(table: torch.Tensor, *index: torch.Tensor) -> torch.Tensor:
-    """`table[index]` (int64 index tensors) with a deterministic gradient."""
-    return _GatherRows.apply(table, *index)
+    """`table[index]` (int64 index tensors) with a deterministic gradient.
+    A sharded table is gathered first (`partition.replicate_operand`, the
+    FSDP gather of a weight before its use; DTensor's `aten.index` rule
+    takes no table sharded on the indexed dim in every release), and its
+    gradient goes back to the table's placements through that gather's
+    backward."""
+    return _GatherRows.apply(partition.replicate_operand(table), *index)
 
 
 def repeat_groups(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
@@ -243,6 +263,13 @@ def chunked_attention(
     return torch.cat(outs, dim=1).reshape(b, s, h, d).to(q.dtype)
 
 
+def split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """[B, S, n * hd] -> [B, S, n, hd] (a sharded feature dim first brought
+    to shards of whole heads, `partition.split_ready`)."""
+    b, s, _ = x.shape
+    return partition.split_ready(x, -1, n).reshape(b, s, n, hd)
+
+
 def attention_block(
     x: torch.Tensor,
     p: dict,
@@ -270,10 +297,14 @@ def attention_block(
     """
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = torch.einsum("bsd,dk->bsk", x, p["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    x = partition.gather_sequence(x)
+    q = split_heads(torch.einsum("bsd,dk->bsk", x, p["wq"].to(x.dtype)), h, hd)
+    q = hint(q, "dp", None, "tp", None)
     if kv_override is None:
-        k = torch.einsum("bsd,dk->bsk", x, p["wk"].to(x.dtype)).reshape(b, s, kvh, hd)
-        v = torch.einsum("bsd,dk->bsk", x, p["wv"].to(x.dtype)).reshape(b, s, kvh, hd)
+        k = split_heads(torch.einsum("bsd,dk->bsk", x, p["wk"].to(x.dtype)), kvh, hd)
+        v = split_heads(torch.einsum("bsd,dk->bsk", x, p["wv"].to(x.dtype)), kvh, hd)
+        k = hint(k, "dp", None, "tp", None)
+        v = hint(v, "dp", None, "tp", None)
         if cfg.qkv_bias:
             q = q + p["bq"].reshape(h, hd).to(x.dtype)
             k = k + p["bk"].reshape(kvh, hd).to(x.dtype)
@@ -292,24 +323,22 @@ def attention_block(
         start = max(0, min(int(cache_pos), ck.shape[1] - s))
         ck[:, start:start + s] = k.to(ck.dtype)
         cv[:, start:start + s] = v.to(cv.dtype)
-        out = full_attention(q, ck, cv, causal=False, softcap=cfg.attn_logit_softcap,
-                             kv_len=int(cache_pos) + s)
+        out = per_head_shards(full_attention, q, ck, cv, causal=False,
+                              softcap=cfg.attn_logit_softcap, kv_len=int(cache_pos) + s)
         emitted = cache
     elif kv_override is not None:
         # cross-attention: chunk long sequences too
-        if long_chunked and s >= 2048 and k.shape[1] >= 2048:
-            out = chunked_attention(q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
-        else:
-            out = full_attention(q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
+        core = (chunked_attention if long_chunked and s >= 2048 and k.shape[1] >= 2048
+                else full_attention)
+        out = per_head_shards(core, q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
         emitted = None
     else:
-        if long_chunked and s >= 2048:
-            out = chunked_attention(q, k, v, causal=causal, softcap=cfg.attn_logit_softcap)
-        else:
-            out = full_attention(q, k, v, causal=causal, softcap=cfg.attn_logit_softcap)
+        core = chunked_attention if long_chunked and s >= 2048 else full_attention
+        out = per_head_shards(core, q, k, v, causal=causal, softcap=cfg.attn_logit_softcap)
         emitted = (k, v)
-    out = out.reshape(b, s, h * hd)
-    return torch.einsum("bsk,kd->bsd", out, p["wo"].to(x.dtype)), emitted
+    out = partition.keep_grad_layout(out.reshape(b, s, h * hd))
+    proj = torch.einsum("bsk,kd->bsd", out, p["wo"].to(x.dtype))
+    return hint(proj, "dp", None, None), emitted
 
 
 # ---------------------------------------------------------------------------
@@ -317,14 +346,16 @@ def attention_block(
 # ---------------------------------------------------------------------------
 
 def mlp_block(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    x = partition.gather_sequence(x)
     if cfg.mlp_type == "swiglu":
-        gate = torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype))
-        up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
-        return torch.einsum("bsf,fd->bsd", silu(gate) * up, p["w_down"].to(x.dtype))
-    up = torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype))
+        gate = hint(torch.einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype)), "dp", None, "tp")
+        up = hint(torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype)), "dp", None, "tp")
+        out = torch.einsum("bsf,fd->bsd", silu(gate) * up, p["w_down"].to(x.dtype))
+        return hint(out, "dp", None, None)
+    up = hint(torch.einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype)), "dp", None, "tp")
     # jax.nn.gelu approximates with tanh by default
-    return torch.einsum("bsf,fd->bsd", F.gelu(up, approximate="tanh"),
-                        p["w_down"].to(x.dtype))
+    out = torch.einsum("bsf,fd->bsd", F.gelu(up, approximate="tanh"), p["w_down"].to(x.dtype))
+    return hint(out, "dp", None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.partition import hint, keep_grad_layout, per_batch_shards, tp_policy
 
 
 # ---------------------------------------------------------------------------
@@ -215,17 +216,21 @@ def mamba_block(h: torch.Tensor, lp: dict, cfg: ModelConfig,
                         cfg.ssm_head_dim)
     xn = L.rms_norm(h, lp["ln"], cfg.rms_eps)
     proj = torch.einsum("bsd,dk->bsk", xn, lp["in_proj"].to(xn.dtype))
+    proj = hint(proj, "dp", None, None)
     z, xbc_raw, dt_raw = _split_proj(cfg, proj)
     xbc = causal_conv(xbc_raw, lp["conv_w"], lp["conv_b"])
-    x = xbc[..., :din].reshape(b, s, nh, p)
+    x = hint(xbc[..., :din].reshape(b, s, nh, p), "dp", None, "tp", None)
     Bm = xbc[..., din:din + g * n].reshape(b, s, g, n)
     Cm = xbc[..., din + g * n:].reshape(b, s, g, n)
     dt = F.softplus(dt_raw.float() + lp["dt_bias"])
-    y, state = ssd_chunked(x, dt, lp["A_log"], Bm, Cm, cfg.ssd_chunk, init_state)
+    y, state = per_batch_shards(
+        lambda x, dt, a, b, c, s0: ssd_chunked(x, dt, a, b, c, cfg.ssd_chunk, s0),
+        x, dt, lp["A_log"], Bm, Cm, init_state, batched=(True, True, False, True, True, True))
     y = y + x * lp["D_skip"].float()[None, None, :, None].to(x.dtype)
-    y = y.reshape(b, s, din)
+    y = keep_grad_layout(y.reshape(b, s, din))
     y = L.rms_norm(y, lp["norm"], cfg.rms_eps) * L.silu(z)
     out = torch.einsum("bsk,kd->bsd", y, lp["out_proj"].to(y.dtype))
+    out = hint(out, "dp", None, None)
     conv_tail = xbc_raw[:, -(cfg.conv_width - 1):, :]   # pre-conv inputs for decode
     return h + out, (conv_tail, state)
 
@@ -245,7 +250,8 @@ def mamba_block_decode(h: torch.Tensor, lp: dict, cfg: ModelConfig,
     Bm = xbc[..., din:din + g * n].reshape(b, g, n)
     Cm = xbc[..., din + g * n:].reshape(b, g, n)
     dt = F.softplus(dt_raw.float() + lp["dt_bias"])
-    y, new_state = ssd_decode(x, dt, lp["A_log"], Bm, Cm, ssm_state)
+    y, new_state = per_batch_shards(ssd_decode, x, dt, lp["A_log"], Bm, Cm, ssm_state,
+                                    batched=(True, True, False, True, True, True))
     y = y + x * lp["D_skip"].float()[None, :, None].to(x.dtype)
     y = y.reshape(b, din)
     y = L.rms_norm(y, lp["norm"], cfg.rms_eps) * L.silu(z)
@@ -258,12 +264,18 @@ def mamba_block_decode(h: torch.Tensor, lp: dict, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat=True,
-            emit_state: bool = False):
+            emit_state: bool = False, use_tp=None):
     """tokens [B, S] -> (logits [B, S, V] float32, aux 0, states): states
     are (conv tails [L, B, W-1, ch], SSM states [L, B, h, n, p]) with
     `emit_state`, else None.  Each block is checkpointed as `remat` says.
-    S must be a multiple of `cfg.ssd_chunk`."""
-    h = T._embed(cfg, params, tokens)
+    S must be a multiple of `cfg.ssd_chunk`.  `use_tp` (None:
+    `cfg.use_tp`): the hints' policy."""
+    with tp_policy(cfg.use_tp if use_tp is None else use_tp):
+        return _forward_inner(cfg, params, tokens, remat, emit_state)
+
+
+def _forward_inner(cfg, params, tokens, remat, emit_state):
+    h = T._embed(cfg, params, tokens, hinted=False)
     block = L.remat_wrap(lambda h, lp: mamba_block(h, lp, cfg), remat)
     tails, states = [], []
     for lp in params["blocks"]:
@@ -272,7 +284,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, remat=True,
             tails.append(tail)
             states.append(state)
     emitted = (torch.stack(tails), torch.stack(states)) if emit_state else None
-    return T._head(cfg, params, h), torch.zeros((), device=h.device), emitted
+    return T._head(cfg, params, h, hinted=False), torch.zeros((), device=h.device), emitted
 
 
 def init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -292,7 +304,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor):
     tails are the last W-1 pre-conv inputs in the compute dtype; the SSM
     states are float32."""
     logits, _, (conv_tails, ssm_states) = forward(cfg, params, tokens, remat=False,
-                                                  emit_state=True)
+                                                  emit_state=True, use_tp=cfg.use_tp_serve)
     return logits[:, -1, :], {"conv": conv_tails, "ssm": ssm_states}, tokens.shape[1]
 
 
@@ -300,9 +312,14 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor):
 def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: dict, pos: int):
     """One decode step.  token [B, 1] int.  Returns (logits [B, V], cache),
     the cache's states written in place."""
-    h = T._embed(cfg, params, token)
+    with tp_policy(cfg.use_tp_serve):
+        return _decode_inner(cfg, params, token, cache, pos)
+
+
+def _decode_inner(cfg, params, token, cache, pos):
+    h = T._embed(cfg, params, token, hinted=False)
     for i, lp in enumerate(params["blocks"]):
         h, conv, state = mamba_block_decode(h, lp, cfg, cache["conv"][i], cache["ssm"][i])
         cache["conv"][i] = conv
         cache["ssm"][i] = state
-    return T._head(cfg, params, h)[:, 0, :], cache
+    return T._head(cfg, params, h, hinted=False)[:, 0, :], cache

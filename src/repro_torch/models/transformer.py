@@ -21,10 +21,12 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import stacked_numpy
 
@@ -108,6 +110,11 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device: DeviceLike = None) -
 def _block_apply(h, lp, cfg: ModelConfig, positions, *, cache_slice=None, cache_pos=None):
     """One transformer block.  Returns (h, emitted, aux): emitted is (k, v)
     in full-sequence mode or the written cache slice in decode mode."""
+    # Sequence-parallel residual stream (Megatron-SP): the saved remat inputs
+    # shard S over "model".  Its input itself when S % tp != 0, with
+    # use_tp=False, or without a mesh.
+    if cache_slice is None:
+        h = partition.hint(h, "dp", "tp", None)
     a, emitted = L.attention_block(
         L.rms_norm(h, lp["ln1"], cfg.rms_eps), lp["attn"], cfg, positions,
         cache=cache_slice, cache_pos=cache_pos,
@@ -121,18 +128,24 @@ def _block_apply(h, lp, cfg: ModelConfig, positions, *, cache_slice=None, cache_
     return h + m, emitted, aux
 
 
-def _embed(cfg: ModelConfig, params, tokens, embeds_prefix=None):
+def _embed(cfg: ModelConfig, params, tokens, embeds_prefix=None, *, hinted: bool = True):
+    """The token embeddings (after the prefix); `hinted`: placed "dp" as the
+    reference's transformer places them (its ssm, hybrid and encdec
+    families do not)."""
     cd = L.cdtype(cfg)
     h = L.gather_rows(params["embed"], tokens.long()).to(cd)
     if embeds_prefix is not None:
         h = torch.cat([embeds_prefix.to(cd), h], dim=1)
-    return h
+    return partition.hint(h, "dp", None, None) if hinted else h
 
 
-def _head(cfg: ModelConfig, params, h):
-    h = L.rms_norm(h, params["final_ln"], cfg.rms_eps)
+def _head(cfg: ModelConfig, params, h, *, hinted: bool = True):
+    """Final norm and logits (float32); `hinted`: vocab placed "tp" as in
+    the reference's transformer."""
+    h = partition.gather_sequence(L.rms_norm(h, params["final_ln"], cfg.rms_eps))
     w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
-    return torch.einsum("bsd,dv->bsv", h, w.to(h.dtype)).float()
+    logits = torch.einsum("bsd,dv->bsv", h, w.to(h.dtype)).float()
+    return partition.hint(logits, "dp", None, "tp") if hinted else logits
 
 
 # ---------------------------------------------------------------------------
@@ -142,14 +155,20 @@ def _head(cfg: ModelConfig, params, h):
 def forward(
     cfg: ModelConfig, params, tokens: torch.Tensor, *,
     embeds_prefix: Optional[torch.Tensor] = None, remat=True, emit_kv: bool = False,
+    use_tp: Optional[bool] = None,
 ):
     """tokens [B, S] (+ optional prefix embeddings, e.g. image patches) ->
     (logits [B, S_total, V] float32, aux_loss, emitted kv or None).
 
     Each block is checkpointed as `remat` says (`layers.remat_wrap`).  The
     emitted kv is (k, v), each stacked [L, B, S, KV, hd] as the reference's
-    scan stacks them.  The reference's `use_tp` switch belongs to sharding
-    (ROADMAP queue 1 item 11c-ii)."""
+    scan stacks them.  `use_tp` (None: `cfg.use_tp`) is the hints' policy
+    (`partition.tp_policy`)."""
+    with partition.tp_policy(cfg.use_tp if use_tp is None else use_tp):
+        return _forward_inner(cfg, params, tokens, embeds_prefix, remat, emit_kv)
+
+
+def _forward_inner(cfg, params, tokens, embeds_prefix, remat, emit_kv):
     h = _embed(cfg, params, tokens, embeds_prefix)
     b, s, _ = h.shape
     positions = torch.arange(s, dtype=torch.int32, device=h.device)[None].expand(b, s)
@@ -179,6 +198,14 @@ def init_cache(cfg: ModelConfig, batch: int, cap: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def pad_cache(ks: torch.Tensor, vs: torch.Tensor, cap: int) -> dict:
+    """The emitted K/V ([L, B, S, KV, hd]) as a bfloat16 cache of `cap`
+    positions, zero past S (the reference's `jnp.pad`; a DTensor keeps its
+    layout)."""
+    pad = (0, 0, 0, 0, 0, cap - ks.shape[2])
+    return {"k": F.pad(ks.to(torch.bfloat16), pad), "v": F.pad(vs.to(torch.bfloat16), pad)}
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens, *, cache_cap: Optional[int] = None,
             embeds_prefix: Optional[torch.Tensor] = None):
@@ -186,13 +213,10 @@ def prefill(cfg: ModelConfig, params, tokens, *, cache_cap: Optional[int] = None
     [B, V], cache, pos): the cache is bfloat16 whatever the compute dtype,
     as the reference casts it."""
     logits, _, (ks, vs) = forward(cfg, params, tokens, embeds_prefix=embeds_prefix,
-                                  remat=False, emit_kv=True)
+                                  remat=False, emit_kv=True, use_tp=cfg.use_tp_serve)
     s = ks.shape[2]
-    cap = cache_cap or s
-    cache = init_cache(cfg, ks.shape[1], max(cap, s), device=ks.device)
-    cache["k"][:, :, :s] = ks.to(torch.bfloat16)
-    cache["v"][:, :, :s] = vs.to(torch.bfloat16)
-    return logits[:, -1, :], cache, s
+    cap = max(cache_cap or s, s)
+    return logits[:, -1, :], pad_cache(ks, vs, cap), s
 
 
 @torch.no_grad()
@@ -201,6 +225,11 @@ def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache: dict, pos:
 
     Returns (logits [B, V], cache).  The cache is written in place (the
     reference updates it functionally and donates it under jit)."""
+    with partition.tp_policy(cfg.use_tp_serve):
+        return _decode_inner(cfg, params, token, cache, pos)
+
+
+def _decode_inner(cfg, params, token, cache, pos):
     h = _embed(cfg, params, token)
     b = h.shape[0]
     positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=h.device)

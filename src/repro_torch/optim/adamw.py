@@ -38,7 +38,7 @@ class AdamWConfig:
 
 def init(params, cfg: AdamWConfig = AdamWConfig()) -> AdamWState:
     mdt = dtype_of(cfg.moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=mdt)  # noqa: E731  (a DTensor's layout kept)
     device = leaves(params)[0].device
     return AdamWState(m=map_tree(zeros, params), v=map_tree(zeros, params),
                       step=torch.zeros((), dtype=torch.int32, device=device))

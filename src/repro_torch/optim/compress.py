@@ -18,8 +18,7 @@ from repro_torch.tree import leaf_keys, leaves, map_tree, unflatten
 
 
 def init_error(params):
-    return map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                    params)
+    return map_tree(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
 
 
 def _scale(xs: list) -> torch.Tensor:

@@ -7,6 +7,13 @@ device (`torch.multinomial` over the softmax of logits / temperature).  It
 cannot equal `jax.random.categorical`'s draws for the same seed; the same
 seed gives the same tokens, another seed other ones.  Greedy decoding
 (`argmax`) is equal to the reference's.
+
+Sharded serving: parameters placed on a mesh (`launch/sharding.
+params_shardings(..., cfg.use_tp_serve)`, DTensor leaves) make `generate`
+run under that mesh (`use_mesh`, DTensor's `implicit_replication`): the
+batch is placed by `batch_shardings`, the cache prefill returns is placed by
+`cache_shardings` (the reference's decode `in_shardings`), and each step's
+logits are read whole to pick the next tokens.
 """
 from __future__ import annotations
 
@@ -15,8 +22,10 @@ import time
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import synchronize, tensor_from
+from repro_torch.models import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelApi
 
@@ -37,9 +46,23 @@ class ServeEngine:
         self.cfg, self.api, self.params = cfg, api, params
         self.cache_cap = cache_cap
         self.device = params["embed"].device
+        self.mesh = params["embed"].device_mesh if isinstance(params["embed"], DTensor) else None
 
     def _on_device(self, batch: dict) -> dict:
-        return {k: tensor_from(v).to(self.device) for k, v in batch.items()}
+        batch = {k: tensor_from(v).to(self.device) for k, v in batch.items()}
+        if self.mesh is None:
+            return batch
+        from repro_torch.launch import sharding
+
+        placed = sharding.batch_shardings(batch, self.mesh, self.cfg.use_tp_serve)
+        return {k: sharding.place(v, placed[k]) for k, v in batch.items()}
+
+    def _place_cache(self, cache: dict) -> dict:
+        if self.mesh is None:
+            return cache
+        from repro_torch.launch import sharding
+
+        return sharding.place_tree(cache, sharding.cache_shardings(self.cfg, cache, self.mesh))
 
     def generate(self, batch: dict, max_new_tokens: int, *, greedy: bool = True,
                  temperature: float = 1.0, seed: int = 0) -> tuple[np.ndarray, ServeStats]:
@@ -53,13 +76,18 @@ class ServeEngine:
             # nothing to decode: empty [B, 0] output, zeroed stats, no prefill
             b = next(iter(batch.values())).shape[0]
             return np.zeros((b, 0), dtype=np.int32), stats
-        batch = self._on_device(batch)
+        with partition.sharded_scope(self.mesh):
+            return self._generate(self._on_device(batch), max_new_tokens, greedy,
+                                  temperature, seed, stats)
+
+    def _generate(self, batch, max_new_tokens, greedy, temperature, seed, stats):
         # perf_counter, not time(): a wall-clock (NTP) step must never record
         # a negative or inflated prefill/decode duration
         synchronize(self.device)
         t0 = time.perf_counter()
         logits, cache, pos = self.api.prefill(self.cfg, self.params, batch,
                                               cache_cap=self.cache_cap)
+        cache = self._place_cache(cache)
         synchronize(self.device)
         stats.prefill_seconds = time.perf_counter() - t0
 
@@ -67,6 +95,8 @@ class ServeEngine:
         outs = []
         t0 = time.perf_counter()
         for _ in range(max_new_tokens):
+            if isinstance(logits, DTensor):
+                logits = logits.full_tensor()
             if greedy:
                 tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
             else:

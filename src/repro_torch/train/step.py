@@ -8,6 +8,17 @@ checkpointed as `TrainHParams.remat` says), then AdamW in place.  Every
 gradient is deterministic: the indexed gathers add repeated rows in a
 fixed order (`layers.gather_rows`), so a step repeated on the same state
 and batch gives the same bits, and a resumed run equals a straight one.
+
+Sharded (the state's leaves DTensors placed as `launch/sharding.py` says,
+the batch placed by `batch_shardings`): the step runs under the state's
+mesh (`mesh.use_mesh`, so the models' hints resolve against it) and
+DTensor's `implicit_replication` (the plain tensors the model code makes --
+positions, masks, RoPE tables -- meet the DTensors as replicated).  Each
+gradient comes back from autograd as DTensor leaves it (often `Partial`
+over the data axis) and is redistributed to its parameter's placements
+before the global norm, clipping, compression and AdamW: the reduce-scatter
+or all-reduce that GSPMD inserts in the reference.  Those all run on the
+DTensors; the metrics come back replicated and are returned whole.
 """
 from __future__ import annotations
 
@@ -15,8 +26,11 @@ import dataclasses
 from typing import Any, Union
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import DeviceLike, resolve_device, tensor_from
+from repro_torch.models import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import IGNORE, ModelApi
 from repro_torch.optim import adamw, compress, schedule
@@ -67,9 +81,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
     mask = (labels != IGNORE).to(torch.float32)
     safe = torch.where(labels == IGNORE, 0, labels).long()
     logz = torch.logsumexp(logits, dim=-1)
-    # each (row, position) reads one logit, so the backward's scatter
-    # writes each gradient entry once: no order to fix
-    gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
+    if isinstance(logits, DTensor):
+        # vocab-parallel logits: the gold logit as a one-hot sum over the
+        # vocab shards (exact: every other term is 0); DTensor's gather
+        # across a sharded vocab leaves a masked partial it cannot reduce
+        gold = torch.sum(logits * F.one_hot(safe, logits.shape[-1]).to(logits.dtype), dim=-1)
+    else:
+        # each (row, position) reads one logit, so the backward's scatter
+        # writes each gradient entry once: no order to fix
+        gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
     ce = (logz - gold) * mask
     denom = torch.clamp(torch.sum(mask), min=1.0)
     return torch.sum(ce) / denom, denom
@@ -84,7 +104,44 @@ def make_loss_fn(cfg: ModelConfig, api: ModelApi, hp: TrainHParams):
 
 
 def _on_device(batch: dict, device: torch.device) -> dict:
-    return {k: tensor_from(v).to(device) for k, v in batch.items()}
+    """Each value a tensor on `device` (a DTensor stays as it is placed)."""
+    return {k: v if isinstance(v, DTensor) else tensor_from(v).to(device)
+            for k, v in batch.items()}
+
+
+def _mesh_of(params):
+    """The mesh the parameters are placed on, or None (plain tensors)."""
+    first = leaves(params)[0]
+    return first.device_mesh if isinstance(first, DTensor) else None
+
+
+def _microbatch(v: torch.Tensor, a: int, b: int, use_tp: bool) -> torch.Tensor:
+    """Rows a:b of a batch leaf.  A DTensor is gathered first
+    (`partition.replicate_operand`: a microbatch's rows lie on some ranks
+    only) and the rows placed again as `batch_spec` places a batch of their
+    shape."""
+    if not isinstance(v, DTensor):
+        return v[a:b]
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.sharding import batch_spec
+
+    rows = partition.replicate_operand(v)[a:b]
+    axes = mesh_lib.axis_sizes(v.device_mesh)
+    want = partition.placements(batch_spec(tuple(rows.shape), axes, use_tp), axes)
+    return rows.redistribute(v.device_mesh, want)
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient on its parameter's placements (the data-parallel
+    reduction); a plain gradient as it is."""
+    if isinstance(g, DTensor) and list(g.placements) != list(p.placements):
+        return g.redistribute(p.device_mesh, list(p.placements))
+    return g
+
+
+def _whole(v: torch.Tensor) -> torch.Tensor:
+    """A metric as one plain tensor (a DTensor's full value)."""
+    return v.full_tensor() if isinstance(v, DTensor) else v
 
 
 def make_train_step(cfg: ModelConfig, api: ModelApi, hp: TrainHParams):
@@ -100,7 +157,8 @@ def make_train_step(cfg: ModelConfig, api: ModelApi, hp: TrainHParams):
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         # a leaf the loss does not reach has a zero gradient, as in JAX
-        return [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)], metrics
+        return [torch.zeros_like(p) if g is None else _placed_like(g, p)
+                for p, g in zip(flat, grads)], metrics
 
     def accumulate(params, batch):
         if hp.accum == 1:
@@ -109,11 +167,11 @@ def make_train_step(cfg: ModelConfig, api: ModelApi, hp: TrainHParams):
         if b % hp.accum:
             raise ValueError(f"batch {b} is not a multiple of accum {hp.accum}")
         mb = b // hp.accum
-        g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in leaves(params)]
+        g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves(params)]
         m_acc = None
         for i in range(hp.accum):
-            g, m = single(params, {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
+            g, m = single(params, {k: _microbatch(v, i * mb, (i + 1) * mb, cfg.use_tp)
+                                   for k, v in batch.items()})
             g_acc = [a + x for a, x in zip(g_acc, g, strict=True)]
             m_acc = m if m_acc is None else {k: m_acc[k] + m[k] for k in m_acc}
         scale = 1.0 / hp.accum
@@ -123,17 +181,19 @@ def make_train_step(cfg: ModelConfig, api: ModelApi, hp: TrainHParams):
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         device = leaves(state.params)[0].device
-        flat, metrics = accumulate(state.params, _on_device(batch, device))
-        grads = unflatten(state.params, flat)
-        err = state.compress_error
-        if hp.grad_compression:
-            grads, err = compress.apply(grads, err)
-        lr = schedule.cosine_with_warmup(
-            state.opt.step, peak_lr=hp.optimizer.lr,
-            warmup_steps=hp.warmup_steps, total_steps=hp.total_steps,
-        )
-        _, opt, gnorm = adamw.update(grads, state.opt, state.params, hp.optimizer, lr)
-        metrics = dict(metrics, grad_norm=gnorm, lr=lr, step=opt.step.clone())
+        with partition.sharded_scope(_mesh_of(state.params)):
+            flat, metrics = accumulate(state.params, _on_device(batch, device))
+            grads = unflatten(state.params, flat)
+            err = state.compress_error
+            if hp.grad_compression:
+                grads, err = compress.apply(grads, err)
+            lr = schedule.cosine_with_warmup(
+                state.opt.step, peak_lr=hp.optimizer.lr,
+                warmup_steps=hp.warmup_steps, total_steps=hp.total_steps,
+            )
+            _, opt, gnorm = adamw.update(grads, state.opt, state.params, hp.optimizer, lr)
+            metrics = dict(metrics, grad_norm=gnorm, lr=lr, step=opt.step.clone())
+            metrics = {k: _whole(v) for k, v in metrics.items()}
         return TrainState(params=state.params, opt=opt, compress_error=err), metrics
 
     return train_step

@@ -10,7 +10,8 @@ from typing import Callable, Optional
 
 from repro_torch.checkpoint import checkpointer
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, tensor_from
+from repro_torch.launch import sharding as sharding_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import ModelApi
 from repro_torch.runtime.fault_tolerance import RestartPolicy, StragglerDetector
@@ -29,8 +30,12 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Trains on `device` (None: the card).  `shardings` (a mesh's layout
-    of the state) is ROADMAP queue 1 item 11c-ii and raises here."""
+    """Trains on `device` (None: the card).  `shardings`: the state's layout
+    on a mesh (`launch/sharding.state_shardings`), or None for plain tensors.
+    With it, the fresh state is placed leaf by leaf as it says, every rank
+    draws the same global batch and places it as `batch_shardings` says (so
+    a resume's data cursor holds on any mesh), checkpoints are gathered and
+    written by rank 0, and a resume restores onto these shardings."""
 
     def __init__(
         self,
@@ -44,9 +49,6 @@ class Trainer:
         fail_injector: Optional[Callable[[int], None]] = None,
         device: DeviceLike = None,
     ):
-        if shardings is not None:
-            raise NotImplementedError("a Trainer over a mesh's shardings is ROADMAP queue 1 "
-                                      "item 11c-ii")
         self.cfg, self.api, self.hp, self.tc, self.data = cfg, api, hp, tc, data
         self.device = resolve_device(device)
         self.pipeline = SyntheticTokens(cfg, data)
@@ -62,8 +64,20 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _fresh_state(self):
-        return train_step_lib.init_state(self.cfg, self.api, self.tc.seed, self.hp,
-                                         device=self.device)
+        state = train_step_lib.init_state(self.cfg, self.api, self.tc.seed, self.hp,
+                                          device=self.device)
+        if self.shardings is None:
+            return state
+        return sharding_lib.place_tree(state, self.shardings)
+
+    def _batch(self, step: int) -> dict:
+        batch = self.pipeline.batch(step)
+        if self.shardings is None:
+            return batch
+        mesh = sharding_lib.leaves_of(self.shardings)[0].mesh
+        tensors = {k: tensor_from(v).to(self.device) for k, v in batch.items()}
+        placed = sharding_lib.batch_shardings(tensors, mesh, self.cfg.use_tp)
+        return {k: sharding_lib.place(v, placed[k]) for k, v in tensors.items()}
 
     def _try_resume(self, state):
         if not self.tc.ckpt_dir:
@@ -100,7 +114,7 @@ class Trainer:
                 t0 = time.perf_counter()
                 if self.fail_injector is not None:
                     self.fail_injector(step)
-                batch = self.pipeline.batch(step)
+                batch = self._batch(step)
                 state, metrics = self.step_fn(state, batch)
                 # reading the metrics waits for the device: dt is the step's
                 rec = {k: float(v) for k, v in metrics.items()}

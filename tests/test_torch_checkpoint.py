@@ -3,8 +3,8 @@ reference's checkpoint tests (tests/test_checkpoint.py) on the port, with
 the resume held bit for bit; `params_to_numpy` as the inverse of
 `params_from_numpy`; a consistent cut under an asynchronous save; the
 reference's on-disk layout read by each package from the other's
-checkpoints; bfloat16 leaves; the trainer's recovery; `launch/train` and
-`examples/train_lm`."""
+checkpoints; bfloat16 leaves; the trainer's recovery; a Trainer over a
+one-rank mesh's shardings; `launch/train` and `examples/train_lm`."""
 import dataclasses
 import os
 import runpy
@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro.checkpoint import checkpointer as jckpt
 from repro.data.pipeline import DataConfig as JDataConfig
@@ -25,6 +26,8 @@ from repro.optim import adamw as jadamw
 from repro.train import step as jtsl
 from repro_torch.checkpoint import checkpointer
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import shapes, sharding
 from repro_torch.launch import train as launch_train
 from repro_torch.models.registry import get_api, get_config
 from repro_torch.optim import AdamWConfig
@@ -338,11 +341,53 @@ def test_trainer_async_checkpoints_resume_bit_exact(tmp_path):
     assert _bit_equal(straight.final_state, t.final_state)
 
 
-def test_trainer_refuses_shardings():
+def _state_shardings(mesh, hp=TrainHParams()):
     cfg = get_config(ARCH)
-    with pytest.raises(NotImplementedError, match="11c-ii"):
-        Trainer(cfg, get_api(cfg), TrainHParams(), TrainerConfig(), DataConfig(),
-                shardings={}, device="cpu")
+    pshapes = shapes.param_specs(cfg, get_api(cfg))
+    psh = sharding.params_shardings(pshapes, mesh, cfg.use_tp)
+    return sharding.state_shardings(
+        tsl.TrainState(params=pshapes, opt=None,
+                       compress_error=pshapes if hp.grad_compression else None), psh, mesh)
+
+
+def _whole_leaves(state):
+    return [x.full_tensor() if isinstance(x, DTensor) else x for x in _all_leaves(state)]
+
+
+def test_trainer_over_shardings_equals_the_plain_trainer(tmp_path):
+    """A Trainer over a one-rank gloo mesh's state shardings: every state
+    leaf a DTensor on its spec's placements; 10 steps equal the plain
+    Trainer's bit for bit; 5 + a checkpoint + 5 in a fresh sharded Trainer
+    equal them too; the checkpoint restored with shardings equals the
+    saved leaves."""
+    mesh = mesh_lib.make_local_mesh(1, device="cpu")
+    ssh = _state_shardings(mesh)
+    plain = _trainer(None, 10)
+    plain.run()
+
+    def sharded(ckpt_dir, total):
+        t = _trainer(ckpt_dir, total)
+        t.shardings = ssh
+        return t
+
+    straight = sharded(None, 10)
+    straight.run()
+    for leaf, sh in zip(_all_leaves(straight.final_state), sharding.leaves_of(ssh)):
+        assert isinstance(leaf, DTensor) and tuple(leaf.placements) == sh.placements
+    assert [r["loss"] for r in straight.history] == [r["loss"] for r in plain.history]
+    assert all(torch.equal(a, b) for a, b in zip(_whole_leaves(straight.final_state),
+                                                 _all_leaves(plain.final_state)))
+    d = str(tmp_path / "ck")
+    sharded(d, 5).run()
+    resumed = sharded(d, 10)
+    resumed.run()
+    assert all(torch.equal(a, b) for a, b in zip(_whole_leaves(resumed.final_state),
+                                                 _whole_leaves(straight.final_state)))
+    template = sharding.place_tree(_state(), ssh)
+    restored, manifest = checkpointer.restore(d, 10, template, ssh)
+    assert manifest["extra"]["data_step"] == 10
+    assert all(torch.equal(a, b) for a, b in zip(_whole_leaves(restored),
+                                                 _whole_leaves(resumed.final_state)))
 
 
 def test_launch_train_on_the_cpu(tmp_path, capsys):
@@ -357,8 +402,10 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
     assert checkpointer.latest_step(d) == 4
 
 
-def test_launch_train_refuses_model_parallel():
-    with pytest.raises(NotImplementedError, match="11c-ii"):
+def test_launch_train_model_parallel_must_divide_the_ranks():
+    """`--model-parallel` sizes the mesh's model axis: 2 does not divide one
+    rank, and raises as `make_local_mesh` does."""
+    with pytest.raises(ValueError, match="does not divide the 1 ranks"):
         launch_train.main(["--arch", ARCH, "--model-parallel", "2", "--device", "cpu"])
 
 

@@ -976,3 +976,46 @@ def test_decode_step_equals_teacher_forced_forward_on_the_card(arch):
         assert float((step - full[:, pos]).abs().max()) < 5e-2, dev
         steps[dev] = step.cpu()
     assert float((steps["cuda"] - steps["cpu"]).abs().max()) < 5e-2
+
+
+@pytest.mark.gpu
+def test_sharded_trainer_on_one_nccl_rank_equals_the_plain_trainer():
+    """chip_smoke.py phase 8a at smoke size: a Trainer over a one-rank NCCL
+    mesh's state shardings (every leaf a DTensor, every hint dispatched)
+    gives the plain Trainer's losses for 2 steps (within 1e-4) and a state
+    of DTensors on the card."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import shapes, sharding
+    from repro_torch.models.registry import get_api, get_config
+    from repro_torch.train import Trainer, TrainerConfig, TrainHParams
+    from repro_torch.train import step as tsl
+    from repro_torch.tree import leaves
+
+    _need_card()
+    if dist.is_initialized() and "nccl" not in str(dist.get_backend()):
+        dist.destroy_process_group()        # a CPU test's gloo group: a CUDA mesh needs NCCL
+    started = not dist.is_initialized()
+    cfg = get_config("smollm-360m-smoke")
+    api = get_api(cfg)
+    hp = TrainHParams(total_steps=2, warmup_steps=1)
+    data = DataConfig(global_batch=4, seq_len=64)
+    try:
+        mesh = mesh_lib.make_local_mesh(1)
+        pshapes = shapes.param_specs(cfg, api)
+        ssh = sharding.state_shardings(tsl.TrainState(pshapes, None, None),
+                                       sharding.params_shardings(pshapes, mesh, cfg.use_tp), mesh)
+        runs = {}
+        for name, sh in (("plain", None), ("sharded", ssh)):
+            t = Trainer(cfg, api, hp, TrainerConfig(total_steps=2, log_every=1), data,
+                        shardings=sh)
+            runs[name] = ([r["loss"] for r in t.run()], t.final_state)
+        assert all(isinstance(p, DTensor) and p.device.type == "cuda"
+                   for p in leaves(runs["sharded"][1].params))
+        assert np.allclose(runs["sharded"][0], runs["plain"][0], atol=1e-4, rtol=0), runs
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

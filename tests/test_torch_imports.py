@@ -56,7 +56,9 @@ def test_module_list_covers_the_slice():
                  "repro_torch.optim.compress", "repro_torch.train", "repro_torch.train.step",
                  "repro_torch.train.trainer", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
-                 "repro_torch.examples.train_lm", "repro_torch.tree"):
+                 "repro_torch.examples.train_lm", "repro_torch.tree",
+                 "repro_torch.launch.sharding", "repro_torch.launch.shapes",
+                 "repro_torch.models.partition"):
         assert name in _MODULES
 
 
