@@ -1163,48 +1163,6 @@ def phase_full_width_simhash(device: torch.device, **sizes) -> dict:
     return out
 
 
-def search_split(svc, queries: torch.Tensor, k: int, device: torch.device) -> None:
-    """One search taken apart stage by stage (same functions, same order as
-    core/plan.py runs them), each stage timed on its own and summed over the
-    segments."""
-    from repro_torch.core import cpq, merge
-    from repro_torch.core.plan import _mask_pad_counts
-    from repro_torch.kernels import ops
-
-    index = svc._index
-    params_k = [min(k, r) for r in index.segment_rows]
-    cap = max(2 * k, k + 16)
-    split = dict.fromkeys(
-        ["hash", "match kernel", "mask", "histogram kernel", "gate", "compaction",
-         "final order", "merge"], 0.0)
-
-    def stage(name, fn):
-        ms, out = timed_ms(fn, device)
-        split[name] += ms
-        return out
-
-    qsigs = stage("hash", lambda: svc._hash(queries))
-    bufs_i, bufs_c, offset = [], [], 0
-    for seg, kk in zip(index.segments, params_k):
-        counts = stage("match kernel", lambda: ops.match_count(seg.data, qsigs))
-        counts = stage("mask", lambda: _mask_pad_counts(counts, offset, None))
-        hist = stage("histogram kernel", lambda: ops.cpq_hist(counts, index.max_count))
-        thr = stage("gate", lambda: cpq.audit_threshold(hist, kk)[1])
-        cand = stage("compaction", lambda: cpq._compact_candidates(counts, thr, cap))
-        ids, vals = stage("final order", lambda: cpq.topk_from_candidates(*cand, kk))
-        bufs_i.append(torch.where(ids >= 0, ids + offset, -1))
-        bufs_c.append(vals)
-        offset += seg.stats.n_objects
-        del counts, cand
-    stage("merge", lambda: merge.merge_ragged(bufs_i, bufs_c, k))
-    total = sum(split.values())
-    log("  one search, stage by stage (ms, summed over the segments; each stage "
-        "synchronised, so the sum exceeds an unsplit search):")
-    for name, ms in split.items():
-        log(f"    {name:17s} {ms:9.2f}  {100 * ms / total:5.1f}%")
-    log(f"    {'sum':17s} {total:9.2f}")
-
-
 def profile_one_search(search, device: torch.device, what: str = "search") -> None:
     """One search (`search()`) under torch.profiler: the share of the
     search's wall time in which the device was busy (kernels on one stream do
@@ -4773,7 +4731,6 @@ def main() -> int:
     phase_small_routing(device)
     full = phase_full_width(device)
     svc = full["service"]
-    search_split(svc, full["queries"], FULL_K, device)
     profile_one_search(service_search(full, FULL_K), device)
     kernels = phase_kernel_times(svc._index.segments[0].data, full["qsigs"], svc.m,
                                  full["launches"], parity_err, device)

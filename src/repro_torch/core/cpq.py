@@ -25,10 +25,11 @@ stable sort over a row that is already id-ascending.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.types import SearchParams, TopKResult
 
 
@@ -123,19 +124,31 @@ def cpq_select(
     counts: torch.Tensor,
     params: SearchParams,
     hist: Optional[torch.Tensor] = None,
+    hist_fn: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None,
 ) -> TopKResult:
     """Exact top-k by match count via the c-PQ gate.  counts: int [Q, N].
 
     `hist` may be supplied by the CUDA kernel (kernels/cpq_hist); when None it
-    is computed with the plain PyTorch histogram.
+    is computed by `hist_fn(counts, max_count)` (the kernel's wrapper) or,
+    without one, the plain PyTorch histogram.
+
+    Spans `cpq.gate` (histogram and threshold), `cpq.compact` and
+    `cpq.order` (repro_torch.trace); while they are on, the gate's counter
+    `cpq.passed` is the number of objects it lets through, ZA[threshold]
+    summed over the queries.
     """
-    if hist is None:
-        hist = count_histogram(counts, params.max_count)
-    _, threshold = audit_threshold(hist, params.k)
-    cap = params.cap()
-    cand_ids, cand_vals = _compact_candidates(counts, threshold, cap)
-    # genielint: ignore[executor-sovereignty] -- the port's own executor family
-    ids, vals = topk_from_candidates(cand_ids, cand_vals, params.k)
+    with trace.span("cpq.gate"):
+        if hist is None:
+            hist = (hist_fn or count_histogram)(counts, params.max_count)
+        _, threshold = audit_threshold(hist, params.k)
+        if trace.on():
+            passed = zipper_array(hist).gather(1, threshold[:, None].to(torch.int64))
+            trace.add("cpq.passed", passed.sum())
+    with trace.span("cpq.compact"):
+        cand_ids, cand_vals = _compact_candidates(counts, threshold, params.cap())
+    with trace.span("cpq.order"):
+        # genielint: ignore[executor-sovereignty] -- the port's own executor family
+        ids, vals = topk_from_candidates(cand_ids, cand_vals, params.k)
     return TopKResult(ids=ids, counts=vals, threshold=threshold)
 
 

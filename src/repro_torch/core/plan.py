@@ -94,6 +94,7 @@ from typing import Any, Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import cpq as _cpq
 from repro_torch.core import engines as _engines
 from repro_torch.core import merge as _merge
@@ -523,13 +524,31 @@ def _fused_candidates_topk(fused_match, data: torch.Tensor, queries: Any,
     ascending id ranges, so the buffer as a whole is id-ascending within
     equal counts -- exactly what topk_from_candidates' stable merge needs
     for the global tie-break."""
-    cids, ccnt = fused_match(data, queries, k)
-    if cids.shape[1] < k:  # tiny corpus: fewer candidate slots than k
-        fill = cids.new_full((cids.shape[0], k - cids.shape[1]), -1)
-        cids = torch.cat([cids, fill], dim=1)
-        ccnt = torch.cat([ccnt, fill], dim=1)
-    # genielint: ignore[executor-sovereignty] -- the port's own executor
-    return _cpq.topk_from_candidates(cids, ccnt, k)
+    with trace.span("fused_topk"):
+        cids, ccnt = fused_match(data, queries, k)
+        if cids.shape[1] < k:  # tiny corpus: fewer candidate slots than k
+            fill = cids.new_full((cids.shape[0], k - cids.shape[1]), -1)
+            cids = torch.cat([cids, fill], dim=1)
+            ccnt = torch.cat([ccnt, fill], dim=1)
+        # genielint: ignore[executor-sovereignty] -- the port's own executor
+        return _cpq.topk_from_candidates(cids, ccnt, k)
+
+
+def _match_masked(plan: QueryPlan, data: torch.Tensor, queries: Any,
+                  offset: int) -> torch.Tensor:
+    """One part's counts [Q, rows], pad columns forced to -1."""
+    with trace.span("match"):
+        counts = plan.match(data, queries)
+    with trace.span("pad_mask"):
+        # genielint: ignore[executor-sovereignty] -- the port's own executor
+        return _mask_pad_counts(counts, offset, plan.n_objects)
+
+
+def _part_span(index: int, rows: int, queries: Any, k: int):
+    """The span of one part of a search: its rows, the query rows, and the
+    width of its buffer."""
+    return trace.span("part", index=index, rows=rows,
+                      queries=int(_first_query_tensor(queries).shape[0]), k=k)
 
 
 def _part_topk(plan: QueryPlan, data: torch.Tensor, queries: Any, offset: int,
@@ -547,8 +566,7 @@ def _part_topk(plan: QueryPlan, data: torch.Tensor, queries: Any, offset: int,
         return torch.where(ids >= 0, ids + offset, -1), cnts
     params = plan.params if k is None or k == plan.params.k \
         else dataclasses.replace(plan.params, k=k)
-    # genielint: ignore[executor-sovereignty] -- the port's own executor
-    counts = _mask_pad_counts(plan.match(data, queries), offset, plan.n_objects)
+    counts = _match_masked(plan, data, queries, offset)
     # genielint: ignore[executor-sovereignty] -- the port's own executor
     local = select_topk(counts, params, use_fused_hist=plan.fused_hist)
     del counts
@@ -558,16 +576,16 @@ def _part_topk(plan: QueryPlan, data: torch.Tensor, queries: Any, offset: int,
 
 
 def _run_monolithic(plan: QueryPlan, data: torch.Tensor, queries: Any) -> TopKResult:
-    if plan.fused_match is not None:
-        ids, counts = _fused_candidates_topk(plan.fused_match, data, queries,
-                                             plan.params.k)
-        return TopKResult(ids=ids, counts=counts, threshold=counts[:, -1])
-    # genielint: ignore[executor-sovereignty] -- the port's own executor
-    counts = _mask_pad_counts(plan.match(data, queries), 0, plan.n_objects)
-    # selection is the merge: return select_topk's result (threshold
-    # included) as it stands
-    # genielint: ignore[executor-sovereignty] -- the port's own executor
-    return select_topk(counts, plan.params, use_fused_hist=plan.fused_hist)
+    k = plan.params.k
+    with _part_span(0, int(data.shape[0]), queries, k):
+        if plan.fused_match is not None:
+            ids, counts = _fused_candidates_topk(plan.fused_match, data, queries, k)
+            return TopKResult(ids=ids, counts=counts, threshold=counts[:, -1])
+        counts = _match_masked(plan, data, queries, 0)
+        # selection is the merge: return select_topk's result (threshold
+        # included) as it stands
+        # genielint: ignore[executor-sovereignty] -- the port's own executor
+        return select_topk(counts, plan.params, use_fused_hist=plan.fused_hist)
 
 
 def _first_query_tensor(queries: Any) -> torch.Tensor:
@@ -591,11 +609,13 @@ def _run_scan(plan: QueryPlan, chunks: torch.Tensor, queries: Any) -> TopKResult
     best_ids = torch.full((first.shape[0], k), -1, dtype=torch.int32, device=first.device)
     best_counts = torch.full_like(best_ids, -1)
     for i in range(plan.n_parts):
-        gids, gcnt = _part_topk(plan, chunks[i], queries, i * nc)
-        # genielint: ignore[executor-sovereignty] -- the port's own executor
-        best_ids, best_counts = _cpq.topk_from_candidates(
-            torch.cat([best_ids, gids[:, :k]], dim=-1),
-            torch.cat([best_counts, gcnt[:, :k]], dim=-1), k)
+        with _part_span(i, nc, queries, k):
+            gids, gcnt = _part_topk(plan, chunks[i], queries, i * nc)
+        with trace.span("merge"):
+            # genielint: ignore[executor-sovereignty] -- the port's own executor
+            best_ids, best_counts = _cpq.topk_from_candidates(
+                torch.cat([best_ids, gids[:, :k]], dim=-1),
+                torch.cat([best_counts, gcnt[:, :k]], dim=-1), k)
     return TopKResult(ids=best_ids, counts=best_counts, threshold=best_counts[:, -1])
 
 
@@ -604,18 +624,19 @@ def _host_tensor(part) -> torch.Tensor:
     return part if isinstance(part, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(part))
 
 
-# bytes the host loop has copied from host memory to a card (`_device_parts`)
-_COPIED = [0]
+# bytes the host loop has copied from host memory to a card (`_device_parts`),
+# under the key "bytes"
+_COPIED: dict[str, int] = trace.counter("plan.copied_bytes")
 
 
 def copied_bytes() -> int:
     """Bytes of host parts the host loop copied to a card since the last
     reset (a part it skips, or one already on the card, adds nothing)."""
-    return _COPIED[0]
+    return _COPIED.get("bytes", 0)
 
 
 def reset_copied_bytes() -> None:
-    _COPIED[0] = 0
+    _COPIED.clear()
 
 
 def _device_parts(parts: Sequence, device: torch.device):
@@ -672,7 +693,7 @@ def _device_parts(parts: Sequence, device: torch.device):
                 copier.wait_event(free[slot])
             buf[:host.shape[0]].copy_(host, non_blocking=True)
             ready[slot].record(copier)
-        _COPIED[0] += host.numel() * host.element_size()
+        _COPIED["bytes"] = _COPIED.get("bytes", 0) + host.numel() * host.element_size()
 
     if order:
         stage(order[0])
@@ -710,16 +731,19 @@ def _scan_host_parts(plan: QueryPlan, parts, queries,
     first = _first_query_tensor(queries)
     buf_ids, buf_counts = [], []
     for i, part in zip(picked, _device_parts([parts[i] for i in picked], first.device)):
-        gids, gcnt = _part_topk(plan, part, queries, offsets[i],
-                                k=plan.part_k(plan.part_rows[i]))
+        rows = plan.part_rows[i]
+        k = plan.part_k(rows)
+        with _part_span(i, rows, queries, k):
+            gids, gcnt = _part_topk(plan, part, queries, offsets[i], k=k)
         buf_ids.append(gids)
         buf_counts.append(gcnt)
     if not buf_ids:  # defensive: a router always selects >= 1 segment
         empty = torch.full((first.shape[0], plan.params.k), -1, dtype=torch.int32,
                            device=first.device)
         return TopKResult(ids=empty, counts=empty, threshold=empty[:, -1])
-    # genielint: ignore[executor-sovereignty] -- the port's own executor
-    return _merge.merge_ragged(buf_ids, buf_counts, plan.params.k)
+    with trace.span("merge"):
+        # genielint: ignore[executor-sovereignty] -- the port's own executor
+        return _merge.merge_ragged(buf_ids, buf_counts, plan.params.k)
 
 
 def _host_array(x):

@@ -46,6 +46,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import autotune as _autotune
 from repro_torch.core import engines as _engines
 from repro_torch.core import plan as _plan
@@ -252,16 +253,17 @@ class SegmentedIndex:
                     routing=routing, nprobe=nprobe, router=router,
                     tile_overrides=tile_overrides, autotune=autotune,
                 )
-        plan = _plan.plan_search(
-            self.engine, k, self.max_count, layout=_plan.Layout.SEGMENTED,
-            part_rows=tuple(self.segment_rows), method=method,
-            candidate_cap=candidate_cap, use_kernel=self.use_kernel,
-            signature_layout=self.signature_layout,
-            routing=routing, nprobe=nprobe,
-            tile_overrides=tile_overrides, autotune=autotune,
-            tune_width=self._tune_width(),
-        )
-        return self._routed_execute(plan, queries, routing, router=router)
+        with trace.span("index.search", k=k):
+            plan = _plan.plan_search(
+                self.engine, k, self.max_count, layout=_plan.Layout.SEGMENTED,
+                part_rows=tuple(self.segment_rows), method=method,
+                candidate_cap=candidate_cap, use_kernel=self.use_kernel,
+                signature_layout=self.signature_layout,
+                routing=routing, nprobe=nprobe,
+                tile_overrides=tile_overrides, autotune=autotune,
+                tune_width=self._tune_width(),
+            )
+            return self._routed_execute(plan, queries, routing, router=router)
 
     def search_multiload(self, queries, k: int, method: TopKMethod = TopKMethod.CPQ,
                          candidate_cap: int | None = None,
@@ -276,17 +278,18 @@ class SegmentedIndex:
             raise ValueError("empty SegmentedIndex: add() first")
         routing = _routing.Routing(routing)
         autotune = _autotune.resolve_cache(autotune, self.device)
-        plan = _plan.plan_search(
-            self.engine, k, self.max_count, layout=_plan.Layout.MULTILOAD,
-            part_rows=tuple(self.segment_rows), n_objects=self.n_objects,
-            method=method, candidate_cap=candidate_cap,
-            use_kernel=self.use_kernel, host_loop=True,
-            signature_layout=self.signature_layout,
-            routing=routing, nprobe=nprobe,
-            tile_overrides=tile_overrides, autotune=autotune,
-            tune_width=self._tune_width(),
-        )
-        return self._routed_execute(plan, queries, routing, router=router)
+        with trace.span("index.search", k=k):
+            plan = _plan.plan_search(
+                self.engine, k, self.max_count, layout=_plan.Layout.MULTILOAD,
+                part_rows=tuple(self.segment_rows), n_objects=self.n_objects,
+                method=method, candidate_cap=candidate_cap,
+                use_kernel=self.use_kernel, host_loop=True,
+                signature_layout=self.signature_layout,
+                routing=routing, nprobe=nprobe,
+                tile_overrides=tile_overrides, autotune=autotune,
+                tune_width=self._tune_width(),
+            )
+            return self._routed_execute(plan, queries, routing, router=router)
 
     # ------------------------------------------------------------------
     # Compaction

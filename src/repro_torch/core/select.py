@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import cpq as _cpq
 from repro_torch.core import spq as _spq
 from repro_torch.core.types import SearchParams, TopKMethod, TopKResult
@@ -35,13 +36,16 @@ def select_topk(
                     the plain PyTorch histogram).
     """
     if params.method == TopKMethod.CPQ:
+        hist_fn = None
         if hist is None and use_fused_hist:
             from repro_torch.kernels import ops as kops
 
-            hist = kops.cpq_hist(counts, params.max_count)
-        return _cpq.cpq_select(counts, params, hist=hist)
+            hist_fn = kops.cpq_hist
+        return _cpq.cpq_select(counts, params, hist=hist, hist_fn=hist_fn)
     if params.method == TopKMethod.SPQ:
-        return _spq.spq_select(counts, params)
+        with trace.span("spq_select"):
+            return _spq.spq_select(counts, params)
     if params.method == TopKMethod.SORT:
-        return _cpq.sort_select(counts, params)
+        with trace.span("sort_select"):
+            return _cpq.sort_select(counts, params)
     raise ValueError(f"unknown top-k method {params.method}")

@@ -11,7 +11,8 @@ What the wrappers do share:
   - the launch count: each wrapper calls `note_launch` where it launches its
     kernel and nowhere else, so a run can show that it went through the
     kernels (a kernel of several shapes also counts the shape it launched,
-    in `variant_launch_counts`);
+    in `variant_launch_counts`); the counts are the process counters
+    "kernel.launches" and "kernel.variant_launches" of `repro_torch.trace`;
   - the launch of a count kernel with the C entry
     `repro_<name>(data, query, out, n, q, width, stream)`: `check_pair`
     checks its two operands and `launch_count` launches it (match_count,
@@ -28,10 +29,11 @@ import ctypes
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import build
 
-_LAUNCHES: dict[str, int] = {}
-_VARIANT_LAUNCHES: dict[str, int] = {}
+_LAUNCHES: dict[str, int] = trace.counter("kernel.launches")
+_VARIANT_LAUNCHES: dict[str, int] = trace.counter("kernel.variant_launches")
 
 # Tile-knob alignment floors, the reference's (`repro/core/engines.py`
 # TILE_ALIGN, which its `pick_tile` enforces): tile_q a sublane dim (8),

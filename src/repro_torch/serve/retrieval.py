@@ -67,6 +67,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import SegmentedIndex, TopKMethod, distributed
 from repro_torch.core import engines as engines_lib
 from repro_torch.core import lsh as lsh_lib
@@ -318,9 +319,15 @@ class RetrievalService:
                 "RetrievalService index is empty (no items added yet): "
                 "call add() before search()"
             )
+        with trace.span("search", k=k):
+            return self._search(queries, k, embeddings, method, candidate_cap, routing, nprobe)
+
+    def _search(self, queries, k, embeddings, method, candidate_cap, routing, nprobe):
+        """`search` inside its span."""
         routing = routing_lib.Routing(routing)
         emb = self.resolve_queries(queries, embeddings)
-        qsigs = self._hash(emb)
+        with trace.span("hash"):
+            qsigs = self._hash(emb)
         # the cached router rides into the search, so interleaved add /
         # search rebuild routing state only when the corpus changed
         router = self._router() if routing is not routing_lib.Routing.NONE else None
@@ -357,7 +364,8 @@ class RetrievalService:
                                    router=router, route_queries=q_wide)
         # scheme-paired MLE: c/m for bucketed families (Eqn 7), the simhash
         # angle inversion for COSINE
-        sims = self._scheme.mle(res.counts.cpu().numpy(), self.m)
+        with trace.span("mle"):
+            sims = self._scheme.mle(res.counts.cpu().numpy(), self.m)
         return res, sims
 
     def _autotune_cache(self):

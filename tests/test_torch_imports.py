@@ -58,7 +58,7 @@ def test_module_list_covers_the_slice():
                  "repro_torch.checkpoint.checkpointer", "repro_torch.launch.train",
                  "repro_torch.examples.train_lm", "repro_torch.tree",
                  "repro_torch.launch.sharding", "repro_torch.launch.shapes",
-                 "repro_torch.models.partition"):
+                 "repro_torch.models.partition", "repro_torch.trace"):
         assert name in _MODULES
 
 
