@@ -32,7 +32,11 @@ PACKED search with a tuned 1024-row tile in turns with the default):
      of its per-thread counters --, whole rows and chunked rows, Q = 1 with
      N = 1,000,003, odd N, a row of 16.8 M counts past one flush of its
      16-bit counters, skewed counts with -1 and past-max_count entries, every
-     entry in one bin), cosine_count (with zero rows), packed_cosine_count
+     entry in one bin), cpq_compact (Q = 1, 16, 256, 1024; N below cap,
+     4,097, 250,000, 281,250; thresholds -1, 0, the middle, max_count, the
+     Gate's, strict entries past cap, ties past cap; -1 pad columns; cap 200
+     and 10,000; one block a row and chunked rows), cosine_count (with zero
+     rows), packed_cosine_count
      (V from 1 to 544; W = 1, 7, 8, 9, 16 and 17 at Q and N past one block of
      its carry-save tile and ragged, on random, all-equal and complementary
      rows), and packed_cosine_topk (k from 1 to above the tile, N
@@ -103,8 +107,8 @@ PACKED search with a tuned 1024-row tile in turns with the default):
      tuples x 14 attributes in 1024 bins, 16 adds, ranges +-50); 4e. DBLP ->
      MINSUM (3-grams in 4096 buckets, K = 32 candidates verified by edit
      distance, N cut to 1 M); 4f. Tweets -> IP (8192 buckets, N cut to 1 M):
-     each with its launch counts (16 of its count kernel and 16 of cpq_hist
-     per search; MINSUM also 16 of each of its two conversion kernels), 8
+     each with its launch counts (16 of its count kernel, of cpq_hist and of
+     cpq_compact per search; MINSUM also 16 of each of its two conversion kernels), 8
      sampled rows against the plain path, search and add times, memory and
      the device's idle share;
      4g. multiple loading (paper section III-D): first small padded round
@@ -175,7 +179,9 @@ PACKED search with a tuned 1024-row tile in turns with the default):
      is larger); for match_count also its SASS (instructions per compared
      pair, by opcode and pipe, on each path of the equality tile), the SM
      clock while it runs, the pairs per SM-clock and the issue floor, and its
-     time on full-range int32 ids (the general path); 5b. the same for the
+     time on full-range int32 ids (the general path); 5e. cpq_compact at
+     the SIFT and DBLP part shapes at Q = 1, 16 and 1024 against its bound
+     and its plain version; 5b. the same for the
      three COSINE kernels, with packed_cosine_topk's popcount floor at the
      SM clock read while it runs, and packed_cosine_count in turns with its
      previous design (tools/packed_count_ab.py, built from
@@ -611,6 +617,7 @@ def phase_kernel_parity(device: torch.device) -> dict:
                   f"{dtype}: max abs err {err}")
         log(f"  match_count (Q,N,m)=({q},{n},{m}) int32+int16: equal")
     worst["cpq_hist"] = hist_parity(device)
+    worst["cpq_compact"] = compact_parity(device)
     return worst
 
 
@@ -645,6 +652,103 @@ def hist_parity(device: torch.device) -> int:
             f"({'; '.join(what for what, _ in fills)})")
         del c, fills
     return worst
+
+
+def compact_thresholds(counts: torch.Tensor, max_count: int, cap: int, shift: int) -> torch.Tensor:
+    """A threshold a row, in turn from `shift`: -1 (the pad columns tie),
+    0, the middle, max_count, the Gate's for k = cap // 2, 1 (the strict
+    entries exceed cap) and max_count // 3, the value of a third of every
+    row (its ties overflow cap)."""
+    from repro_torch.core import cpq
+    from repro_torch.kernels.cpq_hist import cpq_hist_plain
+
+    _, gate = cpq.audit_threshold(cpq_hist_plain(counts, max_count), max(1, cap // 2))
+    kinds = [-1, 0, max_count // 2, max_count, None, 1, max_count // 3]
+    rows = (torch.arange(counts.shape[0], device=counts.device) + shift) % len(kinds)
+    fixed = torch.tensor([-9 if v is None else v for v in kinds], dtype=torch.int32,
+                         device=counts.device)[rows]
+    return torch.where(fixed == -9, gate, fixed).to(torch.int32)
+
+
+def compact_parity(device: torch.device) -> int:
+    """cpq_compact against `_compact_candidates`, bit-exact, at Q = 1, 16,
+    256, 1024 and N below cap, 4,097, 250,000, 281,250 (rows off a 16-byte
+    boundary), every threshold of `compact_thresholds`, the last 7 columns
+    at -1; cap 200 (ties in shared memory) and 10,000 (in scratch).  The
+    cut (one block a row, or chunks) is logged for each shape.  Returns the
+    worst error."""
+    from repro_torch.kernels.cpq_compact import compact_plan, cpq_compact, cpq_compact_plain
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    max_count, worst = 237, 0
+    for cap in (200, 10_000):
+        for q in (1, 16, 256, 1024):
+            for n in (cap - 50, 4097, 250_000, 281_250):
+                counts = torch.randint(0, max_count + 1, (q, n), generator=gen, device=device,
+                                       dtype=torch.int32)
+                counts[:, ::3] = max_count // 3
+                counts[:, -7:] = -1
+                for shift in range(7 if q < 7 else 1):
+                    thr = compact_thresholds(counts, max_count, cap, shift)
+                    got = cpq_compact(counts, thr, cap)
+                    want = cpq_compact_plain(counts, thr, cap)
+                    sync(device)
+                    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+                    worst = max(worst, err)
+                    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                          f"cpq_compact differs from its plain version at (Q,N)=({q},{n}) "
+                          f"cap={cap} shift={shift}: max abs err {err}")
+                n_chunks, scratch = compact_plan(n, q, cap)
+                log(f"  cpq_compact (Q,N)=({q},{n}) cap={cap}: equal "
+                    f"({'one block a row' if n_chunks == 1 else f'{n_chunks} chunks a row'}, "
+                    f"{scratch} scratch ints)")
+                del counts
+    return worst
+
+
+def phase_compact_times(device: torch.device, launches: int = 0, reps: int = 20) -> list:
+    """Phase 5e: cpq_compact at the cells' per-part shapes (SIFT N = 281,250,
+    k = 100; DBLP N = 250,000, k = 32) at Q = 1, 16 and 1024, on counts drawn
+    Binomial(m, 0.11) (a Gaussian pair's share of colliding functions, m =
+    237) with the Gate's threshold, against its bound (one read of the
+    counts and thresholds, one write of the buffers) and the plain version;
+    the kernel entries at Q = 1024 (`launches`: the full-width search's)."""
+    from repro_torch.core import cpq
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cpq_compact import compact_plan, cpq_compact, cpq_compact_plain
+
+    log("== phase 5e: cpq_compact at the cells' per-part shapes")
+    gen = torch.Generator(device=device).manual_seed(SEED + 37)
+    kernels = []
+    for label, n, k, max_count in (("SIFT", 281_250, 100, 237), ("DBLP", 250_000, 32, 127)):
+        cap = max(2 * k, k + 16)
+        full = torch.binomial(torch.full((1024, n), float(max_count), device=device),
+                              torch.full((1024, n), 0.11, device=device),
+                              generator=gen).to(torch.int32)
+        for q in (1, 16, 1024):
+            counts = full[:q]
+            _, thr = cpq.audit_threshold(ops.cpq_hist(counts, max_count), k)
+            ms, got = timed_ms(lambda: cpq_compact(counts, thr, cap), device, reps=reps,
+                               warmup=2, hold=q < 1024)
+            plain, want = timed_ms(lambda: cpq_compact_plain(counts, thr, cap), device,
+                                   reps=3, warmup=1)
+            err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+            check(err == 0, f"cpq_compact differs at the {label} part, Q={q}")
+            bound = ((q * n + q) + 2 * q * cap) * 4 / PEAK_BYTES_PER_S * 1e3
+            passed = int((counts >= thr[:, None]).sum())
+            n_chunks, _ = compact_plan(n, q, cap)
+            log(f"  cpq_compact {label} Q={q} N={n} cap={cap}: {ms:.4f} ms, bound {bound:.4f} "
+                f"({100 * bound / ms:.1f}%), plain {plain:.3f} ms; {passed / (q * k):.2f} "
+                f"candidates a slot; {n_chunks} chunk(s) a row")
+            if q == 1024:
+                kernels.append(kernel_entry(
+                    f"cpq_compact[{label}]", "src/repro_torch/kernels/csrc/cpq_compact.cu",
+                    "none (src/repro/core/cpq.py:74, jnp)", launches, err, ms, plain,
+                    bound, 0.0, None))
+        del full, counts
+        torch.cuda.empty_cache()
+    log_kernels(kernels)
+    return kernels
 
 
 # (Q, N, V, data offset, query offset) for the int8 tensor-core tile of
@@ -1141,7 +1245,8 @@ def service_search(run: dict, k: int):
 def phase_full_width(device: torch.device, **sizes) -> dict:
     """The default service (E2LSH -> EQ, WIDE) at full width."""
     log("== phase 4: RetrievalService defaults at full width")
-    return drive_full_width(device, {"match_count": FULL_SEGMENTS, "cpq_hist": FULL_SEGMENTS},
+    return drive_full_width(device, {"match_count": FULL_SEGMENTS, "cpq_hist": FULL_SEGMENTS,
+                                     "cpq_compact": FULL_SEGMENTS},
                             (0.0, 1.0), **sizes)
 
 
@@ -1151,7 +1256,8 @@ def phase_full_width_simhash(device: torch.device, **sizes) -> dict:
     log("== phase 4b: RetrievalService(scheme='simhash') at full width, WIDE and PACKED")
     segs = sizes.get("n_segments", FULL_SEGMENTS)
     out = {}
-    for layout, per_search in (("wide", {"cosine_count": segs, "cpq_hist": segs}),
+    for layout, per_search in (("wide", {"cosine_count": segs, "cpq_hist": segs,
+                                         "cpq_compact": segs}),
                                ("packed", {"packed_cosine_topk": segs})):
         out[layout] = drive_full_width(device, per_search, (-1.0, 1.0), scheme="simhash",
                                        signature_layout=layout, **sizes)
@@ -1824,7 +1930,8 @@ def phase_full_width_minhash(device: torch.device, **sizes) -> dict:
         "WIDE and PACKED")
     segs = sizes.get("n_segments", FULL_SEGMENTS)
     out = {}
-    for layout, per_search in (("wide", {"tanimoto_count": segs, "cpq_hist": segs}),
+    for layout, per_search in (("wide", {"tanimoto_count": segs, "cpq_hist": segs,
+                                         "cpq_compact": segs}),
                                ("packed", {"packed_tanimoto_topk": segs})):
         out[layout] = drive_full_width(device, per_search, (0.0, 1.0), scheme="minhash",
                                        n_buckets=254, signature_layout=layout, **sizes)
@@ -1851,7 +1958,8 @@ def phase_full_width_rbh(device: torch.device, n_rows: int = OCR_ROWS,
     sigma = rbh.median_heuristic_sigma(corpus, torch.Generator(device="cpu").manual_seed(SEED))
     del corpus
     log(f"  sigma = median_heuristic_sigma(corpus) = {sigma:.4f}")
-    out = drive_full_width(device, {"match_count": n_segments, "cpq_hist": n_segments},
+    out = drive_full_width(device, {"match_count": n_segments, "cpq_hist": n_segments,
+                                    "cpq_compact": n_segments},
                            (0.0, 1.0), n_total=n_rows * n_segments, dim=dim,
                            n_segments=n_segments, scheme="rbh", sigma=sigma, **sizes)
     profile_one_search(service_search(out, sizes.get("k", FULL_K)), device)
@@ -2301,7 +2409,8 @@ def phase_full_width_adult(device: torch.device, n_total: int = ADULT_N,
     out = drive_index_full_width(
         device, "Adult", Engine.RANGE,
         lambda s: torch.from_numpy(tuples[s * rows:(s + 1) * rows]).to(device), n_segments,
-        queries, k, None, {"range_count": n_segments, "cpq_hist": n_segments})
+        queries, k, None, {"range_count": n_segments, "cpq_hist": n_segments,
+                           "cpq_compact": n_segments})
     res = out["result"]
     src = torch.from_numpy(picks).to(device=device, dtype=torch.int32)[:, None]
     full = res.counts == ADULT_D
@@ -2355,7 +2464,7 @@ def phase_full_width_dblp(device: torch.device, n_total: int = DBLP_N,
         lambda s: title_count_vectors(titles[s * rows:(s + 1) * rows], table, DBLP_V),
         n_segments, queries, k, DBLP_MAX_COUNT,
         {"minsum_nnz": n_segments, "minsum_csr": n_segments, "minsum_count": n_segments,
-         "cpq_hist": n_segments})
+         "cpq_hist": n_segments, "cpq_compact": n_segments})
     res = out["result"]
     found = (res.ids == picks[:, None].to(torch.int32)).any(dim=1)
     log(f"  source title among the K = {k} candidates: {float(found.float().mean()):.4f}")
@@ -2414,7 +2523,7 @@ def phase_full_width_tweets(device: torch.device, n_total: int = TWEETS_N,
         device, "Tweets", Engine.IP,
         lambda s: word_vectors(words[s * rows:(s + 1) * rows], table, TWEETS_V),
         n_segments, queries, k, TWEETS_MAX_COUNT,
-        {"ip_count": n_segments, "cpq_hist": n_segments})
+        {"ip_count": n_segments, "cpq_hist": n_segments, "cpq_compact": n_segments})
     res = out["result"]
     distinct = queries.sum(dim=1, dtype=torch.int32)
     check(torch.equal(res.counts[:, 0], distinct),
@@ -2732,7 +2841,7 @@ def phase_multiload_eq(run: dict, device: torch.device, k: int = FULL_K,
         f"{index.segment_rows[0]})")
     mono = GenieIndex.build(Engine.EQ, torch.cat([s.data for s in index.segments]),
                             max_count=index.max_count, device=device)
-    per_search = {"match_count": segs, "cpq_hist": segs}
+    per_search = {"match_count": segs, "cpq_hist": segs, "cpq_compact": segs}
     log(f"  (i) GenieIndex.search_multiload(n_parts={segs}), the scanned form")
     common.reset_launch_counts()
     res = timed_searches(lambda: mono.search_multiload(qsigs, k=k, n_parts=segs), n_queries,
@@ -2777,7 +2886,8 @@ def phase_multiload_packed(run: dict, scheme: str, count_kernel: str, device: to
         f"over {segs} segments")
     common.reset_launch_counts()           # the path starts here
     res = timed_searches(lambda: index.search_multiload(qsigs, k=k), qsigs.shape[0],
-                         n_searches, {count_kernel: segs, "cpq_hist": segs}, device)
+                         n_searches, {count_kernel: segs, "cpq_hist": segs,
+                                      "cpq_compact": segs}, device)
     launches = common.launch_counts()
     same_result(res, want, f"PACKED {scheme} multiload against the fused SEGMENTED search")
     log("  ids, counts and threshold equal the fused SEGMENTED service search on every row")
@@ -2904,7 +3014,8 @@ def phase_multiload_dblp(device: torch.device, n_total: int = DBLP_FULL_N,
     common.reset_launch_counts()           # the path starts here
     res = timed_searches(search, n_queries, n_searches,
                          {"minsum_nnz": n_parts, "minsum_csr": n_parts,
-                          "minsum_count": n_parts, "cpq_hist": n_parts}, device)
+                          "minsum_count": n_parts, "cpq_hist": n_parts,
+                          "cpq_compact": n_parts}, device)
     check_result(res, n_queries, k, n)
     found = (res.ids == picks[:, None].to(torch.int32)).any(dim=1)
     log(f"  source title among the K = {k} candidates: {float(found.float().mean()):.4f}")
@@ -3733,7 +3844,7 @@ def phase_distributed_full_width(device: torch.device, n_queries: int = DIST_Q,
             ("simhash", "packed", "packed_cosine_count", (-1.0, 1.0))):
         log(f"== phase 4k (ii): RetrievalService(scheme={scheme!r}, {layout}, "
             f"mesh={tuple(mesh.shape)}) at full width, {n_queries} queries ({hw})")
-        per_search = {count_name: 1, "cpq_hist": 1}
+        per_search = {count_name: 1, "cpq_hist": 1, "cpq_compact": 1}
         run = drive_full_width(device, per_search, sim_range, n_queries=n_queries, mesh=mesh,
                                scheme=scheme, signature_layout=layout, **sizes)
         svc, res = run["service"], run["result"]
@@ -3935,7 +4046,7 @@ def phase_dryrun_memory(device: torch.device, distributed_report: dict) -> dict:
     model = dryrun.memory_model(
         n_objects=FULL_N, row_bytes=m * 4, n_queries=DIST_Q, part_rows=FULL_N,
         placed_rows=FULL_N, query_bytes=m * 4, max_count=m,
-        cap=SearchParams(k=FULL_K, max_count=m).cap())["peak"]
+        cap=SearchParams(k=FULL_K, max_count=m).cap(), masked=True)["peak"]
     measured = distributed_report["e2lsh wide"]["peak_gb"] * 1e9
     ratio = model / measured
     log(f"  phase 4k's cell (e2lsh, DISTRIBUTED, one rank, Q = {DIST_Q}, N = {FULL_N}, m = "
@@ -4734,6 +4845,7 @@ def main() -> int:
     profile_one_search(service_search(full, FULL_K), device)
     kernels = phase_kernel_times(svc._index.segments[0].data, full["qsigs"], svc.m,
                                  full["launches"], parity_err, device)
+    kernels += phase_compact_times(device, full["launches"].get("cpq_compact", 0))
     phase_multiload_eq(full, device)
     phase_routing_full_width(full, device)
     frontend = phase_frontend(full, device)

@@ -125,12 +125,15 @@ def cpq_select(
     params: SearchParams,
     hist: Optional[torch.Tensor] = None,
     hist_fn: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None,
+    compact_fn: Optional[Callable[..., tuple[torch.Tensor, torch.Tensor]]] = None,
 ) -> TopKResult:
     """Exact top-k by match count via the c-PQ gate.  counts: int [Q, N].
 
     `hist` may be supplied by the CUDA kernel (kernels/cpq_hist); when None it
     is computed by `hist_fn(counts, max_count)` (the kernel's wrapper) or,
-    without one, the plain PyTorch histogram.
+    without one, the plain PyTorch histogram.  The candidates are compacted
+    by `compact_fn(counts, threshold, cap)` (the wrapper of the CUDA kernel,
+    kernels/cpq_compact) or, without one, by `_compact_candidates`.
 
     Spans `cpq.gate` (histogram and threshold), `cpq.compact` and
     `cpq.order` (repro_torch.trace); while they are on, the gate's counter
@@ -145,7 +148,8 @@ def cpq_select(
             passed = zipper_array(hist).gather(1, threshold[:, None].to(torch.int64))
             trace.add("cpq.passed", passed.sum())
     with trace.span("cpq.compact"):
-        cand_ids, cand_vals = _compact_candidates(counts, threshold, params.cap())
+        cand_ids, cand_vals = (compact_fn or _compact_candidates)(counts, threshold,
+                                                                  params.cap())
     with trace.span("cpq.order"):
         # genielint: ignore[executor-sovereignty] -- the port's own executor family
         ids, vals = topk_from_candidates(cand_ids, cand_vals, params.k)

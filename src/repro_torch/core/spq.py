@@ -15,6 +15,8 @@ threshold comes out the same.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
 from repro_torch.core import cpq as _cpq
@@ -26,8 +28,11 @@ def spq_select(
     params: SearchParams,
     n_buckets: int = 32,
     n_iters: int = 4,
+    compact_fn: Optional[Callable[..., tuple[torch.Tensor, torch.Tensor]]] = None,
 ) -> TopKResult:
-    """Bucket k-selection: counts int [Q, N] -> exact top-k."""
+    """Bucket k-selection: counts int [Q, N] -> exact top-k.  The final
+    compaction is `compact_fn(counts, threshold, cap)` (the CUDA kernel's
+    wrapper on the kernel path) or, without one, c-PQ's plain one."""
     q, n = counts.shape
     dev = counts.device
     c = counts.to(torch.float32)
@@ -76,7 +81,7 @@ def spq_select(
     # value; select with the shared compaction machinery.
     threshold = torch.ceil(lo - 1e-4).to(torch.int32)
     cap = params.cap()
-    cand_ids, cand_vals = _cpq._compact_candidates(counts, threshold, cap)
+    cand_ids, cand_vals = (compact_fn or _cpq._compact_candidates)(counts, threshold, cap)
     # genielint: ignore[executor-sovereignty] -- the port's own executor family
     ids, vals = _cpq.topk_from_candidates(cand_ids, cand_vals, params.k)
     return TopKResult(ids=ids, counts=vals, threshold=threshold)

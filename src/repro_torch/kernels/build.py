@@ -167,6 +167,13 @@ def load() -> ctypes.CDLL:
         # int repro_cpq_hist(counts, hist, n, n_query, nbins, stream)
         lib.repro_cpq_hist.argtypes = [ptr, ptr, i64, i32, i32, ptr]
         lib.repro_cpq_hist.restype = i32
+        # int repro_cpq_compact_plan(n, n_query, cap, *n_chunks, *scratch_ints)
+        lib.repro_cpq_compact_plan.argtypes = [
+            i64, i32, i32, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+        lib.repro_cpq_compact_plan.restype = i32
+        # int repro_cpq_compact(counts, threshold, ids, vals, scratch, n, n_query, cap, stream)
+        lib.repro_cpq_compact.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.repro_cpq_compact.restype = i32
         # int repro_cosine_count(data, query, out, n_data, n_query, v, stream)
         lib.repro_cosine_count.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
         lib.repro_cosine_count.restype = i32

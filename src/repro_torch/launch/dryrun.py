@@ -82,6 +82,7 @@ from repro_torch.core import engines as engines_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import segments as seg_lib
 from repro_torch.core.types import SearchParams
+from repro_torch.kernels.cpq_compact import SMEM_TIES
 from repro_torch.launch import shapes as shapes_lib
 from repro_torch.launch import sharding as sh_lib
 from repro_torch.models.registry import get_api, get_config
@@ -95,11 +96,10 @@ CARD_BYTES_DEFAULT = 80 * 2**30
 COUNT_BYTES = 4            # the match kernels write int32 counts
 INGEST_SEGMENTS = 16       # the corpus arrives in 16 add() batches ...
 COMPACT_EVERY = 2          # ... compacted 2:1 at serve time
-# The c-PQ compaction (`core/cpq.py::_compact_candidates`) at its peak holds,
-# beside the [Q, N_part] int32 count matrix C: the `strict` mask (C / 4),
-# the tie positions `pos` (C), the strict cumsum minus one (C) and the next
-# `pos` (C) -- 3.25 C more, 4.25 C in all.
-COMPACTION_TRANSIENT = 3.25
+# The c-PQ compaction (`kernels/cpq_compact`, one read of the [Q, N_part]
+# count matrix) holds no [Q, N_part] temporary: beside its [Q, cap] outputs
+# only a [Q, cap] int32 scratch for the ties, where cap exceeds the shared
+# memory's SMEM_TIES (the chunked cut's per-chunk numbers are a few KB).
 
 
 def _reference_dtype(ds) -> np.dtype:
@@ -139,25 +139,30 @@ def card_bytes() -> tuple[int, str]:
 
 
 def memory_model(*, n_objects: int, row_bytes: int, n_queries: int, part_rows: int,
-                 placed_rows: int, query_bytes: int, max_count: int, cap: int) -> dict:
+                 placed_rows: int, query_bytes: int, max_count: int, cap: int,
+                 masked: bool = False) -> dict:
     """Per-rank device bytes of one search, by term.
 
     `segments`: the service's segmented index, n_objects rows (every rank
     holds all of it, also on DISTRIBUTED); `placed`: a DISTRIBUTED rank's
     shard, placed beside it (0 on SEGMENTED, whose parts are the segments);
-    `counts`: one part's [Q, part_rows] int32 count matrix; `compaction`:
-    the c-PQ compaction's transient beside it (COMPACTION_TRANSIENT x);
-    `queries`, `histogram` and `buffers` (a part's [Q, cap + 1] ids and
-    counts, and as much again for the merge) are small."""
+    `counts`: one part's [Q, part_rows] int32 count matrix; `pad_mask`: the
+    masked copy the pad mask (`plan._mask_pad_counts`) makes of it while the
+    first is alive, where the plan masks pad columns (`masked`); `compaction`:
+    the c-PQ compaction kernel's tie scratch beside it ([Q, cap] int32
+    where cap > SMEM_TIES, else none); `queries`, `histogram` and `buffers`
+    (a part's [Q, cap] ids and counts, and as much again for the merge) are
+    small."""
     counts = n_queries * part_rows * COUNT_BYTES
     terms = dict(
         segments=n_objects * row_bytes,
         placed=placed_rows * row_bytes,
         counts=counts,
-        compaction=int(COMPACTION_TRANSIENT * counts),
+        pad_mask=counts if masked else 0,
+        compaction=0 if cap <= SMEM_TIES else n_queries * cap * 4,
         queries=n_queries * query_bytes,
         histogram=n_queries * (max_count + 1) * 4,
-        buffers=4 * n_queries * (cap + 1) * 4,
+        buffers=4 * n_queries * cap * 4,
     )
     terms["peak"] = sum(terms.values())
     return terms
@@ -207,7 +212,8 @@ def run_genie_cell(dataset: str, world: int = 1, *,
         packed_row_bytes = int(model.packed_bytes(torch.empty((1, width), device="meta")))
     memory = memory_model(n_objects=ds.n_objects, row_bytes=row_bytes, n_queries=q,
                           part_rows=part_rows, placed_rows=placed_rows, query_bytes=row_bytes,
-                          max_count=params.max_count, cap=params.cap())
+                          max_count=params.max_count, cap=params.cap(),
+                          masked=plan.n_objects is not None)
     card, source = card_bytes()
     return dict(
         ok=True, dataset=dataset, world=world, engine=ds.engine, layout=plan.layout.value,

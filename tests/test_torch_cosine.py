@@ -130,7 +130,7 @@ def test_tile_and_header_are_what_the_build_sees(monkeypatch, tmp_path):
         (tmp_path / "fused_topk.cuh").read_text() + "\n// edited\n")
     assert build._digest(build.sources()) != before
     assert [p.name for p in build.sources()] == [
-        "cosine_count.cu", "cpq_hist.cu", "ip_count.cu", "match_count.cu",
+        "cosine_count.cu", "cpq_compact.cu", "cpq_hist.cu", "ip_count.cu", "match_count.cu",
         "minsum_count.cu", "packed_cosine.cu", "packed_tanimoto.cu", "range_count.cu",
         "tanimoto_count.cu"]
 

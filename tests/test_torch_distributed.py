@@ -182,6 +182,7 @@ def _rank_cases(meshes: dict, permuted: dict) -> dict:
     from repro_torch.core import merge as merge_lib
     from repro_torch.core import plan as plan_lib
     from repro_torch.core.types import SearchParams, SignatureLayout, TopKMethod
+    from repro_torch.kernels import cpq_compact as compact_lib
 
     cpu = torch.device("cpu")
     out: dict = {}
@@ -332,12 +333,14 @@ def _rank_cases(meshes: dict, permuted: dict) -> dict:
         seen.append(int(cap))
         return orig(counts, threshold, cap)
 
-    cpq_lib._compact_candidates = spy
+    # the plain compaction under both of its names: c-PQ's own (the plain
+    # path) and the kernel wrapper's, which takes it for CPU tensors
+    cpq_lib._compact_candidates = compact_lib.cpq_compact_plain = spy
     try:
         ver, _ = svc.search(None, k=5, embeddings=q, routing="routed_verified",
                             candidate_cap=31)
     finally:
-        cpq_lib._compact_candidates = orig
+        cpq_lib._compact_candidates = compact_lib.cpq_compact_plain = orig
     router = svc._router()
     cached = svc._router() is router
     svc.add([999], embeddings=extra)

@@ -76,27 +76,33 @@ def test_cell_fields_equal_the_reference_arithmetic(name, world):
 def test_memory_model_for_sift_by_hand(q):
     """SIFT: 4.5 M rows of 237 int32 signatures; k = 100, so a cap of 200."""
     row = 237 * 4
-    small = q * row + q * 238 * 4 + 4 * q * 201 * 4
+    small = q * row + q * 238 * 4 + 4 * q * 200 * 4
     one = dryrun.run_genie_cell("sift", 1, n_queries=q)["memory"]["per_rank"]
     counts = q * 562_500 * 4                              # one compacted segment
-    assert one == dict(segments=4_500_000 * row, placed=0, counts=counts,
-                       compaction=int(3.25 * counts), queries=q * row,
-                       histogram=q * 238 * 4, buffers=4 * q * 201 * 4,
-                       peak=4_500_000 * row + counts + int(3.25 * counts) + small)
+    # the compaction kernel keeps cap = 200 ties in shared memory: no scratch
+    assert one == dict(segments=4_500_000 * row, placed=0, counts=counts, pad_mask=0,
+                       compaction=0, queries=q * row,
+                       histogram=q * 238 * 4, buffers=4 * q * 200 * 4,
+                       peak=4_500_000 * row + counts + small)
     four = dryrun.run_genie_cell("sift", 4, n_queries=q)["memory"]["per_rank"]
     counts = q * 1_125_000 * 4                            # one rank's shard
-    assert four["placed"] == 1_125_000 * row and four["counts"] == counts
-    assert four["peak"] == (4_500_000 + 1_125_000) * row + counts + int(3.25 * counts) + small
+    # DISTRIBUTED masks the shards' pad columns: a masked copy beside the counts
+    assert four["placed"] == 1_125_000 * row and four["counts"] == four["pad_mask"] == counts
+    assert four["peak"] == (4_500_000 + 1_125_000) * row + 2 * counts + small
     # chip_smoke.py phase 4k's cell: DISTRIBUTED on one rank, the whole
     # corpus one part, beside the service's segments (m = 238 there)
     shard = dryrun.memory_model(n_objects=4_500_000, row_bytes=238 * 4, n_queries=q,
                                 part_rows=4_500_000, placed_rows=4_500_000,
-                                query_bytes=238 * 4, max_count=238, cap=200)
+                                query_bytes=238 * 4, max_count=238, cap=200, masked=True)
     counts = q * 4_500_000 * 4
-    assert shard["peak"] == 2 * 4_500_000 * 238 * 4 + counts + int(3.25 * counts) \
-        + q * 238 * 4 + q * 239 * 4 + 4 * q * 201 * 4
-    if q == 256:                                          # PERF.md section 4: ~28 GB
-        assert 27e9 < shard["peak"] < 29e9
+    assert shard["peak"] == 2 * 4_500_000 * 238 * 4 + 2 * counts \
+        + q * 238 * 4 + q * 239 * 4 + 4 * q * 200 * 4
+    if q == 256:                                          # 8.6 GB of signatures + 2 C
+        assert 17e9 < shard["peak"] < 19e9
+    # a cap beyond the shared tie buffer takes a [Q, cap] int32 scratch
+    wide = dryrun.memory_model(n_objects=10, row_bytes=4, n_queries=q, part_rows=10,
+                               placed_rows=0, query_bytes=4, max_count=1, cap=10_000)
+    assert wide["compaction"] == q * 10_000 * 4
 
 
 def test_main_takes_the_genie_and_the_lm_cells(tmp_path, monkeypatch, capsys):

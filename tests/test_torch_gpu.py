@@ -440,6 +440,63 @@ def test_cpq_hist_streaming_edges_on_the_card():
     assert common.launch_counts() == {"cpq_hist": launches}
 
 
+def compact_thresholds(counts: torch.Tensor, max_count: int, cap: int, shift: int) -> torch.Tensor:
+    """A threshold a row, in turn from `shift`: -1 (the pad columns tie),
+    0, the middle, max_count, the Gate's for k = cap // 2, 1 (the strict
+    entries exceed cap) and max_count // 3, the value of a third of every
+    row (its ties overflow cap)."""
+    from repro_torch.core import cpq
+
+    _, gate = cpq.audit_threshold(cpq_hist_plain(counts, max_count), max(1, cap // 2))
+    kinds = [-1, 0, max_count // 2, max_count, None, 1, max_count // 3]
+    rows = (torch.arange(counts.shape[0], device=counts.device) + shift) % len(kinds)
+    fixed = torch.tensor([-9 if v is None else v for v in kinds], dtype=torch.int32,
+                         device=counts.device)[rows]
+    return torch.where(fixed == -9, gate, fixed).to(torch.int32)
+
+
+@pytest.mark.gpu
+def test_cpq_compact_equals_plain_version_on_the_card():
+    """cpq_compact bit for bit against `_compact_candidates` at Q = 1, 16,
+    256, 1024 and N below cap, 4,097, 250,000 and 281,250 (N % 4 = 0, 1, 2,
+    so rows start off a 16-byte boundary), with thresholds -1, 0, the
+    middle, max_count, the Gate's, one whose strict entries exceed cap and
+    one whose ties overflow it, the last 7 columns at -1 as the pad mask
+    leaves them; cap 200 (ties in shared memory) and 10,000 (in scratch);
+    one block a row at Q = 1024, rows cut into chunks at Q = 1 and 16; and a
+    contiguous view whose base is 4 bytes past a 16-byte boundary."""
+    _need_card()
+    from repro_torch.kernels.cpq_compact import compact_plan, cpq_compact, cpq_compact_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    max_count = 237
+    assert compact_plan(281_250, 1024, 200)[0] == 1
+    assert compact_plan(281_250, 1, 200)[0] > 1 and compact_plan(250_000, 16, 200)[0] > 1
+    assert compact_plan(281_250, 1024, 10_000) == (1, 1024 * 10_000)
+    common.reset_launch_counts()
+    launches = 0
+    for cap in (200, 10_000):
+        for q in (1, 16, 256, 1024):
+            for n in (cap - 50, 4097, 250_000, 281_250):
+                base = torch.randint(0, max_count + 1, (q + 1, n), generator=gen,
+                                     device="cuda", dtype=torch.int32)
+                base[:, ::3] = max_count // 3
+                base[:, -7:] = -1
+                views = [base[:q]] + ([base[1:]] if n % 4 == 1 and q == 16 else [])
+                for counts in views:
+                    for shift in range(7 if q < 7 else 1):
+                        thr = compact_thresholds(counts, max_count, cap, shift)
+                        got = cpq_compact(counts, thr, cap)
+                        want = cpq_compact_plain(counts, thr, cap)
+                        what = (cap, q, n, shift, counts.storage_offset())
+                        assert torch.equal(got[0], want[0]), what
+                        assert torch.equal(got[1], want[1]), what
+                        launches += 1
+                del base, views
+    torch.cuda.synchronize()
+    assert common.launch_counts() == {"cpq_compact": launches}
+
+
 # range_count's float16 path takes a 16-attribute chunk of a 128-row data tile
 # whose values all lie in [-2048, 2048]; -2049 / 2049 and the ends of int32
 # send it to the int32 path.  Query bounds around +-2049 (where the float16
@@ -584,7 +641,8 @@ def test_multiload_host_loop_from_pinned_parts_equals_the_device_search():
         common.reset_launch_counts()
         got = multiload_search_host(parts, q_exec, params, packed_match)
         torch.cuda.synchronize()
-        assert common.launch_counts() == {"packed_cosine_count": 4, "cpq_hist": 4}
+        assert common.launch_counts() == {"packed_cosine_count": 4, "cpq_hist": 4,
+                                          "cpq_compact": 4}
         assert torch.equal(got.ids, want.ids) and torch.equal(got.counts, want.counts)
         assert torch.equal(got.threshold, want.threshold)
     fused = seg.search(queries, k=25)
@@ -741,7 +799,8 @@ def test_frontend_on_the_card_equals_serial_searches():
     assert fe.stats()["dispatches"] < len(slices) + 2
     assert {d for d, _ in seen} == {svc.device.index or 0}
     assert {t for _, t in seen} == {"serving-frontend"}
-    assert launches[0] == launches[1] == {"match_count": 4, "cpq_hist": 4} and builds == []
+    assert launches[0] == launches[1] == {"match_count": 4, "cpq_hist": 4,
+                                          "cpq_compact": 4} and builds == []
     for (lo, hi, k), (got, _) in zip(slices, results):
         want, _ = search(None, k=k, embeddings=queries[lo:hi])
         assert np.array_equal(got.ids, want.ids.cpu().numpy())

@@ -122,7 +122,8 @@ def test_every_c_entry_is_in_a_source_and_bound():
     """build.load() binds argtypes by name: each name must be an extern "C"
     entry of exactly one source under csrc/."""
     srcs = build.sources()
-    assert [p.name for p in srcs] == ["cosine_count.cu", "cpq_hist.cu", "ip_count.cu",
+    assert [p.name for p in srcs] == ["cosine_count.cu", "cpq_compact.cu", "cpq_hist.cu",
+                                      "ip_count.cu",
                                       "match_count.cu", "minsum_count.cu",
                                       "packed_cosine.cu", "packed_tanimoto.cu",
                                       "range_count.cu", "tanimoto_count.cu"]
@@ -130,6 +131,7 @@ def test_every_c_entry_is_in_a_source_and_bound():
     for p in srcs:
         entries += re.findall(r'extern "C" int (\w+)\(', p.read_text())
     assert sorted(entries) == ["repro_cosine_count", "repro_cosine_count_loader",
+                               "repro_cpq_compact", "repro_cpq_compact_plan",
                                "repro_cpq_hist", "repro_ip_count", "repro_ip_count_loader",
                                "repro_match_count", "repro_match_count_q32",
                                "repro_minsum_count",
