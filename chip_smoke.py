@@ -2266,20 +2266,12 @@ def decode_titles(titles: torch.Tensor) -> list:
     return ["".join(DBLP_ALPHABET[c] for c in row) for row in titles.tolist()]
 
 
-def word_table(v: int, device: torch.device) -> torch.Tensor:
-    """bucket[i] of the word "w{i}" (data/pipeline.synthetic_documents' words)
-    from the port's document.word_bucket (crc32)."""
+def tweets_table(device: torch.device) -> torch.Tensor:
+    """document.bucket_table of the words "w0" .. "w4999"
+    (data/pipeline.synthetic_documents' words, none a stop word)."""
     from repro_torch.core.sa import document
 
-    return torch.tensor([document.word_bucket(f"w{i}", v) for i in range(TWEETS_WORDS)],
-                        dtype=torch.int64, device=device)
-
-
-def word_vectors(words: torch.Tensor, table: torch.Tensor, v: int) -> torch.Tensor:
-    """document.binary_vectors of documents given as word ids on the device:
-    int64 [rows, w] -> int8 [rows, v], 1 at every bucket a word falls in."""
-    out = torch.zeros((words.shape[0], v), dtype=torch.int8, device=words.device)
-    return out.scatter_(1, table[words], 1)
+    return document.bucket_table([f"w{i}" for i in range(TWEETS_WORDS)], TWEETS_V, device)
 
 
 def spread(n_total: int, n: int, device: torch.device) -> torch.Tensor:
@@ -2323,6 +2315,7 @@ def small_index_round_trip(device: torch.device, engine, label: str, batches: li
 def phase_small_sa(device: torch.device) -> None:
     """Phase 3d: RANGE, MINSUM and IP through SegmentedIndex at small sizes."""
     from repro_torch.core import Engine
+    from repro_torch.core.sa import document
 
     log("== phase 3d: small RANGE, MINSUM and IP round trips through SegmentedIndex "
         "(kernel path vs plain path)")
@@ -2338,7 +2331,7 @@ def phase_small_sa(device: torch.device) -> None:
                            device=device, dtype=torch.int8)
     counts = title_count_vectors(titles, gram_table(DBLP_V, device), DBLP_V)
     words = torch.randint(0, 300, (n_total, TWEETS_PER_DOC), generator=gen, device=device)
-    vecs = word_vectors(words, word_table(TWEETS_V, device), TWEETS_V)
+    vecs = document.word_vectors(words, tweets_table(device), TWEETS_V)
     for engine, label, data, queries, max_count in (
             (Engine.RANGE, "RANGE d=14", x, lohi, None),
             (Engine.MINSUM, "MINSUM V=4096", counts, counts[picks], DBLP_MAX_COUNT),
@@ -2509,19 +2502,19 @@ def phase_full_width_tweets(device: torch.device, n_total: int = TWEETS_N,
     u = torch.rand((n_total, TWEETS_PER_DOC), generator=gen, device=device, dtype=torch.float64)
     words = torch.searchsorted(cdf, u, right=True).clamp_(max=TWEETS_WORDS - 1)
     del u
-    table = word_table(TWEETS_V, device)
+    table = tweets_table(device)
     sample = spread(n_total, 256, device)
     docs = [" ".join(f"w{i}" for i in row) for row in words[sample].tolist()]
-    check(torch.equal(word_vectors(words[sample], table, TWEETS_V).cpu(),
+    check(torch.equal(document.word_vectors(words[sample], table, TWEETS_V).cpu(),
                       torch.from_numpy(document.binary_vectors(docs, TWEETS_V))),
           "the device-built word vectors differ from document.binary_vectors")
     log("  256 sampled corpus rows equal document.binary_vectors of their documents")
     picks = spread(n_total, n_queries, device)
-    queries = word_vectors(words[picks, :TWEETS_QUERY_WORDS], table, TWEETS_V)
+    queries = document.word_vectors(words[picks, :TWEETS_QUERY_WORDS], table, TWEETS_V)
     rows = n_total // n_segments
     out = drive_index_full_width(
         device, "Tweets", Engine.IP,
-        lambda s: word_vectors(words[s * rows:(s + 1) * rows], table, TWEETS_V),
+        lambda s: document.word_vectors(words[s * rows:(s + 1) * rows], table, TWEETS_V),
         n_segments, queries, k, TWEETS_MAX_COUNT,
         {"ip_count": n_segments, "cpq_hist": n_segments, "cpq_compact": n_segments})
     res = out["result"]

@@ -35,7 +35,7 @@ import torch
 from repro_torch.core import match as _match
 from repro_torch.core import packing as _packing
 from repro_torch.core.types import Engine, IndexStats, SignatureLayout
-from repro_torch.device import tensor_from
+from repro_torch.device import int64_sum, tensor_from
 from repro_torch.kernels.common import TILE_ALIGN
 
 
@@ -395,10 +395,11 @@ def _kernel_packed_cosine_topk(data, queries, k, **tiles):
 def _int_total(a: torch.Tensor) -> int:
     """Sum of the entries, each truncated to an integer as the reference's
     int32 cast truncates it, in int64 (the reference sums in int32); integer
-    data is summed as it is, without an int32 copy."""
+    data is summed as it is, without an int32 copy, a block of rows at a
+    time."""
     if a.is_floating_point():
         a = a.to(torch.int32)
-    return int(a.sum(dtype=torch.int64))
+    return int(int64_sum(a))
 
 
 def _sign_quantize(x: Any, device: torch.device) -> torch.Tensor:

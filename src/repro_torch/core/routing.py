@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import Engine
+from repro_torch.device import int64_sum
 
 # Bucket-occupancy sketch width for the collision engines (EQ/TANIMOTO).
 # Values hash by modulo; a collision marks an extra bucket occupied, which
@@ -147,7 +148,7 @@ def _summarize_tensor(engine: Engine, x: torch.Tensor) -> SegmentSummary:
         peak = float(max(np.abs(col_min).max(), np.abs(col_max).max()))
     if not whole or not peak * n < _EXACT_SUM:
         return _summarize_host(engine, x.cpu().numpy())
-    sums = x.to(torch.int64).sum(dim=0).cpu().numpy()
+    sums = int64_sum(x, dim=0).cpu().numpy()
     occ = _occupancy(x).cpu().numpy() if engine in _BUCKETED else None
     return SegmentSummary(
         engine=engine, n_rows=n, col_min=col_min, col_max=col_max,
