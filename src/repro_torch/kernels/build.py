@@ -231,8 +231,12 @@ def load() -> ctypes.CDLL:
         # int repro_minsum_csr(data, offsets, entries, n_data, v, stream)
         lib.repro_minsum_csr.argtypes = [ptr, ptr, ptr, i64, i32, ptr]
         lib.repro_minsum_csr.restype = i32
-        # int repro_minsum_count(entries, offsets, query, out, n_data, n_query, v, stream)
-        lib.repro_minsum_count.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+        # int repro_minsum_count_row_limit(*limit)
+        lib.repro_minsum_count_row_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.repro_minsum_count_row_limit.restype = i32
+        # int repro_minsum_count(entries, offsets, q_entries, q_offsets, out, n_data,
+        #                        n_query, v, widest, stream)
+        lib.repro_minsum_count.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
         lib.repro_minsum_count.restype = i32
         # int repro_minsum_count_dense(data, query, out, n_data, n_query, v, stream)
         lib.repro_minsum_count_dense.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]

@@ -9,50 +9,71 @@
 // Replaces the TPU kernel `_minsum_kernel` / `minsum_count_pallas`
 // (src/repro/kernels/minsum_count.py), which makes the vocabulary axis V a
 // third, accumulating grid axis of 512-column slabs held in VMEM and does all
-// 2*Q*N*V minimums and adds.  The data is almost all zeros: a sequence of
-// length L has at most L - n + 1 distinct n-grams, so a DBLP title holds at
-// most 38 non-zero buckets of 4096.  So this kernel works on the non-zero
-// entries of the data only, by an identity that is exact for any int32 input
-// (negative values, the engine's -1 pad rows, dense rows):
+// 2*Q*N*V minimums and adds.  The vectors are almost all zeros: a sequence
+// of length L has at most L - n + 1 distinct n-grams, so a DBLP title holds
+// at most 38 non-zero buckets of 4096, and a query as few.  So the count is
+// GENIE's inverted index (tech report, section III): it visits only the
+// (query, row) pairs that share a bucket, by an identity that is exact for
+// any int32 input (negative values, the engine's -1 pad rows, dense rows):
 //
-//     sum_v min(d_v, q_v) = sum_v min(0, q_v)
-//                         + sum_{v : d_v != 0} [min(d_v, q_v) - min(0, q_v)]
+//     sum_v min(d_v, q_v) = rowbase[n] + qbase[q] + sum_{d_v != 0, q_v != 0} t_v
+//     t_v = min(d_v, q_v) - min(d_v, 0) - min(0, q_v)
+//     rowbase[n] = sum_v min(d_v, 0),   qbase[q] = sum_v min(0, q_v)
 //
-// with every sum taken in uint32, whose wraparound is the plain version's
-// int32 wraparound, so the reordering gives its result bit for bit even where
-// the sum overflows.
+// (t_v is 0 wherever either side is 0), with every sum taken in uint32,
+// whose wraparound is the plain version's int32 wraparound, so the
+// reordering gives its result bit for bit even where the sum overflows.
 //
-// Three kernels, launched per call by the wrapper (kernels/minsum_count.py):
+// Four kernels, launched per call by the wrapper (kernels/minsum_count.py):
 //
-// 1. `repro_minsum_nnz`: one warp per data row counts its non-zero entries
-//    (8 coalesced loads in flight per lane).  The wrapper turns the N counts
-//    into row offsets with torch.cumsum and sizes the lists from their total.
-// 2. `repro_minsum_csr`: one warp per data row writes the row's non-zero
-//    entries as (column, value) int32 pairs in column order (CSR), each
-//    lane's place from __ballot_sync / __popc.  Two words per non-zero; the
-//    index keeps its dense int32 storage, as the reference's does.
-// 3. `repro_minsum_count`: a block stages QB = 8 query rows into shared memory
-//    interleaved by column ([V][8] int32: two 16-byte loads give one column's
-//    value for the 8 queries) and sums each query's min(0, q_v); each thread
-//    then walks one data row's list and accumulates its 8 sums, and the [Q, N]
-//    counts are written once, coalesced, with no atomics.  Blocks are
-//    persistent and take contiguous runs of (query group, 1024-row chunk)
-//    items, query groups slowest, so a block stages its query rows once per
-//    group while V fits one window (V <= 4096, 128 KB); a wider V goes in
-//    windows of 4096 columns, restaged per item, and since a list is sorted
-//    each window is a contiguous run of every row.
+// 1. `repro_minsum_nnz`: one warp per row counts its non-zero entries (8
+//    coalesced loads in flight per lane), for the data and for the queries.
+//    The wrapper turns the counts into row offsets with torch.cumsum and
+//    reads both totals and the widest data row back together, once a call,
+//    to size the lists and to pick the count kernel.
+// 2. `repro_minsum_csr`: one warp per row writes the row's non-zero entries
+//    as (column, value) int32 pairs in column order (CSR), each lane's place
+//    from __ballot_sync / __popc.  Two words per non-zero; the index keeps
+//    its dense int32 storage, as the reference's does.
+// 3. `repro_minsum_count`, the inverted walk.  Persistent blocks, one an SM
+//    (1024 threads, all of shared memory), each own a slab of consecutive
+//    data rows, which they cut into chunks by entries: a chunk is the most
+//    rows, at most CHUNK_ROWS, whose entries fit the shared-memory budget
+//    (e_max, ~22,600 entries on an H100).  The block reads the chunk's
+//    row-major lists once and sorts them by bucket (a counting sort with
+//    shared atomics: a histogram, a scan, a scatter) into the chunk's own
+//    posting lists of (row, value), taking rowbase of each row on the way.  A
+//    bucket is the column modulo a power of two of at most 4096, with the
+//    column's high bits kept as a tag beside the row, so any V fits one
+//    index.  Then each warp takes one query at a time: its count row over
+//    the chunk starts at rowbase, the warp walks the query's own list (from
+//    the queries' conversion, L2-resident; the next query's list is loaded
+//    meanwhile) and, for each of its buckets, the chunk's posting list of
+//    that bucket, adding t_v by a shared atomic (integer sums: the order is
+//    free and the result bit-equal), sums qbase, and writes the row plus
+//    qbase out as one contiguous run of int32.  The [Q, N] counts are written
+//    once, with no global atomics.  A row of more than e_max non-zeros (V
+//    past ~22,600 at high density) fits no chunk: the entry point refuses
+//    data whose widest row is past e_max (repro_minsum_count_row_limit), and
+//    the wrapper takes the dense tile for it, the faster of the two on such
+//    rows anyway.  Measured on an H100 (PERF.md), the inverted walk
+//    beat the previous design's row walk (one thread a data row, its list
+//    against 8 staged queries) at every density of the data against DBLP's
+//    queries, down to chunks of one row.
+// 4. `repro_minsum_count_dense`, the dense count tile of eq_tile.cuh with the
+//    MinColumns policy (V minimums and adds per output).  The wrapper takes
+//    it where the data is dense, above the share of non-zero entries in
+//    minsum_count.py (DENSE_ABOVE), measured on an H100 by chip_smoke.py
+//    (PERF.md), and where a data row is past e_max.
 //
-// What bounds it on an H100: the bytes.  The function must read the data once
-// and write the counts once: (N*V + Q*V + Q*N) * 4 = 1.3 GB at DBLP's segment
-// (Q = 1024, N = 62500, V = 4096), 0.387 ms at 3.35 TB/s.  The two conversion
-// passes read the data twice; the count kernel does Q * nnz minimum-adds (2.4e9
-// at DBLP's segment, against 2.6e11 for the dense tile), each a shared-memory
-// lookup, and rereads the 19 MB of lists from L2 once per query group.
-//
-// `repro_minsum_count_dense` is the dense count tile of eq_tile.cuh with the
-// MinColumns policy (V minimums and adds per output).  The wrapper takes it
-// where the data is dense, above the share of non-zero entries in
-// minsum_count.py (DENSE_ABOVE), measured on an H100 by chip_smoke.py (PERF.md).
+// What bounds the count on an H100: the bytes.  It must write the [Q, N]
+// counts once and read the lists once: Q*N*4 + (nnz(data) + nnz(queries))*8
+// bytes, 1.04 GB at DBLP's part (Q = 1024, N = 250,000, V = 4096, ~38
+// non-zeros a row), 0.31 ms at 3.35 TB/s.  Its shared atomics are
+// sum_q sum_{v in q} |posting(v)|, ~9e7 a part, where the row walk made
+// Q * nnz(data) = 9.7e9 minimum-adds and read the lists once a query group;
+// the queries' lists (311 KB at Q = 1024) are read again for every chunk,
+// from L2.
 #include <cuda_runtime.h>
 
 #include "eq_tile.cuh"
@@ -62,9 +83,21 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int CV_THREADS = 256;        // conversion: 8 warps, a row each at a time
 constexpr int CV_UNROLL = 8;           // loads in flight per lane
-constexpr int CT = 1024;               // count: threads (data rows) per block
-constexpr int QB = 8;                  // query rows per block
-constexpr int WV = 4096;               // columns per shared-memory window
+constexpr int CT = 1024;               // count: threads per block, one block an SM
+constexpr int WARPS = CT / 32;         // queries in flight a block, one a warp
+constexpr int CHUNK_ROWS = 256;        // the most data rows a chunk
+constexpr int ROW_BITS = 8;            // log2(CHUNK_ROWS): the row field of a posting
+constexpr int LOG_BUCKETS = 12;        // at most 4096 buckets in a chunk's index
+
+// The count kernel's shared memory, in bytes from its start.
+constexpr int CNT_AT = 0;                                      // unsigned [buckets]
+constexpr int OFF_AT = CNT_AT + (4 << LOG_BUCKETS);            // int [CHUNK_ROWS + 1]
+constexpr int ROWBASE_AT = OFF_AT + 4 * (CHUNK_ROWS + 4);      // unsigned [CHUNK_ROWS]
+constexpr int ROWS_AT = ROWBASE_AT + 4 * CHUNK_ROWS;           // unsigned [WARPS][CHUNK_ROWS]
+constexpr int POST_AT = ROWS_AT + 4 * WARPS * CHUNK_ROWS;      // int2 [e_max]
+static_assert(POST_AT % 16 == 0, "the postings start 16-byte aligned");
+static_assert((1 << ROW_BITS) == CHUNK_ROWS, "a posting's row field holds a chunk row");
+static_assert(CHUNK_ROWS < CT, "one thread reads each row offset of a chunk");
 
 __device__ __forceinline__ long long warp_id() {
   return ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -124,94 +157,209 @@ minsum_csr_kernel(const int* __restrict__ data, const long long* __restrict__ of
   }
 }
 
-// ---- 3. the sparse count ---------------------------------------------------
-// One list entry e = (column, value) against the block's QB staged queries:
-// acc[i] += min(d, q_i) - min(0, q_i), in uint32.
-__device__ __forceinline__ void add_entry(unsigned (&acc)[QB], int2 e,
-                                          const int4* __restrict__ q_s, int c0) {
-  const int4 a = q_s[(e.x - c0) * 2];
-  const int4 b = q_s[(e.x - c0) * 2 + 1];
-  const int q[QB] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+// ---- 3. the count: the inverted walk ------------------------------------
+__device__ __forceinline__ unsigned warp_sum(unsigned s) {
 #pragma unroll
-  for (int i = 0; i < QB; ++i)
-    acc[i] += (unsigned)min(e.y, q[i]) - (unsigned)min(0, q[i]);
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+  return s;
+}
+
+// The chunk row of entry i of the chunk: the last j with off_s[j] <= i
+// (off_s[0] = 0 <= i < off_s[rows]; an empty row is skipped).
+__device__ __forceinline__ int row_of(const int* __restrict__ off_s, int rows, int i) {
+  int lo = 0, hi = rows;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (off_s[mid] <= i) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// In place, cnt_s[b] <- sum_{b' < b} cnt_s[b'] over `buckets` <= 4096
+// entries: four a thread, a shuffle scan a warp, the warps' totals in
+// `warp_s`.  Ends with the block synchronised.
+__device__ void exclusive_scan(unsigned* __restrict__ cnt_s, int buckets,
+                               unsigned* __restrict__ warp_s) {
+  constexpr int PER = (1 << LOG_BUCKETS) / CT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b0 = threadIdx.x * PER;
+  unsigned x[PER], sum = 0u;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    x[i] = b0 + i < buckets ? cnt_s[b0 + i] : 0u;
+    sum += x[i];
+  }
+  unsigned incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned y = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_s[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned t = warp_s[lane], s = t;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned y = __shfl_up_sync(kFull, s, off);
+      if (lane >= off) s += y;
+    }
+    warp_s[lane] = s - t;                       // exclusive: the warps before
+  }
+  __syncthreads();
+  unsigned at = warp_s[warp] + incl - sum;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    if (b0 + i < buckets) cnt_s[b0 + i] = at;
+    at += x[i];
+  }
+  __syncthreads();
+}
+
+// Entry p of the queries' lists, or (0, 0) -- no entry, since a list holds
+// non-zero values only -- at or past `stop`.
+__device__ __forceinline__ int2 query_entry(const int2* __restrict__ q_entries, long long p,
+                                            long long stop) {
+  return p < stop ? q_entries[p] : make_int2(0, 0);
+}
+
+// One entry e = (column, value) of a query's list against the chunk's
+// postings of its bucket: row[j] += t_v for each posting of the same column
+// (its tag); returns min(0, q_v), the entry's share of qbase.
+__device__ __forceinline__ unsigned walk_bucket(unsigned* __restrict__ row, int2 e,
+                                                const unsigned* __restrict__ cnt_s,
+                                                const int2* __restrict__ post_s, int hbits) {
+  if (e.y == 0) return 0u;
+  const unsigned neg = (unsigned)min(0, e.y);
+  const unsigned b = (unsigned)e.x & ((1u << hbits) - 1u), tag = (unsigned)e.x >> hbits;
+  const int end = (int)cnt_s[b];
+  for (int s = b ? (int)cnt_s[b - 1] : 0; s < end; ++s) {
+    const int2 d = post_s[s];
+    if (((unsigned)d.x >> ROW_BITS) == tag)
+      atomicAdd(&row[d.x & (CHUNK_ROWS - 1)],
+                (unsigned)min(d.y, e.y) - (unsigned)min(d.y, 0) - neg);
+  }
+  return neg;
+}
+
+// The inverted walk over the chunk of `rows` data rows from r0, whose
+// entries start at e0 and whose offsets from e0 are in off_s[0..rows].
+__device__ void inverted_chunk(unsigned char* __restrict__ smem,
+                               const int2* __restrict__ entries,
+                               const int2* __restrict__ q_entries,
+                               const long long* __restrict__ q_offsets,
+                               int* __restrict__ out, long long n_data, int n_query,
+                               int hbits, long long r0, long long e0, int rows) {
+  unsigned* cnt_s = (unsigned*)(smem + CNT_AT);
+  const int* off_s = (const int*)(smem + OFF_AT);
+  unsigned* rowbase_s = (unsigned*)(smem + ROWBASE_AT);
+  unsigned* rows_s = (unsigned*)(smem + ROWS_AT);
+  int2* post_s = (int2*)(smem + POST_AT);
+  const int buckets = 1 << hbits;
+  const unsigned hmask = (unsigned)buckets - 1u;
+  const int n_ent = off_s[rows];
+  const int2* __restrict__ src = entries + e0;
+
+  // the counting sort: a histogram of the chunk's buckets ...
+  for (int b = threadIdx.x; b < buckets; b += CT) cnt_s[b] = 0u;
+  for (int j = threadIdx.x; j < rows; j += CT) rowbase_s[j] = 0u;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_ent; i += CT) atomicAdd(&cnt_s[(unsigned)src[i].x & hmask], 1u);
+  __syncthreads();
+  exclusive_scan(cnt_s, buckets, rows_s);
+  // ... and the scatter, which leaves cnt_s[b] at the end of bucket b: its
+  // postings are [b ? cnt_s[b - 1] : 0, cnt_s[b])
+  for (int i = threadIdx.x; i < n_ent; i += CT) {
+    const int2 e = src[i];
+    const int j = row_of(off_s, rows, i);
+    const unsigned at = atomicAdd(&cnt_s[(unsigned)e.x & hmask], 1u);
+    post_s[at] = make_int2((int)((((unsigned)e.x >> hbits) << ROW_BITS) | (unsigned)j), e.y);
+    if (e.y < 0) atomicAdd(&rowbase_s[j], (unsigned)e.y);
+  }
+  __syncthreads();
+
+  // each warp a query at a time: its count row over the chunk in shared
+  // memory; the next query's list (its first 64 entries) and the offsets of
+  // the one after are loaded while the warp walks the current one
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned* row = rows_s + warp * CHUNK_ROWS;
+  int q = warp;
+  long long a = 0, b = 0, na = 0, nb = 0;
+  if (q < n_query) {
+    a = q_offsets[q];
+    b = q_offsets[q + 1];
+  }
+  if (q + WARPS < n_query) {
+    na = q_offsets[q + WARPS];
+    nb = q_offsets[q + WARPS + 1];
+  }
+  int2 c0 = query_entry(q_entries, a + lane, b), c1 = query_entry(q_entries, a + 32 + lane, b);
+  for (; q < n_query; q += WARPS) {
+    const int2 n0 = query_entry(q_entries, na + lane, nb);
+    const int2 n1 = query_entry(q_entries, na + 32 + lane, nb);
+    long long na2 = 0, nb2 = 0;
+    if (q + 2 * WARPS < n_query) {
+      na2 = q_offsets[q + 2 * WARPS];
+      nb2 = q_offsets[q + 2 * WARPS + 1];
+    }
+    for (int j = lane; j < rows; j += 32) row[j] = rowbase_s[j];
+    __syncwarp();
+    unsigned qbase = walk_bucket(row, c0, cnt_s, post_s, hbits) +
+                     walk_bucket(row, c1, cnt_s, post_s, hbits);
+    for (long long p = a + 64 + lane; p < b; p += 32)
+      qbase += walk_bucket(row, q_entries[p], cnt_s, post_s, hbits);
+    qbase = warp_sum(qbase);
+    __syncwarp();
+    int* __restrict__ dst = out + (long long)q * n_data + r0;
+    for (int j = lane; j < rows; j += 32) dst[j] = (int)(row[j] + qbase);
+    __syncwarp();
+    a = na;
+    b = nb;
+    na = na2;
+    nb = nb2;
+    c0 = n0;
+    c1 = n1;
+  }
 }
 
 __global__ void __launch_bounds__(CT, 1)
 minsum_count_kernel(const int2* __restrict__ entries, const long long* __restrict__ offsets,
-                    const int* __restrict__ query, int* __restrict__ out,
-                    long long n_data, int n_query, int v, long long n_chunks,
-                    long long n_items) {
-  extern __shared__ int4 q_s[];                // [window][QB] int32, column-interleaved
-  __shared__ unsigned base_s[QB];              // sum_v min(0, q_v), uint32
-  int* q_int = (int*)q_s;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_windows = (v + WV - 1) / WV;
-  const long long first = n_items * blockIdx.x / gridDim.x;
-  const long long stop = n_items * (blockIdx.x + 1) / gridDim.x;
-  long long staged = -1;                       // the query group in shared memory
-
-  for (long long item = first; item < stop; ++item) {
-    const long long group = item / n_chunks;
-    const int q0 = (int)(group * QB);
-    const long long row = (item % n_chunks) * CT + threadIdx.x;
-    long long p = 0, end = 0;
-    if (row < n_data) {
-      p = offsets[row];
-      end = offsets[row + 1];
+                    const int2* __restrict__ q_entries, const long long* __restrict__ q_offsets,
+                    int* __restrict__ out, long long n_data, int n_query, int hbits,
+                    int e_max) {
+  extern __shared__ int4 smem_i4[];
+  unsigned char* smem = (unsigned char*)smem_i4;
+  int* off_s = (int*)(smem + OFF_AT);
+  const long long slab_end = n_data * (blockIdx.x + 1) / gridDim.x;
+  for (long long r0 = n_data * blockIdx.x / gridDim.x; r0 < slab_end;) {
+    // cut the chunk by entries: the rows from r0 whose entries fit e_max
+    // (at least one: the entry point refuses a row past e_max)
+    const int span = (int)min((long long)CHUNK_ROWS, slab_end - r0);
+    const long long e0 = offsets[r0];
+    __syncthreads();                            // the last chunk is done with shared memory
+    int fits = 0;
+    if ((int)threadIdx.x <= span) {
+      const long long rel = offsets[r0 + threadIdx.x] - e0;
+      off_s[threadIdx.x] = (int)min(rel, (long long)e_max + 1);
+      fits = threadIdx.x > 0 && rel <= e_max;
     }
-    unsigned acc[QB];
-#pragma unroll
-    for (int i = 0; i < QB; ++i) acc[i] = 0u;
-
-    for (int w = 0; w < n_windows; ++w) {
-      const int c0 = w * WV;
-      const int c1 = min(v, c0 + WV);
-      if (n_windows > 1 || group != staged) {   // uniform over the block
-        __syncthreads();                        // every thread is done with q_s
-        for (int i = 0; i < QB; ++i) {
-          const bool real = q0 + i < n_query;
-          const int* __restrict__ src = query + (long long)(q0 + i) * v;
-          for (int c = threadIdx.x; c < c1 - c0; c += CT)
-            q_int[c * QB + i] = real ? src[c0 + c] : 0;
-        }
-        __syncthreads();
-        if (warp < QB) {
-          unsigned s = 0u;
-          for (int c = lane; c < c1 - c0; c += 32) s += (unsigned)min(0, q_int[c * QB + warp]);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-          if (lane == 0) base_s[warp] = (w == 0 ? 0u : base_s[warp]) + s;
-        }
-        __syncthreads();
-        staged = group;
-      }
-      if (n_windows == 1) {                     // the whole list, four loads in flight
-        for (; p + 4 <= end; p += 4) {
-          const int2 e0 = entries[p], e1 = entries[p + 1];
-          const int2 e2 = entries[p + 2], e3 = entries[p + 3];
-          add_entry(acc, e0, q_s, 0);
-          add_entry(acc, e1, q_s, 0);
-          add_entry(acc, e2, q_s, 0);
-          add_entry(acc, e3, q_s, 0);
-        }
-        for (; p < end; ++p) add_entry(acc, entries[p], q_s, 0);
-      } else {                                  // the run of the list in [c0, c1)
-        for (; p < end; ++p) {
-          const int2 e = entries[p];
-          if (e.x >= c1) break;
-          add_entry(acc, e, q_s, c0);
-        }
-      }
-    }
-
-    if (row < n_data) {
-#pragma unroll
-      for (int i = 0; i < QB; ++i)
-        if (q0 + i < n_query) out[(long long)(q0 + i) * n_data + row] = (int)(acc[i] + base_s[i]);
-    }
+    const int rows = __syncthreads_count(fits);
+    if (rows == 0) return;
+    inverted_chunk(smem, entries, q_entries, q_offsets, out, n_data, n_query, hbits, r0, e0,
+                   rows);
+    r0 += rows;
   }
+}
+
+// e_max: the most entries a chunk's postings hold in a block's shared memory.
+cudaError_t count_row_limit(int* smem, int* e_max) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  *e_max = (*smem - POST_AT) / 8;             // the postings take what the rest leaves
+  return *e_max < CHUNK_ROWS ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 int cv_grid(long long n_data, int* grid) {
@@ -266,31 +414,45 @@ extern "C" int repro_minsum_csr(const void* data, const void* offsets, void* ent
   return (int)cudaGetLastError();
 }
 
-// entries / offsets from repro_minsum_csr for data int32 [n_data, v], query
-// int32 [n_query, v], out int32 [n_query, n_data]; contiguous device pointers.
-// Launches on `stream`, does not synchronise.  Returns cudaGetLastError() (0
-// on success), or cudaErrorInvalidValue on a shape the kernel does not take.
+// *limit <- the most non-zero entries a data row may hold for
+// repro_minsum_count on the current device.  Returns 0 on success.
+extern "C" int repro_minsum_count_row_limit(int* limit) {
+  int smem = 0;
+  return (int)count_row_limit(&smem, limit);
+}
+
+// entries / offsets from repro_minsum_csr for data int32 [n_data, v], whose
+// widest row holds `widest` non-zero entries, and q_entries / q_offsets for
+// query int32 [n_query, v]; out int32 [n_query, n_data]; contiguous device
+// pointers.  Launches on `stream`, does not synchronise.  Returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue on a shape the
+// kernel does not take: a row wider than repro_minsum_count_row_limit.
 extern "C" int repro_minsum_count(const void* entries, const void* offsets,
-                                  const void* query, void* out, long long n_data,
-                                  int n_query, int v, void* stream) {
+                                  const void* q_entries, const void* q_offsets, void* out,
+                                  long long n_data, int n_query, int v, int widest,
+                                  void* stream) {
   if (n_data <= 0 || n_query <= 0 || v <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = (v < WV ? v : WV) * QB * 4;
-  cudaError_t err = cudaFuncSetAttribute(minsum_count_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int smem = 0, e_max = 0, dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = count_row_limit(&smem, &e_max);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, minsum_count_kernel, CT, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (widest < 0 || widest > e_max) return (int)cudaErrorInvalidValue;
+  err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(minsum_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, minsum_count_kernel, CT, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidValue;
-  const long long n_chunks = (n_data + CT - 1) / CT;
-  const long long n_items = (long long)((n_query + QB - 1) / QB) * n_chunks;
+  int hbits = 0;
+  while (hbits < LOG_BUCKETS && (1 << hbits) < v) ++hbits;
+  const long long need = (n_data + CHUNK_ROWS - 1) / CHUNK_ROWS;
   const long long fit = (long long)sms * per_sm;
-  const int grid = (int)(n_items < fit ? n_items : fit);
+  const int grid = (int)(need < fit ? need : fit);
   minsum_count_kernel<<<grid, CT, smem, (cudaStream_t)stream>>>(
-      (const int2*)entries, (const long long*)offsets, (const int*)query, (int*)out,
-      n_data, n_query, v, n_chunks, n_items);
+      (const int2*)entries, (const long long*)offsets, (const int2*)q_entries,
+      (const long long*)q_offsets, (int*)out, n_data, n_query, hbits, e_max);
   return (int)cudaGetLastError();
 }
 

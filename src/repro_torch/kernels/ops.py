@@ -51,9 +51,10 @@ def _uint8(x: torch.Tensor) -> torch.Tensor:
 VARIANTS: dict[str, dict[str, tuple]] = {
     "match_count": _mc.VARIANTS,
     "range_count": {"tile_q": (128,), "tile_n": (128,)},
-    # the sparse count kernel's 8 query rows and 1024 data rows a block, its
-    # 4096-column window (the dense tile is eq_tile.cuh's 128 x 128)
-    "minsum_count": {"tile_q": (8,), "tile_n": (1024,), "tile_v": (4096,)},
+    # the inverted walk's 32 queries in flight a block (one a warp), its
+    # chunks of at most 256 data rows and their index of at most 4096
+    # buckets (the dense tile is eq_tile.cuh's 128 x 128)
+    "minsum_count": {"tile_q": (32,), "tile_n": (256,), "tile_v": (4096,)},
     # the int8 tensor-core tile of s8_mma_tile.cuh: BM x BN, BK bytes a stage
     "ip_count": {"tile_q": (128,), "tile_n": (256,), "tile_v": (128,)},
     "tanimoto_count": _tc.VARIANTS,

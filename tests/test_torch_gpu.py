@@ -185,9 +185,11 @@ def test_range_minsum_ip_kernels_equal_plain_versions_on_the_card():
         for dtype in (torch.int8, torch.int32, torch.float32):
             assert torch.equal(ops.ip_count(d.to(dtype), s.to(dtype)), want)
     torch.cuda.synchronize()
-    # dense MINSUM data: each call counts its non-zeros, then runs the dense tile
-    assert common.launch_counts() == {"range_count": 4, "minsum_nnz": 5, "minsum_count": 5,
+    # dense MINSUM data: each call counts the non-zeros of its data and of its
+    # queries, then runs the dense tile
+    assert common.launch_counts() == {"range_count": 4, "minsum_nnz": 10, "minsum_count": 5,
                                       "ip_count": 15}
+    assert common.variant_launch_counts() == {"minsum_count[dense]": 5}
 
 
 def _int8_on_card(gen, rows, v, lo, hi, offset):
@@ -228,18 +230,27 @@ def test_int8_tensor_core_tile_equals_plain_versions_through_both_loaders():
 
 
 def _minsum_rows(gen, rows, v, kind):
-    """MINSUM operands: "dense" counts 0..127; "sparse" at most 38 non-zero
-    counts a row and every 7th row all zero; "wrap" the sparse pattern near
+    """MINSUM operands: "dense" counts 0..127; "fifth" counts 1..127 in a
+    fifth of the entries; "sparse" at most 38 non-zero counts a row and every
+    7th row all zero; "shared" the sparse pattern with column 0 non-zero in
+    every row (one bucket's posting list holds every row); "negative" the
+    sparse pattern with values -3..127; "wrap" the sparse pattern near
     INT32_MAX with INT32_MIN in every 5th column, so that sums wrap."""
     i32 = torch.iinfo(torch.int32)
     if kind == "dense":
         return torch.randint(0, 128, (rows, v), generator=gen, dtype=torch.int32)
+    if kind == "fifth":
+        x = torch.randint(1, 128, (rows, v), generator=gen, dtype=torch.int32)
+        return x * (torch.rand((rows, v), generator=gen) < 0.2)
     x = torch.zeros((rows, v), dtype=torch.int32)
     nz = min(38, v)
-    lo, hi = (1, 128) if kind == "sparse" else (i32.max - 8, i32.max)
+    lo, hi = {"sparse": (1, 128), "shared": (1, 128), "negative": (-3, 128),
+              "wrap": (i32.max - 8, i32.max)}[kind]
     x.scatter_(1, torch.randint(0, v, (rows, nz), generator=gen),
                torch.randint(lo, hi, (rows, nz), generator=gen, dtype=torch.int32))
     x[::7] = 0
+    if kind == "shared":
+        x[:, 0] = torch.randint(1, 128, (rows,), generator=gen, dtype=torch.int32)
     if kind == "wrap":
         x[:, ::5] = i32.min
     return x
@@ -247,17 +258,18 @@ def _minsum_rows(gen, rows, v, kind):
 
 @pytest.mark.gpu
 def test_minsum_sparse_kernel_and_dense_tile_equal_plain_version_on_the_card():
-    """The sparse MINSUM kernel (with its conversion to lists) and the dense
-    tile, each called directly and through the wrapper's pick, bit-equal to
-    the plain version: sparse rows, all-zero rows, -1 pad rows, sums that
-    wrap, dense rows; V = 1, 4095, 4096, 4097 and 9000 (past the count
-    kernel's 4096-column window)."""
+    """The sparse MINSUM kernel (with the conversion of its data and its
+    queries to lists) and the dense tile, each called directly and through
+    the wrapper's pick, bit-equal to the plain version: sparse rows, all-zero
+    rows, -1 pad rows, sums that wrap, dense rows; V = 1, 4095, 4096, 4097
+    and 9000 (past the index's 4096 buckets)."""
     _need_card()
     from repro_torch.kernels import minsum_count as ms
 
     gen = torch.Generator().manual_seed(5)
     common.reset_launch_counts()
     want_launches = {"minsum_nnz": 0, "minsum_csr": 0, "minsum_count": 0}
+    want_paths = {"minsum_count[inverted]": 0, "minsum_count[dense]": 0}
     for q, n, v in [(1, 5, 1), (67, 3001, 4095), (67, 3001, 4096), (33, 2100, 4097),
                     (9, 1500, 9000)]:
         for kind in ("sparse", "dense", "wrap"):
@@ -268,17 +280,73 @@ def test_minsum_sparse_kernel_and_dense_tile_equal_plain_version_on_the_card():
             assert torch.equal(ops.minsum_count(d, s), want)
             assert torch.equal(ms.minsum_count_sparse(d, s), want)
             assert torch.equal(ms.minsum_count_dense(d, s), want)
-            offsets, entries = ms.minsum_lists(d)
+            [(offsets, entries, widest)] = ms.minsum_lists(d)
             assert torch.equal(entries, ms.minsum_csr_plain(d))
+            assert widest == int(ms.minsum_nnz_plain(d).max())
             assert torch.equal(offsets.diff().to(torch.int32), ms.minsum_nnz_plain(d))
             picks_lists = int((d != 0).sum()) <= ms.DENSE_ABOVE * n * v
-            want_launches["minsum_nnz"] += 3           # the wrapper, the sparse call, the lists
-            want_launches["minsum_csr"] += 2 + picks_lists
+            # the wrapper and the sparse call convert the data and the
+            # queries; the lists of the data alone
+            want_launches["minsum_nnz"] += 2 + 2 + 1
+            want_launches["minsum_csr"] += 2 * picks_lists + 2 + 1
             want_launches["minsum_count"] += 3
+            want_paths["minsum_count[inverted]"] += 1 + picks_lists
+            want_paths["minsum_count[dense]"] += 2 - picks_lists
     torch.cuda.synchronize()
     assert common.launch_counts() == want_launches
+    assert common.variant_launch_counts() == want_paths
     # the wrapper took the lists on some calls and the dense tile on others
-    assert 30 < want_launches["minsum_csr"] < 45
+    assert 45 < want_launches["minsum_csr"] < 75
+
+
+# (Q, N, V): V = 1, 7, DBLP's 4096 and 9000 (past the index's 4096 buckets,
+# so columns share a bucket under their tags); N and Q multiples of neither
+# the 256-row chunk nor the 32 queries in flight; V = 30000, where a pad row
+# (and a dense row) holds more non-zeros than a chunk's shared memory, so the
+# inverted walk refuses the data and the wrapper takes the dense tile
+INVERTED_SHAPES = [(1, 5, 1), (33, 1001, 1), (70, 3001, 7), (97, 20003, 4096), (33, 2100, 4096),
+                   (9, 1500, 9000), (40, 777, 9000), (5, 300, 30000)]
+INVERTED_KINDS = ("sparse", "shared", "negative", "wrap", "fifth", "dense")
+
+
+@pytest.mark.gpu
+def test_minsum_inverted_walk_equals_plain_version_on_the_card():
+    """The inverted walk bit-equal to the plain version: rows with no entries,
+    one bucket in every row (the longest posting list), -1 pad rows and
+    negative query values, values near +-2^31 whose sums wrap, rows a fifth
+    non-zero ("fifth", and "wrap" with INT32_MIN in every 5th column) and
+    dense rows, inverted a few rows a chunk; at V = 30000, where rows are
+    past the shared-memory budget (`row_limit`), the inverted walk refuses
+    the data and the wrapper takes the dense tile; the wrapper notes each
+    call's path."""
+    _need_card()
+    from repro_torch.kernels import minsum_count as ms
+
+    gen = torch.Generator().manual_seed(34)
+    common.reset_launch_counts()
+    calls = {"minsum_count[inverted]": 0, "minsum_count[dense]": 0}
+    for q, n, v in INVERTED_SHAPES:
+        for kind in INVERTED_KINDS:
+            d, s = _minsum_rows(gen, n, v, kind), _minsum_rows(gen, q, v, kind)
+            d[5::97] = -1                              # the engine's pad rows
+            if kind == "negative":
+                s[::3, 0] = -2
+            d, s = d.cuda(), s.cuda()
+            want = ms.minsum_count_plain(d, s)
+            fits = int(ms.minsum_nnz_plain(d).max()) <= ms.row_limit(d.device)
+            assert fits == (v < 20000), (q, n, v, kind)   # -1 pad rows past the budget
+            if fits:
+                assert torch.equal(ms.minsum_count_sparse(d, s), want), (q, n, v, kind)
+                calls["minsum_count[inverted]"] += 1
+            else:
+                with pytest.raises(ValueError, match="past the inverted walk"):
+                    ms.minsum_count_sparse(d, s)
+            picks_lists = fits and int((d != 0).sum()) <= ms.DENSE_ABOVE * n * v
+            assert torch.equal(ops.minsum_count(d, s), want), (q, n, v, kind)
+            calls["minsum_count[inverted]"] += picks_lists
+            calls["minsum_count[dense]"] += 1 - picks_lists
+    torch.cuda.synchronize()
+    assert common.variant_launch_counts() == calls
 
 
 @pytest.mark.gpu

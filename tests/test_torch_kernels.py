@@ -135,7 +135,8 @@ def test_every_c_entry_is_in_a_source_and_bound():
                                "repro_cpq_hist", "repro_ip_count", "repro_ip_count_loader",
                                "repro_match_count", "repro_match_count_q32",
                                "repro_minsum_count",
-                               "repro_minsum_count_dense", "repro_minsum_csr",
+                               "repro_minsum_count_dense", "repro_minsum_count_row_limit",
+                               "repro_minsum_csr",
                                "repro_minsum_nnz",
                                "repro_packed_cosine_count", "repro_packed_cosine_topk",
                                "repro_packed_cosine_topk_n1024",

@@ -25,6 +25,7 @@ from repro.data.pipeline import mutate_sequence, synthetic_sequences
 from repro.kernels import ops as jops
 from repro_torch.core import (Engine, GenieIndex, SegmentedIndex, TopKMethod, engines,
                               execute, plan_search)
+from repro_torch.core.match import match_minsum
 from repro_torch.core.sa import document, ngram, relational, verify
 from repro_torch.kernels import build, common, ops, ref
 from repro_torch.kernels.ip_count import ip_count, ip_count_plain
@@ -144,9 +145,10 @@ def test_minsum_count_sparse_regime_equals_reference_kernel(kind, q, n, v, rng):
 
 @pytest.mark.parametrize("kind", ["sparse", "wrap", "dense"])
 def test_sparse_minsum_identity_equals_reference(kind, rng):
-    """The identity the sparse kernel sums (csrc/minsum_count.cu), done in
-    uint32 over the plain conversion's lists, equals the reference bit for
-    bit, wraparound included:
+    """The conversion to lists (csrc/minsum_count.cu's minsum_nnz and
+    minsum_csr, here their plain versions) keeps every non-zero entry of a
+    row in column order: a walk over each row's list, done in uint32,
+    equals the reference bit for bit, wraparound included:
     sum_v min(d, q) = sum_v min(0, q) + sum_{d != 0} [min(d, q) - min(0, q)]."""
     from repro_torch.kernels.minsum_count import (minsum_csr_plain, minsum_nnz_plain,
                                                   minsum_nnz, minsum_csr)
@@ -175,6 +177,53 @@ def test_sparse_minsum_identity_equals_reference(kind, rng):
         at += cnt
     want = np.asarray(jmatch.match_minsum(jnp.asarray(dc), jnp.asarray(qc)))
     assert np.array_equal(got.astype(np.uint32).view(np.int32), want)
+
+
+def _minsum_values(g: torch.Generator, shape, kind: str) -> torch.Tensor:
+    """int32 count vectors a third non-zero: "counts" 1..127; "negative" -3..127
+    with -1 rows (the engine's pad); "wrap" values within 8 of either end of
+    int32, so that sums overflow."""
+    if kind == "counts":
+        x = torch.randint(1, 128, shape, generator=g, dtype=torch.int32)
+    elif kind == "negative":
+        x = torch.randint(-3, 128, shape, generator=g, dtype=torch.int32)
+        x[::4] = -1
+    else:
+        near = torch.randint(0, 8, shape, generator=g, dtype=torch.int64)
+        top = torch.rand(shape, generator=g) < 0.5
+        x = torch.where(top, I32.max - near, I32.min + near).to(torch.int32)
+    keep = torch.rand(shape, generator=g) < 1 / 3
+    if kind == "negative":
+        keep[::4] = True
+    return x * keep
+
+
+@pytest.mark.parametrize("kind", ["counts", "negative", "wrap"])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_inverted_walk_identity_equals_match_minsum(kind, seed):
+    """The identity the inverted walk sums (csrc/minsum_count.cu), in plain
+    PyTorch over the dense vectors, equals `match_minsum` bit for bit in
+    uint32, wraparound included:
+    sum_v min(d_v, q_v) = rowbase[n] + qbase[q] + sum_{d_v != 0, q_v != 0} t_v,
+    t_v = min(d_v, q_v) - min(d_v, 0) - min(0, q_v), rowbase[n] = sum_v
+    min(d_v, 0), qbase[q] = sum_v min(0, q_v); t_v is 0 where either side is
+    0, so only the buckets a query and a row share add."""
+    g = torch.Generator().manual_seed(seed)
+    q, n, v = 6, 41, 97
+    d, s = _minsum_values(g, (n, v), kind), _minsum_values(g, (q, v), kind)
+    d64, s64 = d.to(torch.int64)[None], s.to(torch.int64)[:, None]          # [1, N, V], [Q, 1, V]
+    t = torch.minimum(d64, s64) - torch.minimum(d64, torch.zeros_like(d64)) \
+        - torch.minimum(torch.zeros_like(s64), s64)
+    shared = (d64 != 0) & (s64 != 0)
+    assert bool((t[~shared.expand_as(t)] == 0).all())                        # t_v = 0 off the shared
+    rowbase = d.to(torch.int64).clamp(max=0).sum(1)                          # [N]
+    qbase = s.to(torch.int64).clamp(max=0).sum(1)                            # [Q]
+    got = (rowbase[None] + qbase[:, None] + (t * shared).sum(-1)) & 0xFFFFFFFF
+    got = torch.where(got > I32.max, got - (1 << 32), got).to(torch.int32)
+    assert torch.equal(got, match_minsum(d, s))
+    if kind == "wrap":
+        wide = torch.minimum(d64, s64).sum(-1)
+        assert bool(((wide > I32.max) | (wide < I32.min)).any())             # sums overflow
 
 
 @pytest.mark.parametrize("q,n,v", [(1, 5, 1), (2, 90, 17), (4, 300, 256), (3, 70, 519)])
@@ -244,9 +293,10 @@ def test_kernel_sources_share_the_tiles():
     path picked per block by __syncthreads_and, the int32 path beside it,
     rows past Q staged as the empty range) in the equality tile's frame.
     MINSUM has kernels of its own: the conversion to lists (minsum_nnz,
-    minsum_csr: warp ballots) and the sparse count over the lists, which
-    stages its queries in dynamic shared memory; its dense tile is
-    eq_tile.cuh's through MinColumns."""
+    minsum_csr: warp ballots) and the count over the lists, which inverts
+    chunks of the data in dynamic shared memory with shared atomics only (the
+    counts are written with plain stores); its dense tile is eq_tile.cuh's
+    through MinColumns."""
     for name, header, body in (("ip_count.cu", "s8_mma_tile.cuh", "dot_tile<Dot, kTma>"),
                                ("cosine_count.cu", "s8_mma_tile.cuh", "dot_tile<Agreements, kTma>")):
         text = (build.CSRC_DIR / name).read_text()
@@ -261,7 +311,9 @@ def test_kernel_sources_share_the_tiles():
                    "minsum_count_dense_kernel"):
         assert re.search(kernel + r"<<<", code) or kernel + "," in code   # each launched
     assert "__ballot_sync" in code and "extern __shared__ int4" in code
-    assert "__dp4a(" not in code and "wgmma" not in code and "atomic" not in code
+    assert "__dp4a(" not in code and "wgmma" not in code
+    assert set(re.findall(r"atomic\w*\(&?(\w+)\[", code)) == {"cnt_s", "rowbase_s", "row"}
+    assert "__shared__" not in code.replace("extern __shared__ int4", "")
     for name, epilogue in (("ip_count.cu", "Dot"), ("cosine_count.cu", "Agreements")):
         text = (build.CSRC_DIR / name).read_text()
         assert f"launch<{epilogue}>" in text         # both loaders' instantiations launched
