@@ -183,18 +183,16 @@ PACKED search with a tuned 1024-row tile in turns with the default):
      the SIFT and DBLP part shapes at Q = 1, 16 and 1024 against its bound
      and its plain version; 5b. the same for the
      three COSINE kernels, with packed_cosine_topk's popcount floor at the
-     SM clock read while it runs, and packed_cosine_count in turns with its
-     previous design (tools/packed_count_ab.py, built from
-     tools/packed_count_baseline.cu), with the SM clock, pairs per SM-clock,
-     both designs' SASS floors and the [Q, N] write alone; 5c. the same for the three TANIMOTO kernels (with
-     the word-pair rates, and tanimoto_count's SASS and clock as for
-     match_count), and tanimoto_count at m = 4096; packed_tanimoto_count
-     also in turns with its previous design (tools/range_ptan_ab.py, built
-     from tools/range_ptan_baseline.cu) and tanimoto_count, at the segment
-     and at m = 4096, with the SM clock, pairs per SM-clock and both designs'
-     SASS floors; 5d. the same for range_count, minsum_count and ip_count
-     (range_count in turns with its previous design, as packed_tanimoto_count):
-     minsum_count as the whole call against the bytes the function must
+     SM clock read while it runs, and packed_cosine_count with the SM clock
+     while it runs, pairs per SM-clock, its popcount floor, its SASS floors
+     (`clock_and_floors`) and the [Q, N] write alone; 5c. the same for the
+     three TANIMOTO kernels (with the word-pair rates, and tanimoto_count's
+     SASS and clock as for match_count), tanimoto_count at m = 4096, and
+     packed_tanimoto_count's SM clock, pairs per SM-clock and SASS floors at
+     the segment and at m = 4096; 5d. the same for range_count, minsum_count
+     and ip_count (range_count's SM clock, tests per SM-clock and SASS
+     floors, as packed_tanimoto_count's): minsum_count as the whole call
+     against the bytes the function must
      move, its conversion kernels (minsum_nnz, minsum_csr) and its count
      kernel (the inverted walk) timed alone, at this shape and at the
      benchmark cell's part of 250,000 rows, against the [Q, N] write and the
@@ -1345,6 +1343,17 @@ def range_pairs(ops: collections.Counter, full: collections.Counter) -> int:
     return sat + ops["ISETP"] // 2
 
 
+def word_pairs(ops: collections.Counter, full: collections.Counter) -> int:
+    """Word pairs a packed COSINE count body sums: two a POPC where the body
+    runs the carry-save tree (four LOP3s a POPC: 16 LOP3 and 4 POPC per
+    eight words), one a POPC where it pops every xor word."""
+    return (2 if ops["LOP3"] >= 3 * ops["POPC"] else 1) * ops["POPC"]
+
+
+# a packed count body sums a few rows' words (32 word pairs: four rows of W = 8)
+word_pairs.min_pairs = 32
+
+
 def sass_count_bodies(sass: dict, kernel: str, pairs_of=eq_pairs) -> list:
     """The count bodies of `kernel` in the library's SASS (build.sass()): the
     basic blocks (straight-line runs of instructions) that compare at least
@@ -1530,49 +1539,27 @@ def eq_general_path(shape: tuple, q: int, device: torch.device) -> None:
         f"{pairs_per_sm_clock(q * n * m, ms, clock)} pairs per SM-clock")
 
 
-def instruction_floors(library, kernel: str, pairs_of, work: int, clock, unit: str) -> list:
-    """Phase 5c / 5d: the count bodies of `kernel` in the SASS of `library`
-    (None: this checkout's build), and the least time each body's
-    instructions allow for `work` pairs or tests at `clock` MHz, by issue and
-    by the float16, int and popc pipes."""
+def clock_and_floors(kernel: str, fn, ms: float, work: int, pairs_of, unit: str,
+                     device: torch.device):
+    """Phase 5b / 5c / 5d: the SM clock while `fn` (this checkout's `kernel`)
+    runs, the `unit` per SM-clock that `ms` for `work` makes, and the count
+    bodies of the kernel in the library's SASS with the least time each
+    body's instructions allow for `work` at that clock, by issue and by the
+    float16, int and popc pipes.  Returns the clock (MHz, or None)."""
     from repro_torch.kernels import build
 
-    bodies = sass_count_bodies(build.sass(library), kernel, pairs_of)
-    log_sass_bodies(kernel, bodies)
+    clock = sm_clock_mhz(fn, device)
+    log(f"  {kernel}: {ms:.4f} ms for {work:.4g} {unit}; SM clock {clock} MHz while it runs; "
+        f"{pairs_per_sm_clock(work, ms, clock)} {unit} per SM-clock")
+    bodies = sass_count_bodies(build.sass(), f"{kernel}_kernel", pairs_of)
+    log_sass_bodies(f"{kernel}_kernel", bodies)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for b in bodies:
         floors = {k[:-len("_pairs_per_sm_clock")]: work / (v * sms * clock * 1e6) * 1e3
                   for k, v in b.items() if k.endswith("_pairs_per_sm_clock") and v and clock}
-        log(f"  {kernel} [{b['path']}]: floors for {work:.4g} {unit} at {clock} MHz, ms: "
+        log(f"  {kernel}_kernel [{b['path']}]: floors for {work:.4g} {unit} at {clock} MHz, ms: "
             + json.dumps({k: round(v, 4) for k, v in floors.items()}))
-    return bodies
-
-
-def previous_design(kind: str, device: torch.device, *operands) -> dict:
-    """Phase 5c / 5d: this checkout's range_count or packed_tanimoto_count
-    ("range" / "packed") beside the previous design's (the int32 count tile,
-    built from tools/range_ptan_baseline.cu), in turns on the same operands,
-    with the SM clock while each runs, the tests or pairs per SM-clock, and
-    both designs' SASS floors (tools/range_ptan_ab.py)."""
-    from repro_torch.kernels import build
-    from tools import range_ptan_ab as ab
-
-    entries = {"previous": ab.previous_entries(), "this": ab.Entries(build.build())}
-    fn, rule, unit = ((ab.range_ab, range_pairs, "tests") if kind == "range" else
-                      (ab.ptan_ab, eq_pairs, "pairs"))
-    rec = fn(entries, *operands, device)
-    kernel = "range_count_kernel" if kind == "range" else "packed_tanimoto_count_kernel"
-    rate = rec.get("tests_per_sm_clock") or rec.get("pairs_per_sm_clock")
-    log(f"  {kernel[:-7]} in turns with the previous design (ms, each turn): "
-        + json.dumps(rec["ms"]) + f"; SM clock {rec['sm_clock_mhz']} MHz; {unit} per SM-clock "
-        + json.dumps(rate)
-        + (f"; the previous wrapper's torch.stack of lo, hi {rec['stack_ms']:.4f} ms"
-           if kind == "range" else ""))
-    work = rec["Q"] * rec["N"] * (rec["d"] if kind == "range" else rec["m"])
-    instruction_floors(None, kernel, rule, work, rec["sm_clock_mhz"]["this"], unit)
-    instruction_floors(ab.previous_entries_path(), f"baseline_{kernel}", rule, work,
-                       rec["sm_clock_mhz"]["previous"], unit)
-    return rec
+    return clock
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, err: int, ms: float,
@@ -1657,35 +1644,6 @@ def phase_kernel_times(data: torch.Tensor, qsigs: torch.Tensor, max_count: int,
     return kernels
 
 
-def packed_count_turns(d_words: torch.Tensor, q_words: torch.Tensor,
-                       device: torch.device) -> dict:
-    """Phase 5b: packed_cosine_count in turns with its previous design (the
-    first port's tile, built from tools/packed_count_baseline.cu by
-    tools/packed_count_ab.py) on the segment's words, with the SM clock while
-    each runs, (query, data) pairs per SM-clock, the popcount floor of one
-    POPC a word pair, both designs' SASS floors, and the [Q, N] int32 write
-    alone (Tensor.fill_, the least a store of the counts takes here)."""
-    from repro_torch.kernels import build
-    from tools import packed_count_ab as pab
-
-    rec = pab.count_ab({"previous": pab.previous_entry(), "this": pab.Entry(build.build())},
-                       d_words, q_words, device)
-    log("  packed_cosine_count in turns with the previous design (ms, each turn): "
-        + json.dumps(rec["ms"]) + f"; SM clock {rec['sm_clock_mhz']} MHz; (query, data) pairs "
-        f"per SM-clock {json.dumps(rec['pairs_per_sm_clock'])}; popcount floor of one POPC a "
-        f"word pair {json.dumps(rec['popc_floor_ms'])} ms")
-    (n, w), q = d_words.shape, q_words.shape[0]
-    instruction_floors(None, "packed_cosine_count_kernel", pab.word_pairs, q * n * w,
-                       rec["sm_clock_mhz"]["this"], "word pairs")
-    instruction_floors(pab.previous_entry().path, "baseline_packed_cosine_count_kernel",
-                       pab.word_pairs, q * n * w, rec["sm_clock_mhz"]["previous"],
-                       "word pairs")
-    fill_ms = rec["write_alone_fill_ms"]
-    log(f"  the [Q, N] int32 write alone (Tensor.fill_): {fill_ms:.4f} ms = "
-        f"{q * n * 4 / (fill_ms / 1e3) / 1e12:.3f} TB/s")
-    return rec
-
-
 def phase_cosine_kernel_times(simhash: dict, launches_count: int, parity_err: dict,
                               device: torch.device, k: int = FULL_K) -> list:
     """The three COSINE kernels at the per-segment shape of the simhash path."""
@@ -1749,7 +1707,18 @@ def phase_cosine_kernel_times(simhash: dict, launches_count: int, parity_err: di
     pc_bytes = (n * w + q * w) * 4 + q * n * 4
     pc_ops = 3 * q * n * w                             # xor, popc, add per word pair
     pb_bytes, pb_ops = pc_bytes / PEAK_BYTES_PER_S * 1e3, pc_ops / PEAK_ALU_OPS_PER_S * 1e3
-    packed_count_turns(d_words, q_words, device)
+    clock = clock_and_floors("packed_cosine_count",
+                             lambda: ops.packed_cosine_count(d_words, q_words), ms_pc, q * n * w,
+                             word_pairs, "word pairs", device)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = q * n * w / (POPC_PER_SM_CLOCK * sms * clock * 1e6) * 1e3 if clock else None
+    out = torch.empty((q, n), dtype=torch.int32, device=device)
+    fill_ms, _ = timed_ms(lambda: out.fill_(7), device, reps=5, warmup=1)
+    del out
+    log(f"  packed_cosine_count: {pairs_per_sm_clock(q * n, ms_pc, clock)} (query, data) pairs "
+        f"per SM-clock; popcount floor of one POPC a word pair {floor} ms; the [Q, N] int32 "
+        f"write alone (Tensor.fill_): {fill_ms:.4f} ms = "
+        f"{q * n * 4 / (fill_ms / 1e3) / 1e12:.3f} TB/s")
 
     # packed_cosine_topk at the service's k
     ms_tk, (ids, cnts) = timed_ms(lambda: ops.packed_cosine_topk(d_words, q_words, k=k),
@@ -2014,7 +1983,8 @@ def phase_tanimoto_kernel_times(minhash: dict, launches_count: int, parity_err: 
     check(torch.equal(counts_p, counts_pp), "packed_tanimoto_count differs from its plain version")
     del counts_pp
     lib_pc = library_eq_count(d_u8, q_u8, counts_p, device)
-    previous_design("packed", device, d_sig, q_sig)
+    clock_and_floors("packed_tanimoto_count", lambda: ops.packed_tanimoto_count(d_u8, q_u8),
+                     ms_pc, q * n * m, eq_pairs, "pairs", device)
     pc_bytes = n * m + q * m + q * n * 4
     pc_ops = 3 * q * n * words                         # xor, lane test, add per word pair
     pcb_bytes, pcb_ops = pc_bytes / PEAK_BYTES_PER_S * 1e3, pc_ops / PEAK_ALU_OPS_PER_S * 1e3
@@ -2055,10 +2025,18 @@ def phase_tanimoto_kernel_times(minhash: dict, launches_count: int, parity_err: 
     log(f"  tanimoto_count at Q={q} N={flash_n} m={flash_m}: {ms_f:.3f} ms; bound "
         f"{f_ops / PEAK_ALU_OPS_PER_S * 1e3:.3f} ms by operations; plain {plain_f:.1f} ms; "
         f"{f_ops / 2 / (ms_f / 1e3) / 1e12:.3f} T compare-adds/s")
-    del counts_f, counts_fp
-    log(f"  packed_tanimoto_count at Q={q} N={flash_n} m={flash_m}:")
-    previous_design("packed", device, d_f, q_f)
+    del counts_fp
+    du_f, qu_f = packing.pack_buckets(d_f), packing.pack_buckets(q_f)
     del d_f, q_f
+    ms_pf, counts_pf = timed_ms(lambda: ops.packed_tanimoto_count(du_f, qu_f), device, reps=3,
+                                warmup=1)
+    check(torch.equal(counts_pf, counts_f), "packed_tanimoto_count differs from tanimoto_count "
+                                            "at m = 4096")
+    del counts_f, counts_pf
+    log(f"  packed_tanimoto_count at Q={q} N={flash_n} m={flash_m}:")
+    clock_and_floors("packed_tanimoto_count", lambda: ops.packed_tanimoto_count(du_f, qu_f),
+                     ms_pf, q * flash_n * flash_m, eq_pairs, "pairs", device)
+    del du_f, qu_f
 
     kernels = [
         kernel_entry("tanimoto_count", "src/repro_torch/kernels/csrc/tanimoto_count.cu",
@@ -2608,7 +2586,8 @@ def range_kernel_times(adult: dict, parity_err: dict, device: torch.device) -> d
         parity_err, device)
     log(f"  range_count {q * n * d / (ms / 1e3) / 1e12:.3f} T interval tests/s, "
         f"{q * n * 4 / (ms / 1e3) / 1e9:.1f} GB/s of counts written")
-    previous_design("range", device, x, lo, hi)
+    clock_and_floors("range_count", lambda: ops.range_count(x, lo, hi), ms, q * n * d,
+                     range_pairs, "tests", device)
     hist_at_segment("Adult", counts, adult["index"].max_count, device)
     return sa_entry("range_count", "src/repro/kernels/range_count.py:51", adult, err, ms, plain,
                      (n * d + 2 * q * d + q * n) * 4, 3 * q * n * d, PEAK_ALU_OPS_PER_S, None)

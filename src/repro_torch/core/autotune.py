@@ -415,7 +415,7 @@ def _kernel_work(plan: "_plan.QueryPlan", rows: int, width: int, q: int,
         }[engine]
         ops = per_pair * q * rows * width
     work = {name: (ops, data_bytes + query_bytes + q * rows * 4)}
-    if plan.fused_hist and params.method is TopKMethod.CPQ:
+    if params.use_kernel and params.method is TopKMethod.CPQ:
         work["cpq_hist"] = (q * rows, (q * rows + q * (params.max_count + 1)) * 4)
     return work
 

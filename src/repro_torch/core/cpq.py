@@ -25,8 +25,6 @@ stable sort over a row that is already id-ascending.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
-
 import torch
 
 from repro_torch import trace
@@ -105,6 +103,19 @@ def _compact_candidates(
     return out_ids[:, :cap], out_vals[:, :cap]
 
 
+def _compact(counts: torch.Tensor, threshold: torch.Tensor,
+             params: SearchParams) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_compact_candidates` into `params.cap()` slots; on the kernel path
+    (`params.use_kernel`) the CUDA kernel's wrapper, which takes the plain
+    version for a CPU tensor."""
+    if not params.use_kernel:
+        return _compact_candidates(counts, threshold, params.cap())
+    # imported at the call: kernels/cpq_compact and kernels/cpq_hist import this module
+    from repro_torch.kernels.cpq_compact import cpq_compact
+
+    return cpq_compact(counts, threshold, params.cap())
+
+
 def topk_from_candidates(ids: torch.Tensor, vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Order a small candidate buffer by (count desc, id asc) and take k.
 
@@ -120,20 +131,13 @@ def topk_from_candidates(ids: torch.Tensor, vals: torch.Tensor, k: int) -> tuple
     return torch.gather(ids, -1, top), torch.gather(vals, -1, top)
 
 
-def cpq_select(
-    counts: torch.Tensor,
-    params: SearchParams,
-    hist: Optional[torch.Tensor] = None,
-    hist_fn: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None,
-    compact_fn: Optional[Callable[..., tuple[torch.Tensor, torch.Tensor]]] = None,
-) -> TopKResult:
+def cpq_select(counts: torch.Tensor, params: SearchParams) -> TopKResult:
     """Exact top-k by match count via the c-PQ gate.  counts: int [Q, N].
 
-    `hist` may be supplied by the CUDA kernel (kernels/cpq_hist); when None it
-    is computed by `hist_fn(counts, max_count)` (the kernel's wrapper) or,
-    without one, the plain PyTorch histogram.  The candidates are compacted
-    by `compact_fn(counts, threshold, cap)` (the wrapper of the CUDA kernel,
-    kernels/cpq_compact) or, without one, by `_compact_candidates`.
+    On the kernel path (`params.use_kernel`) the histogram and the
+    compaction are the CUDA kernels' wrappers (kernels/cpq_hist,
+    kernels/cpq_compact), which take their plain versions for a CPU tensor;
+    otherwise `count_histogram` and `_compact_candidates`.
 
     Spans `cpq.gate` (histogram and threshold), `cpq.compact` and
     `cpq.order` (repro_torch.trace); while they are on, the gate's counter
@@ -141,15 +145,18 @@ def cpq_select(
     summed over the queries.
     """
     with trace.span("cpq.gate"):
-        if hist is None:
-            hist = (hist_fn or count_histogram)(counts, params.max_count)
+        if params.use_kernel:
+            from repro_torch.kernels import ops as kops
+
+            hist = kops.cpq_hist(counts, params.max_count)
+        else:
+            hist = count_histogram(counts, params.max_count)
         _, threshold = audit_threshold(hist, params.k)
         if trace.on():
             passed = zipper_array(hist).gather(1, threshold[:, None].to(torch.int64))
             trace.add("cpq.passed", passed.sum())
     with trace.span("cpq.compact"):
-        cand_ids, cand_vals = (compact_fn or _compact_candidates)(counts, threshold,
-                                                                  params.cap())
+        cand_ids, cand_vals = _compact(counts, threshold, params)
     with trace.span("cpq.order"):
         # genielint: ignore[executor-sovereignty] -- the port's own executor family
         ids, vals = topk_from_candidates(cand_ids, cand_vals, params.k)

@@ -132,7 +132,6 @@ class QueryPlan:
     n_objects: Optional[int] = None    # real corpus rows; None = nothing padded
     engine: Optional[Engine] = None    # None when `match` is a raw callable
     pad_value: Any = None              # engine fill for padded rows
-    fused_hist: bool = False           # histogram from the CUDA kernel
     host_loop: bool = False            # MULTILOAD: host streaming vs scanned stack
     hierarchical: bool = False         # DISTRIBUTED: pod-local merge first
     mesh_axes: tuple[str, ...] = ()    # DISTRIBUTED: mesh axis names
@@ -205,7 +204,7 @@ class QueryPlan:
             host_loop=self.host_loop,
             hierarchical=self.hierarchical,
             mesh_axes=list(self.mesh_axes),
-            fused_hist=self.fused_hist,
+            fused_hist=self.params.use_kernel,
             signature_layout=self.signature_layout.value,
             fused_match=self.fused_match is not None,
             routing=self.routing.value,
@@ -377,10 +376,6 @@ def plan_search(
         nprobe = None  # full-scan plans stay equal whatever nprobe was passed
     params = SearchParams(k=k, max_count=max_count, method=method,
                           candidate_cap=candidate_cap, use_kernel=use_kernel)
-    # The histogram kernel runs on the kernel path of every layout, MULTILOAD
-    # and DISTRIBUTED included, where the JAX package keeps its plain
-    # histogram (the module docstring says why).
-    fused = use_kernel
     # The fused match->count->local-top-k kernel replaces the whole
     # count+select pipeline.  Single-device MONOLITHIC / SEGMENTED only, plus
     # n_objects None: the kernel masks rows by *physical* row id, so
@@ -397,8 +392,7 @@ def plan_search(
         match=match, params=params, layout=layout, part_rows=rows,
         n_objects=n_objects, engine=model.engine if model else None,
         pad_value=model.pad_value_for(sig_layout) if model else None,
-        fused_hist=fused, host_loop=host_looped,
-        hierarchical=bool(hierarchical), mesh_axes=tuple(mesh_axes),
+        host_loop=host_looped, hierarchical=bool(hierarchical), mesh_axes=tuple(mesh_axes),
         signature_layout=sig_layout, fused_match=fused_topk, routing=routing,
         nprobe=nprobe, tile_overrides=tiles,
     )
@@ -568,7 +562,7 @@ def _part_topk(plan: QueryPlan, data: torch.Tensor, queries: Any, offset: int,
         else dataclasses.replace(plan.params, k=k)
     counts = _match_masked(plan, data, queries, offset)
     # genielint: ignore[executor-sovereignty] -- the port's own executor
-    local = select_topk(counts, params, use_fused_hist=plan.fused_hist)
+    local = select_topk(counts, params)
     del counts
     gids = torch.where(local.ids >= 0, local.ids + offset, -1)
     # genielint: ignore[executor-sovereignty] -- the port's own executor
@@ -585,7 +579,7 @@ def _run_monolithic(plan: QueryPlan, data: torch.Tensor, queries: Any) -> TopKRe
         # selection is the merge: return select_topk's result (threshold
         # included) as it stands
         # genielint: ignore[executor-sovereignty] -- the port's own executor
-        return select_topk(counts, plan.params, use_fused_hist=plan.fused_hist)
+        return select_topk(counts, plan.params)
 
 
 def _first_query_tensor(queries: Any) -> torch.Tensor:

@@ -15,8 +15,6 @@ threshold comes out the same.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
-
 import torch
 
 from repro_torch.core import cpq as _cpq
@@ -28,11 +26,10 @@ def spq_select(
     params: SearchParams,
     n_buckets: int = 32,
     n_iters: int = 4,
-    compact_fn: Optional[Callable[..., tuple[torch.Tensor, torch.Tensor]]] = None,
 ) -> TopKResult:
     """Bucket k-selection: counts int [Q, N] -> exact top-k.  The final
-    compaction is `compact_fn(counts, threshold, cap)` (the CUDA kernel's
-    wrapper on the kernel path) or, without one, c-PQ's plain one."""
+    compaction is c-PQ's (`cpq._compact`: the CUDA kernel's wrapper on the
+    kernel path)."""
     q, n = counts.shape
     dev = counts.device
     c = counts.to(torch.float32)
@@ -80,8 +77,7 @@ def spq_select(
     # For integer counts the final bucket width < 1, so ceil(lo) is the k-th
     # value; select with the shared compaction machinery.
     threshold = torch.ceil(lo - 1e-4).to(torch.int32)
-    cap = params.cap()
-    cand_ids, cand_vals = (compact_fn or _cpq._compact_candidates)(counts, threshold, cap)
+    cand_ids, cand_vals = _cpq._compact(counts, threshold, params)
     # genielint: ignore[executor-sovereignty] -- the port's own executor family
     ids, vals = _cpq.topk_from_candidates(cand_ids, cand_vals, params.k)
     return TopKResult(ids=ids, counts=vals, threshold=threshold)

@@ -6,6 +6,7 @@ its index formula gives them, the tail; one block a row with its tie buffer,
 or a row cut into chunks counted first -- is held against the port's plain
 version and the JAX package's `repro.core.cpq._compact_candidates` on the
 same seeded inputs.  Everything is integer-valued: equality, no tolerance."""
+import dataclasses
 import re
 
 import jax.numpy as jnp
@@ -217,7 +218,7 @@ def test_packed_counts_never_carry_and_the_cut_adapts_to_q():
 
 def test_wrapper_takes_the_plain_version_for_cpu_tensors():
     """On the CPU the wrapper is the plain version, whatever the dtype, and
-    launches nothing; c-PQ and SPQ take it as their `compact_fn`."""
+    launches nothing; c-PQ and SPQ call it on their kernel path."""
     rng = np.random.default_rng(5)
     counts = torch.from_numpy(_counts(rng, 5, 1001, 12, 3))
     thr = torch.tensor([-1, 0, 4, 12, 13], dtype=torch.int32)
@@ -231,6 +232,7 @@ def test_wrapper_takes_the_plain_version_for_cpu_tensors():
 
     for method, select in ((TopKMethod.CPQ, cpq.cpq_select), (TopKMethod.SPQ, spq.spq_select)):
         params = SearchParams(k=20, max_count=12, method=method)
-        a, b = select(counts, params), select(counts, params, compact_fn=cpq_compact)
+        a = select(counts, dataclasses.replace(params, use_kernel=False))
+        b = select(counts, params)
         assert torch.equal(a.ids, b.ids) and torch.equal(a.counts, b.counts)
     assert common.launch_counts() == {}

@@ -193,6 +193,7 @@ def test_describe_equals_reference_where_ported(layout, rows, n_objects, use_ker
               candidate_cap=33, use_kernel=use_kernel)
     got = plan_search("eq", 12, 24, **{**kw, "method": TopKMethod.SPQ}).describe()
     want = jplan.plan_search("eq", 12, 24, **{**kw, "method": JMethod.SPQ}).describe()
+    assert got["fused_hist"] is use_kernel
     assert set(got) <= set(want)
     assert got == {key: want[key] for key in got}
     # every key of the reference is there
@@ -217,9 +218,10 @@ def test_describe_of_a_distributed_plan_equals_reference(hierarchical, axes, use
 def test_plan_is_hashable_and_validates():
     a = plan_search(Engine.EQ, 5, 24, layout=Layout.SEGMENTED, part_rows=(4, 9))
     b = plan_search("eq", 5, 24, layout="segmented", part_rows=[4, 9])
-    assert a == b and hash(a) == hash(b) and a.fused_hist and a.routing is Routing.NONE
+    assert a == b and hash(a) == hash(b) and a.params.use_kernel and a.routing is Routing.NONE
+    assert a.describe()["fused_hist"] is True
     assert a.n_parts == 2 and a.total_rows == 13 and a.part_k(4) == 4 and a.part_k(9) == 5
-    assert not plan_search(Engine.EQ, 5, 24, use_kernel=False).fused_hist
+    assert plan_search(Engine.EQ, 5, 24, use_kernel=False).describe()["fused_hist"] is False
     with pytest.raises(ValueError, match="requires part_rows"):
         plan_search(Engine.EQ, 5, 24, layout=Layout.SEGMENTED)
     with pytest.raises(ValueError, match="monolithic layout got 2 parts"):

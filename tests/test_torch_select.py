@@ -2,6 +2,8 @@
 count matrices: heavy ties, k > N, all-equal rows, -1 pad columns.  Integer
 from end to end, so ids, counts and thresholds must be equal -- including the
 (count desc, id asc) tie-break and the -1 empty slots."""
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ from repro.core import cpq as jcpq, merge as jmerge, select as jselect, spq as j
 from repro.core.types import SearchParams as JParams, TopKMethod as JMethod
 from repro_torch.core import cpq, merge, select, spq
 from repro_torch.core.types import SearchParams, TopKMethod, TopKResult
+from repro_torch.kernels import cpq_compact as kcompact, ops as kops
 
 
 def _cases():
@@ -41,9 +44,9 @@ CASES = _cases()
 def _same(got: TopKResult, want) -> None:
     assert got.ids.dtype == torch.int32 and got.counts.dtype == torch.int32
     assert got.threshold.dtype == torch.int32
-    assert np.array_equal(got.ids.numpy(), np.asarray(want.ids))
-    assert np.array_equal(got.counts.numpy(), np.asarray(want.counts))
-    assert np.array_equal(got.threshold.numpy(), np.asarray(want.threshold))
+    assert np.array_equal(got.ids.cpu().numpy(), np.asarray(want.ids))
+    assert np.array_equal(got.counts.cpu().numpy(), np.asarray(want.counts))
+    assert np.array_equal(got.threshold.cpu().numpy(), np.asarray(want.threshold))
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -99,29 +102,39 @@ def test_topk_from_candidates_is_stable_on_ties(rng):
             assert np.all(np.diff(run) > 0)
 
 
+def _refuse(*args, **kwargs):
+    raise AssertionError("the plain path called a kernel wrapper")
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
 @pytest.mark.parametrize("name", sorted(CASES))
 @pytest.mark.parametrize("method", ["cpq", "spq", "sort"])
-def test_select_topk_equals_reference(name, method):
+def test_select_topk_equals_reference(name, method, device, monkeypatch):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA kernel has no interpret mode")
     c, k, max_count, cap = CASES[name]
+    counts = torch.from_numpy(c).to(device)
     if method == "sort" and k > c.shape[1]:
         with pytest.raises(ValueError):     # a full sort cannot return k > N
-            select.select_topk(torch.from_numpy(c), SearchParams(
+            select.select_topk(counts, SearchParams(
                 k=k, max_count=max_count, method=TopKMethod.SORT))
         return
     params = SearchParams(k=k, max_count=max_count, method=TopKMethod(method), candidate_cap=cap)
     jparams = JParams(k=k, max_count=max_count, method=JMethod(method), candidate_cap=cap)
     want = jselect.select_topk(jnp.asarray(c), jparams)
-    _same(select.select_topk(torch.from_numpy(c), params), want)
-    # the kernel histogram entry (its plain version, on a CPU tensor) changes nothing
-    _same(select.select_topk(torch.from_numpy(c), params, use_fused_hist=True), want)
+    # the kernel path: the CUDA kernels, or their plain versions on a CPU tensor
+    _same(select.select_topk(counts, params), want)
+    # the plain path calls neither kernel wrapper
+    monkeypatch.setattr(kops, "cpq_hist", _refuse)
+    monkeypatch.setattr(kcompact, "cpq_compact", _refuse)
+    plain = dataclasses.replace(params, use_kernel=False)
+    _same(select.select_topk(counts, plain), want)
     if method == "cpq":
-        hist = cpq.count_histogram(torch.from_numpy(c), max_count)
-        _same(select.select_topk(torch.from_numpy(c), params, hist=hist), want)
-        _same(cpq.cpq_select(torch.from_numpy(c), params), jcpq.cpq_select(jnp.asarray(c), jparams))
+        _same(cpq.cpq_select(counts, plain), jcpq.cpq_select(jnp.asarray(c), jparams))
     elif method == "spq":
-        _same(spq.spq_select(torch.from_numpy(c), params), jspq.spq_select(jnp.asarray(c), jparams))
+        _same(spq.spq_select(counts, plain), jspq.spq_select(jnp.asarray(c), jparams))
     else:
-        _same(cpq.sort_select(torch.from_numpy(c), params), jcpq.sort_select(jnp.asarray(c), jparams))
+        _same(cpq.sort_select(counts, plain), jcpq.sort_select(jnp.asarray(c), jparams))
 
 
 def test_select_topk_rejects_an_unknown_method():
